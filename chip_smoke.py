@@ -10,15 +10,25 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. Kernel checks: each kernel against its plain PyTorch version on the card
    at the full-width OneRec-V2 shapes of the serving path, plus adversarial
-   page layouts for ``paged_decode``; max |diff| against the stated
-   tolerance, kernel / plain / library time, and the roofline bound.
+   page layouts for ``paged_decode``, rows of ties and +-0.0 for
+   ``radix_topk`` and prefill-shaped and windowed calls for
+   ``batch_attention``; max |diff| against the stated tolerance (identical
+   values and indices for ``radix_topk``), kernel / plain / library time,
+   and the roofline bound.
 3. Card against CPU: the same ragged requests on a small 128-aligned
-   config through the engine on the card and on the CPU (plain versions):
-   first tokens and teacher-forced top-8 overlap against thresholds.
-4. Full width: ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode
-   auto`` serves 64 ragged requests at 32 slots with FP8 weights, with
-   every kernel's launch count zeroed before and read after; the counts
-   must match the layer arithmetic.
+   config through the engine on the card and on the CPU (plain versions),
+   in the paged layout and in the contiguous layout with
+   ``use_attention_kernel`` and ``use_radix_topk``: first tokens and
+   teacher-forced top-8 overlap against thresholds.
+4. Full width, two main paths, each kernel's launch count zeroed before
+   and read after each; the counts must match the layer arithmetic:
+   (a) ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode auto``
+   serves 64 ragged requests at 32 slots with FP8 weights (kernels
+   ``fp8_gemm``, ``fp8_grouped_gemm``, ``paged_decode``);
+   (b) ``ServingEngine`` serves the same requests over the contiguous FP8
+   slot pool with ``use_attention_kernel`` and ``use_radix_topk`` (kernels
+   ``fp8_gemm``, ``fp8_grouped_gemm``, ``batch_attention``,
+   ``radix_topk``).
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -40,6 +50,7 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP8_OPS_PER_S = 1979e12          # dense fp8 tensor-core peak
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
+FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 
 # 1 bf16 ulp relative to the largest plain output: the fp8 payloads and
 # scales are bit-identical, only f32 summation order (and, for attention,
@@ -291,12 +302,125 @@ def check_paged_decode(dev, records):
     records["paged_decode"]["max_abs_err"] = worst
 
 
+def check_radix_topk(dev, records):
+    import torch
+    from repro_torch.kernels.radix_topk import ops
+    b, v, k = 32, 8256, 8                   # the engine's select
+    g = torch.Generator(device="cpu").manual_seed(4)
+    logits = torch.randn(b, v, generator=g) * 4
+    ties = torch.randint(-3, 4, (b, v), generator=g).float()
+    # even rows: -0.0 and negatives with six +0.0 columns, so the k-th key
+    # falls among the -0.0 ties (keys rank -0.0 below +0.0)
+    ties[::2] = -torch.randint(0, 4, (b // 2, v), generator=g).float()
+    ties[::2, ::1500] = 0.0
+    cases = [("logits", logits, k), ("ties/+-0.0", ties, k),
+             ("ties/+-0.0 k=64", ties, 64),
+             ("logits bf16", logits.to(torch.bfloat16), k)]
+    for name, x, kk in cases:
+        x = x.to(dev)
+        vals, idx = ops.radix_topk(x, kk)
+        ref_v, ref_i = ops.radix_topk_plain(x, kk)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, ref_i) and torch.equal(
+                vals.view(torch.int32), ref_v.view(torch.int32))):
+            bad = (idx != ref_i).any(1).nonzero().flatten().tolist()
+            fail(f"radix_topk {name}: kernel and plain differ in rows {bad}")
+        print(f"[kernel] radix_topk {name} B={b} V={v} k={kk}: identical "
+              f"values and indices")
+    x = logits.to(dev)
+    ms = time_ms(lambda: ops.radix_topk(x, k), 200)
+    plain_ms = time_ms(lambda: ops.radix_topk_plain(x, k), 50)
+    lib_ms = time_ms(lambda: torch.topk(x, k), 200)
+    b_ms, b_by = bound(b * v * 4 + b * k * 8, float(b * v), FP32_OPS_PER_S)
+    print(f"[kernel] radix_topk B={b} V={v} k={k} f32: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    records["radix_topk"] = dict(shape=f"B={b} V={v} k={k} f32", ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=lib_ms,
+                                 max_abs_err=0.0)
+
+
+def _attn_inputs(dev, b, t, h, kv, hd, s, lengths, seed):
+    """bf16 q/k/v and positions of a contiguous cache whose row i holds
+    positions 0 .. lengths[i] - 1 (the rest empty, -1); the queries sit at
+    the last t positions of each row."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn(b, t, h, hd, generator=g).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, hd, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, hd, generator=g).to(torch.bfloat16)
+    ln = torch.tensor(lengths)
+    k_pos = torch.arange(s)[None].expand(b, s)
+    k_pos = torch.where(k_pos < ln[:, None], k_pos, -1).to(torch.int32)
+    q_pos = (ln[:, None] - t + torch.arange(t)[None]).clamp_min(-1)
+    return [x.contiguous().to(dev) for x in (q, k, v, q_pos.to(torch.int32),
+                                             k_pos)]
+
+
+def check_batch_attention(dev, records):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.batch_attention import ops
+    h, kv, hd, s = 16, 4, 128, 388          # full width, S = context_len + 1
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    serving = [int(x) for x in torch.randint(7, s, (32,), generator=gen)]
+    cases = [("decode", 32, 1, serving, 0),
+             ("prefill T=64", 4, 64, [64, 200, 388, 70], 0),
+             ("decode window=64", 32, 1, serving, 64)]
+    worst = 0.0
+    for name, b, t, lengths, window in cases:
+        args = _attn_inputs(dev, b, t, h, kv, hd, s, lengths, seed=t + window)
+        kw = dict(scale=1.0 / math.sqrt(hd), window=window)
+        out = ops.batch_attention(*args, **kw)
+        ref = ops.batch_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL * ref.float().abs().max().item()
+        worst = max(worst, err)
+        if not err <= tol:
+            fail(f"batch_attention {name}: max |diff| {err} > {tol}")
+        print(f"[kernel] batch_attention {name} B={b} T={t} H={h} Kv={kv} "
+              f"hd={hd} S={s}: max|diff|={err:.3g} (tol {tol:.3g})")
+        if name != "decode":
+            continue
+        q, k, v, q_pos, k_pos = args
+        ms = time_ms(lambda: ops.batch_attention(*args, **kw), 100)
+        plain_ms = time_ms(lambda: ops.batch_attention_plain(*args, **kw),
+                           20)
+        # library yardstick on inputs laid out for it beforehand: SDPA with
+        # a boolean mask and grouped KV heads
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = ((k_pos[:, None, :] >= 0)
+                & (k_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, scale=kw["scale"], enable_gqa=True),
+            100)
+        n_keys = int(mask.sum().item())          # valid (row, key) pairs
+        n_bytes = (n_keys * kv * hd * 2 * 2      # the valid keys' K and V
+                   + k_pos.numel() * 4 + q_pos.numel() * 4
+                   + 2 * q.numel() * 2)          # q in, out
+        n_ops = 4.0 * n_keys * h * hd            # QK^T and PV per head
+        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        print(f"[kernel] batch_attention B={b} T={t} H={h} Kv={kv} hd={hd} "
+              f"S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}, {n_keys} valid keys)")
+        records["batch_attention"] = dict(
+            shape=f"B={b} T={t} H={h} Kv={kv} hd={hd} S={s}", ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms)
+    records["batch_attention"]["max_abs_err"] = worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: card against CPU on a small 128-aligned config
 # ---------------------------------------------------------------------------
 
 
-def card_vs_cpu(dev):
+def card_vs_cpu(dev, paged: bool):
+    """``paged``: the paged layout with fused decode; else the contiguous
+    layout with ``use_attention_kernel`` and ``use_radix_topk``."""
     import numpy as np
     import torch
     from repro_torch.configs.base import OneRecConfig, TransformerConfig
@@ -310,10 +434,13 @@ def card_vs_cpu(dev):
             name="onerec-smoke-aligned-backbone", n_layers=2, d_model=256,
             n_heads=8, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=576,
             moe=True, n_experts=6, top_k=2, d_expert=256,
-            capacity_factor=1.5, ep_degree=4, max_seq_len=128))
+            capacity_factor=1.5, ep_degree=4, max_seq_len=128,
+            use_attention_kernel=not paged))
     params = init_onerec(0, cfg, device="cpu")
     reqs = build_requests(cfg, 24, 8, seed=1, ragged=True)
-    ecfg = dict(batch_size=8, kv_dtype="float8_e4m3fn", page_size=32)
+    layout = dict(page_size=32) if paged else dict(
+        paged=False, fused_decode="off", use_radix_topk=True)
+    ecfg = dict(batch_size=8, kv_dtype="float8_e4m3fn", **layout)
     outs = {}
     for d in ("cpu", dev):
         engine = ServingEngine(params, cfg, EngineConfig(**ecfg), device=d)
@@ -326,14 +453,16 @@ def card_vs_cpu(dev):
     items = np.mean([np.array_equal(a, b) for a, b in zip(outs["cpu"],
                                                           outs[str(dev)])])
     # teacher-forced: the same prefill and decode inputs on both devices
+    layout = dict(page_size=32, n_pages=8 * 2) if paged else dict(
+        paged=False, use_radix_topk=True)
     exs = [PhaseExecutor(params, cfg, n_slots=8, device=torch.device(d),
-                         kv_dtype="float8_e4m3fn", page_size=32,
-                         n_pages=8 * 2) for d in ("cpu", dev)]
+                         kv_dtype="float8_e4m3fn", **layout)
+           for d in ("cpu", dev)]
     hists = [np.asarray(r["tokens"]) for r in reqs[:8]]
     profs = [np.asarray(r["profile"]) for r in reqs[:8]]
     for ex in exs:
         for s, h in enumerate(hists):
-            if not ex.grant_slot(s, len(h) + 3):
+            if paged and not ex.grant_slot(s, len(h) + 3):
                 fail("card-vs-CPU page grant failed")
     logits = [ex.prefill_insert(hists, profs, list(range(8))).float().cpu()
               .numpy() for ex in exs]
@@ -349,7 +478,8 @@ def card_vs_cpu(dev):
         logits = [ex.decode(toks, lengths).float().cpu().numpy()
                   for ex in exs]
         lengths = lengths + 1
-    print(f"[card-vs-cpu] {cfg.name}: first tokens agree on "
+    print(f"[card-vs-cpu] {cfg.name} {'paged' if paged else 'contiguous'}: "
+          f"first tokens agree on "
           f"{first:.3f} of requests (>= {CPU_FIRST_TOKEN_AGREE}), whole "
           f"items {items:.3f}; teacher-forced top-8 overlap per step "
           f"{[round(float(o), 3) for o in overlaps]} (>= "
@@ -363,51 +493,109 @@ def card_vs_cpu(dev):
 # ---------------------------------------------------------------------------
 
 
-def full_width(dev, extra_args=()):
-    import torch
-    from repro_torch.configs.onerec_v2 import CONFIG
+def _wrappers():
+    from repro_torch.kernels.batch_attention import ops as attn_ops
     from repro_torch.kernels.fp8_gemm import ops as gemm_ops
     from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
     from repro_torch.kernels.paged_decode import ops as decode_ops
-    from repro_torch.launch import serve
-    wrappers = {"fp8_gemm": gemm_ops.fp8_gemm,
-                "fp8_grouped_gemm": grouped_ops.fp8_grouped_gemm,
-                "paged_decode": decode_ops.paged_decode}
+    from repro_torch.kernels.radix_topk import ops as topk_ops
+    return {"fp8_gemm": gemm_ops.fp8_gemm,
+            "fp8_grouped_gemm": grouped_ops.fp8_grouped_gemm,
+            "paged_decode": decode_ops.paged_decode,
+            "radix_topk": topk_ops.radix_topk,
+            "batch_attention": attn_ops.batch_attention}
+
+
+def _drive(dev, path: str, run, expect_fn):
+    """Drive one main path with every kernel's launch count zeroed just
+    before and read just after; check the outputs and hold the counts
+    against ``expect_fn(stats)``, the layer arithmetic."""
+    import torch
+    from repro_torch.configs.onerec_v2 import CONFIG
+    wrappers = _wrappers()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    outs, stats = serve.main(["--paged", "--kv-fp8", "--fused-decode",
-                              "auto", "--requests", "64", "--batch", "32",
-                              "--ragged", "--seed", "0",
-                              "--device", str(dev), *extra_args])
+    outs, stats = run()
     wall = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(dev)
-    n_layers = CONFIG.transformer.n_layers
-    forwards = int(stats["prefill_calls"] + stats["decode_steps"])
-    print(f"[full-width] {CONFIG.name}: {len(outs)} requests, "
+    print(f"[full-width] {CONFIG.name} {path}: {len(outs)} requests, "
           f"{int(stats['prefill_calls'])} prefills + "
-          f"{int(stats['decode_steps'])} decode steps in {wall:.1f} s "
+          f"{int(stats['decode_steps'])} decode steps + "
+          f"{int(stats['select_calls'])} unfused selects in {wall:.1f} s "
           f"(init + PTQ + serve); serve p50 "
           f"{stats['p50_latency_s'] * 1e3:.1f} ms, p99 "
           f"{stats['p99_latency_s'] * 1e3:.1f} ms, "
-          f"{stats['throughput_rps']:.2f} req/s, join p50 "
-          f"{stats['join_p50_s'] * 1e3:.1f} ms; peak device memory "
+          f"{stats['throughput_rps']:.2f} req/s, join p50 / p99 "
+          f"{stats['join_p50_s'] * 1e3:.1f} / "
+          f"{stats['join_p99_s'] * 1e3:.1f} ms, decode stall "
+          f"{100 * stats['decode_stall_frac']:.0f}%; KV pool "
+          f"{stats['kv_bytes'] / 2**30:.3f} GiB; peak device memory "
           f"{peak / 2**30:.2f} GiB; launches {launches}")
     if len(outs) != 64 or stats["n_requests"] != 64:
-        fail(f"full width completed {stats['n_requests']} of 64 requests")
+        fail(f"full width {path} completed {stats['n_requests']} of 64 "
+             f"requests")
     for item in outs:
         if item.shape != (CONFIG.decode_len,) or not (
                 (item >= 0) & (item < CONFIG.vocab_size)).all():
-            fail(f"out-of-vocabulary or short item {item}")
-    expect = {"paged_decode": int(stats["decode_steps"]) * n_layers,
-              "fp8_gemm": forwards * 4 * n_layers,          # q, k, v, o
-              "fp8_grouped_gemm": forwards * 3 * n_layers}  # gate, up, down
-    if launches != expect or not all(launches.values()):
-        fail(f"launch counts {launches} != layer arithmetic {expect}")
-    return launches, stats
+            fail(f"{path}: out-of-vocabulary or short item {item}")
+    expect = expect_fn(stats)
+    if launches != expect or not all(launches[n] for n, e in expect.items()
+                                     if e):
+        fail(f"{path}: launch counts {launches} != layer arithmetic "
+             f"{expect}")
+    return outs, launches
+
+
+def full_width(dev):
+    """Phase 4: the paged path through the launcher, then the contiguous
+    path through ``ServingEngine``.  Returns each path's launch counts."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.launch import serve
+    from repro_torch.models.onerec import init_onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.requests import build_requests
+    n_layers = CONFIG.transformer.n_layers
+
+    def per_forward(stats):
+        forwards = int(stats["prefill_calls"] + stats["decode_steps"])
+        return {"fp8_gemm": forwards * 4 * n_layers,           # q, k, v, o
+                "fp8_grouped_gemm": forwards * 3 * n_layers}   # gate, up, down
+
+    paged_outs, paged = _drive(
+        dev, "paged", lambda: serve.main([
+            "--paged", "--kv-fp8", "--fused-decode", "auto", "--requests",
+            "64", "--batch", "32", "--ragged", "--seed", "0", "--device",
+            str(dev)]),
+        lambda st: {**per_forward(st), "radix_topk": 0, "batch_attention": 0,
+                    "paged_decode": int(st["decode_steps"]) * n_layers})
+
+    def contiguous():
+        cfg = dataclasses.replace(CONFIG, transformer=dataclasses.replace(
+            CONFIG.transformer, use_attention_kernel=True))
+        params = init_onerec(0, cfg, device=dev)
+        engine = ServingEngine(params, cfg, EngineConfig(
+            batch_size=32, kv_dtype="float8_e4m3fn", paged=False,
+            fused_decode="off", use_radix_topk=True), device=dev)
+        del params       # the engine holds the quantized tree
+        return engine.serve_requests(build_requests(cfg, 64, 32, 0, True))
+
+    outs, contig = _drive(
+        dev, "contiguous", contiguous,
+        lambda st: {**per_forward(st), "paged_decode": 0,
+                    "radix_topk": int(st["select_calls"]),
+                    "batch_attention": int(st["decode_steps"]) * n_layers})
+    first = np.mean([a[0] == b[0] for a, b in zip(outs, paged_outs)])
+    items = np.mean([np.array_equal(a, b) for a, b in zip(outs, paged_outs)])
+    print(f"[full-width] contiguous vs paged: first tokens agree on "
+          f"{first:.3f} of requests, whole items on {items:.3f} "
+          f"(information: the two decode attentions round differently)")
+    return {"paged": paged, "contiguous": contig}
 
 
 def main() -> int:
@@ -438,24 +626,36 @@ def main() -> int:
     check_fp8_gemm(dev, records)
     check_fp8_grouped_gemm(dev, records)
     check_paged_decode(dev, records)
-    card_vs_cpu(dev)
-    launches, _ = full_width(dev)
+    check_radix_topk(dev, records)
+    check_batch_attention(dev, records)
+    card_vs_cpu(dev, paged=True)
+    card_vs_cpu(dev, paged=False)
+    by_path = full_width(dev)
 
-    replaces = {"fp8_gemm": "src/repro/kernels/fp8_gemm/kernel.py:27",
-                "fp8_grouped_gemm":
-                    "src/repro/kernels/fp8_grouped_gemm/kernel.py:27",
-                "paged_decode": "src/repro/kernels/paged_decode/kernel.py:43"}
+    # (TPU kernel it replaces, the main path whose run it is counted in)
+    replaces = {
+        "fp8_gemm": ("src/repro/kernels/fp8_gemm/kernel.py:27", "paged"),
+        "fp8_grouped_gemm":
+            ("src/repro/kernels/fp8_grouped_gemm/kernel.py:27", "paged"),
+        "paged_decode":
+            ("src/repro/kernels/paged_decode/kernel.py:43", "paged"),
+        "radix_topk": ("src/repro/kernels/radix_topk/kernel.py:42 "
+                       "(+ :93 _emit_kernel)", "contiguous"),
+        "batch_attention":
+            ("src/repro/kernels/batch_attention/kernel.py:28",
+             "contiguous")}
     kernels = []
-    for name in ("fp8_gemm", "fp8_grouped_gemm", "paged_decode"):
+    for name, (tpu, path) in replaces.items():
         r = records[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{build.SOURCES[name]}",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": tpu, "launches": by_path[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"], "counted_in": path,
+            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,8 @@ SOURCES = {
     "fp8_gemm": "fp8_gemm.cu",
     "fp8_grouped_gemm": "fp8_grouped_gemm.cu",
     "paged_decode": "paged_decode.cu",
+    "radix_topk": "radix_topk.cu",
+    "batch_attention": "batch_attention.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,15 +1,20 @@
-"""Serving launcher of the port: OneRec-V2 generation with FP8 weights and
-the paged KV pool with fused decode, on the card.
+"""Serving launcher of the port: OneRec-V2 generation with FP8 weights, on
+the card.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --paged --kv-fp8 \
-      --fused-decode auto [--reduced] [--requests 64] [--batch 32] \
+  PYTHONPATH=src python -m repro_torch.launch.serve [--paged] [--kv-fp8] \
+      [--fused-decode off|auto] [--reduced] [--requests 64] [--batch 32] \
       [--slots 32] [--ragged] [--no-fp8] [--page-size 32] [--pages 0] \
       [--seed 0] [--device cuda|cpu]
 
-The flags are the JAX launcher's (``repro/launch/serve.py``) that this
-slice covers; the layout is always paged with fused decode, so ``--paged``
-and ``--fused-decode auto`` only restate it.  ``--device cpu`` runs every
-kernel's plain PyTorch version on the CPU.
+The flags are the JAX launcher's (``repro/launch/serve.py``) that the port
+covers, with its layouts: ``--paged`` serves the paged KV pool with fused
+decode (kernel ``paged_decode``; ``--fused-decode`` defaults to ``auto``
+there and ``off`` is not ported), and without it the contiguous slot pool
+serves with ``fused_decode="off"`` (``--fused-decode auto`` is then an
+error).  The kernels ``batch_attention`` and ``radix_topk`` are reached
+through the model config's ``use_attention_kernel`` and
+``EngineConfig.use_radix_topk``, as in the JAX package, not through flags.
+``--device cpu`` runs every kernel's plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -38,21 +43,26 @@ def main(argv=None):
     ap.add_argument("--ragged", action="store_true",
                     help="mixed history lengths")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV layout (the only layout of the port)")
+                    help="paged KV layout with fused decode (default: the "
+                         "contiguous slot pool)")
     ap.add_argument("--page-size", type=int, default=32)
     ap.add_argument("--pages", type=int, default=0,
                     help="page-pool size (0 = one full row per slot)")
     ap.add_argument("--fused-decode", choices=("off", "auto"),
-                    default="auto",
-                    help="decode attention through kernel paged_decode "
-                         "(the only decode path of the port; 'off' is not "
-                         "ported)")
+                    default=None,
+                    help="under --paged, decode attention through kernel "
+                         "paged_decode ('auto', the default; 'off' is not "
+                         "ported); without --paged only 'off'")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the params AND the synthetic workload")
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default; raises without a card) or 'cpu' "
                          "(plain PyTorch versions of every kernel)")
     args = ap.parse_args(argv)
+    if not args.paged and args.fused_decode == "auto":
+        ap.error("--fused-decode auto needs --paged: the contiguous layout "
+                 "has no fused decode")
+    fused = args.fused_decode or ("auto" if args.paged else "off")
 
     cfg = onerec_v2.reduced_config() if args.reduced else onerec_v2.CONFIG
     batch = args.batch or cfg.serve_batch
@@ -60,8 +70,8 @@ def main(argv=None):
     engine = ServingEngine(params, cfg, EngineConfig(
         batch_size=batch, use_fp8=args.fp8,
         kv_dtype="float8_e4m3fn" if args.kv_fp8 else "bfloat16",
-        n_slots=args.slots, page_size=args.page_size, n_pages=args.pages,
-        fused_decode=args.fused_decode), device=args.device)
+        n_slots=args.slots, paged=args.paged, page_size=args.page_size,
+        n_pages=args.pages, fused_decode=fused), device=args.device)
     del params       # the engine holds the quantized tree
     requests = build_requests(cfg, args.requests, batch, args.seed,
                               args.ragged)
@@ -73,15 +83,17 @@ def main(argv=None):
           f"{int(stats['kv_bytes'])} B total) "
           f"requests={len(requests)} slots={int(stats['n_slots'])} "
           f"occupancy={stats['slot_occupancy']:.2f}")
-    print(f"[serve] paged KV: {int(stats['pages_total'])} pages x "
-          f"{int(stats['page_size'])} positions "
-          f"({int(stats['pages_free'])} free, "
-          f"{int(stats['kv_bytes_pinned'])} B pinned after drain)")
-    print(f"[serve] fused decode: mode={stats['fused_decode_mode']} | "
-          f"{int(stats['fused_decode_steps'])}/"
-          f"{int(stats['decode_steps'])} decode steps fused | "
-          f"{int(stats['fused_select_hits'])} select dispatches "
-          f"folded into the decode step")
+    if args.paged:
+        print(f"[serve] paged KV: {int(stats['pages_total'])} pages x "
+              f"{int(stats['page_size'])} positions "
+              f"({int(stats['pages_free'])} free, "
+              f"{int(stats['kv_bytes_pinned'])} B pinned after drain)")
+    if fused != "off":
+        print(f"[serve] fused decode: mode={stats['fused_decode_mode']} | "
+              f"{int(stats['fused_decode_steps'])}/"
+              f"{int(stats['decode_steps'])} decode steps fused | "
+              f"{int(stats['fused_select_hits'])} select dispatches "
+              f"folded into the decode step")
     print(f"[serve] per-request latency: "
           f"mean={stats['mean_latency_s']*1e3:.1f}ms "
           f"p50={stats['p50_latency_s']*1e3:.1f}ms "

@@ -1,7 +1,7 @@
-"""GQA attention for the serving path: per-slot prefill fill and paged
-single-token decode.
+"""GQA attention for the serving path: per-slot prefill fill, and
+single-token decode over the paged pool or the contiguous slot pool.
 
-Two of the JAX layer's modes (``repro/layers/attention.py``):
+Three of the JAX layer's modes (``repro/layers/attention.py``):
 
   * **prefill fill** into a contiguous per-slot cache (``init_cache``
     ``per_slot``): full causal attention over the right-padded rows, then
@@ -9,9 +9,14 @@ Two of the JAX layer's modes (``repro/layers/attention.py``):
     ``quantize_kv`` when the cache is fp8) and the padded tail marked empty
     (``pos = -1``);
   * **paged decode**: the new token's K/V written into the paged pool at
-    host-resolved flat positions (``PageWrite``), then the POST-WRITE pool
+    host-resolved flat positions (``KVWrite``), then the POST-WRITE pool
     read through kernel ``paged_decode`` (page-table gather, fp8 dequant,
-    online softmax).
+    online softmax);
+  * **per-slot decode** over the contiguous slot pool: the new token's K/V
+    written at ``lengths[i] % S`` of its row (a row passed index 0 is
+    inactive and not written), the post-write rows dequantized to the
+    query's dtype (``_read_kv``), then kernel ``batch_attention``
+    (``AttnSpec.use_kernel``) or the plain length-masked softmax.
 
 Resume prefill, tree decode, chunked attention and the gathered-view
 unfused path are later slices.  Plain torch matmul and softmax stand where
@@ -22,7 +27,7 @@ The port updates cache tensors IN PLACE (the JAX code returns new arrays):
 a layer's cache dict holds views into the stacked cache, so a write lands
 in the pool without a copy.  A JAX ``.at[...].set(..., mode="drop")``
 write whose index is out of range is dropped; here the host passes only
-the writes that land (``PageWrite`` pairs), so nothing is dropped on the
+the writes that land (``KVWrite`` pairs), so nothing is dropped on the
 device and ``index_put_`` never sees an out-of-range index.
 """
 
@@ -33,7 +38,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.core.quant import is_fp8_dtype, matmul_any, quantize_kv
+from repro_torch.core.quant import (dequantize_kv, is_fp8_dtype, matmul_any,
+                                    quantize_kv)
+from repro_torch.kernels.batch_attention.ops import batch_attention
 from repro_torch.kernels.paged_decode.ops import paged_decode_attention
 from repro_torch.layers.common import dense_init
 from repro_torch.layers.rotary import apply_rope
@@ -50,16 +57,19 @@ class AttnSpec(NamedTuple):
     rope_theta: float = 10000.0
     softmax_scale: Optional[float] = None
     chunk_size: int = 1024     # q-chunking threshold/size for long sequences
+    use_kernel: bool = False   # per-slot decode through batch_attention
 
     @property
     def scale(self) -> float:
         return self.softmax_scale or 1.0 / math.sqrt(self.head_dim)
 
 
-class PageWrite(NamedTuple):
-    """The paged writes of one step, resolved on the host: flat physical
-    pool position ``dst[j]`` receives row ``src[j]`` of the flattened new
-    K/V (rows whose JAX scatter index was the drop index are absent)."""
+class KVWrite(NamedTuple):
+    """The cache writes of one decode step, resolved on the host: flat
+    position ``dst[j]`` of the cache's position axis (the paged heap, or
+    the per-slot cache's rows flattened to ``slot * S + position``)
+    receives row ``src[j]`` of the flattened new K/V.  Rows whose JAX
+    scatter index was the drop index are absent."""
 
     dst: torch.Tensor          # (W,) int64
     src: torch.Tensor          # (W,) int64
@@ -118,6 +128,16 @@ def init_page_cache(n_positions: int, spec: AttnSpec, *,
     ``n_pages * page_size`` positions plus a trailing SENTINEL page that is
     never written (unmapped table entries point at it; its pos stays -1)."""
     return _kv_leaves((*stack, n_positions), spec, dtype, device)
+
+
+def _read_kv(ck, cv, cks, cvs, dtype):
+    """Cache K/V in compute form: dequantized for an fp8 cache (scales
+    present), cast for any other dtype than ``dtype``."""
+    if cks is not None:
+        return dequantize_kv(ck, cks, dtype), dequantize_kv(cv, cvs, dtype)
+    if ck.dtype != dtype:
+        return ck.to(dtype), cv.to(dtype)
+    return ck, cv
 
 
 def _store_kv(cache, k, v):
@@ -188,7 +208,7 @@ def apply_attention(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     fill_cache: bool = False,
     lengths: Optional[torch.Tensor] = None,
-    page_write: Optional[PageWrite] = None,
+    kv_write: Optional[KVWrite] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -199,19 +219,24 @@ def apply_attention(
       right-padded to T, ``lengths`` (B,) the true sequence lengths; every
       position's K/V is stored and positions ``>= lengths[i]`` are marked
       empty.
-    * ``cache, page_write, page_tables`` — paged single-token decode:
+    * ``cache, kv_write, page_tables`` — paged single-token decode:
       ``x`` (B, 1, D), ``lengths`` (B,) the absolute index of the new
-      token; the write lands at ``page_write``, then kernel ``paged_decode``
+      token; the write lands at ``kv_write``, then kernel ``paged_decode``
       reads the post-write pool through ``page_tables`` (B, P).
+    * ``cache, kv_write`` with a per-slot cache and no ``page_tables`` —
+      per-slot single-token decode (the host resolves the write to the
+      flattened rows), then ``batch_attention`` or the plain masked
+      softmax over each row.
     """
     b, t, _ = x.shape
     h, kvh, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     decode = cache is not None and not fill_cache
     if decode:
-        if page_write is None or page_tables is None or t != 1:
+        if kv_write is None or t != 1:
             raise NotImplementedError(
-                "only paged single-token decode is ported (ROADMAP.md queue "
-                "N: N1 contiguous / unfused decode, N3 tree decode)")
+                "only single-token decode with host-resolved writes is "
+                "ported (ROADMAP.md queue N: N1 unfused paged decode, N3 "
+                "tree decode)")
         positions = lengths[:, None].to(torch.int32)
     else:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
@@ -224,15 +249,23 @@ def apply_attention(
 
     if decode:
         ks, vs, k_sc, v_sc = _store_kv(cache, k[:, 0], v[:, 0])
-        dst, src = page_write
-        _put(cache["k"], dst, ks, src)
-        _put(cache["v"], dst, vs, src)
-        cache["pos"][dst] = lengths.to(torch.int32)[src]
+        # a per-slot cache takes the write on its flattened (slot, position)
+        # rows: views, so the write lands in the pool
+        flat = cache if page_tables is not None else \
+            {n: leaf.flatten(0, 1) for n, leaf in cache.items()}
+        dst, src = kv_write
+        _put(flat["k"], dst, ks, src)
+        _put(flat["v"], dst, vs, src)
+        flat["pos"][dst] = lengths.to(torch.int32)[src]
         if k_sc is not None:
-            cache["k_scale"][dst] = k_sc[src]
-            cache["v_scale"][dst] = v_sc[src]
-        out = paged_decode_attention(q, cache, page_tables, lengths,
-                                     page_size=page_size, scale=spec.scale)
+            flat["k_scale"][dst] = k_sc[src]
+            flat["v_scale"][dst] = v_sc[src]
+        if page_tables is not None:
+            out = paged_decode_attention(q, cache, page_tables, lengths,
+                                         page_size=page_size,
+                                         scale=spec.scale)
+        else:
+            out = _slot_decode(q, cache, lengths.to(torch.int32), spec)
         out = out.to(x.dtype)
     else:
         if t > 2 * spec.chunk_size and t % spec.chunk_size == 0:
@@ -257,6 +290,26 @@ def apply_attention(
 
     proj = matmul_any(out, params["o_proj"]["kernel"])
     return proj, cache
+
+
+def _slot_decode(q: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 idx: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """Per-slot decode attention over the POST-WRITE rows: q (B, 1, H, hd)
+    at per-row absolute index ``idx`` (B,); keys valid where ``0 <= pos <=
+    idx``.  Returns (B, 1, H * hd)."""
+    ck, cv = _read_kv(cache["k"], cache["v"], cache.get("k_scale"),
+                      cache.get("v_scale"), q.dtype)
+    cpos = cache["pos"]
+    if spec.use_kernel:
+        return batch_attention(q, ck, cv, idx[:, None], cpos,
+                               scale=spec.scale)
+    b, t = q.shape[:2]
+    qh = q.reshape(b, t, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
+                   spec.head_dim)
+    scores = _gqa_scores(qh, ck, spec.scale)              # (B,K,G,T,S)
+    valid = (cpos >= 0) & (cpos <= idx[:, None])          # (B, S)
+    probs = _masked_softmax(scores, valid[:, None, None, None, :])
+    return _gqa_combine(probs, cv).reshape(b, t, -1)
 
 
 def _u8(t: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,20 @@
 """OneRec-V2-style generative recommender (the paper's §5.1 model): a
 fat-MoE decoder over a semantic-ID vocabulary with a profile-feature prefix
 token.  The serving entry points of ``repro/models/onerec.py``: ragged
-prefill into per-slot rows and paged single-token decode.
+prefill into per-slot rows, and single-token decode over the paged pool or
+the contiguous slot pool.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import OneRecConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.device import resolve_device
-from repro_torch.layers.attention import PageWrite
+from repro_torch.layers.attention import KVWrite
 from repro_torch.layers.common import dense_init
 from repro_torch.models import transformer as tfm
 
@@ -53,6 +54,17 @@ def forward(params, batch: Dict[str, torch.Tensor],
     return logits
 
 
+def init_slot_cache(cfg: OneRecConfig, n_slots: int, dtype=None,
+                    extra_len: int = 0, *, device=None) -> dict:
+    """Slot-pool KV cache: ``n_slots`` independent per-request rows of
+    ``context_len + 1 + extra_len`` positions, each with its own position
+    occupancy.  ``dtype=None`` resolves ``cfg.transformer.kv_cache_dtype``;
+    an fp8 dtype adds per-(position, head) scale leaves."""
+    return tfm.init_kv_cache(cfg.transformer, n_slots,
+                             cfg.context_len + 1 + extra_len, dtype,
+                             device=device)
+
+
 def init_page_pool(cfg: OneRecConfig, n_pages: int, page_size: int,
                    dtype=None, *, device=None) -> dict:
     """Paged serving cache: one flat pool of ``n_pages`` x ``page_size``
@@ -78,14 +90,19 @@ def prefill_into_slots(params, batch: Dict[str, torch.Tensor],
 
 def decode_step_slots(params, tokens: torch.Tensor, cfg: OneRecConfig,
                       cache: dict, lengths: torch.Tensor, *,
-                      page_write: PageWrite, page_tables: torch.Tensor,
-                      page_size: int):
-    """Paged per-slot decode: tokens (B, 1), row i at its own absolute index
-    ``lengths[i]``; K/V written at ``page_write``, attention through kernel
-    ``paged_decode``.  Returns (logits (B, V), cache)."""
+                      kv_write: KVWrite,
+                      page_tables: Optional[torch.Tensor] = None,
+                      page_size: int = 0):
+    """Per-slot decode: tokens (B, 1), row i at its own absolute index
+    ``lengths[i]``; K/V written at ``kv_write``.  With ``page_tables`` the
+    cache is the paged pool and attention runs kernel ``paged_decode``;
+    without, it is the contiguous slot pool (``init_slot_cache``) and
+    attention runs kernel ``batch_attention`` under
+    ``use_attention_kernel``, else the plain masked softmax.  Returns
+    (logits (B, V), cache)."""
     return tfm.forward(params["backbone"], tokens, cfg.transformer,
                        cache=cache, lengths=lengths.to(torch.int32),
-                       page_write=page_write, page_tables=page_tables,
+                       kv_write=kv_write, page_tables=page_tables,
                        page_size=page_size,
                        last_index=torch.zeros(tokens.shape[0],
                                               dtype=torch.int64,

@@ -3,8 +3,9 @@
 Layers are grouped into homogeneous stacks (``layer_plan``); every leaf of a
 stack keeps its leading layer axis, and the JAX ``lax.scan`` over that axis
 is a Python loop here.  Only the OneRec serving path is ported: full
-attention, MoE FFN on every layer, prefill fill into a per-slot cache and
-paged single-token decode (``repro/models/transformer.py``).
+attention, MoE FFN on every layer, prefill fill into a per-slot cache, and
+single-token decode over the paged pool or the per-slot cache
+(``repro/models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.quant import matmul_any
-from repro_torch.layers.attention import (AttnSpec, PageWrite,
+from repro_torch.layers.attention import (AttnSpec, KVWrite,
                                           apply_attention, init_attention,
                                           init_cache, init_page_cache)
 from repro_torch.layers.common import dense_init, truncated_normal
@@ -42,8 +43,7 @@ def layer_plan(cfg: TransformerConfig) -> List[StackSpec]:
     if (not cfg.moe or cfg.n_dense_layers or cfg.sliding_window
             or cfg.use_post_norm or cfg.tie_embeddings or cfg.embed_scale
             or cfg.shared_expert_gate or cfg.zero_centered_norm
-            or cfg.use_qk_norm or cfg.use_attention_kernel
-            or cfg.n_shared_experts):
+            or cfg.use_qk_norm or cfg.n_shared_experts):
         raise NotImplementedError(
             f"{cfg.name}: only the OneRec MoE backbone is ported; dense "
             f"layers, windows, qk-norm, shared experts, sandwich norms, "
@@ -55,7 +55,8 @@ def layer_plan(cfg: TransformerConfig) -> List[StackSpec]:
 def attn_spec_for(cfg: TransformerConfig, kind: LayerKind) -> AttnSpec:
     return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                     head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                    chunk_size=cfg.attn_chunk_size)
+                    chunk_size=cfg.attn_chunk_size,
+                    use_kernel=cfg.use_attention_kernel)
 
 
 def moe_spec_for(cfg: TransformerConfig) -> MoESpec:
@@ -107,11 +108,11 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig, *,
 
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
                  kind: LayerKind, cache_lp, fill_cache: bool, lengths,
-                 page_write, page_tables, page_size):
+                 kv_write, page_tables, page_size):
     h = rmsnorm_apply(lp["attn_norm"], x, eps=cfg.norm_eps)
     attn_out, _ = apply_attention(
         lp["attn"], h, attn_spec_for(cfg, kind), cache=cache_lp,
-        fill_cache=fill_cache, lengths=lengths, page_write=page_write,
+        fill_cache=fill_cache, lengths=lengths, kv_write=kv_write,
         page_tables=page_tables, page_size=page_size)
     x = x + attn_out
     h = rmsnorm_apply(lp["mlp_norm"], x, eps=cfg.norm_eps)
@@ -138,7 +139,7 @@ def forward(
     compute_dtype=torch.bfloat16,
     inputs_embeds: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
-    page_write: Optional[PageWrite] = None,
+    kv_write: Optional[KVWrite] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
     last_index: Optional[torch.Tensor] = None,
@@ -147,8 +148,9 @@ def forward(
 
     ``fill_cache=True`` with a per-slot cache (``init_kv_cache``) is the
     ragged prefill (``lengths`` the true row lengths); a paged pool
-    (``init_kv_page_pool``) with ``page_write``/``page_tables`` is paged
-    single-token decode (``lengths`` the per-row write index).  Caches are
+    (``init_kv_page_pool``) with ``kv_write``/``page_tables`` is paged
+    single-token decode, and a per-slot cache with ``kv_write`` alone
+    per-slot single-token decode (``lengths`` the per-row write index).  Caches are
     updated in place and returned.  ``last_index`` (B,) keeps only that
     position of each row before the final norm and ``lm_head``: logits
     (B, V) instead of (B, T, V) (both are row-wise, so the values are the
@@ -168,7 +170,7 @@ def forward(
                         if stack_cache is not None else None)
                 x = _apply_layer(tree.index(stack_params[key], i), x, cfg,
                                  kind, c_lp, fill_cache, lengths,
-                                 page_write, page_tables, page_size)
+                                 kv_write, page_tables, page_size)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)

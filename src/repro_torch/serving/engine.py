@@ -1,7 +1,8 @@
 """OneRec serving engine on the card: the open-system request lifecycle of
 ``repro/serving/engine.py`` (``submit`` -> ``step`` -> ``drain``, and the
 closed-batch ``serve_requests`` shim) over the paged FP8 KV pool with fused
-decode.
+decode (``paged=True``, the default) or the contiguous slot pool
+(``paged=False, fused_decode="off"``).
 
 The engine runs on the card unless it is built with ``device="cpu"``, where
 every kernel runs its plain PyTorch version; without a card it raises.
@@ -33,7 +34,7 @@ class EngineConfig:
     kv_dtype: str = "bfloat16"     # "bfloat16" | "float8_e4m3fn" (fp8
     #                                payload + per-(position, head) scales)
     topk: int = 8
-    use_radix_topk: bool = False
+    use_radix_topk: bool = False   # every select through kernel radix_topk
     mode: str = "continuous"
     n_slots: int = 0               # KV-slot pool size; 0 => batch_size
     prefill_bucket_min: int = 16   # smallest ragged-prefill length bucket
@@ -44,19 +45,21 @@ class EngineConfig:
     preemption: bool = False
     hold_k: int = 0
     hold_ms: float = 0.0
-    paged: bool = True             # the port serves the paged layout only
+    paged: bool = True             # paged pool; False = contiguous rows
     page_size: int = 32            # logical positions per page
     n_pages: int = 0               # pool size; 0 => n_slots full rows
-    fused_decode: object = "auto"  # kernel paged_decode (plain version on
-    #                                the CPU); "off" is not ported
+    fused_decode: object = "auto"  # paged: kernel paged_decode (plain
+    #                                version on the CPU), "off" is not
+    #                                ported; contiguous: must be off
     quant_policy: object = None
 
 
+_OFF = (False, None, "off")         # fused_decode values that mean off
+
 # (setting is outside the slice, what it is, ROADMAP.md item)
 _NOT_PORTED: Tuple[Tuple[Callable[[EngineConfig], bool], str, str], ...] = (
-    (lambda c: not c.paged, "paged=False (the contiguous layout)", "N1"),
-    (lambda c: c.fused_decode in (False, None, "off"),
-     "fused_decode off (the unfused paged decode)", "N1"),
+    (lambda c: c.paged and c.fused_decode in _OFF,
+     "fused_decode off with paged=True (the unfused paged decode)", "N1"),
     (lambda c: c.prefix_cache, "prefix_cache", "N2"),
     (lambda c: c.prefill_chunk, "prefill_chunk", "N2"),
     (lambda c: c.preemption, "preemption", "N2"),
@@ -65,7 +68,6 @@ _NOT_PORTED: Tuple[Tuple[Callable[[EngineConfig], bool], str, str], ...] = (
      "N3"),
     (lambda c: c.mode != "continuous", "mode other than continuous", "N4"),
     (lambda c: c.quant_policy is not None, "quant_policy", "N5"),
-    (lambda c: c.use_radix_topk, "use_radix_topk", "N6"),
 )
 
 
@@ -94,9 +96,15 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"EngineConfig {what} is not ported yet "
                     f"(ROADMAP.md queue N, item {item})")
-        if engine_cfg.fused_decode not in (True, "auto"):
-            raise ValueError(f"fused_decode must be 'auto', got "
-                             f"{engine_cfg.fused_decode!r}")
+        if not engine_cfg.paged and engine_cfg.fused_decode not in _OFF:
+            raise ValueError(
+                f"fused_decode={engine_cfg.fused_decode!r}: the contiguous "
+                f"layout (paged=False) has no fused decode; pass "
+                f"fused_decode='off'")
+        if engine_cfg.paged and engine_cfg.fused_decode not in (True,
+                                                                "auto"):
+            raise ValueError(f"fused_decode must be 'auto' with paged=True, "
+                             f"got {engine_cfg.fused_decode!r}")
         if engine_cfg.kv_dtype not in ("bfloat16", "float8_e4m3fn"):
             raise ValueError(f"kv_dtype must be 'bfloat16' or "
                              f"'float8_e4m3fn', got {engine_cfg.kv_dtype!r}")
@@ -113,9 +121,10 @@ class ServingEngine:
         self.executor = PhaseExecutor(
             params, cfg, n_slots=self.n_slots, device=self.device,
             use_fp8=engine_cfg.use_fp8, topk=engine_cfg.topk,
+            use_radix_topk=engine_cfg.use_radix_topk,
             prefill_bucket_min=engine_cfg.prefill_bucket_min,
-            kv_dtype=engine_cfg.kv_dtype, page_size=engine_cfg.page_size,
-            n_pages=n_pages)
+            kv_dtype=engine_cfg.kv_dtype, paged=engine_cfg.paged,
+            page_size=engine_cfg.page_size, n_pages=n_pages)
         self.pool = SlotPool(self.n_slots)
         self._sched = ContinuousScheduler(self.executor, self.pool,
                                           engine_cfg.max_prefill_groups)
@@ -195,7 +204,6 @@ class ServingEngine:
         done = self._window_done
         sched = self._sched
         counters = self.executor.counters
-        pp = self.executor.page_pool
         lat = np.asarray([c.latency_s for c in done], np.float64)
         join = np.asarray(sched.join_step_s, np.float64)
         return {
@@ -214,8 +222,7 @@ class ServingEngine:
             "kv_row_bytes": float(self.executor.pool_row_bytes),
             "kv_bytes": float(self.executor.kv_bytes),
             **{k: float(v) for k, v in counters.items()},
-            "fused_decode_mode": "cuda" if self.device.type == "cuda"
-            else "plain",
+            "fused_decode_mode": self._fused_decode_mode(),
             "mode": self.ecfg.mode,
             "queue_depth": float(sched.queue_depth),
             "prefill_padded_token_frac":
@@ -228,11 +235,27 @@ class ServingEngine:
             "join_p99_s": float(np.percentile(join, 99))
             if join.size else 0.0,
             "decode_stall_frac": sched.decode_stall_s / wall if wall else 0.0,
-            "pages_total": float(pp.n_pages),
-            "pages_free": float(pp.n_free),
-            "page_size": float(pp.page_size),
-            "kv_bytes_pinned": float(pp.n_used * self.executor.page_bytes),
+            **self._paged_stats(),
         }
+
+    def _fused_decode_mode(self) -> str:
+        """Where ``paged_decode`` runs, or ``off`` in the contiguous
+        layout."""
+        if not self.executor.paged:
+            return "off"
+        return "cuda" if self.device.type == "cuda" else "plain"
+
+    def _paged_stats(self) -> Dict[str, float]:
+        """Page-pool metrics; zeros for the contiguous layout, as JAX."""
+        pp = self.executor.page_pool
+        if pp is None:
+            return {"pages_total": 0.0, "pages_free": 0.0,
+                    "page_size": 0.0, "kv_bytes_pinned": 0.0}
+        return {"pages_total": float(pp.n_pages),
+                "pages_free": float(pp.n_free),
+                "page_size": float(pp.page_size),
+                "kv_bytes_pinned": float(pp.n_used
+                                         * self.executor.page_bytes)}
 
     def serve_requests(self, requests: List[Dict]
                        ) -> Tuple[List[np.ndarray], Dict[str, object]]:

@@ -1,5 +1,7 @@
-"""Phase executor: the device programs behind the serving engine, for the
-paged FP8 KV layout with fused decode.
+"""Phase executor: the device programs behind the serving engine, for two
+KV layouts, as in ``repro/serving/executor.py``.
+
+The PAGED layout (FP8 KV pool with fused decode):
 
   * ``prefill_insert`` — ragged prefill of a join group: the profile +
     history forward for ``Bp`` new requests (right-padded to a length
@@ -7,16 +9,28 @@ paged FP8 KV layout with fused decode.
     scattered onto the requests' granted pages.
   * ``decode`` — one token for every slot at its own absolute index: the
     K/V write lands in the slot's page, attention reads the pool through
-    kernel ``paged_decode``, and the select (stable top-k + log-partition)
-    runs on the same logits; ``select_scored`` then answers from the stash.
+    kernel ``paged_decode``, and the select (top-k + log-partition) runs on
+    the same logits; ``select_scored`` then answers from the stash.
   * ``free_slots`` — drop retired slots' page references and clear the pos
     lane of pages whose refcount hit zero.
 
 The host owns every page table (``_table_mat``) and resolves every write
-to a flat pool position, exactly as ``repro/serving/executor.py`` does; a
-write the JAX program drops (out-of-range index) is simply not passed.
-Each phase ends in ``torch.cuda.synchronize()`` on the card (the JAX
-``block_until_ready``), so the scheduler's phase timings stay honest.
+to a flat pool position, exactly as the JAX executor does; a write the JAX
+program drops (out-of-range index) is simply not passed.
+
+The CONTIGUOUS layout (``paged=False``): one per-slot row of
+``context_len + 1`` positions per slot.  ``prefill_insert`` copies the
+group's whole filled rows into ``pool[:, slots]``; ``decode`` writes each
+active row's token at its own index (inactive rows, index 0, are not
+written) and attends over the rows through kernel ``batch_attention``
+(``use_attention_kernel``) or the plain masked softmax, with no select
+stash; ``free_slots`` clears the freed rows' pos lane in one batched write.
+
+Every select (``select_scored``) runs kernel ``radix_topk`` under
+``use_radix_topk``, the fused stash of the paged layout included; else a
+stable sort (ties to the lowest id, as ``lax.top_k``).  Each phase ends in
+``torch.cuda.synchronize()`` on the card (the JAX ``block_until_ready``),
+so the scheduler's phase timings stay honest.
 """
 
 from __future__ import annotations
@@ -31,7 +45,8 @@ from repro_torch.configs.base import OneRecConfig
 from repro_torch.core.policy import BASELINE_POLICY, PAPER_POLICY
 from repro_torch.core.ptq import quantize_params
 from repro_torch.device import synchronize
-from repro_torch.layers.attention import PageWrite
+from repro_torch.kernels.radix_topk.ops import radix_topk
+from repro_torch.layers.attention import KVWrite
 from repro_torch.models import onerec as onerec_model
 from repro_torch.models import transformer as tfm_model
 from repro_torch.serving.kv_cache import INDEX_DTYPE, PagePool, as_index
@@ -49,19 +64,27 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
 
+def _layer_leaves(cache: dict):
+    """Each stack entry's leaves dict (k, v, pos, fp8 scales) of a cache."""
+    for stack in cache["stacks"].values():
+        yield from stack.values()
+
+
 class PhaseExecutor:
-    """Owns the quantized params, the device page pool, and the prefill /
-    decode / select phases."""
+    """Owns the quantized params, the device KV pool (paged or contiguous),
+    and the prefill / decode / select phases."""
 
     def __init__(self, params, cfg: OneRecConfig, *, n_slots: int,
                  device: torch.device, use_fp8: bool = True, topk: int = 8,
+                 use_radix_topk: bool = False,
                  prefill_bucket_min: int = 16,
-                 kv_dtype: Optional[str] = None, page_size: int = 32,
-                 n_pages: int = 0):
+                 kv_dtype: Optional[str] = None, paged: bool = True,
+                 page_size: int = 32, n_pages: int = 0):
         self.cfg = cfg
         self.n_slots = n_slots
         self.device = device
         self.topk = topk
+        self.use_radix_topk = use_radix_topk
         self.prefill_bucket_min = prefill_bucket_min
         self.kv_dtype = getattr(torch,
                                 kv_dtype or cfg.transformer.kv_cache_dtype)
@@ -71,25 +94,14 @@ class PhaseExecutor:
         params = tree.map_with_path(lambda _, t: t.to(device), params)
         self.params = quantize_params(
             params, PAPER_POLICY if use_fp8 else BASELINE_POLICY)
-        s_row = cfg.context_len + 1
-        self._p_max = -(-s_row // page_size)       # table entries per slot
-        if n_pages < self._p_max:
-            raise ValueError(
-                f"n_pages ({n_pages}) below one request's footprint "
-                f"({self._p_max} pages of {page_size} positions)")
-        self.page_size = page_size
-        self.n_pages = n_pages
-        self._sentinel = n_pages                   # virgin page, pos = -1
-        self._drop = (n_pages + 1) * page_size     # the JAX drop index
-        self._sp = self._p_max * page_size
-        self.page_pool = PagePool(n_pages, page_size)
-        # slot -> page per logical page index; unmapped entries point at
-        # the sentinel page, so an empty slot reads an all-masked row
-        self._table_mat = np.full((n_slots, self._p_max), self._sentinel,
-                                  np.int32)
-        self._slot_pages: Dict[int, List[int]] = {}
-        self.cache = onerec_model.init_page_pool(
-            cfg, n_pages, page_size, dtype=self.kv_dtype, device=device)
+        self.s_row = cfg.context_len + 1           # positions per request
+        self.paged = bool(paged)
+        if self.paged:
+            self._init_pages(page_size, n_pages)
+        else:
+            self.page_pool = None
+            self.cache = onerec_model.init_slot_cache(
+                cfg, n_slots, dtype=self.kv_dtype, device=device)
         self._fused_select: Optional[tuple] = None
         self.counters: Dict[str, int] = {"prefill_calls": 0,
                                          "decode_steps": 0,
@@ -102,19 +114,45 @@ class PhaseExecutor:
                                          "prefill_tokens_real": 0,
                                          "pages_granted": 0}
 
+    def _init_pages(self, page_size: int, n_pages: int) -> None:
+        self._p_max = -(-self.s_row // page_size)  # table entries per slot
+        if n_pages < self._p_max:
+            raise ValueError(
+                f"n_pages ({n_pages}) below one request's footprint "
+                f"({self._p_max} pages of {page_size} positions)")
+        self.page_size = page_size
+        self.n_pages = n_pages
+        self._sentinel = n_pages                   # virgin page, pos = -1
+        self._drop = (n_pages + 1) * page_size     # the JAX drop index
+        self._sp = self._p_max * page_size
+        self.page_pool = PagePool(n_pages, page_size)
+        # slot -> page per logical page index; unmapped entries point at
+        # the sentinel page, so an empty slot reads an all-masked row
+        self._table_mat = np.full((self.n_slots, self._p_max),
+                                  self._sentinel, np.int32)
+        self._slot_pages: Dict[int, List[int]] = {}
+        self.cache = onerec_model.init_page_pool(
+            self.cfg, n_pages, page_size, dtype=self.kv_dtype,
+            device=self.device)
+
     def _tensor(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
     def _select(self, logits: torch.Tensor
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Top-k (stable: ties to the lowest id, as ``lax.top_k``) and the
-        log-partition of the last axis, copied to the host."""
+        """Top-k and the log-partition of the last axis, copied to the
+        host: kernel ``radix_topk`` under ``use_radix_topk``, else a stable
+        sort (ties to the lowest id, as ``lax.top_k``)."""
         flat = logits.reshape(-1, logits.shape[-1])
-        vals, ids = torch.sort(flat, dim=-1, descending=True, stable=True)
+        if self.use_radix_topk:
+            vals, ids = radix_topk(flat, self.topk)
+        else:
+            vals, ids = torch.sort(flat, dim=-1, descending=True,
+                                   stable=True)
+            vals, ids = vals[:, :self.topk], ids[:, :self.topk]
         lse = torch.logsumexp(flat.to(torch.float32), dim=-1)
-        return (vals[:, :self.topk].cpu().numpy(),
-                ids[:, :self.topk].to(torch.int32).cpu().numpy(),
+        return (vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
                 lse.cpu().numpy())
 
     # -- host-side padding and page tables ----------------------------------
@@ -157,13 +195,23 @@ class PhaseExecutor:
               & (lg >= 0) & (lg < self._sp))
         return np.where(ok, phys, self._drop).astype(INDEX_DTYPE)
 
-    def _page_write(self, psc: np.ndarray) -> PageWrite:
+    def _page_write(self, psc: np.ndarray) -> KVWrite:
         """The writes of ``psc`` that land: (pool position, source row of
         the flattened new K/V)."""
         flat = psc.reshape(-1)
         keep = np.nonzero(flat != self._drop)[0]
-        return PageWrite(self._tensor(flat[keep], torch.int64),
-                         self._tensor(keep, torch.int64))
+        return KVWrite(self._tensor(flat[keep], torch.int64),
+                       self._tensor(keep, torch.int64))
+
+    def _slot_write(self, lengths: np.ndarray) -> KVWrite:
+        """The contiguous decode writes: slot i's token lands at position
+        ``lengths[i] % s_row`` of its own row (flat index ``i * s_row +
+        position``); slots passed index 0 are inactive and not written
+        (the JAX layer drops their write)."""
+        rows = np.nonzero(lengths > 0)[0]
+        dst = rows * self.s_row + lengths[rows] % self.s_row
+        return KVWrite(self._tensor(dst, torch.int64),
+                       self._tensor(rows, torch.int64))
 
     def grant_slot(self, slot: int, n_positions: int) -> bool:
         """Allocate the pages covering ``n_positions`` logical positions for
@@ -179,8 +227,7 @@ class PhaseExecutor:
         return True
 
     def _pool_leaves(self):
-        for stack in self.cache["stacks"].values():
-            yield from stack.values()
+        return _layer_leaves(self.cache)
 
     def _free_pages_device(self, pages: List[int]) -> None:
         """Clear the pos lane of freed pages so re-granted pages read
@@ -198,11 +245,30 @@ class PhaseExecutor:
     def prefill_insert(self, tokens_list: List[np.ndarray],
                        profiles: List[np.ndarray], slots: List[int]
                        ) -> torch.Tensor:
-        """Prefill one join group onto its slots' granted pages.  Returns
-        FULL-BUCKET next-token logits (b_bucket, V); callers use the first
+        """Prefill one join group into its slots: onto their granted pages,
+        or into their rows of the contiguous pool.  Returns FULL-BUCKET
+        next-token logits (b_bucket, V); callers use the first
         ``len(slots)`` rows."""
         tok, lengths, src = self._pad_group(tokens_list)
         prof = np.stack([profiles[j] for j in src]).astype(np.float32)
+        batch = {"tokens": self._tensor(tok),
+                 "profile": self._tensor(prof, torch.float32)}
+        if not self.paged:
+            # whole filled rows into pool[:, slots]; the batch-padding
+            # duplicates of the last request are not copied: under MoE
+            # capacity drops their K/V differ from the real row's
+            fresh = onerec_model.init_slot_cache(
+                self.cfg, tok.shape[0], dtype=self.kv_dtype,
+                device=self.device)
+            logits, filled = onerec_model.prefill_into_slots(
+                self.params, batch, self.cfg, fresh, self._tensor(lengths))
+            n = len(slots)
+            idx = self._tensor(np.asarray(slots), torch.int64)
+            for pool, rows in zip(self._pool_leaves(), _layer_leaves(filled)):
+                for name, f in rows.items():
+                    _u8(pool[name])[:, idx] = _u8(f)[:, :n]
+            synchronize(self.device)
+            return logits
         slot_ids = np.asarray([slots[j] for j in src], np.int32)
         b, t_eff = tok.shape[0], tok.shape[1] + 1
         logical = np.broadcast_to(np.arange(t_eff, dtype=INDEX_DTYPE)[None],
@@ -214,9 +280,7 @@ class PhaseExecutor:
                                         dtype=self.kv_dtype,
                                         device=self.device)
         logits, filled = onerec_model.prefill_into_slots(
-            self.params, {"tokens": self._tensor(tok),
-                          "profile": self._tensor(prof, torch.float32)},
-            self.cfg, fresh, self._tensor(lengths))
+            self.params, batch, self.cfg, fresh, self._tensor(lengths))
         # scatter every leaf's valid positions onto the granted pages
         for si, stack in filled["stacks"].items():
             for key, leaves in stack.items():
@@ -230,16 +294,23 @@ class PhaseExecutor:
 
     def decode(self, tokens: np.ndarray, lengths: np.ndarray
                ) -> torch.Tensor:
-        """One fused decode step over the whole pool: tokens (N, 1) at
-        per-slot indices ``lengths`` (N,).  Inactive slots pass index 0;
-        their writes are not made.  The select runs on the same logits and
-        is stashed for ``select_scored``."""
+        """One decode step over the whole pool: tokens (N, 1) at per-slot
+        indices ``lengths`` (N,).  Inactive slots pass index 0; their writes
+        are not made.  In the paged layout the decode is fused: the select
+        runs on the same logits and is stashed for ``select_scored``."""
         li = as_index(lengths)
+        if not self.paged:
+            logits, self.cache = onerec_model.decode_step_slots(
+                self.params, self._tensor(tokens), self.cfg, self.cache,
+                self._tensor(li), kv_write=self._slot_write(li))
+            self.counters["decode_steps"] += 1
+            synchronize(self.device)
+            return logits
         write = self._page_write(
             self._scatter_indices(np.arange(self.n_slots), li, li > 0))
         logits, self.cache = onerec_model.decode_step_slots(
             self.params, self._tensor(tokens), self.cfg, self.cache,
-            self._tensor(li), page_write=write,
+            self._tensor(li), kv_write=write,
             page_tables=self._tensor(self._table_mat),
             page_size=self.page_size)
         self._fused_select = (logits, *self._select(logits))
@@ -261,9 +332,25 @@ class PhaseExecutor:
         self.counters["select_calls"] += 1
         return self._select(logits)
 
+    @staticmethod
+    def _pad_ids(ids: List[int]) -> np.ndarray:
+        """Bucket an id list to a power-of-two length by duplicating the
+        last id (the JAX executor's shape bucketing)."""
+        b = bucket_length(len(ids), 1)
+        return np.asarray(ids + [ids[-1]] * (b - len(ids)), np.int64)
+
     def free_slots(self, slots: List[int]) -> None:
-        """Drop retired slots' page references; pages whose refcount hits
-        zero get their device pos lane cleared."""
+        """Retire slots so they read virgin: in the paged layout drop their
+        page references and clear the pos lane of pages whose refcount hits
+        zero; in the contiguous layout clear their rows' pos lane."""
+        if not self.paged:
+            if not slots:
+                return
+            idx = self._tensor(self._pad_ids([int(s) for s in slots]),
+                               torch.int64)
+            for leaf in self._pool_leaves():
+                leaf["pos"][:, idx] = -1
+            return
         freed: List[int] = []
         for s in dict.fromkeys(int(s) for s in slots):
             pages = self._slot_pages.pop(s, None)
@@ -283,9 +370,13 @@ class PhaseExecutor:
     @property
     def page_bytes(self) -> int:
         """Device bytes one page occupies across every layer leaf."""
+        assert self.paged, "page_bytes requires the paged layout"
         return self.kv_bytes // (self.n_pages + 1)
 
     @property
     def pool_row_bytes(self) -> int:
-        """Worst-case bytes of one slot (a full page table)."""
+        """Bytes of one slot: its row of the contiguous pool, or the
+        worst case of a paged slot (a full page table)."""
+        if not self.paged:
+            return self.kv_bytes // self.n_slots
         return self._p_max * self.page_bytes

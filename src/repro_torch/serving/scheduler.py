@@ -1,14 +1,15 @@
-"""Continuous-batching scheduler over the executor's paged pool: the
-single-candidate path of ``repro/serving/scheduler.py``
+"""Continuous-batching scheduler over the executor's KV pool (paged or
+contiguous): the single-candidate path of ``repro/serving/scheduler.py``
 (``ContinuousScheduler``) without the prefix store, chunked prefill,
 preemption or hold windows, which are later slices.
 
 Every ``step()`` (1) joins arrived queued requests into free slots, grouped
 by history-length bucket, each group one ragged prefill whose logits seed
-the first generated token, then (2) runs ONE fused decode over the decoding
+the first generated token, then (2) runs ONE decode over the decoding
 slots, advancing every active request at its own depth; a slot retires
 when its item (``decode_len`` tokens) is complete.  The admission order,
-bucket grouping, page grants and slot assignment are the JAX scheduler's,
+bucket grouping, page grants (paged layout only; the contiguous layout
+admits by free slot alone) and slot assignment are the JAX scheduler's,
 so both engines build the same batches from the same requests.
 """
 
@@ -57,13 +58,14 @@ def _sort_key(r: Request) -> Tuple[int, float, float]:
 
 
 class ContinuousScheduler:
-    """Slot-based continuous batching over the executor's page pool.
+    """Slot-based continuous batching over the executor's KV pool.
 
     ``max_prefill_groups`` caps how many length-bucket prefill programs one
     join round may launch; admission takes the most urgent request's
     bucket first, then the most-populous others, within a ``lookahead``
-    window of the queue.  A request joins only when the page pool can
-    cover its footprint (profile + history + its decode span)."""
+    window of the queue.  A request joins when a slot is free and, in the
+    paged layout, when the page pool can cover its footprint (profile +
+    history + its decode span)."""
 
     def __init__(self, executor: PhaseExecutor, pool: SlotPool,
                  max_prefill_groups: int = 2, lookahead: int = 0):
@@ -166,17 +168,18 @@ class ContinuousScheduler:
         chosen = set(order[:self.max_prefill_groups])
         joiners: List[Request] = []
         groups: Dict[int, List[Request]] = {}
-        committed = 0   # pages claimed by already-selected joiners
+        committed = 0   # pages claimed by already-selected joiners (paged)
         for r in window:
             if len(joiners) >= free:
                 break
             b = bucket_of[id(r)]
             if b not in chosen:
                 continue
-            need = page_pool.pages_for(self._footprint(r))
-            if page_pool.n_free - committed < need:
-                break
-            committed += need
+            if self.executor.paged:
+                need = page_pool.pages_for(self._footprint(r))
+                if page_pool.n_free - committed < need:
+                    break
+                committed += need
             groups.setdefault(b, []).append(r)
             joiners.append(r)
         taken = {id(r) for r in joiners}
@@ -192,8 +195,9 @@ class ContinuousScheduler:
                     request_id=r.rid, length=len(r.tokens) + 1,  # + profile
                     arrival_s=r.arrival_s, priority=r.priority,
                     deadline_s=r.deadline_s))
-                ok = self.executor.grant_slot(slot, self._footprint(r))
-                assert ok, "page grant raced the admission gate"
+                if self.executor.paged:
+                    ok = self.executor.grant_slot(slot, self._footprint(r))
+                    assert ok, "page grant raced the admission gate"
                 slots.append(slot)
             logits = self.executor.prefill_insert(
                 [r.tokens for r in group], [r.profile for r in group], slots)
@@ -205,8 +209,8 @@ class ContinuousScheduler:
             self.executor.free_slots(freed)
 
     def _decode_step(self, done: List[Completion]) -> None:
-        """One fused decode over every decoding slot of the pool; free rows
-        ride along at index 0 with their writes not made."""
+        """One decode over every decoding slot of the pool; free rows ride
+        along at index 0 with their writes not made."""
         pool = self.pool
         active = pool.used_slots()
         self.occupancy.append(pool.occupancy)

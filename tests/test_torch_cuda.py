@@ -5,8 +5,10 @@ neither JAX nor the JAX package, so they run where only PyTorch is:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: 1 bf16 ulp (``2**-7`` relative to the largest output for the
-GEMMs, absolute for attention outputs of order one); the fp8 payloads and
-scales are bit-identical, only f32 summation order differs.
+GEMMs and ``batch_attention``, absolute for paged attention outputs of
+order one); the fp8 payloads and scales are bit-identical, only f32
+summation order (and online vs one-block softmax) differs.  ``radix_topk``
+is exact: identical values and indices.
 """
 
 import math
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from repro_torch.core import quant
+from repro_torch.kernels.batch_attention import ops as attn_ops
 from repro_torch.kernels.fp8_gemm import ops as gemm_ops
 from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
 from repro_torch.kernels.paged_decode import ops as decode_ops
+from repro_torch.kernels.radix_topk import ops as topk_ops
 
 ULP = 2.0 ** -7
 
@@ -101,3 +105,60 @@ def test_paged_decode_kernel_matches_plain(cuda, quantized, ps):
     torch.testing.assert_close(out.float().cpu(), ref.float(), rtol=ULP,
                                atol=ULP)
     assert out[0].abs().max().item() == 0 and out[6].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V,k,dtype", [
+    (32, 8256, 8, torch.float32), (16, 8192, 64, torch.float32),
+    (8, 4000, 16, torch.bfloat16), (3, 257, 4, torch.float32)])
+def test_radix_topk_kernel_matches_plain(cuda, B, V, k, dtype):
+    """Random rows plus a row of ties and a row of +-0.0 and negatives:
+    identical values and indices."""
+    g = torch.Generator().manual_seed(V)
+    x = torch.randn(B, V, generator=g) * 7
+    x[0] = torch.randint(-3, 4, (V,), generator=g).float()      # ties
+    # -0.0 and negatives with a few +0.0 columns: the k-th key falls among
+    # the -0.0 ties (keys rank -0.0 below +0.0)
+    x[1] = -torch.randint(0, 3, (V,), generator=g).float()
+    x[1, ::1500] = 0.0
+    x = x.to(dtype)
+    before = topk_ops.radix_topk.launches
+    vals, idx = topk_ops.radix_topk(x.to(cuda), k)
+    assert topk_ops.radix_topk.launches == before + 1
+    ref_v, ref_i = topk_ops.radix_topk_plain(x, k)
+    assert torch.equal(idx.cpu(), ref_i)
+    assert torch.equal(vals.cpu().view(torch.int32), ref_v.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,Kv,hd,S,window", [
+    (32, 1, 16, 4, 128, 388, 0),      # the engine's decode shape
+    (2, 64, 16, 4, 128, 96, 0),       # prefill-shaped, causal
+    (4, 1, 8, 2, 64, 300, 48),        # windowed decode
+])
+def test_batch_attention_kernel_matches_plain(cuda, B, T, H, Kv, hd, S,
+                                              window):
+    """Ragged occupancy (empty keys, an empty row) against the plain
+    version's one-block softmax: 1 bf16 ulp of the largest output."""
+    g = torch.Generator().manual_seed(S)
+    q = torch.randn(B, T, H, hd, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, S, Kv, hd, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, S, Kv, hd, generator=g).to(torch.bfloat16)
+    lengths = torch.randint(1, S, (B,), generator=g)
+    lengths[0] = 0
+    k_pos = torch.arange(S)[None].expand(B, S)
+    k_pos = torch.where(k_pos < lengths[:, None], k_pos, -1).to(torch.int32)
+    q_pos = (lengths[:, None] - T + torch.arange(T)[None]).clamp_min(-1)
+    q_pos = q_pos.to(torch.int32).contiguous()
+    k_pos = k_pos.contiguous()
+    scale = 1.0 / math.sqrt(hd)
+    ref = attn_ops.batch_attention_plain(q, k, v, q_pos, k_pos, scale=scale,
+                                         window=window)
+    before = attn_ops.batch_attention.launches
+    out = attn_ops.batch_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                   q_pos.to(cuda), k_pos.to(cuda),
+                                   scale=scale, window=window)
+    assert attn_ops.batch_attention.launches == before + 1
+    assert out.shape == (B, T, H * hd) and out.dtype == torch.bfloat16
+    assert out[0].abs().max().item() == 0
+    _close(out, ref)

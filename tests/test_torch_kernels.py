@@ -16,23 +16,36 @@ bit-identical, only f32 summation order differs):
     bf16, ~2**-9 relative per element).
   * paged_decode vs the interpret kernel: 2**-7 relative + 2**-7 absolute
     (online vs dense softmax changes f32 rounding before the bf16 cast).
+  * radix_topk vs the interpret kernels: exact, values bit for bit and
+    indices.
+  * batch_attention vs the interpret kernel at one S block (the JAX
+    interpreter run op by op): 1 bf16 ulp of the largest |out|, f32
+    summation order only; vs multi-block interpret runs and ``ref.py`` the
+    JAX suite's absolute 0.05 (``tests/test_kernels.py``): the online
+    softmax rounds p against a running max, ``ref.py`` does not round p.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.core import quant as jax_quant
+from repro.kernels.batch_attention import ops as jax_attn
+from repro.kernels.batch_attention.ref import batch_attention_ref
 from repro.kernels.fp8_gemm.kernel import fp8_gemm_pallas
 from repro.kernels.fp8_gemm.ref import fp8_gemm_ref
 from repro.kernels.fp8_grouped_gemm.kernel import fp8_grouped_gemm_pallas
 from repro.kernels.fp8_grouped_gemm.ref import fp8_grouped_gemm_ref
 from repro.kernels.paged_decode import paged_decode_attention as jax_paged
+from repro.kernels.radix_topk import radix_topk as jax_radix_topk
 from repro_torch.core import quant
+from repro_torch.kernels.batch_attention import ops as attn_ops
 from repro_torch.kernels.fp8_gemm import ops as gemm_ops
 from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
 from repro_torch.kernels.paged_decode import ops as decode_ops
+from repro_torch.kernels.radix_topk import ops as topk_ops
 from repro_torch.weights import tensor_from_numpy
 
 ULP = 2.0 ** -7
@@ -163,3 +176,126 @@ def test_paged_decode_plain_matches_pallas(quantized):
     assert ours.shape == theirs.shape == (4, 1, H * HD)
     np.testing.assert_array_equal(ours[2], 0.0)      # empty row -> zeros
     np.testing.assert_allclose(ours, theirs, rtol=ULP, atol=ULP)
+
+
+# ---------------------------------------------------------------------------
+# radix_topk
+# ---------------------------------------------------------------------------
+
+
+def _topk_equal(x: np.ndarray, k: int) -> None:
+    """Port plain vs the JAX kernels: values bit for bit, indices equal."""
+    jv, ji = jax_radix_topk(jnp.asarray(x), k)
+    tv, ti = topk_ops.radix_topk(_t(jnp.asarray(x)), k)
+    assert tv.dtype == torch.float32 and ti.dtype == torch.int32
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                  np.asarray(jv, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("B,V,k", [(4, 1024, 8), (8, 4000, 16), (2, 257, 4),
+                                   (16, 8192, 64), (32, 8256, 8)])
+def test_radix_topk_plain_matches_pallas(B, V, k):
+    """``tests/test_kernels.py``'s four shapes and the engine's select
+    (32 rows of vocab 8256, padded to 10240 columns, k = 8)."""
+    x = np.random.default_rng(B + V).normal(size=(B, V)) * 7
+    _topk_equal(x.astype(np.float32), k)
+
+
+def test_radix_topk_plain_ties_negatives_and_signed_zeros():
+    _topk_equal(np.asarray([[5.0, -1.0, 5.0, 5.0, 2.0, -3.0, 2.0, 0.0]],
+                           np.float32), 5)
+    rng = np.random.default_rng(0)
+    _topk_equal(-np.abs(rng.normal(size=(3, 513))).astype(np.float32), 7)
+    # +0.0 keys rank above -0.0 keys whatever their indices; equal values
+    # come out in index order and a selected -0.0 as +0.0
+    z = np.zeros((4, 64), np.float32)
+    z[:, 1::2] = -0.0
+    z[1, ::5] = -1.0
+    z[2, 3::7] = 2.0
+    z[3] = rng.integers(-2, 3, size=64)
+    for k in (3, 8, 40):
+        _topk_equal(z, k)
+    # bf16 rows: the pad columns are float32 min cast to bf16 (-inf)
+    xb = jnp.asarray(rng.normal(size=(8, 4000)) * 7, jnp.bfloat16)
+    jv, ji = jax_radix_topk(xb, 16)
+    tv, ti = topk_ops.radix_topk(_t(xb), 16)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv, np.float32))
+
+
+# ---------------------------------------------------------------------------
+# batch_attention
+# ---------------------------------------------------------------------------
+
+SWEEP = [(4, 1, 8, 2, 64, 256, 0),       # GQA decode
+         (2, 1, 4, 4, 32, 512, 0),       # MHA decode
+         (2, 64, 8, 2, 64, 64, 0),       # short prefill
+         (2, 1, 4, 1, 64, 512, 64)]      # windowed decode
+
+
+def _attn_case(B, T, H, Kv, hd, S, seed=0):
+    rng = np.random.default_rng(seed + S)
+    q = jnp.asarray(rng.normal(size=(B, T, H, hd)), jnp.bfloat16)
+    k = jnp.asarray(rng.normal(size=(B, S, Kv, hd)), jnp.bfloat16)
+    v = jnp.asarray(rng.normal(size=(B, S, Kv, hd)), jnp.bfloat16)
+    if T == 1:
+        q_pos = np.full((B, 1), S // 2, np.int32)
+    else:
+        q_pos = np.broadcast_to(np.arange(T, dtype=np.int32)[None], (B, T))
+    k_pos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S))
+    return q, k, v, jnp.asarray(q_pos), jnp.asarray(k_pos)
+
+
+def _port_attn(q, k, v, q_pos, k_pos, window, hd):
+    return _f32(attn_ops.batch_attention(
+        _t(q), _t(k), _t(v), _t(q_pos), _t(k_pos),
+        scale=1.0 / np.sqrt(hd), window=window))
+
+
+@pytest.mark.parametrize("B,T,H,Kv,hd,S,window", SWEEP)
+def test_batch_attention_plain_matches_pallas_one_block(B, T, H, Kv, hd, S,
+                                                        window):
+    q, k, v, q_pos, k_pos = _attn_case(B, T, H, Kv, hd, S)
+    with jax.disable_jit():
+        theirs = np.asarray(jax_attn.batch_attention(
+            q, k, v, q_pos, k_pos, window=window), np.float32)
+    ours = _port_attn(q, k, v, q_pos, k_pos, window, hd)
+    assert ours.shape == theirs.shape == (B, T, H * hd)
+    np.testing.assert_allclose(ours, theirs, rtol=0,
+                               atol=ULP * np.abs(theirs).max())
+
+
+@pytest.mark.parametrize("B,T,H,Kv,hd,S,window", SWEEP)
+def test_batch_attention_plain_matches_multi_block_and_ref(B, T, H, Kv, hd,
+                                                           S, window):
+    q, k, v, q_pos, k_pos = _attn_case(B, T, H, Kv, hd, S, seed=1)
+    ours = _port_attn(q, k, v, q_pos, k_pos, window, hd)
+    multi = jax_attn.batch_attention(q, k, v, q_pos, k_pos, window=window,
+                                     block_s=128)
+    G = H // Kv
+    qr = q.reshape(B, T, Kv, G, hd).transpose(0, 2, 3, 1, 4)
+    ref = batch_attention_ref(qr, k.transpose(0, 2, 1, 3),
+                              v.transpose(0, 2, 1, 3), q_pos, k_pos,
+                              scale=1 / np.sqrt(hd), window=window)
+    ref = ref.transpose(0, 3, 1, 2, 4).reshape(B, T, H * hd)
+    for theirs in (multi, ref):
+        np.testing.assert_allclose(ours, np.asarray(theirs, np.float32),
+                                   atol=0.05)
+
+
+def test_batch_attention_plain_ring_buffer_mask():
+    """Empty slots (pos = -1) do not contribute: zeroing them changes
+    nothing, and the result holds against the two-block interpret run."""
+    B, S, Kv, hd = 2, 128, 2, 32
+    q, k, v, _, _ = _attn_case(B, 1, 4, Kv, hd, S)
+    kp = np.where(np.arange(S) % 2 == 0, -1, np.arange(S)).astype(np.int32)
+    k_pos = jnp.asarray(np.broadcast_to(kp[None], (B, S)))
+    q_pos = jnp.full((B, 1), S, jnp.int32)
+    mask = jnp.asarray((kp >= 0)[None, :, None, None], k.dtype)
+    ours = _port_attn(q, k, v, q_pos, k_pos, 0, hd)
+    zeroed = _port_attn(q, k * mask, v * mask, q_pos, k_pos, 0, hd)
+    np.testing.assert_array_equal(ours, zeroed)
+    theirs = jax_attn.batch_attention(q, k, v, q_pos, k_pos, block_s=64)
+    np.testing.assert_allclose(ours, np.asarray(theirs, np.float32),
+                               atol=0.02)

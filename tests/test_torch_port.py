@@ -183,10 +183,10 @@ def test_engine_refuses_a_quiet_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(paged=False), dict(fused_decode="off"), dict(prefix_cache=True),
+    dict(fused_decode="off"), dict(prefix_cache=True),
     dict(prefill_chunk=32), dict(preemption=True), dict(hold_k=4),
     dict(max_candidates=2), dict(mode="fixed"),
-    dict(quant_policy=policy.PAPER_POLICY), dict(use_radix_topk=True)])
+    dict(quant_policy=policy.PAPER_POLICY)])
 def test_unported_engine_settings_name_their_roadmap_item(setting):
     cfg = onerec_v2.reduced_config()
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue N"):

@@ -14,7 +14,12 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``radix_topk`` and prefill-shaped and windowed calls for
    ``batch_attention``; max |diff| against the stated tolerance (identical
    values and indices for ``radix_topk``), kernel / plain / library time,
-   and the roofline bound.
+   and the roofline bound.  ``fp8_gemm`` and ``batch_attention`` are timed
+   against their library call in turns, as device time (the calls
+   captured in a CUDA graph) and as eager calls; ``fp8_gemm`` at every
+   timed shape, its quantization pass and GEMM also apart, its library
+   call with and without ``quantize_per_token``; and the contiguous
+   decode's fp8 -> bf16 dequantization beside ``batch_attention``.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
    in the paged layout and in the contiguous layout with
@@ -87,6 +92,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one call: ``iters`` calls captured in one CUDA graph
+    and replayed, so no host work sits between the launches (what a decode
+    step's kernels cost the card when the host runs ahead of it)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * replays)
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_ops / ops_per_s
@@ -99,17 +130,31 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float):
 # ---------------------------------------------------------------------------
 
 
+def time_turns(fns, iters: int, timer=time_graph_ms):
+    """Mean ms of each named function, timed in turns within one call:
+    the order given, then the reverse (kernel, library, library, kernel).
+    ``timer`` is ``time_graph_ms`` (device time) or ``time_ms`` (eager
+    calls back to back, host work included)."""
+    order = list(fns) + list(reversed(fns))
+    times = {name: [] for name in fns}
+    for name in order:
+        times[name].append(timer(fns[name], iters))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
 def check_fp8_gemm(dev, records):
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels.fp8_gemm import ops
     g = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
+    shapes = []
     # (M, K, N): decode q/o, decode k/v, a 32-request prefill's q/o
     for m, k, n in ((32, 2048, 2048), (32, 2048, 512), (12320, 2048, 2048)):
         x = torch.randn(1, m, k, device=dev, generator=g).to(torch.bfloat16)
         # a pool of weights larger than L2, rotated so every launch streams
-        # its weight from HBM as a decode step does
+        # its weight from HBM as a decode step does; K-major, as PTQ lays
+        # them out
         n_w = -(-(100 << 20) // (k * n))
         ws = [quant.quantize_per_channel(
             torch.randn(1, k, n, device=dev, generator=g) / math.sqrt(k))
@@ -125,37 +170,82 @@ def check_fp8_gemm(dev, records):
             fail(f"fp8_gemm {m}x{k}x{n}: max |diff| {err} > {tol}")
         it = [0]
 
+        def nxt():
+            it[0] = (it[0] + 1) % n_w
+            return it[0]
+
+        # the two passes apart: the quantization pass, and the GEMM on the
+        # xq, sx it made (its split-K counters start at zero)
+        splits, cps, xq, sx, part, counters = ops.scratch(x, ws[0].data)
+        counters.zero_()
+        ops.quantize_pass(x, xq, sx)
+        gout = torch.empty_like(out)
+        ops.gemm_pass(xq, sx, ws[0].data, sws[0], gout, splits, cps, part,
+                      counters)
+        torch.cuda.synchronize()
+        if not torch.equal(gout, out):
+            fail(f"fp8_gemm {m}x{k}x{n}: the GEMM pass alone differs from "
+                 f"the wrapper's call")
+        # library yardstick: rowwise-scaled cuBLASLt fp8 GEMM on operands
+        # already quantized, and with the per-token quantization before it
+        lq = quant.quantize_per_token(x[0])
+
         def kern():
-            i = it[0] = (it[0] + 1) % n_w
+            i = nxt()
             ops.fp8_gemm(x, ws[i].data, sws[i])
 
-        def plain():
-            i = it[0] = (it[0] + 1) % n_w
-            ops.fp8_gemm_plain(x, ws[i].data, sws[i])
+        def quant_pass():
+            ops.quantize_pass(x, xq, sx)
 
-        # library yardstick: rowwise-scaled cuBLASLt fp8 GEMM on operands
-        # already quantized (excludes the row quantization the kernel does)
-        xq = quant.quantize_per_token(x[0])
-        wcs = [w.data[0].t().contiguous().t() for w in ws]
+        def gemm_alone():
+            i = nxt()
+            ops.gemm_pass(xq, sx, ws[i].data, sws[i], gout, splits, cps,
+                          part, counters)
 
         def library():
-            i = it[0] = (it[0] + 1) % n_w
-            torch._scaled_mm(xq.data, wcs[i], scale_a=xq.scale,
+            i = nxt()
+            torch._scaled_mm(lq.data, ws[i].data[0], scale_a=lq.scale,
                              scale_b=sws[i], out_dtype=torch.bfloat16)
 
+        def library_quant():
+            i = nxt()
+            q = quant.quantize_per_token(x[0])
+            torch._scaled_mm(q.data, ws[i].data[0], scale_a=q.scale,
+                             scale_b=sws[i], out_dtype=torch.bfloat16)
+
+        def plain():
+            i = nxt()
+            ops.fp8_gemm_plain(x, ws[i].data, sws[i])
+
         iters = 5 if m > 1024 else 50
-        ms, plain_ms, lib_ms = (time_ms(kern, iters), time_ms(plain, iters),
-                                time_ms(library, iters))
+        t = time_turns(dict(kernel=kern, gemm=gemm_alone, quant=quant_pass,
+                            library=library, library_quant=library_quant),
+                       iters)
+        eager = time_turns(dict(kernel=kern, library=library), iters,
+                           timer=time_ms)
+        plain_ms = time_ms(plain, iters)
         b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
                            2.0 * m * n * k, FP8_OPS_PER_S)
-        print(f"[kernel] fp8_gemm M={m} K={k} N={n}: max|diff|={err:.3g} "
-              f"(tol {tol:.3g}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, torch._scaled_mm {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by})")
-        records.setdefault("fp8_gemm", dict(
-            shape=f"M={m} K={k} N={n}", ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
-    records["fp8_gemm"]["max_abs_err"] = worst
+        path = "prefill" if splits == 0 else f"decode, {splits} splits"
+        print(f"[kernel] fp8_gemm M={m} K={k} N={n} ({path}): "
+              f"max|diff|={err:.3g} (tol {tol:.3g}) kernel {t['kernel']:.4f}"
+              f" ms = quantization {t['quant']:.4f} + GEMM {t['gemm']:.4f} "
+              f"ms; plain {plain_ms:.4f} ms; torch._scaled_mm "
+              f"{t['library']:.4f} ms, quantize_per_token + _scaled_mm "
+              f"{t['library_quant']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+              f"{2.0 * m * n * k / t['gemm'] / 1e9:.1f} TFLOP/s in the GEMM "
+              f"(device times, CUDA graphs); eager calls back to back: "
+              f"kernel {eager['kernel']:.4f} ms, torch._scaled_mm "
+              f"{eager['library']:.4f} ms")
+        shapes.append(dict(
+            shape=f"M={m} K={k} N={n}", path=path, timer="cuda_graph",
+            ms=t["kernel"],
+            quant_ms=t["quant"], gemm_ms=t["gemm"], plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
+            library_with_quant_ms=t["library_quant"],
+            eager_ms=eager["kernel"], library_eager_ms=eager["library"],
+            max_abs_err=err))
+    records["fp8_gemm"] = dict(shapes[0], max_abs_err=worst, shapes=shapes)
 
 
 def check_fp8_grouped_gemm(dev, records):
@@ -191,7 +281,8 @@ def check_fp8_grouped_gemm(dev, records):
               f"plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms "
               f"({b_by})")
         records.setdefault("fp8_grouped_gemm", dict(
-            shape=f"E={e} C={c} K={k} N={n}", ms=ms, plain_ms=plain_ms,
+            shape=f"E={e} C={c} K={k} N={n}", timer="eager", ms=ms,
+            plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
     records["fp8_grouped_gemm"]["max_abs_err"] = worst
 
@@ -297,8 +388,8 @@ def check_paged_decode(dev, records):
                   f"({b_by}, {keys} keys)")
             records["paged_decode"] = dict(
                 shape=f"B={b} Kv={kv} G={g_heads} hd={hd} ps={ps} P={n_p}",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                timer="eager", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
     records["paged_decode"]["max_abs_err"] = worst
 
 
@@ -335,7 +426,8 @@ def check_radix_topk(dev, records):
     print(f"[kernel] radix_topk B={b} V={v} k={k} f32: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms, bound "
           f"{b_ms:.5f} ms ({b_by})")
-    records["radix_topk"] = dict(shape=f"B={b} V={v} k={k} f32", ms=ms,
+    records["radix_topk"] = dict(shape=f"B={b} V={v} k={k} f32",
+                                 timer="eager", ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by, library_ms=lib_ms,
                                  max_abs_err=0.0)
@@ -361,7 +453,9 @@ def _attn_inputs(dev, b, t, h, kv, hd, s, lengths, seed):
 def check_batch_attention(dev, records):
     import torch
     import torch.nn.functional as F
+    from repro_torch.core import quant
     from repro_torch.kernels.batch_attention import ops
+    from repro_torch.layers.attention import _read_kv
     h, kv, hd, s = 16, 4, 128, 388          # full width, S = context_len + 1
     gen = torch.Generator(device="cpu").manual_seed(5)
     serving = [int(x) for x in torch.randint(7, s, (32,), generator=gen)]
@@ -369,8 +463,9 @@ def check_batch_attention(dev, records):
              ("prefill T=64", 4, 64, [64, 200, 388, 70], 0),
              ("decode window=64", 32, 1, serving, 64)]
     worst = 0.0
-    for name, b, t, lengths, window in cases:
-        args = _attn_inputs(dev, b, t, h, kv, hd, s, lengths, seed=t + window)
+    for name, b, t_len, lengths, window in cases:
+        args = _attn_inputs(dev, b, t_len, h, kv, hd, s, lengths,
+                            seed=t_len + window)
         kw = dict(scale=1.0 / math.sqrt(hd), window=window)
         out = ops.batch_attention(*args, **kw)
         ref = ops.batch_attention_plain(*args, **kw)
@@ -380,36 +475,56 @@ def check_batch_attention(dev, records):
         worst = max(worst, err)
         if not err <= tol:
             fail(f"batch_attention {name}: max |diff| {err} > {tol}")
-        print(f"[kernel] batch_attention {name} B={b} T={t} H={h} Kv={kv} "
-              f"hd={hd} S={s}: max|diff|={err:.3g} (tol {tol:.3g})")
+        print(f"[kernel] batch_attention {name} B={b} T={t_len} H={h} "
+              f"Kv={kv} hd={hd} S={s}: max|diff|={err:.3g} (tol {tol:.3g})")
         if name != "decode":
             continue
         q, k, v, q_pos, k_pos = args
-        ms = time_ms(lambda: ops.batch_attention(*args, **kw), 100)
-        plain_ms = time_ms(lambda: ops.batch_attention_plain(*args, **kw),
-                           20)
         # library yardstick on inputs laid out for it beforehand: SDPA with
         # a boolean mask and grouped KV heads
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = ((k_pos[:, None, :] >= 0)
                 & (k_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, scale=kw["scale"], enable_gqa=True),
-            100)
+        fns = dict(
+            kernel=lambda: ops.batch_attention(*args, **kw),
+            library=lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True))
+        t = time_turns(fns, 50)
+        eager = time_turns(fns, 100, timer=time_ms)
+        ms, lib_ms = t["kernel"], t["library"]
+        plain_ms = time_ms(lambda: ops.batch_attention_plain(*args, **kw),
+                           20)
         n_keys = int(mask.sum().item())          # valid (row, key) pairs
         n_bytes = (n_keys * kv * hd * 2 * 2      # the valid keys' K and V
                    + k_pos.numel() * 4 + q_pos.numel() * 4
                    + 2 * q.numel() * 2)          # q in, out
         n_ops = 4.0 * n_keys * h * hd            # QK^T and PV per head
         b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-        print(f"[kernel] batch_attention B={b} T={t} H={h} Kv={kv} hd={hd} "
-              f"S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms ({b_by}, {n_keys} valid keys)")
+        print(f"[kernel] batch_attention B={b} T={t_len} H={h} Kv={kv} "
+              f"hd={hd} S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms (device "
+              f"times, CUDA graphs), bound {b_ms:.5f} ms ({b_by}, {n_keys} "
+              f"valid keys); eager calls back to back: kernel "
+              f"{eager['kernel']:.4f} ms, SDPA {eager['library']:.4f} ms")
         records["batch_attention"] = dict(
-            shape=f"B={b} T={t} H={h} Kv={kv} hd={hd} S={s}", ms=ms,
+            shape=f"B={b} T={t_len} H={h} Kv={kv} hd={hd} S={s}",
+            timer="cuda_graph", ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms)
+            library_ms=lib_ms, eager_ms=eager["kernel"],
+            library_eager_ms=eager["library"])
+        # what runs before the kernel on the contiguous decode path: the
+        # plain fp8 -> bf16 dequantization of the whole row pool, one layer
+        k8, ksc = quant.quantize_kv(k.float())
+        v8, vsc = quant.quantize_kv(v.float())
+        deq_ms = time_graph_ms(
+            lambda: _read_kv(k8, v8, ksc, vsc, torch.bfloat16), 50)
+        deq_bytes = 2 * (k8.numel() + ksc.numel() * 4 + k8.numel() * 2)
+        print(f"[kernel] contiguous decode dequantization (_read_kv, fp8 -> "
+              f"bf16 K and V) B={b} S={s} Kv={kv} hd={hd}: {deq_ms:.4f} ms, "
+              f"bound {deq_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes); "
+              f"batch_attention {ms:.4f} ms")
+        records["batch_attention"]["dequant_ms"] = deq_ms
     records["batch_attention"]["max_abs_err"] = worst
 
 
@@ -593,8 +708,10 @@ def full_width(dev):
     first = np.mean([a[0] == b[0] for a, b in zip(outs, paged_outs)])
     items = np.mean([np.array_equal(a, b) for a, b in zip(outs, paged_outs)])
     print(f"[full-width] contiguous vs paged: first tokens agree on "
-          f"{first:.3f} of requests, whole items on {items:.3f} "
-          f"(information: the two decode attentions round differently)")
+          f"{first:.3f} of requests, whole items on {items:.3f}; every item "
+          f"agrees: {bool(items == 1.0)} (information: both prefills write "
+          f"only the real rows of a padded group, and the two decode "
+          f"attentions round differently)")
     return {"paged": paged, "contiguous": contig}
 
 
@@ -654,7 +771,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": r["shape"], "counted_in": path,
+            "shape": r["shape"], "timer": r["timer"], "counted_in": path,
+            **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
+                                       "library_eager_ms") if key in r},
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)

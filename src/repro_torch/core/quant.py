@@ -100,13 +100,24 @@ def _amax(x: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
     return torch.amax(x.to(torch.float32).abs(), dim=dim, keepdim=keepdim)
 
 
+def k_major(t: torch.Tensor, contract_axis: int = -2) -> torch.Tensor:
+    """The same values and shape, laid out with the contraction axis
+    innermost in memory: an ``(..., in, out)`` kernel becomes the transpose
+    view of a contiguous ``(..., out, in)`` array (``stride(-2) == 1``)."""
+    moved = t.movedim(contract_axis, -1).contiguous()
+    return moved.movedim(-1, contract_axis)
+
+
 def quantize_per_channel(w: torch.Tensor, contract_axis: int = -2,
                          fmt=E4M3) -> QuantizedTensor:
     """Offline weight quantization, one scale per output channel; reduces
     only over the contraction axis, so a stacked ``(L, in, out)`` kernel
-    gets independent ``(L, 1, out)`` scales per layer."""
+    gets independent ``(L, 1, out)`` scales per layer.  The payload is laid
+    out K-major (``k_major``), the layout kernel ``fp8_gemm`` reads; its
+    shape and values are those of the row-major cast."""
     scale = amax_to_scale(_amax(w, contract_axis, keepdim=True), fmt)
-    return QuantizedTensor(cast_to_fp8(w, scale, fmt), scale, "per_channel")
+    data = k_major(cast_to_fp8(w, scale, fmt), contract_axis)
+    return QuantizedTensor(data, scale, "per_channel")
 
 
 def quantize_per_token(x: torch.Tensor, fmt=E4M3) -> QuantizedTensor:

@@ -1,6 +1,6 @@
-// Shared machinery of the two fp8 GEMM kernels (fp8_gemm.cu,
-// fp8_grouped_gemm.cu): e4m3 x e4m3 products on the tensor cores with
-// mma.sync.m16n8k32, f32 accumulation.
+// Machinery of the block-scaled fp8 grouped GEMM (fp8_grouped_gemm.cu):
+// e4m3 x e4m3 products on the tensor cores with mma.sync.m16n8k32, f32
+// accumulation.
 //
 // Each wrapper call launches two kernels.  quantize_groups_kernel casts the
 // bf16 activations to e4m3 once, one warp per (row, group of G columns):

@@ -15,7 +15,8 @@ which is what the JAX wrapper runs for S <= 512 (the engine's S is
 masked keys at -2e38, ``p = exp(s - max)`` zeroed where masked, ``l`` its
 f32 sum, the PV product of p ROUNDED TO V's DTYPE (bf16) summed in f32,
 then ``acc / max(l, 1e-20)`` (0 for a row with no valid key) as bf16.  The
-kernel folds 32-key tiles into an online softmax, so its p is rounded
+kernel folds 128-key tiles (64 above head_dim 128) into an online
+softmax, so its p is rounded
 relative to the running max; the two agree to a bf16 ulp of the output.
 ``repro/kernels/batch_attention/ref.py`` normalises first and keeps p in
 f32: it differs from both by the bf16 rounding of p, at most 2**-9 of the
@@ -25,12 +26,14 @@ largest |v| (the JAX suite's bound against it is an absolute 0.05).
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
+MAX_HEAD_DIM = 256
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
@@ -57,12 +60,17 @@ def batch_attention_plain(q, k, v, q_pos, k_pos, *, scale: float,
             .reshape(b, t, h * hd))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("batch_attention")
-    fn = lib.batch_attention_launch
-    fn.argtypes = [_VP] * 6 + [_I] * 6 + [_F, _I, _VP]
-    fn.restype = _I
-    return lib
+_FNS: Dict[str, Any] = {}
+
+
+def _launch():
+    """The library's entry point, typed once."""
+    if not _FNS:
+        fn = build.load("batch_attention").batch_attention_launch
+        fn.argtypes = [_VP] * 6 + [_I] * 6 + [_F, _I, _VP]
+        fn.restype = _I
+        _FNS["launch"] = fn
+    return _FNS["launch"]
 
 
 def batch_attention(q, k, v, q_pos, k_pos, *, scale: float,
@@ -79,10 +87,11 @@ def batch_attention(q, k, v, q_pos, k_pos, *, scale: float,
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
         raise TypeError(f"batch_attention kernel takes bf16 q, k and v; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if hd % 32 or hd > 1024 or h % kv:
+    if hd % 32 or hd > MAX_HEAD_DIM or h % kv:
         raise ValueError(f"batch_attention kernel takes head_dim a multiple "
-                         f"of 32 up to 1024 and H a multiple of Kv; got "
-                         f"hd={hd}, H={h}, Kv={kv}")
+                         f"of 32 up to {MAX_HEAD_DIM} (its ring of bf16 K/V "
+                         f"tiles fills shared memory) and H a "
+                         f"multiple of Kv; got hd={hd}, H={h}, Kv={kv}")
     if (tuple(k.shape) != (b, s_len, kv, hd) or v.shape != k.shape
             or tuple(q_pos.shape) != (b, t)
             or tuple(k_pos.shape) != (b, s_len)):
@@ -96,7 +105,7 @@ def batch_attention(q, k, v, q_pos, k_pos, *, scale: float,
             raise ValueError("batch_attention takes contiguous tensors on "
                              "one device")
     out = torch.empty((b, t, h * hd), dtype=torch.bfloat16, device=q.device)
-    code = _lib().batch_attention_launch(
+    code = _launch()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
         k_pos.data_ptr(), out.data_ptr(), b, t, h, kv, s_len, hd,
         float(scale), int(window),

@@ -97,7 +97,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(code: int, name: str) -> None:
-    """Raise on a nonzero ``cudaGetLastError`` code returned by a launch."""
+    """Raise on a nonzero code returned by a launch: a ``cudaGetLastError``
+    code, or minus the ``CUresult`` of a refused TMA tensor-map encoding."""
+    if code < 0:
+        raise RuntimeError(f"{name}: TMA tensor-map encoding failed with "
+                           f"CUresult {-code}")
     if code != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{code}")

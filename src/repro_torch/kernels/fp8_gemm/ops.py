@@ -4,22 +4,33 @@ batch dim.
 
 Replaces ``repro/kernels/fp8_gemm/kernel.py`` (``fp8_gemm_pallas``); the
 CUDA source is ``src/repro_torch/csrc/fp8_gemm.cu`` (one call launches the
-quantization pass and the tensor-core GEMM, see ``csrc/fp8_mma.cuh``).  The wrapper
-dispatches on the tensor's device: a CPU tensor runs the plain version
-(the port of ``repro/kernels/fp8_gemm/ref.py``, i.e. ``fp8_linear``'s
-per-token path), a CUDA tensor launches the kernel or raises.
+quantization pass and the TMA + wgmma GEMM, see ``csrc/sm90_fp8.cuh``).
+The wrapper dispatches on the tensor's device: a CPU tensor runs the plain
+version (the port of ``repro/kernels/fp8_gemm/ref.py``, i.e.
+``fp8_linear``'s per-token path), a CUDA tensor launches the kernel or
+raises.
+
+The kernel reads the weight K-major: ``wq`` (E, K, N) must be the transpose
+view of an (E, N, K) array (``wq.stride(-2) == 1``), the layout
+``core.quant.quantize_per_channel`` gives every per-channel payload.  Any
+other layout raises: the wrapper never transposes per call.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.core import quant
 from repro_torch.kernels import build
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+CHUNK = 128           # K bytes per pipeline stage (one 128-byte swizzle row)
+PREFILL_MIN_M = 256   # rows per batch entry from which the prefill path runs
+DECODE_TILE_M, DECODE_TILE_N = 32, 64
 
 
 def fp8_gemm_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
@@ -31,21 +42,24 @@ def fp8_gemm_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     return (acc * xq.scale * sw[:, None, :]).to(out_dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("fp8_gemm")
-    fn = lib.fp8_gemm_launch
-    fn.argtypes = [_VP] * 6 + [_I] * 4 + [_VP]
-    fn.restype = _I
-    return lib
+def plan(e: int, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
+    """``(splits, chunks per split)`` of one call: splits 0 is the prefill
+    path (M >= 256); else the decode path splits K's 128-deep chunks so
+    that about one block per SM streams the weight (fewer splits leave
+    fewer partials to add: on an H100 one block per SM beat two at the
+    decode q/o shape)."""
+    if m >= PREFILL_MIN_M:
+        return 0, 0
+    chunks = -(-k // CHUNK)
+    tiles = e * -(-m // DECODE_TILE_M) * -(-n // DECODE_TILE_N)
+    splits = min(chunks, max(1, -(-sms // tiles)))
+    cps = -(-chunks // splits)
+    return -(-chunks // cps), cps
 
 
-def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
-             out_dtype=torch.bfloat16) -> torch.Tensor:
-    """x (E, M, K) bf16 @ (wq (E, K, N) e4m3, sw (E, N) f32) -> (E, M, N)."""
-    if x.device.type == "cpu":
-        return fp8_gemm_plain(x, wq, sw, out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"fp8_gemm: unsupported device {x.device}")
+def check_layout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                 out_dtype) -> None:
+    """Raise on what the kernel does not take (types, shapes, layout)."""
     e, m, k = x.shape
     n = wq.shape[-1]
     if (x.dtype != torch.bfloat16 or wq.dtype != torch.float8_e4m3fn
@@ -56,21 +70,140 @@ def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
     if tuple(wq.shape) != (e, k, n) or tuple(sw.shape) != (e, n):
         raise ValueError(f"fp8_gemm shapes: x {tuple(x.shape)}, w "
                          f"{tuple(wq.shape)}, sw {tuple(sw.shape)}")
-    for t in (x, wq, sw):
-        if not t.is_contiguous() or t.device != x.device:
-            raise ValueError("fp8_gemm takes contiguous tensors on one "
-                             "device")
+    if k % 16:
+        raise ValueError(f"fp8_gemm kernel needs K % 16 == 0 (TMA copies "
+                         f"rows of K bytes at 16-byte strides); got K={k}")
+    se, sk, sn = wq.stride()
+    if sk != 1 or sn % 16 or (e > 1 and se % 16):
+        raise ValueError(
+            f"fp8_gemm kernel takes the weight K-major: wq (E, K, N) as the "
+            f"transpose view of an (E, N, K) array, wq.stride(-2) == 1 and "
+            f"the other strides multiples of 16 (the layout "
+            f"quant.quantize_per_channel gives); got strides {wq.stride()}")
+    if not (x.is_contiguous() and sw.is_contiguous()):
+        raise ValueError("fp8_gemm takes contiguous x and sw")
+    if x.device != wq.device or sw.device != x.device:
+        raise ValueError("fp8_gemm takes tensors on one device")
+    if x.data_ptr() % 16 or wq.data_ptr() % 16:
+        raise ValueError("fp8_gemm takes 16-byte aligned x and wq")
+
+
+_FNS: Dict[str, Any] = {}
+_SMS: Dict[int, int] = {}
+
+
+def _fns() -> Dict[str, Any]:
+    """The library's entry points, typed once."""
+    if not _FNS:
+        lib = build.load("fp8_gemm")
+        for name, args in (("fp8_gemm_launch", 8), ("fp8_gemm_mma_launch",
+                                                     7)):
+            fn = getattr(lib, name)
+            fn.argtypes = [_VP] * args + [_I] * 4 + [_LL] * 2 + [_I] * 2 \
+                + [_VP]
+            fn.restype = _I
+            _FNS[name] = fn
+        fn = lib.fp8_gemm_quantize_launch
+        fn.argtypes = [_VP] * 3 + [_LL, _I, _VP]
+        fn.restype = _I
+        _FNS["quantize"] = fn
+    return _FNS
+
+
+def _sms(device: torch.device) -> int:
+    i = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def _layout(e: int, m: int, n: int, k: int, splits: int):
+    """The scratch of one call in one allocation: byte offsets of xq
+    (E, M, K) u8, sx (E, M) f32, the split-K partials (one 64 x 32 f32
+    tile per split and tile) and the counters (one per tile); each region
+    16-byte aligned.  Returns (offsets, total bytes, partial floats,
+    counters)."""
+    tiles = e * -(-m // DECODE_TILE_M) * -(-n // DECODE_TILE_N)
+    n_part = max(1, splits * tiles * DECODE_TILE_M * DECODE_TILE_N)
+    n_count = tiles if splits else 1
+    sizes = [e * m * k, e * m * 4, n_part * 4, n_count * 4]
+    sizes = [-(-size // 16) * 16 for size in sizes]
+    offs = [sum(sizes[:i]) for i in range(4)]
+    return offs, sum(sizes), n_part, n_count
+
+
+def scratch(x: torch.Tensor, wq: torch.Tensor):
+    """The call's plan and scratch as tensors, for running the two passes
+    apart: (splits, cps, xq (E, M, K) u8, sx (E, M) f32, part f32,
+    counters i32)."""
+    e, m, k = x.shape
+    n = wq.shape[-1]
+    splits, cps = plan(e, m, n, k, _sms(x.device))
+    offs, total, n_part, n_count = _layout(e, m, n, k, splits)
+    buf = torch.empty(total, dtype=torch.uint8, device=x.device)
+    xq = buf[offs[0]:offs[0] + e * m * k].view(e, m, k)
+    sx = buf[offs[1]:offs[1] + e * m * 4].view(torch.float32).view(e, m)
+    part = buf[offs[2]:offs[2] + n_part * 4].view(torch.float32)
+    counters = buf[offs[3]:offs[3] + n_count * 4].view(torch.int32)
+    return splits, cps, xq, sx, part, counters
+
+
+def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
+             out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x (E, M, K) bf16 @ (wq (E, K, N) e4m3 K-major, sw (E, N) f32)
+    -> (E, M, N)."""
+    if x.device.type == "cpu":
+        return fp8_gemm_plain(x, wq, sw, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"fp8_gemm: unsupported device {x.device}")
+    check_layout(x, wq, sw, out_dtype)
+    e, m, k = x.shape
+    n = wq.shape[-1]
     out = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
-    # scratch: x quantized once per call, and its row scales
-    xq = torch.empty((e, m, k), dtype=torch.uint8, device=x.device)
-    sx = torch.empty((e, m), dtype=torch.float32, device=x.device)
-    code = _lib().fp8_gemm_launch(
-        x.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(),
-        xq.data_ptr(), sx.data_ptr(), e, m, n, k,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    if out.numel() == 0:
+        return out
+    splits, cps = plan(e, m, n, k, _sms(x.device))
+    offs, total, _, _ = _layout(e, m, n, k, splits)
+    # one allocation (its counters are zeroed by the quantization pass)
+    buf = torch.empty(total, dtype=torch.uint8, device=x.device)
+    xq, sx, part, counters = (buf.data_ptr() + off for off in offs)
+    code = _fns()["fp8_gemm_launch"](
+        x.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(), xq, sx,
+        part, counters, e, m, n, k, wq.stride(-1), _e_stride(wq), splits,
+        cps, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "fp8_gemm")
     fp8_gemm.launches += 1
     return out
 
 
 fp8_gemm.launches = 0
+
+
+def _e_stride(wq: torch.Tensor) -> int:
+    return wq.stride(0) if wq.shape[0] > 1 else wq.shape[-1] * wq.stride(-1)
+
+
+def quantize_pass(x: torch.Tensor, xq: torch.Tensor,
+                  sx: torch.Tensor) -> None:
+    """The quantization pass of ``fp8_gemm`` alone, into ``xq``, ``sx``
+    (for timing it apart from the GEMM; not a path of the port)."""
+    e, m, k = x.shape
+    build.check(_fns()["quantize"](
+        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), e * m, k,
+        torch.cuda.current_stream(x.device).cuda_stream), "fp8_gemm")
+
+
+def gemm_pass(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
+              sw: torch.Tensor, out: torch.Tensor, splits: int, cps: int,
+              part: torch.Tensor, counters: torch.Tensor) -> None:
+    """The GEMM of ``fp8_gemm`` alone on an already quantized ``xq``,
+    ``sx`` (for timing it apart; not a path of the port).  ``counters``
+    must hold zeros on the first call; each call leaves them so."""
+    e, m, k = xq.shape
+    n = wq.shape[-1]
+    build.check(_fns()["fp8_gemm_mma_launch"](
+        xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), e, m, n, k,
+        wq.stride(-1), _e_stride(wq), splits, cps,
+        torch.cuda.current_stream(xq.device).cuda_stream), "fp8_gemm")

@@ -273,7 +273,13 @@ class PhaseExecutor:
         b, t_eff = tok.shape[0], tok.shape[1] + 1
         logical = np.broadcast_to(np.arange(t_eff, dtype=INDEX_DTYPE)[None],
                                   (b, t_eff))
-        valid = logical < (as_index(lengths)[:, None] + 1)
+        # only the real rows are written: the batch-padding duplicates of
+        # the last request (rows >= len(slots)) would land on its pages too,
+        # with K/V that differ from the real row's under MoE capacity drops
+        # (the JAX executor writes them as well; a duplicate scatter has no
+        # defined winner on the card)
+        real = np.arange(b)[:, None] < len(slots)
+        valid = (logical < (as_index(lengths)[:, None] + 1)) & real
         write = self._page_write(
             self._scatter_indices(slot_ids, logical, valid))
         fresh = tfm_model.init_kv_cache(self.cfg.transformer, b, t_eff,

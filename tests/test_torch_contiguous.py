@@ -221,3 +221,56 @@ def test_launcher_honours_paged(capsys):
     assert "paged KV" in capsys.readouterr().out
     with pytest.raises(SystemExit):
         serve.main(argv + ["--fused-decode", "auto"])
+
+
+def test_paged_prefill_writes_only_real_rows(monkeypatch):
+    """A join group of 5 is padded to 8 by duplicating its last request.
+    The paged prefill scatters only the 5 real rows (every ``KVWrite.src``
+    lies in a real row, every real position is written), and afterwards
+    the paged and the contiguous pool hold the same K/V bytes for every
+    slot.  The reduced config at its default capacity factor (1.5), fp8
+    weights and fp8 KV: in this group the duplicates lose MoE capacity
+    where the real row does not, so a scatter that wrote them too would
+    leave other bytes on the real row's pages."""
+    from repro_torch.serving.requests import build_requests
+    cfg = onerec_v2.reduced_config()
+    params = onerec.init_onerec(3, cfg, device="cpu")
+    reqs = build_requests(cfg, 5, 5, seed=3, ragged=True)
+    hists = [np.asarray(r["tokens"]) for r in reqs]
+    profs = [np.asarray(r["profile"]) for r in reqs]
+    slots = [6, 0, 3, 1, 4]
+    kw = dict(n_slots=8, device=torch.device("cpu"),
+              kv_dtype="float8_e4m3fn")
+    paged = PhaseExecutor(params, cfg, page_size=8, n_pages=40, **kw)
+    contig = PhaseExecutor(params, cfg, paged=False, **kw)
+    for s, h in zip(slots, hists):
+        assert paged.grant_slot(s, len(h) + 3)
+    writes = []
+    page_write = paged._page_write
+
+    def spy(psc):
+        writes.append((psc, page_write(psc)))
+        return writes[-1][1]
+
+    monkeypatch.setattr(paged, "_page_write", spy)
+    paged.prefill_insert(hists, profs, slots)
+    contig.prefill_insert(hists, profs, slots)
+    (psc, write), = writes
+    b, t_eff = psc.shape
+    assert b == 8 and paged.counters["prefill_padded_rows"] == 3
+    assert (write.src.numpy() // t_eff < len(slots)).all()
+    assert len(write.src) == sum(len(h) + 1 for h in hists)
+
+    ps = paged.page_size
+    for pool, rows in zip(paged._pool_leaves(), contig._pool_leaves()):
+        assert set(pool) == set(rows) and "k_scale" in pool
+        for s, h in zip(slots, hists):
+            pos = np.arange(len(h) + 1)
+            phys = torch.as_tensor(paged._table_mat[s][pos // ps] * ps
+                                   + pos % ps, dtype=torch.int64)
+            for name in pool:
+                a = pool[name][:, phys]
+                c = rows[name][:, s, :len(pos)]
+                if a.dtype.is_floating_point and a.element_size() == 1:
+                    a, c = a.view(torch.uint8), c.view(torch.uint8)
+                assert torch.equal(a, c), (s, name)

@@ -40,17 +40,41 @@ def _close(out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,M,K,N", [(1, 32, 2048, 512), (3, 70, 256, 200)])
+@pytest.mark.parametrize("E,M,K,N", [
+    (1, 32, 2048, 2048),     # decode q/o: swap-AB, split K
+    (1, 32, 2048, 512),      # decode k/v
+    (3, 70, 256, 200),       # ragged M and N, batch of 3
+    (2, 5, 272, 96),         # a ragged last 128-deep chunk
+    (1, 32, 4096, 256),      # rows too long to hold in registers
+    (1, 4100, 2048, 2048),   # prefill: TMA + wgmma, ragged last row tile
+    (2, 300, 384, 200),      # prefill, batch of 2, ragged M and N
+])
 def test_fp8_gemm_kernel_matches_plain(cuda, E, M, K, N):
+    """K-major weights from quantize_per_channel, through the decode
+    (M < 256) and prefill paths."""
     g = torch.Generator(device=cuda).manual_seed(0)
     x = torch.randn(E, M, K, device=cuda, generator=g).to(torch.bfloat16)
     wq = quant.quantize_per_channel(
         torch.randn(E, K, N, device=cuda, generator=g))
+    assert wq.data.stride(-2) == 1
     sw = wq.scale.reshape(E, N).contiguous()
     before = gemm_ops.fp8_gemm.launches
     out = gemm_ops.fp8_gemm(x, wq.data, sw)
     assert gemm_ops.fp8_gemm.launches == before + 1
     _close(out, gemm_ops.fp8_gemm_plain(x, wq.data, sw))
+
+
+@pytest.mark.cuda
+def test_fp8_gemm_kernel_refuses_a_row_major_weight(cuda):
+    """The kernel reads the weight K-major and never transposes per call:
+    an (E, K, N) row-major payload raises, and launches nothing."""
+    x = torch.randn(1, 32, 256, device=cuda).to(torch.bfloat16)
+    wq = quant.quantize_per_channel(torch.randn(1, 256, 128, device=cuda))
+    sw = wq.scale.reshape(1, 128).contiguous()
+    before = gemm_ops.fp8_gemm.launches
+    with pytest.raises(ValueError, match="K-major"):
+        gemm_ops.fp8_gemm(x, wq.data.contiguous(), sw)
+    assert gemm_ops.fp8_gemm.launches == before
 
 
 @pytest.mark.cuda
@@ -135,6 +159,9 @@ def test_radix_topk_kernel_matches_plain(cuda, B, V, k, dtype):
     (32, 1, 16, 4, 128, 388, 0),      # the engine's decode shape
     (2, 64, 16, 4, 128, 96, 0),       # prefill-shaped, causal
     (4, 1, 8, 2, 64, 300, 48),        # windowed decode
+    (4, 64, 16, 4, 128, 388, 0),      # T = 64 at full width
+    (32, 1, 16, 4, 128, 388, 64),     # windowed, at the engine's shape
+    (3, 2, 8, 2, 256, 200, 0),        # head_dim 256: 64-key tiles
 ])
 def test_batch_attention_kernel_matches_plain(cuda, B, T, H, Kv, hd, S,
                                               window):

@@ -104,6 +104,103 @@ def test_fp8_grouped_linear_matches_jax():
     _close(_f32(ours), theirs)
 
 
+def test_fp8_linear_on_ptq_layer_slices_matches_jax():
+    """Every per-channel leaf of the reduced OneRec-V2 after each package's
+    PTQ, layer by layer: ``fp8_linear`` (q/k/v/o) and ``fp8_grouped_linear``
+    (the non-128-aligned experts) on the port's K-major slices against JAX
+    on its own."""
+    from repro.configs import onerec_v2 as jax_onerec_v2
+    from repro.core.ptq import quantize_params as jax_ptq
+    from repro.models import onerec as jax_onerec
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.tree import leaves_with_path
+    from repro_torch.weights import params_from_numpy
+    params = jax_onerec.init_onerec(jax.random.PRNGKey(7),
+                                    jax_onerec_v2.reduced_config())
+    theirs = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            p = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                walk(v, p)
+            else:
+                theirs[p] = v
+    walk(jax_ptq(params))
+    ours = quantize_params(params_from_numpy(jax.tree.map(np.asarray,
+                                                          params)))
+    rng = np.random.default_rng(8)
+    n_linear = n_grouped = 0
+    for path, w in leaves_with_path(ours):
+        if not isinstance(w, quant.QuantizedTensor) \
+                or w.granularity != "per_channel":
+            continue
+        for i in range(w.data.shape[0]):
+            jw = jax.tree.map(lambda a, i=i: a[i], theirs[path])
+            k, n = w.data.shape[-2:]
+            if w.data.ndim == 3:
+                x = jnp.asarray(rng.normal(size=(2, 3, k)), jnp.bfloat16)
+                theirs_out = jax_quant.fp8_linear(x, jw)
+                ours_out = quant.fp8_linear(_t(x), w[i])
+                n_linear += 1
+            else:
+                e = w.data.shape[1]
+                x = jnp.asarray(rng.normal(size=(e, 4, k)), jnp.bfloat16)
+                theirs_out = jax_quant.fp8_grouped_linear(x, jw)
+                ours_out = quant.fp8_grouped_linear(_t(x), w[i])
+                n_grouped += 1
+            assert w[i].data.stride(-2) == 1
+            _close(_f32(ours_out), theirs_out)
+    assert n_linear >= 8 and n_grouped >= 6
+
+
+@pytest.mark.parametrize("E,M,K,N", [(1, 32, 2048, 2048), (1, 32, 2048, 512),
+                                     (3, 70, 256, 200), (1, 1, 64, 32),
+                                     (16, 8, 2048, 4096)])
+def test_fp8_gemm_decode_plan_covers_k_and_fills_the_card(E, M, K, N):
+    """The decode path's split of K: every 128-deep chunk in exactly one
+    split, no empty split, and a block on at least three quarters of the
+    132 SMs wherever K has the chunks for it (the plan aims at one block
+    per SM; rounding the chunks per split up can leave a few SMs idle)."""
+    splits, cps = gemm_ops.plan(E, M, N, K, 132)
+    chunks = -(-K // gemm_ops.CHUNK)
+    assert splits >= 1 and (splits - 1) * cps < chunks <= splits * cps
+    tiles = E * -(-M // 32) * -(-N // 64)
+    assert 4 * tiles * splits >= 3 * min(132, tiles * chunks)
+
+
+def test_fp8_gemm_prefill_plan():
+    assert gemm_ops.plan(1, 12320, 2048, 2048, 132) == (0, 0)
+    assert gemm_ops.plan(1, 255, 2048, 2048, 132)[0] >= 1
+
+
+@pytest.mark.parametrize("case", ["row-major", "k-ragged", "dtype",
+                                  "shape"])
+def test_fp8_gemm_kernel_layout_checks(case):
+    """What the CUDA kernel refuses, named before any launch: a row-major
+    weight (the kernel reads it K-major and never transposes per call),
+    K % 16 != 0 (TMA's 16-byte row strides), other dtypes and shapes.
+    ``check_layout`` is pure Python, so it runs here on CPU tensors."""
+    k = 80 if case == "k-ragged" else 64
+    x = torch.randn(1, 4, k).to(torch.bfloat16)
+    wq = quant.quantize_per_channel(torch.randn(1, k, 48))
+    sw = wq.scale.reshape(1, 48).contiguous()
+    w = wq.data
+    gemm_ops.check_layout(x, w, sw, torch.bfloat16)     # K-major: accepted
+    if case == "row-major":
+        w, err, match = w.contiguous(), ValueError, "K-major"
+    elif case == "k-ragged":
+        x = torch.randn(1, 4, 72).to(torch.bfloat16)
+        w = quant.quantize_per_channel(torch.randn(1, 72, 48)).data
+        err, match = ValueError, "K % 16"
+    elif case == "dtype":
+        x, err, match = x.float(), TypeError, "bf16 x"
+    else:
+        sw, err, match = sw[:, :40].contiguous(), ValueError, "shapes"
+    with pytest.raises(err, match=match):
+        gemm_ops.check_layout(x, w, sw, torch.bfloat16)
+
+
 @pytest.mark.parametrize("E,C,K,N", [(2, 8, 256, 128), (3, 32, 384, 256)])
 def test_fp8_grouped_gemm_plain_matches_pallas_and_ref(E, C, K, N):
     rng = np.random.default_rng(E * C + K)

@@ -111,6 +111,64 @@ def test_ptq_bit_identical(reduced_params, aligned):
         assert ours["stacks/0/p0/moe/experts/gate"].granularity == "block"
 
 
+@pytest.mark.parametrize("aligned", [False, True], ids=["reduced", "aligned"])
+def test_ptq_lays_per_channel_payloads_k_major(reduced_params, aligned):
+    """Every per-channel fp8 leaf is the transpose view of a contiguous
+    ``(..., out, in)`` array (the layout kernel ``fp8_gemm`` reads), keeps
+    its ``(..., in, out)`` shape, and holds the JAX PTQ's bytes; its layer
+    slices (``QuantizedTensor.__getitem__``) stay K-major."""
+    params = reduced_params
+    if aligned:
+        rng = np.random.default_rng(1)
+        params = {"stacks": {"0": {"p0": {"attn": {"o_proj": {
+            "kernel": jnp.asarray(rng.normal(size=(3, 256, 128)),
+                                  jnp.float32)}}}}}}
+    theirs = dict(_jax_leaves(jax_quantize_params(params)))
+    n_channel = 0
+    for path, o in leaves_with_path(quantize_params(torch_params(params))):
+        if not isinstance(o, quant.QuantizedTensor) \
+                or o.granularity != "per_channel":
+            continue
+        n_channel += 1
+        t = theirs[path]
+        assert tuple(o.data.shape) == tuple(t.data.shape), path
+        assert o.data.stride(-2) == 1, (path, o.data.stride())
+        assert o.data.mT.is_contiguous(), path
+        np.testing.assert_array_equal(o.data.view(torch.uint8).numpy(),
+                                      _bytes(t.data))
+        layer = o[o.data.shape[0] - 1]
+        assert layer.data.stride(-2) == 1 and layer.data.mT.is_contiguous()
+    assert n_channel >= 1
+
+
+@pytest.mark.parametrize("which", ["reduced", "paged_test", "aligned"])
+def test_fp8_gemm_kernel_takes_every_per_channel_leaf(which):
+    """The CUDA ``fp8_gemm`` wrapper's checks (pure Python, so they run
+    here) accept every layer slice of every per-channel leaf of the small
+    configs after PTQ: K % 16 == 0 and K-major strides.  The full-width
+    config's contraction dims (d_model, heads x head_dim) meet K % 16 too."""
+    from _torch_parity import aligned_cfg, paged_test_cfg
+    from repro_torch.kernels.fp8_gemm import ops as gemm_ops
+    from repro_torch.models.onerec import init_onerec
+    cfg = {"reduced": onerec_v2.reduced_config, "paged_test": paged_test_cfg,
+           "aligned": aligned_cfg}[which]()
+    params = quantize_params(init_onerec(0, cfg, device="cpu"))
+    n_checked = 0
+    for path, w in leaves_with_path(params):
+        if not isinstance(w, quant.QuantizedTensor) \
+                or w.granularity != "per_channel":
+            continue
+        for i in range(w.data.shape[0]):
+            wi = w[i].data if w.data.ndim == 4 else w[i].data[None]
+            e, k, n = wi.shape
+            x = torch.zeros(e, 1, k, dtype=torch.bfloat16)
+            gemm_ops.check_layout(x, wi, torch.zeros(e, n), torch.bfloat16)
+            n_checked += 1
+    assert n_checked >= 8
+    full = onerec_v2.CONFIG.transformer
+    assert full.d_model % 16 == 0 and (full.n_heads * full.head_dim) % 16 == 0
+
+
 @pytest.mark.parametrize("shape", [(4, 7, 2, 16), (3, 5, 4, 128)])
 def test_quantize_kv_bit_identical(shape):
     rng = np.random.default_rng(1)

@@ -10,16 +10,20 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. Kernel checks: each kernel against its plain PyTorch version on the card
    at the full-width OneRec-V2 shapes of the serving path, plus adversarial
-   page layouts for ``paged_decode``, rows of ties and +-0.0 for
-   ``radix_topk`` and prefill-shaped and windowed calls for
+   page layouts and a tree-decode case for ``paged_decode``, rows of ties
+   and +-0.0 for ``radix_topk`` and prefill-shaped and windowed calls for
    ``batch_attention``; max |diff| against the stated tolerance (identical
    values and indices for ``radix_topk``), kernel / plain / library time,
-   and the roofline bound.  ``fp8_gemm`` and ``batch_attention`` are timed
-   against their library call in turns, as device time (the calls
-   captured in a CUDA graph) and as eager calls; ``fp8_gemm`` at every
-   timed shape, its quantization pass and GEMM also apart, its library
-   call with and without ``quantize_per_token``; and the contiguous
-   decode's fp8 -> bf16 dequantization beside ``batch_attention``.
+   and the roofline bound.  Kernels are timed as device time (the calls
+   captured in a CUDA graph) and as eager calls, against their library
+   call in turns where there is one; ``fp8_gemm`` and ``fp8_grouped_gemm``
+   at every timed shape (decode and prefill), their quantization pass and
+   GEMM also apart, their library calls with and without the activation
+   quantization (the grouped GEMM's block-scaled library calls are
+   recorded with the build's refusal where it refuses them), the grouped
+   GEMM's two paths against each other around their threshold; and the
+   contiguous decode's fp8 -> bf16 dequantization beside
+   ``batch_attention``.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
    in the paged layout and in the contiguous layout with
@@ -248,15 +252,73 @@ def check_fp8_gemm(dev, records):
     records["fp8_gemm"] = dict(shapes[0], max_abs_err=worst, shapes=shapes)
 
 
+def _library_scale_b(sw):
+    """The weight's 128 x 128 scales in the layout ``scaled_mm`` takes for
+    BlockWise128x128 (per expert (L4, N/128) with strides (1, L4), K/128
+    padded to L4, a multiple of 4), laid out once as PTQ would."""
+    import torch
+    e, kb, nb = sw.shape
+    l4 = -(-kb // 4) * 4
+    sbt = torch.zeros(e, nb, l4, dtype=torch.float32, device=sw.device)
+    sbt[:, :, :kb] = sw.transpose(1, 2)
+    return sbt
+
+
+def _grouped_library(xq, sx, wq, sbt):
+    """The library calls that compute ``fp8_grouped_gemm``'s GEMM on
+    operands quantized beforehand (xq (E, C, K) e4m3, sx (E, K/128, C) f32
+    as the kernel's quantization pass lays them out, wq K-major, sbt from
+    ``_library_scale_b``): ``scaled_grouped_mm`` over the experts (one call,
+    ``offs``) and ``scaled_mm`` with BlockWise1x128 x BlockWise128x128
+    scales, in a loop over the experts (not one call)."""
+    import torch
+    import torch.nn.functional as F
+    e, c, k = xq.shape
+    offs = torch.arange(1, e + 1, dtype=torch.int32, device=xq.device) * c
+
+    def recipes():     # looked up at the call: a build may lack them
+        return F.ScalingType.BlockWise1x128, F.ScalingType.BlockWise128x128
+
+    return {
+        "scaled_grouped_mm": lambda: F.scaled_grouped_mm(
+            xq.reshape(e * c, k), wq,
+            sx.transpose(1, 2).reshape(e * c, k // 128), recipes()[0],
+            sbt.transpose(1, 2), recipes()[1], offs=offs,
+            output_dtype=torch.bfloat16),
+        "scaled_mm per-expert loop": lambda: [F.scaled_mm(
+            xq[i], wq[i], sx[i].t(), recipes()[0], sbt[i].t(), recipes()[1],
+            output_dtype=torch.bfloat16) for i in range(e)],
+    }
+
+
+def _refusals(calls):
+    """Run each library call once: {name: None if it ran, else the error
+    text of the build's refusal}."""
+    import torch
+    found = {}
+    for name, fn in calls.items():
+        try:                   # a library yardstick, not a path of the port
+            fn()
+            torch.cuda.synchronize()
+            found[name] = None
+        except Exception as exc:          # noqa: BLE001 -- recorded
+            found[name] = (f"{type(exc).__name__}: "
+                           f"{str(exc).strip().splitlines()[0][:300]}")
+    return found
+
+
 def check_fp8_grouped_gemm(dev, records):
     import torch
     from repro_torch.core import quant
     from repro_torch.kernels.fp8_grouped_gemm import ops
     g = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
-    # (E, C, K, N): decode gate/up, decode down, a 32-request prefill's gate
+    shapes = []
+    # (E, C, K, N): decode gate/up and down (C = 8 rows per expert), and a
+    # 32-request prefill group's gate/up and down (C = 3080); each weight is
+    # 128 MiB of e4m3, beyond the 50 MB L2, so every launch streams it
     for e, c, k, n in ((16, 8, 2048, 4096), (16, 8, 4096, 2048),
-                       (16, 3080, 2048, 4096)):
+                       (16, 3080, 2048, 4096), (16, 3080, 4096, 2048)):
         x = torch.randn(e, c, k, device=dev, generator=g).to(torch.bfloat16)
         w = quant.quantize_blockwise(
             torch.randn(e, k, n, device=dev, generator=g) / math.sqrt(k))
@@ -269,22 +331,110 @@ def check_fp8_grouped_gemm(dev, records):
         if not err <= tol:
             fail(f"fp8_grouped_gemm {e}x{c}x{k}x{n}: max |diff| {err} > "
                  f"{tol}")
+        # the two passes apart: the 1 x 128 quantization, and the GEMM on
+        # the xq, sx it made
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        p = ops.plan(e, c, n, sms)
+        xq, sx = ops.scratch(x)
+        ops.quantize_pass(x, xq, sx)
+        gout = torch.empty_like(out)
+        ops.gemm_pass(xq, sx, w.data, w.scale, gout, p)
+        torch.cuda.synchronize()
+        if not torch.equal(gout, out):
+            fail(f"fp8_grouped_gemm {e}x{c}x{k}x{n}: the GEMM pass alone "
+                 f"differs from the wrapper's call")
+        sbt = _library_scale_b(w.scale)
+        lib = _grouped_library(xq.view(torch.float8_e4m3fn), sx, w.data, sbt)
+        refused = _refusals(lib)
+        fns = dict(
+            kernel=lambda: ops.fp8_grouped_gemm(x, w.data, w.scale),
+            gemm=lambda: ops.gemm_pass(xq, sx, w.data, w.scale, gout, p),
+            quant=lambda: ops.quantize_pass(x, xq, sx))
+        fns.update({name: fn for name, fn in lib.items()
+                    if refused[name] is None})
         iters = 3 if c > 1024 else 20
-        ms = time_ms(lambda: ops.fp8_grouped_gemm(x, w.data, w.scale), iters)
+        t = time_turns(fns, iters)
+        eager = time_turns(dict(kernel=fns["kernel"]), iters, timer=time_ms)
         plain_ms = time_ms(
             lambda: ops.fp8_grouped_gemm_plain(x, w.data, w.scale), iters)
+        # the library with the 1 x 128 quantization (plain torch) before it
+        lib_q = {}
+        for name in lib:
+            if refused[name] is None:
+
+                def with_quant(name=name):
+                    q = quant.quantize_blockwise(x, act=True)
+                    _grouped_library(
+                        q.data, q.scale.transpose(1, 2).contiguous(), w.data,
+                        sbt)[name]()
+
+                lib_q[name] = time_ms(with_quant, iters)
         b_ms, b_by = bound(e * c * k * 2 + e * k * n
                            + e * (k // 128) * (n // 128) * 4 + e * c * n * 2,
                            2.0 * e * c * n * k, FP8_OPS_PER_S)
-        print(f"[kernel] fp8_grouped_gemm E={e} C={c} K={k} N={n}: "
-              f"max|diff|={err:.3g} (tol {tol:.3g}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library none, bound {b_ms:.4f} ms "
-              f"({b_by})")
-        records.setdefault("fp8_grouped_gemm", dict(
-            shape=f"E={e} C={c} K={k} N={n}", timer="eager", ms=ms,
-            plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    records["fp8_grouped_gemm"]["max_abs_err"] = worst
+        path = "prefill" if p.bc == 0 else f"decode, {p.bc}-row tiles"
+        lib_txt = "; ".join(
+            f"{name} {t[name]:.4f} ms (with quantize_blockwise "
+            f"{lib_q[name]:.4f} ms eager)" if why is None
+            else f"{name} refused: {why}" for name, why in refused.items())
+        print(f"[kernel] fp8_grouped_gemm E={e} C={c} K={k} N={n} ({path}):"
+              f" max|diff|={err:.3g} (tol {tol:.3g}) kernel {t['kernel']:.4f}"
+              f" ms = quantization {t['quant']:.4f} + GEMM {t['gemm']:.4f} "
+              f"ms ({2.0 * e * c * n * k / t['gemm'] / 1e9:.1f} TFLOP/s, "
+              f"{e * k * n / t['gemm'] / 1e9:.3f} TB/s of weight in the "
+              f"GEMM; device times, CUDA graphs); eager {eager['kernel']:.4f}"
+              f" ms; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+              f"library: {lib_txt}")
+        one_call = refused["scaled_grouped_mm"] is None
+        shapes.append(dict(
+            shape=f"E={e} C={c} K={k} N={n}", path=path, timer="cuda_graph",
+            ms=t["kernel"], quant_ms=t["quant"], gemm_ms=t["gemm"],
+            eager_ms=eager["kernel"], plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by,
+            library_ms=t["scaled_grouped_mm"] if one_call else None,
+            library={name: (dict(ms=t[name], with_quant_eager_ms=lib_q[name])
+                            if why is None else dict(refused=why))
+                     for name, why in refused.items()},
+            max_abs_err=err))
+    records["fp8_grouped_gemm"] = dict(shapes[0], max_abs_err=worst,
+                                       shapes=shapes)
+    grouped_threshold(dev, records)
+
+
+def grouped_threshold(dev, records):
+    """The decode path (swapped operands, the expert's rows as wgmma's N)
+    against the prefill path (128 x 128 tiles) on the same GEMM, at C rows
+    per expert around the path threshold (``ops.DECODE_MAX_C``): device
+    time of the GEMM pass alone, the two paths in turns."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels.fp8_grouped_gemm import ops
+    g = torch.Generator(device=dev).manual_seed(6)
+    e, k, n = 16, 2048, 4096
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w = quant.quantize_blockwise(
+        torch.randn(e, k, n, device=dev, generator=g) / math.sqrt(k))
+    rows = []
+    for c in (8, 16, 32, 48, 64, 128):
+        x = torch.randn(e, c, k, device=dev, generator=g).to(torch.bfloat16)
+        xq, sx = ops.scratch(x)
+        ops.quantize_pass(x, xq, sx)
+        out = torch.empty(e, c, n, dtype=torch.bfloat16, device=dev)
+        bc = next((t for t in ops.DECODE_TILES_C if t >= c), 32)
+        plans = dict(decode=ops.decode_plan(e, c, n, bc),
+                     prefill=ops.prefill_plan(e, c, n, sms))
+        t = time_turns({name: (lambda p=p: ops.gemm_pass(
+            xq, sx, w.data, w.scale, out, p)) for name, p in plans.items()},
+            20)
+        rows.append(dict(C=c, decode_ms=t["decode"],
+                         prefill_ms=t["prefill"],
+                         chosen="prefill" if ops.plan(e, c, n, sms).bc == 0
+                         else "decode"))
+    print("[kernel] fp8_grouped_gemm path threshold, E=16 K=2048 N=4096, "
+          "GEMM pass device ms (decode / prefill path; the plan's choice): "
+          + "; ".join(f"C={r['C']} {r['decode_ms']:.4f} / "
+                      f"{r['prefill_ms']:.4f} ({r['chosen']})" for r in rows))
+    records["fp8_grouped_gemm"]["threshold"] = rows
 
 
 def _decode_pool(dev, lengths, *, quantized, ps, kv, hd, n_p, seed):
@@ -350,7 +500,6 @@ def check_paged_decode(dev, records):
             cpu = {n: t.cpu() for n, t in cache.items()}
             ref = ops.paged_decode_attention(q.cpu(), cpu, tables.cpu(),
                                              lens.cpu(), page_size=ps)
-            plain_dev = ops.paged_decode_plain
             err = (out.float().cpu() - ref.float()).abs().max().item()
             tol = TOL * ref.float().abs().max().item()
             worst = max(worst, err)
@@ -374,8 +523,10 @@ def check_paged_decode(dev, records):
                     cache["k_scale"], cache["v_scale"], tables, lens, starts)
             kw = dict(page_size=ps, group=g_heads, branch_stride=1,
                       scale=1.0 / math.sqrt(hd))
-            ms = time_ms(lambda: ops.paged_decode(*args, **kw), 50)
-            plain_ms = time_ms(lambda: plain_dev(*args, **kw), 20)
+            ms = time_graph_ms(lambda: ops.paged_decode(*args, **kw), 50)
+            eager_ms = time_ms(lambda: ops.paged_decode(*args, **kw), 50)
+            plain_ms = time_ms(lambda: ops.paged_decode_plain(*args, **kw),
+                               20)
             keys = sum(ln + 1 for ln in lengths)       # valid keys read
             n_bytes = (keys * (kv * (2 * hd + 2 * 4) + 4)  # k, v, scales, pos
                        + b * n_p * 4 + 2 * b * 4          # tables, lengths
@@ -383,14 +534,45 @@ def check_paged_decode(dev, records):
             n_ops = 4.0 * keys * kv * g_heads * hd       # QK^T and PV
             b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
             print(f"[kernel] paged_decode B={b} Kv={kv} G={g_heads} hd={hd}"
-                  f" ps={ps} P={n_p} fp8 KV: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, library none, bound {b_ms:.5f} ms "
+                  f" ps={ps} P={n_p} fp8 KV: kernel {ms:.4f} ms (device "
+                  f"time, CUDA graph), eager {eager_ms:.4f} ms; plain "
+                  f"{plain_ms:.4f} ms; library none; bound {b_ms:.5f} ms "
                   f"({b_by}, {keys} keys)")
             records["paged_decode"] = dict(
                 shape=f"B={b} Kv={kv} G={g_heads} hd={hd} ps={ps} P={n_p}",
-                timer="eager", ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
-    records["paged_decode"]["max_abs_err"] = worst
+                timer="cuda_graph", ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+    # tree decode (ROADMAP N3 launches the kernel as it is): a shared prefix
+    # of `start` positions then 4 branches of 2 (the engine's stride,
+    # decode_len - 1), C*G = 16 rows per KV head, fp8 K/V
+    n_br, stride = 4, 2
+    starts = [int(x) for x in torch.randint(7, 380, (b,), generator=gen)]
+    starts[3] = 0                               # an empty slot
+    lengths = [st + n_br * stride - 1 for st in starts]
+    lengths[3] = 0
+    cache, tables, lens = _decode_pool(dev, lengths, quantized=True, ps=ps,
+                                       kv=kv, hd=hd, n_p=n_p, seed=11)
+    q = torch.randn(b, kv, n_br * g_heads, hd, generator=gen).to(
+        torch.bfloat16).to(dev)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    args = [q, cache["k"], cache["v"], cache["pos"], cache["k_scale"],
+            cache["v_scale"], tables, lens, st]
+    kw = dict(page_size=ps, group=g_heads, branch_stride=stride,
+              scale=1.0 / math.sqrt(hd))
+    out = ops.paged_decode(*args, **kw)
+    ref = ops.paged_decode(*[a.cpu() for a in args], **kw)
+    err = (out.float().cpu() - ref.float()).abs().max().item()
+    tol = TOL * ref.float().abs().max().item()
+    worst = max(worst, err)
+    if not err <= tol or bool(out[3].any()):
+        fail(f"paged_decode tree: max |diff| {err} > {tol}, or the empty "
+             f"slot is not 0")
+    tree_ms = time_graph_ms(lambda: ops.paged_decode(*args, **kw), 50)
+    print(f"[kernel] paged_decode tree B={b} Kv={kv} CG={n_br * g_heads} "
+          f"stride={stride} fp8 KV: max|diff|={err:.3g} (tol {tol:.3g}); "
+          f"kernel {tree_ms:.4f} ms (device time)")
+    records["paged_decode"].update(max_abs_err=worst, tree_ms=tree_ms)
 
 
 def check_radix_topk(dev, records):
@@ -773,7 +955,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "timer": r["timer"], "counted_in": path,
             **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
-                                       "library_eager_ms") if key in r},
+                                       "library_eager_ms", "threshold",
+                                       "tree_ms") if key in r},
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,9 +5,10 @@
 ``repro.core.ptq.quantize_params`` does: block-matched leaves get
 ``128 x 128`` block scales, linear-matched leaves per-channel scales over
 the contraction axis.  Payloads and scales are bit-identical to the JAX
-package's.  Per-channel payloads are laid out K-major (the transpose view
-of a contiguous ``(..., out, in)`` array, ``quant.k_major``): the bytes
-move once here, so kernel ``fp8_gemm`` never transposes a weight per call.
+package's.  Per-channel and block payloads are laid out K-major (the
+transpose view of a contiguous ``(..., out, in)`` array, ``quant.k_major``):
+the bytes move once here, so kernels ``fp8_gemm`` and ``fp8_grouped_gemm``
+never transpose a weight per call.
 The int8 scheme waits for a later slice.
 """
 

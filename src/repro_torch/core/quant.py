@@ -129,8 +129,10 @@ def quantize_per_token(x: torch.Tensor, fmt=E4M3) -> QuantizedTensor:
 def quantize_blockwise(w: torch.Tensor, block: int = DEFAULT_BLOCK,
                        fmt=E4M3, act: bool = False) -> QuantizedTensor:
     """Block-wise quantization.  ``act=False``: ``block x block`` tiles over
-    the last two dims, scale ``(..., in/b, out/b)``.  ``act=True``:
-    ``1 x block`` tiles along the last dim, scale ``(..., tokens, in/b)``."""
+    the last two dims, scale ``(..., in/b, out/b)``; the payload is laid out
+    K-major (``k_major``), the layout kernel ``fp8_grouped_gemm`` reads, with
+    the shape and values of the row-major cast.  ``act=True``: ``1 x block``
+    tiles along the last dim, scale ``(..., tokens, in/b)``."""
     if act:
         if w.shape[-1] % block:
             raise ValueError(f"act dim {w.shape[-1]} not a multiple of "
@@ -149,7 +151,7 @@ def quantize_blockwise(w: torch.Tensor, block: int = DEFAULT_BLOCK,
     xb = w.reshape(*w.shape[:-2], bi, block, bo, block)
     scale = amax_to_scale(_amax(xb, (-3, -1)), fmt)               # (.., bi, bo)
     q = cast_to_fp8(xb, scale[..., :, None, :, None], fmt).reshape(w.shape)
-    return QuantizedTensor(q, scale, "block", block)
+    return QuantizedTensor(k_major(q), scale, "block", block)
 
 
 def quantize_kv(x: torch.Tensor, fmt=E4M3

@@ -38,49 +38,15 @@
 //   fp8 accumulation keeps fewer bits than f32), which is then added with
 //   __fadd_rn.  The epilogue scales by sx[m] * sw[n] and rounds once to bf16.
 
-#include <cuda_bf16.h>
-#include <cuda_fp8.h>
-
 #include "sm90_fp8.cuh"
 
 namespace {
 
 using namespace sm90;
 
-constexpr float FP8_MAX = 448.0f;
-
 // ---------------------------------------------------------------------------
 // Quantization pass
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t quant_e4m3(float x, float s) {
-  float y = __fdiv_rn(x, s);
-  y = fminf(fmaxf(y, -FP8_MAX), FP8_MAX);
-  return (uint32_t)__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
-}
-
-// 8 bf16 of a 16-byte load, quantized with scale s into 8 bytes
-__device__ __forceinline__ uint2 quant8(const uint4 v, float s) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  uint32_t w[2] = {0, 0};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    w[i / 2] |= (quant_e4m3(f.x, s) | (quant_e4m3(f.y, s) << 8))
-                << (16 * (i % 2));
-  }
-  return make_uint2(w[0], w[1]);
-}
-
-__device__ __forceinline__ float amax8(const uint4 v, float a) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    a = fmaxf(a, fmaxf(fabsf(f.x), fabsf(f.y)));
-  }
-  return a;
-}
 
 constexpr int HELD = 8;   // 16-byte loads a lane keeps: rows up to 2048 wide
 

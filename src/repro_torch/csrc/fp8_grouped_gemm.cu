@@ -7,106 +7,478 @@
 //   sx[c, kb] = max(amax |x[c, kb*128 : kb*128+128]|, 1e-12) / 448
 // (the 1 x 128 blocks), x is cast to e4m3 with it (true division, clip,
 // round to nearest), and the slice's partial product is scaled and
-// accumulated as the Pallas kernel does:
-//   acc += (part[c, n] * sx[c, kb]) * sw[kb, n / 128]        f32
+// accumulated as the Pallas kernel does, slice after slice:
+//   acc = acc + (part[c, n] * sx[c, kb]) * sw[kb, n / 128]        f32
 // Nothing is folded into bf16 operands.
 //
 // What bounds it on the H100: at a decode step (C = 8 rows per expert) the
-// E*K*N weight bytes (3 products x 16 experts x 8 MiB per layer), so bytes
-// over 3.35 TB/s; at a prefill (C ~ 3k) the 2*E*C*N*K operations over the
-// fp8 tensor-core peak.  Design (fp8_mma.cuh): the 1 x 128 blocks are
-// quantized once per call (one warp per block), then one block per
-// (expert, 64-row, 64-column) tile, which never straddles a 128-column
-// scale block, walks K in 128-deep slices of e4m3 mma.sync on the tensor
-// cores and scales each slice's partial into the f32 accumulator (the
-// DeepGEMM-style promotion every 128 deep).  Loads are not overlapped with
-// the products: a TMA/wgmma pipeline is the later step.
+// E*K*N weight bytes (16 experts x 8 MiB a product), so bytes over
+// 3.35 TB/s; at a prefill (C ~ 3k) the 2*E*C*N*K operations over the fp8
+// tensor-core peak.  The design (sm90_fp8.cuh, as fp8_gemm.cu):
+//
+// * The weight is stored K-major: wq (E, K, N) is the transpose view of an
+//   (E, N, K) array (core.quant.quantize_blockwise lays it out so once, at
+//   quantization), so its tiles go from HBM to shared memory by TMA as they
+//   are, the expert being the tensor map's batch dimension.
+// * Quantization pass: 16 lanes per 1 x 128 block, a 16-byte load of 8 bf16
+//   each (at prefill sizes 4 blocks a lane group, their loads in flight
+//   together), the block's amax by shuffles within the 16 lanes, 8-byte
+//   stores.
+//   The scales go to sx (E, K/128, C): a chunk's row scales are contiguous.
+// * Prefill (C > 32): 128 x 128 output tiles (a tile never straddles a
+//   128-column scale block, so sw is one scalar per chunk), a producer
+//   warpgroup whose one thread keeps a 4-stage TMA ring of 128-deep chunks
+//   in flight (x rows, w rows and the rows' 128 sx scales), and two consumer
+//   warpgroups of wgmma.m64n128k32 into two fragments in turn (setmaxnreg
+//   40 / 232): one chunk's products run while the previous chunk's fragment
+//   is folded into acc.  The blocks are persistent, one per SM walking
+//   tiles, so the ring runs on into a block's next tile while it stores the
+//   last: a tile's start and end cost no pipeline fill.
+// * Decode (C <= 32): swapped operands, out^T = w^T . xq^T: 64 weight rows
+//   fill wgmma's 64-row M and the expert's C rows, zero-filled by TMA to
+//   BC = 8, 16 or 32, are its N (wgmma.m64nBCk32).  One block per (64
+//   output columns, expert, BC rows) streams 64 x K bytes of the expert's
+//   weight through a 4-stage ring: 1024 blocks at gate/up, 512 at down.
+// * Every fold is acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(part, sx), sw)),
+//   in chunk order, the order of the Pallas kernel and the plain version.
+//   At decode, the block's sx slab (K/128 x its rows) and sw column are
+//   read into shared memory once, while the first chunks land; at prefill,
+//   sx comes with each stage and sw is read two chunks ahead of its fold.
+//   The epilogue rounds acc once to bf16.
 
-#include "fp8_mma.cuh"
+#include "sm90_fp8.cuh"
 
 namespace {
 
-using namespace fp8mma;
+using namespace sm90;
 
-__global__ void __launch_bounds__(THREADS)
-fp8_grouped_gemm_kernel(const uint8_t* __restrict__ xq,
-                        const uint8_t* __restrict__ w,
-                        const float* __restrict__ sw,
-                        const float* __restrict__ sx,
-                        __nv_bfloat16* __restrict__ out, int C, int N,
-                        int K) {
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int KB = K / BK, NB = N / BK, nb = n0 / BK;
-  xq += (size_t)e * C * K;
-  w += (size_t)e * K * N;
-  sw += (size_t)e * KB * NB;
-  sx += (size_t)e * C * KB;
-  out += (size_t)e * C * N;
+constexpr int B = 128;   // the block granularity of the scales
 
-  __shared__ Smem s;
+// ---------------------------------------------------------------------------
+// Quantization pass: 1 x 128 blocks
+// ---------------------------------------------------------------------------
+
+// x (R = E * C, K) bf16 -> xq (R, K) e4m3 bytes and sx (E, K / 128, Cp)
+// f32, Cp = C rounded up to a multiple of 4 (TMA's 16-byte row strides);
+// 16 lanes per (row, 128-block), a lane group on QB neighbouring blocks of
+// the flat (row, block) order, their loads issued before any arithmetic
+// (QB = 4 at prefill sizes; 1 at decode sizes, where more threads hide
+// more latency)
+template <int QB>
+__global__ void __launch_bounds__(256)
+quantize_blocks_kernel(const __nv_bfloat16* __restrict__ x,
+                       uint8_t* __restrict__ xq, float* __restrict__ sx,
+                       long R, int C, int K) {
+  const int KB = K / B, sub = threadIdx.x % 16, Cp = (C + 3) / 4 * 4;
+  const long g0 = ((long)blockIdx.x * blockDim.x + threadIdx.x) / 16 * QB;
+  uint4 v[QB];
+#pragma unroll
+  for (int j = 0; j < QB; ++j) {
+    const long gid = g0 + j;
+    v[j] = gid < R * KB ? *reinterpret_cast<const uint4*>(
+                              x + gid * B + 8 * sub)
+                        : make_uint4(0, 0, 0, 0);
+  }
+#pragma unroll
+  for (int j = 0; j < QB; ++j) {
+    const long gid = g0 + j;
+    float a = amax8(v[j], 0.0f);
+#pragma unroll
+    for (int o = 8; o > 0; o /= 2)
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+    if (gid >= R * KB) continue;
+    const float s = __fdiv_rn(fmaxf(a, 1e-12f), FP8_MAX);
+    *reinterpret_cast<uint2*>(xq + gid * B + 8 * sub) = quant8(v[j], s);
+    if (sub == 0) {
+      const long row = gid / KB, e = row / C, c = row % C;
+      sx[((size_t)e * KB + gid % KB) * Cp + c] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Prefill: TMA ring + two consumer warpgroups of m64n128k32
+// ---------------------------------------------------------------------------
+
+namespace pf {
+constexpr int BM = 128, BN = 128, STAGES = 4, CONSUMERS = 2;
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int A_BYTES = BM * CHUNK, B_BYTES = BN * CHUNK, S_BYTES = BM * 4;
+constexpr int SMEM = 1024 + STAGES * (A_BYTES + B_BYTES + S_BYTES) +
+                     2 * STAGES * 8;
+}  // namespace pf
+
+// Persistent: block b takes tiles b, b + gridDim.x, ..; tile t is (column
+// tile t % (N / 128), row tile t / (N / 128) % ceil(C / 128), expert ..).
+// Each ring stage holds a chunk's x rows, w rows and the rows' sx slice,
+// so the producer runs on into the next tile while the consumers store
+// this one's.
+__global__ void __launch_bounds__(pf::THREADS, 1)
+grouped_prefill_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_w,
+                       const __grid_constant__ CUtensorMap map_sx,
+                       const float* __restrict__ sw,
+                       __nv_bfloat16* __restrict__ out, int E, int C, int N,
+                       int K) {
+  using namespace pf;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = align1024(smem_raw);               // STAGES x (BM x 128)
+  uint8_t* sb = sa + STAGES * A_BYTES;             // STAGES x (BN x 128)
+  float* ssx = reinterpret_cast<float*>(sb + STAGES * B_BYTES);  // x BM
+  uint64_t* full = reinterpret_cast<uint64_t*>(ssx + STAGES * BM);
+  uint64_t* empty = full + STAGES;
+  const int KB = K / B, NB = N / B, n_tiles = N / BN;
+  const int m_tiles = (C + BM - 1) / BM, tiles = n_tiles * m_tiles * E;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, wm = warp / 2;
-  float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * CONSUMERS);          // one per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  for (int kb = 0; kb < KB; ++kb) {
-    const int k0 = kb * BK;
-    load_scales(s, sx, C, m0, KB, kb);
-    load_a(s, xq, C, K, m0, k0);
-    load_b(s, w, K, N, k0, n0);
-    __syncthreads();
-    mma_chunk(s, part);
-    const float swb = sw[kb * NB + nb];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float sxr = s.sx[wm * 32 + mt * 16 + g + (i >= 2 ? 8 : 0)];
-          acc[mt][nt][i] = __fadd_rn(
-              acc[mt][nt][i],
-              __fmul_rn(__fmul_rn(part[mt][nt][i], sxr), swb));
+  if (warp >= 4 * CONSUMERS) {                      // producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 128 * CONSUMERS) {
+      prefetch_map(&map_x);
+      prefetch_map(&map_w);
+      prefetch_map(&map_sx);
+      int g = 0;                                    // chunks issued so far
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int n0 = (t % n_tiles) * BN;
+        const int m0 = (t / n_tiles % m_tiles) * BM, e = t / n_tiles / m_tiles;
+        for (int c = 0; c < KB; ++c, ++g) {
+          const int s = g % STAGES;
+          if (g >= STAGES) mbar_wait(&empty[s], (g / STAGES - 1) & 1);
+          mbar_expect_tx(&full[s], A_BYTES + B_BYTES + S_BYTES);
+          tma_load(sa + s * A_BYTES, &map_x, &full[s], c * CHUNK, m0, e);
+          tma_load(sb + s * B_BYTES, &map_w, &full[s], c * CHUNK, n0, e);
+          tma_load(ssx + s * BM, &map_sx, &full[s], m0, c, e);
         }
-    __syncthreads();   // the next slice rewrites s
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = warp / 4;                          // rows 64 wg .. + 63
+  const int rl = wg * 64 + 16 * (warp % 4) + lane / 4;   // + 8 h
+  float acc[64], fa[64], fb[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) fa[i] = fb[i] = 0.0f;
+  int g = 0;                                        // chunks consumed so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, g += KB) {
+    const int n0 = (t % n_tiles) * BN;
+    const int m0 = (t / n_tiles % m_tiles) * BM, e = t / n_tiles / m_tiles;
+    // the column block's sw of every chunk, read two chunks ahead of its
+    // fold: swc[kb * NB]
+    const float* swc = sw + (size_t)e * KB * NB + n0 / B;
+    float sw0 = swc[0], sw1 = KB > 1 ? swc[NB] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+    auto issue = [&](int c, float(&f)[64]) {
+      const int s = (g + c) % STAGES;
+      mbar_wait(&full[s], ((g + c) / STAGES) & 1);
+      const uint64_t da = desc_sw128(sa + s * A_BYTES + wg * 64 * CHUNK);
+      const uint64_t db = desc_sw128(sb + s * B_BYTES);
+      fence_regs(f);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < CHUNK / 32; ++k)
+        wgmma_m64n128k32(f, desc_k(da, k), desc_k(db, k), k);
+      wgmma_commit();
+    };
+    auto retire = [&](int c, float(&f)[64]) {    // after chunk c is done
+      fence_regs(f);
+      const int s = (g + c) % STAGES;
+      const float s_lo = ssx[s * BM + rl], s_hi = ssx[s * BM + rl + 8];
+      __syncwarp();                    // the warp has read the stage's sx
+      if (lane == 0) mbar_arrive(&empty[s]);
+      const float s_w = sw0;
+      sw0 = sw1;
+      sw1 = c + 2 < KB ? swc[(size_t)(c + 2) * NB] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        acc[i] = __fadd_rn(acc[i], __fmul_rn(__fmul_rn(
+                                       f[i], (i % 4) < 2 ? s_lo : s_hi), s_w));
+    };
+    issue(0, fa);
+    int c = 1;
+    for (; c + 1 < KB; c += 2) {
+      issue(c, fb);
+      wgmma_wait<1>();
+      retire(c - 1, fa);
+      issue(c + 1, fa);
+      wgmma_wait<1>();
+      retire(c, fb);
+    }
+    if (c < KB) {
+      issue(c, fb);
+      wgmma_wait<1>();
+      retire(c - 1, fa);
+      wgmma_wait<0>();
+      retire(c, fb);
+    } else {
+      wgmma_wait<0>();
+      retire(c - 1, fa);
+    }
+
+    // acc[4j + 2h + cc] = out[m0 + rl + 8h, n0 + 8j + 2 (lane % 4) + cc]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + rl + 8 * h;
+      if (m >= C) continue;
+      __nv_bfloat16* orow = out + ((size_t)e * C + m) * N + n0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * (lane % 4)) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Decode: swapped operands, the expert's rows as wgmma's N
+// ---------------------------------------------------------------------------
+
+namespace dc {
+constexpr int BN = 64;        // weight rows (output columns) per block
+constexpr int STAGES = 4;
+constexpr int THREADS = 128 + 32;                  // one warpgroup + producer
+constexpr int A_BYTES = BN * CHUNK;
+template <int BC>
+struct Tile {
+  static constexpr int B_BYTES = BC * CHUNK;
+  static constexpr int RING = STAGES * (A_BYTES + B_BYTES);
+  // + the barriers, then sx (KB x BC) and sw (KB) f32
+  static int smem(int KB) {
+    return 1024 + RING + 2 * STAGES * 8 + KB * (BC + 1) * 4;
+  }
+};
+}  // namespace dc
+
+template <int BC>
+__device__ __forceinline__ void wgmma_bc(float (&d)[BC / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_bc<8>(float (&d)[4], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  wgmma_m64n8k32(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_bc<16>(float (&d)[8], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  wgmma_m64n16k32(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_bc<32>(float (&d)[16], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  wgmma_m64n32k32(d, a, b, scale_d);
+}
+
+// grid (N / 64, E, ceil(C / BC))
+template <int BC>
+__global__ void __launch_bounds__(dc::THREADS)
+grouped_decode_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w,
+                      const float* __restrict__ sx,
+                      const float* __restrict__ sw,
+                      __nv_bfloat16* __restrict__ out, int C, int N, int K) {
+  using namespace dc;
+  constexpr int B_BYTES = Tile<BC>::B_BYTES, R = BC / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sa = align1024(smem_raw);               // STAGES x (64 w rows)
+  uint8_t* sb = sa + STAGES * A_BYTES;             // STAGES x (BC x rows)
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + STAGES * B_BYTES);
+  uint64_t* empty = full + STAGES;
+  float* sxs = reinterpret_cast<float*>(empty + STAGES);   // [kb][col]
+  const int KB = K / B, NB = N / B;
+  float* sws = sxs + KB * BC;                                // [kb]
+  const int n0 = blockIdx.x * BN, e = blockIdx.y, m0 = blockIdx.z * BC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {                                  // producer
+    if (lane == 0) {
+      prefetch_map(&map_w);
+      prefetch_map(&map_x);
+      for (int c = 0; c < KB; ++c) {
+        const int s = c % STAGES;
+        if (c >= STAGES) mbar_wait(&empty[s], (c / STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], A_BYTES + B_BYTES);
+        tma_load(sa + s * A_BYTES, &map_w, &full[s], c * CHUNK, n0, e);
+        tma_load(sb + s * B_BYTES, &map_x, &full[s], c * CHUNK, m0, e);
+      }
+    }
+    return;
   }
 
-  const int t = lane % 4, wn = warp % 2;
+  const int t = threadIdx.x;                        // 0 .. 127
+  const int Cp = (C + 3) / 4 * 4;
+  const float* sxe = sx + (size_t)e * KB * Cp;
+  for (int i = t; i < KB * BC; i += 128) {
+    const int kb = i / BC, r = i % BC;
+    sxs[i] = m0 + r < C ? sxe[(size_t)kb * Cp + m0 + r] : 0.0f;
+  }
+  for (int kb = t; kb < KB; kb += 128)
+    sws[kb] = sw[((size_t)e * KB + kb) * NB + n0 / B];
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  // frag[4j + 2h + cc] = D[n = n0 + 16 warp + lane / 4 + 8 h][m = m0 + 8j
+  // + 2 (lane % 4) + cc]: the fold scales column m by sx[m, kb]
+  float acc[R], frag[R];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < R; ++i) acc[i] = frag[i] = 0.0f;
+  for (int c = 0; c < KB; ++c) {
+    const int s = c % STAGES;
+    mbar_wait(&full[s], (c / STAGES) & 1);
+    const uint64_t da = desc_sw128(sa + s * A_BYTES);
+    const uint64_t db = desc_sw128(sb + s * B_BYTES);
+    fence_regs(frag);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int k = 0; k < CHUNK / 32; ++k)
+      wgmma_bc<BC>(frag, desc_k(da, k), desc_k(db, k), k);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(frag);
+    if (lane == 0) mbar_arrive(&empty[s]);
+    const float s_w = sws[c];
+    const float* sxc = sxs + c * BC + 2 * (lane % 4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + wm * 32 + mt * 16 + g + (i >= 2 ? 8 : 0);
-        const int n = n0 + wn * 32 + nt * 8 + 2 * t + (i & 1);
-        if (m < C)
-          out[(size_t)m * N + n] = __float2bfloat16_rn(acc[mt][nt][i]);
-      }
+    for (int i = 0; i < R; ++i)
+      acc[i] = __fadd_rn(
+          acc[i],
+          __fmul_rn(__fmul_rn(frag[i], sxc[8 * (i / 4) + i % 2]), s_w));
+  }
+
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int n = n0 + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+    const int m = m0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+    if (m < C) out[((size_t)e * C + m) * N + n] = __float2bfloat16_rn(acc[i]);
+  }
+}
+
+// lets the GEMM kernels take up to the card's dynamic shared memory, once
+// per device
+void allow_smem() {
+  static unsigned done = 0;                     // a bit per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (done & (1u << dev)) return;
+  int most = 0;
+  cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(grouped_prefill_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, pf::SMEM);
+  cudaFuncSetAttribute(grouped_decode_kernel<8>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  cudaFuncSetAttribute(grouped_decode_kernel<16>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  cudaFuncSetAttribute(grouped_decode_kernel<32>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+  done |= 1u << dev;
+}
+
+int quantize(const void* x, void* xq, void* sx, int E, int C, int K,
+             cudaStream_t st) {
+  const long groups = (long)E * C * (K / B);
+  if (groups >= (1L << 16))            // 16 lane groups of 4 blocks a block
+    quantize_blocks_kernel<4><<<(unsigned)((groups + 63) / 64), 256, 0, st>>>(
+        (const __nv_bfloat16*)x, (uint8_t*)xq, (float*)sx, (long)E * C, C, K);
+  else
+    quantize_blocks_kernel<1><<<(unsigned)((groups + 15) / 16), 256, 0, st>>>(
+        (const __nv_bfloat16*)x, (uint8_t*)xq, (float*)sx, (long)E * C, C, K);
+  return (int)cudaGetLastError();
+}
+
+template <int BC>
+void launch_decode(const CUtensorMap& mx, const CUtensorMap& mw,
+                   const void* sx, const void* sw, void* out, int C, int N,
+                   int K, dim3 grid, cudaStream_t st) {
+  grouped_decode_kernel<BC>
+      <<<grid, dc::THREADS, dc::Tile<BC>::smem(K / B), st>>>(
+          mx, mw, (const float*)sx, (const float*)sw, (__nv_bfloat16*)out, C,
+          N, K);
+}
+
+int gemm(const void* xq, const void* w, const void* sx, const void* sw,
+         void* out, int E, int C, int N, int K, long long ldw, long long sew,
+         int bc, int gx, int gy, int gz, cudaStream_t st) {
+  if (bc != 0 && bc != 8 && bc != 16 && bc != 32)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_x, map_w, map_sx;
+  int code = make_k_major_map(&map_x, xq, K, C, E, K, (uint64_t)C * K,
+                              bc ? bc : pf::BM);
+  if (code != 0) return code;
+  code = make_k_major_map(&map_w, w, K, N, E, ldw, sew, bc ? dc::BN : pf::BN);
+  if (code != 0) return code;
+  allow_smem();
+  const dim3 grid(gx, gy, gz);
+  if (bc == 0) {
+    const uint64_t cp = (C + 3) / 4 * 4, kb = K / B;
+    code = make_f32_row_map(&map_sx, sx, C, kb, E, cp * 4, kb * cp * 4,
+                            pf::BM);
+    if (code != 0) return code;
+    grouped_prefill_kernel<<<grid, pf::THREADS, pf::SMEM, st>>>(
+        map_x, map_w, map_sx, (const float*)sw, (__nv_bfloat16*)out, E, C,
+        N, K);
+  }
+  else if (bc == 8)
+    launch_decode<8>(map_x, map_w, sx, sw, out, C, N, K, grid, st);
+  else if (bc == 16)
+    launch_decode<16>(map_x, map_w, sx, sw, out, C, N, K, grid, st);
+  else
+    launch_decode<32>(map_x, map_w, sx, sw, out, C, N, K, grid, st);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x (E, C, K) bf16, w (E, K, N) e4m3 bytes, sw (E, K/128, N/128) f32,
-// out (E, C, N) bf16; scratch xq (E, C, K) bytes and sx (E, C, K/128) f32;
-// all contiguous, K and N multiples of 128.  Returns cudaGetLastError()
-// after the launches.
+// x (E, C, K) bf16 contiguous; w (E, K, N) e4m3 K-major: element (e, k, n)
+// at byte e * sew + n * ldw + k; sw (E, K/128, N/128) f32; out (E, C, N)
+// bf16; scratch xq (E, C, K) bytes and sx (E, K/128, Cp) f32, Cp = C
+// rounded up to a multiple of 4.  K and N multiples of 128, ldw and sew
+// multiples of 16, pointers 16-byte aligned.  bc == 0 runs the persistent
+// prefill path on grid (gx, 1, 1), gx at most the number of 128 x 128
+// tiles; bc = 8, 16 or 32 the decode path on (N / 64, E, ceil(C / bc)).
+// Returns cudaGetLastError() after the launches, or minus the CUresult of
+// a refused tensor-map encoding.
 extern "C" int fp8_grouped_gemm_launch(const void* x, const void* w,
                                        const void* sw, void* out, void* xq,
                                        void* sx, int E, int C, int N, int K,
-                                       void* stream) {
+                                       long long ldw, long long sew, int bc,
+                                       int gx, int gy, int gz, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int code = quantize_groups(x, xq, sx, (long)E * C, K, BK, st);
+  const int code = quantize(x, xq, sx, E, C, K, st);
   if (code != 0) return code;
-  dim3 grid(N / BN, (C + BM - 1) / BM, E);
-  fp8_grouped_gemm_kernel<<<grid, THREADS, 0, st>>>(
-      (const uint8_t*)xq, (const uint8_t*)w, (const float*)sw,
-      (const float*)sx, (__nv_bfloat16*)out, C, N, K);
-  return (int)cudaGetLastError();
+  return gemm(xq, w, sx, sw, out, E, C, N, K, ldw, sew, bc, gx, gy, gz, st);
+}
+
+// The two passes apart, for timing each: the quantization pass alone, and
+// the GEMM on an xq, sx it made.
+extern "C" int fp8_grouped_gemm_quantize_launch(const void* x, void* xq,
+                                                void* sx, int E, int C, int K,
+                                                void* stream) {
+  return quantize(x, xq, sx, E, C, K, (cudaStream_t)stream);
+}
+
+extern "C" int fp8_grouped_gemm_mma_launch(const void* xq, const void* w,
+                                           const void* sx, const void* sw,
+                                           void* out, int E, int C, int N,
+                                           int K, long long ldw,
+                                           long long sew, int bc, int gx,
+                                           int gy, int gz, void* stream) {
+  return gemm(xq, w, sx, sw, out, E, C, N, K, ldw, sew, bc, gx, gy, gz,
+              (cudaStream_t)stream);
 }

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) machinery for the fp8 GEMM kernels: TMA tensor maps,
+// Hopper (sm_90a) machinery for the fp8 GEMM kernels (fp8_gemm.cu,
+// fp8_grouped_gemm.cu): the bit-exact e4m3 activation cast, TMA tensor maps,
 // mbarrier producer/consumer rings and e4m3 warpgroup MMAs (wgmma).
 //
 // Operand layout.  Both operands of an fp8 wgmma are read K-major from
@@ -19,12 +20,51 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace sm90 {
 
 constexpr int CHUNK = 128;   // bytes of K a tile row holds: one swizzle row
+constexpr float FP8_MAX = 448.0f;
+
+// ---------------------------------------------------------------------------
+// Device: dynamic e4m3 quantization, bit-identical to
+// repro.core.quant.cast_to_fp8: a true IEEE division (never a reciprocal
+// multiply), the clip, then the saturating round-to-nearest conversion
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t quant_e4m3(float x, float s) {
+  float y = __fdiv_rn(x, s);
+  y = fminf(fmaxf(y, -FP8_MAX), FP8_MAX);
+  return (uint32_t)__nv_cvt_float_to_fp8(y, __NV_SATFINITE, __NV_E4M3);
+}
+
+// 8 bf16 of a 16-byte load, quantized with scale s into 8 bytes
+__device__ __forceinline__ uint2 quant8(const uint4 v, float s) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  uint32_t w[2] = {0, 0};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    w[i / 2] |= (quant_e4m3(f.x, s) | (quant_e4m3(f.y, s) << 8))
+                << (16 * (i % 2));
+  }
+  return make_uint2(w[0], w[1]);
+}
+
+// max(a, |v|) over the 8 bf16 of a 16-byte load
+__device__ __forceinline__ float amax8(const uint4 v, float a) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    a = fmaxf(a, fmaxf(fabsf(f.x), fabsf(f.y)));
+  }
+  return a;
+}
 
 // ---------------------------------------------------------------------------
 // Host: tensor maps
@@ -72,6 +112,28 @@ inline int make_k_major_map(CUtensorMap* map, const void* base, uint64_t K,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -(int)r;
+}
+
+// A map over f32 viewed as (batch, rows, cols), cols innermost: row stride
+// `ld` bytes, batch stride `lb` bytes (multiples of 16), boxes of
+// `box_cols` x 1 x 1, no swizzle, zeros outside.  Returns as
+// make_k_major_map.
+inline int make_f32_row_map(CUtensorMap* map, const void* base, uint64_t cols,
+                            uint64_t rows, uint64_t batch, uint64_t ld,
+                            uint64_t lb, uint32_t box_cols) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return -999;
+  const cuuint64_t dims[3] = {cols, rows, batch};
+  const cuuint64_t strides[2] = {ld, lb};
+  const cuuint32_t box[3] = {box_cols, 1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -(int)r;
 }
@@ -235,6 +297,31 @@ __device__ __forceinline__ void wgmma_m64n128k32(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 8, f32, 4 registers a thread) = A . B^T (+ D when scale_d),
+// A (64 x 32) and B (8 x 32) e4m3, both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n8k32(float (&d)[4], uint64_t a,
+                                               uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3}, %4, %5, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// D (64 x 16, f32, 8 registers a thread) = A . B^T (+ D when scale_d),
+// A (64 x 32) and B (16 x 32) e4m3, both K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n16k32(float (&d)[8], uint64_t a,
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.f32.e4m3.e4m3 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -110,7 +110,8 @@ def _fns() -> Dict[str, Any]:
     return _FNS
 
 
-def _sms(device: torch.device) -> int:
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (launch plans size their grids by it)."""
     i = device.index if device.index is not None \
         else torch.cuda.current_device()
     if i not in _SMS:
@@ -139,7 +140,7 @@ def scratch(x: torch.Tensor, wq: torch.Tensor):
     counters i32)."""
     e, m, k = x.shape
     n = wq.shape[-1]
-    splits, cps = plan(e, m, n, k, _sms(x.device))
+    splits, cps = plan(e, m, n, k, sm_count(x.device))
     offs, total, n_part, n_count = _layout(e, m, n, k, splits)
     buf = torch.empty(total, dtype=torch.uint8, device=x.device)
     xq = buf[offs[0]:offs[0] + e * m * k].view(e, m, k)
@@ -163,14 +164,14 @@ def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
     out = torch.empty((e, m, n), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
-    splits, cps = plan(e, m, n, k, _sms(x.device))
+    splits, cps = plan(e, m, n, k, sm_count(x.device))
     offs, total, _, _ = _layout(e, m, n, k, splits)
     # one allocation (its counters are zeroed by the quantization pass)
     buf = torch.empty(total, dtype=torch.uint8, device=x.device)
     xq, sx, part, counters = (buf.data_ptr() + off for off in offs)
     code = _fns()["fp8_gemm_launch"](
         x.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(), xq, sx,
-        part, counters, e, m, n, k, wq.stride(-1), _e_stride(wq), splits,
+        part, counters, e, m, n, k, wq.stride(-1), expert_stride(wq), splits,
         cps, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "fp8_gemm")
     fp8_gemm.launches += 1
@@ -180,7 +181,9 @@ def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
 fp8_gemm.launches = 0
 
 
-def _e_stride(wq: torch.Tensor) -> int:
+def expert_stride(wq: torch.Tensor) -> int:
+    """Bytes between the leading-dim slices of a K-major e4m3 weight (any
+    multiple of 16 for a single slice)."""
     return wq.stride(0) if wq.shape[0] > 1 else wq.shape[-1] * wq.stride(-1)
 
 
@@ -205,5 +208,5 @@ def gemm_pass(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
     build.check(_fns()["fp8_gemm_mma_launch"](
         xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
         out.data_ptr(), part.data_ptr(), counters.data_ptr(), e, m, n, k,
-        wq.stride(-1), _e_stride(wq), splits, cps,
+        wq.stride(-1), expert_stride(wq), splits, cps,
         torch.cuda.current_stream(xq.device).cuda_stream), "fp8_gemm")

@@ -9,6 +9,9 @@ dense gather through the page table plus a masked f32 softmax, the same
 arithmetic as the JAX package's unfused paged path), a CUDA tensor launches
 the kernel or raises.  ``paged_decode_attention`` is the layout wrapper of
 ``repro/kernels/paged_decode/ops.py`` for single-token decode.
+
+The pool's last page is its sentinel (``pos`` -1 throughout), as the
+serving pool lays it out: the kernel skips the keys only it holds.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from repro_torch.core import quant
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
-MAX_ROWS = 16       # C*G query rows one kernel block holds in registers
+MAX_ROWS = 16       # C*G query rows: one m16 tile of the kernel's MMAs
+HEAD_DIMS = (64, 128, 256)   # the kernel's head-dim template
 # any logical position is < table_entries * page_size, so a start pushed to
 # this value makes the whole row "shared prefix": single-token decode is the
 # one-branch tree with a dead span term
@@ -77,7 +81,7 @@ def _gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_decode")
     fn = lib.paged_decode_launch
-    fn.argtypes = [_VP] * 10 + [_I] * 8 + [_F, _I, _VP]
+    fn.argtypes = [_VP] * 10 + [_I] * 9 + [_F, _I, _VP]
     fn.restype = _I
     return lib
 
@@ -100,10 +104,10 @@ def paged_decode(q, k, v, pos, k_scale, v_scale, tables, lengths, starts,
             or v.dtype != kv_dtype:
         raise TypeError(f"paged_decode kernel takes bf16 q and {kv_dtype} "
                         f"K/V; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd % 32 or hd > 1024 or not 1 <= cg <= MAX_ROWS:
-        raise ValueError(f"paged_decode kernel takes head_dim a multiple "
-                         f"of 32 up to 1024 and 1..{MAX_ROWS} rows per "
-                         f"head; got hd={hd}, rows={cg}")
+    if hd not in HEAD_DIMS or not 1 <= cg <= MAX_ROWS:
+        raise ValueError(f"paged_decode kernel takes head_dim in "
+                         f"{HEAD_DIMS} and 1..{MAX_ROWS} rows per head; got "
+                         f"hd={hd}, rows={cg}")
     n_pos = k.shape[0]
     if (tuple(k.shape) != (n_pos, kv, hd) or tuple(v.shape) != k.shape
             or tuple(pos.shape) != (n_pos,) or n_pos % page_size):
@@ -122,6 +126,8 @@ def paged_decode(q, k, v, pos, k_scale, v_scale, tables, lengths, starts,
         if not t.is_contiguous() or t.device != q.device:
             raise ValueError("paged_decode takes contiguous tensors on one "
                              "device")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("paged_decode takes 16-byte aligned q, k and v")
     out = torch.empty_like(q)
     code = _lib().paged_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
@@ -129,7 +135,7 @@ def paged_decode(q, k, v, pos, k_scale, v_scale, tables, lengths, starts,
         v_scale.data_ptr() if quantized else None,
         tables.data_ptr(), lengths.data_ptr(), starts.data_ptr(),
         out.data_ptr(), bb, kv, cg, hd, tables.shape[1], page_size, group,
-        branch_stride, float(scale), int(quantized),
+        branch_stride, n_pos, float(scale), int(quantized),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(code, "paged_decode")
     paged_decode.launches += 1

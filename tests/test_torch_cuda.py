@@ -78,24 +78,75 @@ def test_fp8_gemm_kernel_refuses_a_row_major_weight(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("E,C,K,N", [(16, 8, 2048, 4096), (2, 100, 256, 128)])
+@pytest.mark.parametrize("E,C,K,N", [
+    (16, 8, 2048, 4096),     # decode gate/up: swapped operands, 8-row tiles
+    (16, 8, 4096, 2048),     # decode down
+    (3, 13, 256, 384),       # 16-row decode tiles, ragged C
+    (2, 27, 384, 128),       # 32-row decode tiles
+    (2, 100, 256, 128),      # prefill: TMA + wgmma, one ragged row tile
+    (3, 45, 384, 256),       # prefill, C % 4 != 0: sx rows padded
+    (4, 200, 256, 384),      # prefill, ragged last row tile, 3 column tiles
+    (16, 520, 2048, 4096),   # prefill at full width, 5 row tiles
+    (1, 300, 128, 128),      # prefill, one expert, one 128-deep chunk
+    (2, 256, 384, 256),      # prefill, C a multiple of 128
+    (1, 5, 128, 128),        # decode, one expert, one chunk
+])
 def test_fp8_grouped_gemm_kernel_matches_plain(cuda, E, C, K, N):
+    """K-major block weights from quantize_blockwise, through the decode
+    (C <= 32) and prefill paths."""
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(E, C, K, device=cuda, generator=g).to(torch.bfloat16)
     wq = quant.quantize_blockwise(
         torch.randn(E, K, N, device=cuda, generator=g) / math.sqrt(K))
+    assert wq.data.stride(-2) == 1
+    before = grouped_ops.fp8_grouped_gemm.launches
     out = grouped_ops.fp8_grouped_gemm(x, wq.data, wq.scale)
+    assert grouped_ops.fp8_grouped_gemm.launches == before + 1
     _close(out, grouped_ops.fp8_grouped_gemm_plain(x, wq.data, wq.scale))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("C", [8, 24, 32, 64])
+def test_fp8_grouped_gemm_both_paths_agree(cuda, C):
+    """Around the path threshold, the decode and the prefill path forced on
+    the same call: both within 1 bf16 ulp of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(C)
+    e, k, n = 4, 512, 256
+    x = torch.randn(e, C, k, device=cuda, generator=g).to(torch.bfloat16)
+    wq = quant.quantize_blockwise(
+        torch.randn(e, k, n, device=cuda, generator=g) / math.sqrt(k))
+    ref = grouped_ops.fp8_grouped_gemm_plain(x, wq.data, wq.scale)
+    xq, sx = grouped_ops.scratch(x)
+    grouped_ops.quantize_pass(x, xq, sx)
+    bc = 8 if C <= 8 else 32
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for p in (grouped_ops.prefill_plan(e, C, n, sms),
+              grouped_ops.decode_plan(e, C, n, bc)):
+        out = torch.empty_like(ref)
+        grouped_ops.gemm_pass(xq, sx, wq.data, wq.scale, out, p)
+        _close(out, ref)
+
+
+@pytest.mark.cuda
+def test_fp8_grouped_gemm_kernel_refuses_a_row_major_weight(cuda):
+    """An (E, K, N) row-major block payload raises, and launches nothing."""
+    x = torch.randn(2, 8, 256, device=cuda).to(torch.bfloat16)
+    wq = quant.quantize_blockwise(torch.randn(2, 256, 128, device=cuda))
+    before = grouped_ops.fp8_grouped_gemm.launches
+    with pytest.raises(ValueError, match="K-major"):
+        grouped_ops.fp8_grouped_gemm(x, wq.data.contiguous(), wq.scale)
+    assert grouped_ops.fp8_grouped_gemm.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "fp8kv"])
-@pytest.mark.parametrize("ps", [8, 32])
-def test_paged_decode_kernel_matches_plain(cuda, quantized, ps):
+@pytest.mark.parametrize("ps,hd", [(8, 128), (32, 128), (64, 128), (16, 64),
+                                   (32, 256)])
+def test_paged_decode_kernel_matches_plain(cuda, quantized, ps, hd):
     """Shuffled pages, sentinel entries, empty rows and page-boundary
-    lengths; GQA groups of 4 at head_dim 128."""
-    g = torch.Generator().manual_seed(ps)
-    kv, grp, hd = 4, 4, 128
+    lengths; GQA groups of 4 at head_dim 64, 128 and 256."""
+    g = torch.Generator().manual_seed(ps + hd)
+    kv, grp = 4, 4
     lengths = [0, 1, ps - 1, ps, ps + 1, 3 * ps, 0, 5 * ps - 1]
     n_p = max(ln // ps + 1 for ln in lengths)
     need = [0 if ln == 0 else ln // ps + 1 for ln in lengths]
@@ -129,6 +180,53 @@ def test_paged_decode_kernel_matches_plain(cuda, quantized, ps):
     torch.testing.assert_close(out.float().cpu(), ref.float(), rtol=ULP,
                                atol=ULP)
     assert out[0].abs().max().item() == 0 and out[6].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "fp8kv"])
+@pytest.mark.parametrize("n_branches", [2, 4])
+def test_paged_decode_kernel_matches_plain_tree(cuda, quantized, n_branches):
+    """Tree decode, the kernel's whole function: ``starts`` and a branch
+    stride (a row sees the shared prefix and its own branch's span), C*G =
+    8 or 16 rows per KV head, an empty slot, a start on a page boundary."""
+    g = torch.Generator().manual_seed(n_branches)
+    kv, grp, hd, ps, stride = 4, 4, 128, 32, 3
+    starts = torch.tensor([100, 0, 64, 37, 250, 5], dtype=torch.int32)
+    lengths = starts + n_branches * stride - 1
+    lengths[1] = 0
+    b = len(starts)
+    n_p = int(lengths.max()) // ps + 1
+    need = [0 if i == 1 else int(ln) // ps + 1 for i, ln in enumerate(lengths)]
+    n_pages = sum(need) + 2
+    perm = torch.randperm(n_pages, generator=g).tolist()
+    tables = torch.full((b, n_p), n_pages, dtype=torch.int32)
+    pos = torch.full(((n_pages + 1) * ps,), -1, dtype=torch.int32)
+    for i in range(b):
+        for e in range(need[i]):
+            page = perm.pop()
+            tables[i, e] = page
+            for o in range(ps):
+                if e * ps + o <= lengths[i]:
+                    pos[page * ps + o] = e * ps + o
+    k = torch.randn(pos.shape[0], kv, hd, generator=g)
+    v = torch.randn(pos.shape[0], kv, hd, generator=g)
+    if quantized:
+        (k, ks), (v, vs) = quant.quantize_kv(k), quant.quantize_kv(v)
+    else:
+        k, v, ks, vs = k.to(torch.bfloat16), v.to(torch.bfloat16), None, None
+    q = torch.randn(b, kv, n_branches * grp, hd, generator=g).to(
+        torch.bfloat16)
+    args = [q, k, v, pos, ks, vs, tables, lengths, starts]
+    kw = dict(page_size=ps, group=grp, branch_stride=stride,
+              scale=1.0 / math.sqrt(hd))
+    ref = decode_ops.paged_decode_plain(*args, **kw)
+    before = decode_ops.paged_decode.launches
+    out = decode_ops.paged_decode(
+        *[a.to(cuda) if a is not None else None for a in args], **kw)
+    assert decode_ops.paged_decode.launches == before + 1
+    torch.testing.assert_close(out.float().cpu(), ref.float(), rtol=ULP,
+                               atol=ULP)
+    assert out[1].abs().max().item() == 0
 
 
 @pytest.mark.cuda

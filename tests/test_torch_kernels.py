@@ -14,8 +14,9 @@ bit-identical, only f32 summation order differs):
   * fp8_grouped_gemm vs the JAX engine's bf16-folded ``fp8_grouped_matmul``:
     relative L2 error below 1e-2 (the fold rounds each scaled operand to
     bf16, ~2**-9 relative per element).
-  * paged_decode vs the interpret kernel: 2**-7 relative + 2**-7 absolute
-    (online vs dense softmax changes f32 rounding before the bf16 cast).
+  * paged_decode vs the interpret kernel, single-token and tree decode:
+    2**-7 relative + 2**-7 absolute (online vs dense softmax changes f32
+    rounding before the bf16 cast).
   * radix_topk vs the interpret kernels: exact, values bit for bit and
     indices.
   * batch_attention vs the interpret kernel at one S block (the JAX
@@ -201,22 +202,103 @@ def test_fp8_gemm_kernel_layout_checks(case):
         gemm_ops.check_layout(x, w, sw, torch.bfloat16)
 
 
-@pytest.mark.parametrize("E,C,K,N", [(2, 8, 256, 128), (3, 32, 384, 256)])
+@pytest.mark.parametrize("E,C,K,N", [(2, 8, 256, 128), (3, 32, 384, 256),
+                                     (2, 13, 256, 256)])
 def test_fp8_grouped_gemm_plain_matches_pallas_and_ref(E, C, K, N):
+    """The port's own PTQ payload (K-major, the layout the CUDA kernel
+    reads, with the JAX bytes and scales) through the plain version against
+    the Pallas kernel and ``ref.py`` on JAX's row-major payload; C = 13 is
+    not a multiple of 8."""
     rng = np.random.default_rng(E * C + K)
     x = jnp.asarray(rng.normal(size=(E, C, K)) * 2, jnp.bfloat16)
-    wq = jax_quant.quantize_blockwise(
-        jnp.asarray(rng.normal(size=(E, K, N)) * 0.7, jnp.float32))
+    w = rng.normal(size=(E, K, N)) * 0.7
+    wq = jax_quant.quantize_blockwise(jnp.asarray(w, jnp.float32))
     ref = fp8_grouped_gemm_ref(x, wq.data, wq.scale)
     pallas = fp8_grouped_gemm_pallas(x, wq.data, wq.scale, interpret=True)
-    ours = _f32(grouped_ops.fp8_grouped_gemm(_t(x), _t(wq.data),
-                                             _t(wq.scale)))
+    tq = quant.quantize_blockwise(_t(jnp.asarray(w, jnp.float32)))
+    assert tq.data.stride(-2) == 1 and tq.data.mT.is_contiguous()
+    np.testing.assert_array_equal(tq.data.view(torch.uint8).numpy(),
+                                  np.asarray(wq.data).view(np.uint8))
+    ours = _f32(grouped_ops.fp8_grouped_gemm(_t(x), tq.data, tq.scale))
     _close(ours, ref)
     _close(ours, pallas, PALLAS_TOL)
     # the JAX engine's XLA path folds the block scales into bf16 operands
     folded = np.asarray(jax_quant.fp8_grouped_matmul(x, wq), np.float32)
     rel = np.linalg.norm(ours - folded) / np.linalg.norm(folded)
     assert rel < 1e-2, rel
+
+
+def _grouped_tiles(p, e: int, c: int, n: int):
+    """Per block of plan ``p``, in ``blockIdx`` order, the (expert, first
+    row, first column, rows, columns) of every output tile the CUDA kernels
+    give it: a persistent prefill block b takes tiles b, b + grid, .. of
+    the (expert, row tile, column tile) order, column tiles fastest; a
+    decode block (x, y, z) is columns 64 x, expert y, rows bc z."""
+    gx, gy, gz = p.grid
+    if p.bc == 0:
+        t_n, t_m = n // 128, -(-c // 128)
+        for b in range(gx):
+            yield [(t // t_n // t_m, t // t_n % t_m * 128, t % t_n * 128,
+                    128, 128) for t in range(b, t_n * t_m * e, gx)]
+        return
+    for x in range(gx):
+        for y in range(gy):
+            for z in range(gz):
+                yield [(y, z * p.bc, x * 64, p.bc, 64)]
+
+
+@pytest.mark.parametrize("E,C,N", [(16, 8, 4096), (16, 8, 2048),
+                                   (16, 3080, 4096), (16, 3080, 2048),
+                                   (3, 1, 256), (4, 13, 384), (4, 32, 128),
+                                   (4, 33, 384), (2, 200, 128)])
+def test_fp8_grouped_gemm_plan_covers_every_tile_once(E, C, N):
+    """The launch plan the CUDA kernel takes its grid from: every (expert,
+    row, column) of the output in exactly one tile of one block (each tile
+    walks all of K's 128-deep chunks), the decode path (swapped operands,
+    the expert's rows as wgmma's N of 8, 16 or 32) up to 32 rows per
+    expert, the prefill path's persistent blocks (at most one per SM, none
+    idle) over 128 x 128 tiles above."""
+    p = grouped_ops.plan(E, C, N, 132)
+    assert (p.bc == 0) == (C > grouped_ops.DECODE_MAX_C)
+    assert p.bc in (0, 8, 16, 32) and (p.bc == 0 or p.bc >= min(C, 32))
+    covered = np.zeros((E, C, N), np.int32)
+    blocks = list(_grouped_tiles(p, E, C, N))
+    assert len(blocks) == p.grid[0] * p.grid[1] * p.grid[2]
+    if p.bc == 0:
+        assert p.grid[0] <= 132 and all(blocks)
+    for block in blocks:
+        for e, r0, c0, rows, cols in block:
+            assert c0 % 128 + cols <= 128  # one 128-column scale block
+            covered[e, r0:r0 + rows, c0:c0 + cols] += 1
+    np.testing.assert_array_equal(covered, 1)
+
+
+@pytest.mark.parametrize("case", ["row-major", "k-ragged", "dtype", "shape",
+                                  "scales"])
+def test_fp8_grouped_gemm_kernel_layout_checks(case):
+    """What the CUDA kernel refuses, named before any launch: a row-major
+    weight (the kernel reads it K-major and never transposes per call), K
+    or N not a multiple of 128 (the block scales), other dtypes and
+    shapes.  ``check_layout`` is pure Python, so it runs here."""
+    x = torch.randn(2, 8, 256).to(torch.bfloat16)
+    wq = quant.quantize_blockwise(torch.randn(2, 256, 128))
+    w, sw = wq.data, wq.scale
+    grouped_ops.check_layout(x, w, sw, torch.bfloat16)   # K-major: accepted
+    if case == "row-major":
+        w, err, match = w.contiguous(), ValueError, "K-major"
+    elif case == "k-ragged":
+        x = torch.randn(2, 8, 192).to(torch.bfloat16)
+        w = quant.k_major(torch.zeros(2, 192, 128).to(quant.E4M3))
+        sw = torch.ones(2, 1, 1)
+        err, match = ValueError, "multiples of 128"
+    elif case == "dtype":
+        x, err, match = x.float(), TypeError, "bf16 x"
+    elif case == "shape":
+        x, err, match = x[:1].contiguous(), ValueError, "shapes"
+    else:
+        sw, err, match = sw.double(), TypeError, "f32 scales"
+    with pytest.raises(err, match=match):
+        grouped_ops.check_layout(x, w, sw, torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -273,6 +355,70 @@ def test_paged_decode_plain_matches_pallas(quantized):
     assert ours.shape == theirs.shape == (4, 1, H * HD)
     np.testing.assert_array_equal(ours[2], 0.0)      # empty row -> zeros
     np.testing.assert_allclose(ours, theirs, rtol=ULP, atol=ULP)
+
+
+def _tree_case(n_branches: int, seed: int):
+    """Tree decode: each slot holds a shared prefix of ``start`` positions,
+    then ``n_branches`` spans of ``stride`` positions (branch c at
+    ``start + c * stride``), on shuffled pages; rows r = c * G + g.  One
+    slot is empty, one has its start on a page boundary."""
+    rng = np.random.default_rng(seed)
+    kv, g, hd, ps, stride = 2, 4, 32, 8, 3
+    starts = np.asarray([5, 0, 16, 11], np.int32)     # slot 1 empty
+    lengths = starts + n_branches * stride - 1
+    lengths[1] = 0
+    b = len(starts)
+    n_p = int(lengths.max()) // ps + 1
+    need = [0 if i == 1 else int(ln) // ps + 1 for i, ln in enumerate(lengths)]
+    n_pages = sum(need) + 2
+    perm = rng.permutation(n_pages)
+    tables = np.full((b, n_p), n_pages, np.int32)     # sentinel = unmapped
+    pos = np.full(((n_pages + 1) * ps,), -1, np.int32)
+    nxt = 0
+    for i in range(b):
+        for e in range(need[i]):
+            page = int(perm[nxt])
+            nxt += 1
+            tables[i, e] = page
+            for o in range(ps):
+                if e * ps + o <= lengths[i]:
+                    pos[page * ps + o] = e * ps + o
+    n_pos = pos.shape[0]
+    k = rng.normal(size=(n_pos, kv, hd)).astype(np.float32)
+    v = rng.normal(size=(n_pos, kv, hd)).astype(np.float32)
+    kq, ks = jax_quant.quantize_kv(jnp.asarray(k))
+    vq, vs = jax_quant.quantize_kv(jnp.asarray(v))
+    q = jnp.asarray(rng.normal(size=(b, kv, n_branches * g, hd)),
+                    jnp.bfloat16)
+    return dict(q=q, k=kq, v=vq, pos=jnp.asarray(pos), k_scale=ks,
+                v_scale=vs, tables=jnp.asarray(tables),
+                lengths=jnp.asarray(lengths), starts=jnp.asarray(starts)), \
+        dict(page_size=ps, group=g, branch_stride=stride,
+             scale=1.0 / np.sqrt(hd))
+
+
+@pytest.mark.parametrize("n_branches", [2, 3, 4])
+def test_paged_decode_plain_matches_pallas_tree(n_branches):
+    """The kernel layout's whole function: ``starts`` and a branch stride
+    (each row sees the shared prefix and its own branch's span only), C*G
+    = 8..16 rows per KV head, fp8 K/V, an empty slot; the plain version
+    against the Pallas kernel in interpret mode, 2**-7 relative + 2**-7
+    absolute (online vs dense softmax)."""
+    from repro.kernels.paged_decode.kernel import paged_decode_pallas
+    args, kw = _tree_case(n_branches, seed=n_branches)
+    ps = kw["page_size"]
+    jargs = dict(args, pos=args["pos"].reshape(-1, ps))
+    theirs = np.asarray(paged_decode_pallas(**jargs, **kw, interpret=True),
+                        np.float32)
+    ours = _f32(decode_ops.paged_decode(**{n: _t(a) for n, a in
+                                           args.items()}, **kw))
+    assert ours.shape == theirs.shape == (4, 2, 4 * n_branches, 32)
+    np.testing.assert_array_equal(ours[1], 0.0)      # empty slot -> zeros
+    np.testing.assert_allclose(ours, theirs, rtol=ULP, atol=ULP)
+    # the branch mask is live: without it every row would see all keys
+    flat = decode_ops.paged_decode(**{n: _t(a) for n, a in args.items()},
+                                   **dict(kw, branch_stride=64))
+    assert not np.allclose(_f32(flat), ours, atol=ULP)
 
 
 # ---------------------------------------------------------------------------

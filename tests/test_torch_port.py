@@ -141,6 +141,40 @@ def test_ptq_lays_per_channel_payloads_k_major(reduced_params, aligned):
     assert n_channel >= 1
 
 
+@pytest.mark.parametrize("stack", [(3,), (2, 3)], ids=["experts", "layers"])
+def test_ptq_lays_block_payloads_k_major(stack):
+    """Every 128-block fp8 leaf is the transpose view of a contiguous
+    ``(..., out, in)`` array (the layout kernel ``fp8_grouped_gemm``
+    reads), keeps its ``(..., in, out)`` shape, and holds the JAX PTQ's
+    bytes and scales; its layer slices stay K-major and pass the grouped
+    kernel's layout check."""
+    from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
+    rng = np.random.default_rng(4)
+    params = {"stacks": {"0": {"p0": {"moe": {"experts": {
+        name: jnp.asarray(rng.normal(size=stack + shape) * 0.05, jnp.float32)
+        for name, shape in (("gate", (256, 384)), ("up", (256, 384)),
+                            ("down", (384, 256)))}}}}}}
+    theirs = dict(_jax_leaves(jax_quantize_params(params)))
+    n_block = 0
+    for path, o in leaves_with_path(quantize_params(torch_params(params))):
+        assert isinstance(o, quant.QuantizedTensor), path
+        assert o.granularity == "block", path
+        n_block += 1
+        t = theirs[path]
+        assert tuple(o.data.shape) == tuple(t.data.shape), path
+        assert o.data.stride(-2) == 1, (path, o.data.stride())
+        assert o.data.mT.is_contiguous(), path
+        np.testing.assert_array_equal(o.data.view(torch.uint8).numpy(),
+                                      _bytes(t.data))
+        np.testing.assert_array_equal(o.scale.numpy(), np.asarray(t.scale))
+        layer = o[o.data.shape[0] - 1] if len(stack) == 2 else o
+        assert layer.data.stride(-2) == 1 and layer.data.mT.is_contiguous()
+        e, k, n = layer.data.shape
+        grouped_ops.check_layout(torch.zeros(e, 8, k, dtype=torch.bfloat16),
+                                 layer.data, layer.scale, torch.bfloat16)
+    assert n_block == 3
+
+
 @pytest.mark.parametrize("which", ["reduced", "paged_test", "aligned"])
 def test_fp8_gemm_kernel_takes_every_per_channel_leaf(which):
     """The CUDA ``fp8_gemm`` wrapper's checks (pure Python, so they run

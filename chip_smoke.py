@@ -11,13 +11,17 @@ from the root of a checkout.  Phases, each of which fails the run:
 2. Kernel checks: each kernel against its plain PyTorch version on the card
    at the full-width OneRec-V2 shapes of the serving path, plus adversarial
    page layouts and a tree-decode case for ``paged_decode``, rows of ties
-   and +-0.0 for ``radix_topk`` and prefill-shaped and windowed calls for
+   and +-0.0 and a case for each path of ``radix_topk`` (k = 1024 and
+   k = V, equal values, odd and unaligned rows, pad columns, tiles, 1 and
+   128 rows) and prefill-shaped and windowed calls for
    ``batch_attention``; max |diff| against the stated tolerance (identical
    values and indices for ``radix_topk``), kernel / plain / library time,
-   and the roofline bound.  Kernels are timed as device time (the calls
-   captured in a CUDA graph) and as eager calls, against their library
-   call in turns where there is one; ``fp8_gemm`` and ``fp8_grouped_gemm``
-   at every timed shape (decode and prefill), their quantization pass and
+   and the roofline bound; for ``radix_topk`` also an empty kernel of its
+   launch shape (the floor of a launch).  Kernels are
+   timed as device time (the calls captured in a CUDA graph) and as eager
+   calls, against their library call in turns where there is one;
+   ``fp8_gemm`` and ``fp8_grouped_gemm`` at every timed shape (decode and
+   prefill), their quantization pass and
    GEMM also apart, their library calls with and without the activation
    quantization (the grouped GEMM's block-scaled library calls are
    recorded with the build's refusal where it refuses them), the grouped
@@ -575,6 +579,22 @@ def check_paged_decode(dev, records):
     records["paged_decode"].update(max_abs_err=worst, tree_ms=tree_ms)
 
 
+def _topk_rows(b, v, seed):
+    """Logits with edge rows: a row of small integers (ties), a row of
+    -0.0 and negatives with a few +0.0 (the k-th key among the -0.0 ties,
+    which rank below +0.0), and a row of equal values (the kernel's
+    candidate list overflows)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, v, generator=g) * 4
+    if b >= 3:
+        x[0] = torch.randint(-3, 4, (v,), generator=g).float()
+        x[1] = -torch.randint(0, 3, (v,), generator=g).float()
+        x[1, ::1500] = 0.0
+        x[2] = 1.5
+    return x
+
+
 def check_radix_topk(dev, records):
     import torch
     from repro_torch.kernels.radix_topk import ops
@@ -586,9 +606,25 @@ def check_radix_topk(dev, records):
     # falls among the -0.0 ties (keys rank -0.0 below +0.0)
     ties[::2] = -torch.randint(0, 4, (b // 2, v), generator=g).float()
     ties[::2, ::1500] = 0.0
+    # a row starting off a 16-byte boundary: scalar loads
+    flat = _topk_rows(4, v, 8).flatten()
+    unaligned = torch.cat([flat[:1], flat]).to(dev)[1:].view(4, v)
     cases = [("logits", logits, k), ("ties/+-0.0", ties, k),
              ("ties/+-0.0 k=64", ties, 64),
-             ("logits bf16", logits.to(torch.bfloat16), k)]
+             ("logits bf16", logits.to(torch.bfloat16), k),
+             ("edge rows k=1024 (MAX_K)", _topk_rows(4, v, 1), 1024),
+             ("edge rows k=V=257", _topk_rows(3, 257, 2), 257),
+             ("equal values (list overflow)", torch.full((4, v), -2.5), k),
+             ("edge rows f32 V=257 (scalar loads)", _topk_rows(3, 257, 3), 4),
+             ("edge rows bf16 V=4001 (scalar loads)",
+              _topk_rows(5, 4001, 4).to(torch.bfloat16), 16),
+             ("edge rows V=2049 (2047 pad columns)", _topk_rows(4, 2049, 5),
+              8),
+             ("edge rows V=20000 (two tiles)", _topk_rows(3, 20000, 6), 8),
+             ("edge rows V=65536 (four tiles)", _topk_rows(3, 65536, 7), 32),
+             ("edge rows, unaligned start", unaligned, k),
+             ("logits, one row", logits[:1], k),
+             ("edge rows, 128 rows", _topk_rows(128, v, 9), k)]
     for name, x, kk in cases:
         x = x.to(dev)
         vals, idx = ops.radix_topk(x, kk)
@@ -598,21 +634,43 @@ def check_radix_topk(dev, records):
                 vals.view(torch.int32), ref_v.view(torch.int32))):
             bad = (idx != ref_i).any(1).nonzero().flatten().tolist()
             fail(f"radix_topk {name}: kernel and plain differ in rows {bad}")
-        print(f"[kernel] radix_topk {name} B={b} V={v} k={kk}: identical "
+        p = ops.plan(*x.shape, x.dtype, x.data_ptr() % 16 == 0)
+        print(f"[kernel] radix_topk {name} B={x.shape[0]} V={x.shape[1]} "
+              f"k={kk} {str(x.dtype)[6:]} plan {tuple(p)}: identical "
               f"values and indices")
     x = logits.to(dev)
-    ms = time_ms(lambda: ops.radix_topk(x, k), 200)
-    plain_ms = time_ms(lambda: ops.radix_topk_plain(x, k), 50)
-    lib_ms = time_ms(lambda: torch.topk(x, k), 200)
+    p = ops.plan(b, v, x.dtype, True)
+    fns = dict(kernel=lambda: ops.radix_topk(x, k),
+               library=lambda: torch.topk(x, k))
+    t = time_turns(fns, 50)
+    eager = time_turns(fns, 200, timer=time_ms)
+    plain_ms = time_ms(lambda: ops.radix_topk_plain(x, k), 20)
+    floor_ms = time_graph_ms(lambda: ops.empty_launch(x, p), 50)
+    # other selects at the engine's width: larger k, bf16, and a block of
+    # rows one of which holds equal values (the list overflows)
+    xb = x.to(torch.bfloat16)
+    xe = x.clone()
+    xe[1] = 1.5
+    cases = {"k=64": lambda: ops.radix_topk(x, 64),
+             "k=1024": lambda: ops.radix_topk(x, 1024),
+             "bf16": lambda: ops.radix_topk(xb, k),
+             "one row of equal values": lambda: ops.radix_topk(xe, k)}
+    cases_ms = {n: time_graph_ms(fn, 50) for n, fn in cases.items()}
     b_ms, b_by = bound(b * v * 4 + b * k * 8, float(b * v), FP32_OPS_PER_S)
-    print(f"[kernel] radix_topk B={b} V={v} k={k} f32: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.topk {lib_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by})")
-    records["radix_topk"] = dict(shape=f"B={b} V={v} k={k} f32",
-                                 timer="eager", ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=lib_ms,
-                                 max_abs_err=0.0)
+    print(f"[kernel] radix_topk B={b} V={v} k={k} f32 plan {tuple(p)}: "
+          f"kernel {t['kernel']:.4f} ms, torch.topk {t['library']:.4f} ms "
+          f"(device times, CUDA graphs), empty kernel of the same shape "
+          f"{floor_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); eager calls "
+          f"back to back: kernel {eager['kernel']:.4f} ms, torch.topk "
+          f"{eager['library']:.4f} ms; plain {plain_ms:.4f} ms; "
+          + ", ".join(f"{n} {ms:.4f}" for n, ms in cases_ms.items())
+          + " ms")
+    records["radix_topk"] = dict(
+        shape=f"B={b} V={v} k={k} f32", timer="cuda_graph", ms=t["kernel"],
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t["library"], eager_ms=eager["kernel"],
+        library_eager_ms=eager["library"], floor_ms=floor_ms,
+        cases_ms=cases_ms, max_abs_err=0.0)
 
 
 def _attn_inputs(dev, b, t, h, kv, hd, s, lengths, seed):
@@ -956,7 +1014,8 @@ def main() -> int:
             "shape": r["shape"], "timer": r["timer"], "counted_in": path,
             **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
                                        "library_eager_ms", "threshold",
-                                       "tree_ms") if key in r},
+                                       "tree_ms", "floor_ms", "cases_ms")
+               if key in r},
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,195 +5,559 @@
 // (_hist_kernel / hist_round_pallas and _emit_kernel / emit_pallas) and
 // their orchestration in repro/kernels/radix_topk/ops.py (_threshold_scan,
 // _radix_topk): the two Pallas kernels and the four-round loop between
-// them are one kernel here.  One block of 1024 threads per row; the TPU
-// version's sequential (row-block, column-block) grid becomes a loop over
-// the row inside the block.
+// them are one kernel here.  The function is theirs:
 //   * Key: the order-preserving map f32 -> u32 (negatives flip every bit,
-//     the rest set the sign bit), computed from x as it is read.  Columns
-//     past V up to the JAX wrapper's padded length Vp read as `pad`
-//     (float32 min cast to x's dtype).
-//   * Four byte rounds (bits 31..24 down to 7..0): a 256-bin shared-memory
-//     histogram (atomicAdd) of the byte of every key whose higher bytes
-//     match the prefix found so far, then one warp's suffix scan finds the
-//     largest byte t whose count-from-the-top reaches `need`, appends t to
-//     the prefix and keeps need - (keys above t) (_threshold_scan).  After
-//     the last round the prefix is the k-th key u* and `need` the number of
-//     ties at u* still to take.
-//   * Emission walks the row in index order, one tile of 1024 columns at a
-//     time: ballots and popcounts give each tie its rank and each selected
-//     column its output slot (everything above u*, plus the first `need`
-//     ties by index), as _emit_kernel's running counts do.  A selected -0.0
-//     is written as +0.0, as the Pallas one-hot sum writes it.
-//   * The k outputs are sorted in shared memory by (value desc, index asc),
-//     the JAX wrapper's stable argsort of -values.
+//     the rest set the sign bit), so -0.0 ranks below +0.0.  The JAX
+//     wrapper pads the row to Vp columns of `pad` (float32 min cast to x's
+//     dtype); here the n_pad = Vp - V pad columns are counted, never
+//     loaded: they share one key and follow every real column.
+//   * Up to four byte rounds (bits 31..24 down to 7..0) find the k-th key
+//     u* and `need`, the ties at u* still to take (_threshold_scan: the
+//     largest digit t whose count from the top reaches need).
+//   * Emission takes every key above u* and the first `need` ties in
+//     index order; a selected -0.0 is written as +0.0.  The k outputs are
+//     then sorted by (value desc, index asc), the JAX wrapper's stable
+//     argsort of -values.
 //
-// What bounds it on the H100: bytes, and at the engine's shapes (32 rows of
-// 8256 f32) launch latency: the row is read five times, from L2 after the
-// first, so the work per launch is a few microseconds of latency-bound
-// loops.  This first version keeps the row out of shared memory (it re-reads
-// it from L2 each round) and launches one block per row.
+// The design, for a card with 132 SMs and a select of 32 rows of ~8k:
+//   * One read of the row.  A block's thread t holds KPT contiguous
+//     columns as keys in registers (16-byte loads when the row allows
+//     them), so thread order is index order.  One block a row: up to 1024
+//     threads, 16 keys each, hold a row of up to 16384; a longer row walks
+//     tiles of 1024 x 16 columns, re-read from L2 in each pass.  (Clusters
+//     of 2 and 4 blocks a row, summing the histograms through distributed
+//     shared memory, ran slower at the engine's 32 rows: PERF.md.)
+//   * Four 256-bin histograms (one per round) are zeroed at the start, so
+//     a round needs no barrier to clear one; warp 0 scans a complete
+//     histogram and hands the digit over behind a second barrier.
+//   * Candidate compaction: round 2 walks only the keys whose top byte won
+//     and writes them to a list in shared memory in the same pass; warp 0
+//     alone walks the list in rounds 3-4 (~180 keys of the engine's rows),
+//     with no block barrier between.  A list that would overflow (a row of
+//     equal values) leaves those rounds on the registers.  A bf16 key is
+//     whole after round 2 (its low 16 bits follow from its sign), so bf16
+//     rows skip rounds 3-4.
+//   * Early exit: once every key at the winning digit is needed, the
+//     selection is fixed; the rounds stop and the emission compares the
+//     bytes found so far.
+//   * Emission: with the selection fixed, a thread takes slots for its
+//     selected keys with one shared atomic, in any order, since the sort
+//     orders the outputs; only ties to break by index (more keys equal to
+//     u* than needed) take the one-scan path: each thread counts its keys
+//     above and at u*, one block-wide exclusive scan of the two counts
+//     gives every thread its output slots and its tie ranks.
+//   * Branch-free passes: a thread turns its key compares into a bit mask
+//     and visits only the set bits, so the rare matching keys of rounds
+//     2-4 and of the emission cost no divergent branch per key; a thread
+//     whose keys all share a digit adds them with one atomic.
+//
+// What bounds it now: neither bytes (one read of 1 MiB at 3.35 TB/s is
+// 0.3 us) nor operations, but the chain of dependent steps in one block:
+// the load's latency; round 1's 16 shared atomics a thread (their number,
+// not their collisions: warp-aggregated adds with __match_any_sync and
+// histogram copies per lane both ran slower on the H100); per round a
+// barrier, warp 0's scan of 256 bins, whose shuffles run one after
+// another, and the barrier that hands its result over; then the launch
+// itself, which chip_smoke.py measures as an empty kernel of the same
+// shape.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 1024;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_K = THREADS;
+constexpr int MAX_THREADS = 1024;
+constexpr int MAX_WARPS = MAX_THREADS / 32;
+constexpr int MAX_K = 1024;
+constexpr int CAP = 2048;             // candidate list, keys
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float load_value(const void* x, size_t row_off,
-                                            int i, int V, int bf16,
-                                            float pad) {
-  if (i >= V) return pad;
-  if (bf16) return __bfloat162float(((const __nv_bfloat16*)x)[row_off + i]);
-  return ((const float*)x)[row_off + i];
-}
-
-__device__ __forceinline__ uint32_t monotone_u32(float f) {
-  const uint32_t bits = __float_as_uint(f);
+__device__ __forceinline__ uint32_t key_of_bits(uint32_t bits) {
   return (bits >> 31) ? ~bits : (bits | 0x80000000u);
 }
 
-// Block-wide exclusive prefix count of `flag` in thread order; `*total` is
-// the block's count.  Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_count(bool flag, int* buf,
-                                                     int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned ballot = __ballot_sync(FULL, flag);
-  const int in_warp = __popc(ballot & ((1u << lane) - 1u));
-  if (lane == 0) buf[warp] = __popc(ballot);
-  __syncthreads();
-  if (warp == 0) {
-    int v = buf[lane];
-    for (int off = 1; off < WARPS; off <<= 1) {
-      const int n = __shfl_up_sync(FULL, v, off);
-      if (lane >= off) v += n;
-    }
-    buf[WARPS + lane] = v;                   // inclusive sums per warp
-  }
-  __syncthreads();
-  const int before = warp == 0 ? 0 : buf[WARPS + warp - 1];
-  *total = buf[2 * WARPS - 1];
-  __syncthreads();                           // buf is reused by the caller
-  return before + in_warp;
+__device__ __forceinline__ float value_of_key(uint32_t u) {
+  return __uint_as_float((u >> 31) ? (u & 0x7fffffffu) : ~u);
 }
 
-__global__ void __launch_bounds__(THREADS)
-radix_topk_kernel(const void* __restrict__ x, float* __restrict__ vals,
-                  int* __restrict__ idx, int V, int Vp, int k, int bf16,
-                  float pad) {
-  __shared__ int hist[256];
-  __shared__ int buf[2 * WARPS];
-  __shared__ uint32_t s_prefix;
-  __shared__ int s_need;
-  __shared__ float out_v[MAX_K];
-  __shared__ int out_i[MAX_K];
-  const int tid = threadIdx.x;
-  const size_t row_off = (size_t)blockIdx.x * V;
+struct __align__(16) Shared {
+  int hist[4][256];                   // one per round, zeroed at the start
+  uint32_t cand[CAP];                 // the keys whose top byte won
+  float out_v[MAX_K];                 // the k selected outputs
+  int out_i[MAX_K];
+  int wtot[MAX_WARPS];                // per-warp counts of the scan path
+  int n_cand;                         // keys offered to the list
+  int n_out;                          // slots taken by the fast emission
+  int res[4];                         // warp 0's rounds, for the block
+  int pick[3];                        // warp 0's scan, for the block
+};
 
-  uint32_t prefix = 0;
-  int need = k;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
-    __syncthreads();
-    const uint32_t high = shift < 24 ? (0xFFFFFFFFu << (shift + 8)) : 0u;
-    for (int i = tid; i < Vp; i += THREADS) {
-      const uint32_t u = monotone_u32(load_value(x, row_off, i, V, bf16, pad));
-      if ((u & high) == (prefix & high))
-        atomicAdd(&hist[(u >> shift) & 255u], 1);
-    }
-    __syncthreads();
-    if (tid < 32) {
-      // lane L owns bins 8L .. 8L+7; C(t) = keys whose byte is >= t
-      const int lane = tid;
-      int own[8], lane_sum = 0;
+// Raw bits of columns c0 .. c0 + KPT - 1, nv of them real: f32 bits, or
+// bf16 bits, two a word in u[0 .. KPT/2) when the load was a vector one
+// (returns true), else one a word.  to_keys turns them into keys; the
+// kernel keeps the two apart so the zeroing and its barrier overlap the
+// loads.
+template <int KPT, bool BF16>
+__device__ __forceinline__ bool load_raw(const void* __restrict__ x,
+                                         size_t row_off, int c0, int V,
+                                         bool vec, uint32_t (&u)[KPT],
+                                         int& nv) {
+  nv = min(max(V - c0, 0), KPT);
+  if (BF16) {
+    const uint16_t* p = (const uint16_t*)x + row_off + c0;
+    if (vec && nv == KPT) {
+      if constexpr (KPT == 4) {
+        const uint2 w = __ldg((const uint2*)p);
+        u[0] = w.x;
+        u[1] = w.y;
+      } else {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        own[j] = hist[lane * 8 + j];
-        lane_sum += own[j];
-      }
-      int from_here = lane_sum;              // sum over lanes >= this one
-      for (int off = 1; off < 32; off <<= 1) {
-        const int n = __shfl_down_sync(FULL, from_here, off);
-        if (lane + off < 32) from_here += n;
-      }
-      int c = from_here - lane_sum, found = -1, c_found = 0;
-#pragma unroll
-      for (int j = 7; j >= 0; --j) {
-        c += own[j];                         // C(8 * lane + j)
-        if (found < 0 && c >= need) {
-          found = j;
-          c_found = c;
+        for (int v = 0; v < KPT / 8; ++v) {
+          const uint4 w = __ldg((const uint4*)p + v);
+          u[4 * v] = w.x;
+          u[4 * v + 1] = w.y;
+          u[4 * v + 2] = w.z;
+          u[4 * v + 3] = w.w;
         }
       }
-      // the largest t with C(t) >= need lies in the highest such lane;
-      // one exists because need <= the keys matching the prefix
-      const unsigned any = __ballot_sync(FULL, found >= 0);
-      if (any != 0u && lane == 31 - __clz(any)) {
-        s_prefix = prefix | ((uint32_t)(lane * 8 + found) << shift);
-        s_need = need - (c_found - own[found]);
-      }
+      return true;
     }
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) u[j] = j < nv ? (uint32_t)__ldg(p + j) : 0u;
+    return false;
+  }
+  const float* p = (const float*)x + row_off + c0;
+  if (vec && nv == KPT) {
+#pragma unroll
+    for (int v = 0; v < KPT / 4; ++v) {
+      const float4 w = __ldg((const float4*)p + v);
+      u[4 * v] = __float_as_uint(w.x);
+      u[4 * v + 1] = __float_as_uint(w.y);
+      u[4 * v + 2] = __float_as_uint(w.z);
+      u[4 * v + 3] = __float_as_uint(w.w);
+    }
+    return true;
+  }
+#pragma unroll
+  for (int j = 0; j < KPT; ++j)
+    u[j] = j < nv ? __float_as_uint(__ldg(p + j)) : 0u;
+  return false;
+}
+
+template <int KPT, bool BF16>
+__device__ __forceinline__ void to_keys(uint32_t (&u)[KPT], bool packed) {
+  if (BF16 && packed) {
+    // descending, so u[j / 2] is read before it is overwritten
+#pragma unroll
+    for (int j = KPT - 1; j >= 0; --j)
+      u[j] = key_of_bits(j & 1 ? u[j / 2] & 0xffff0000u : u[j / 2] << 16);
+  } else {
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) u[j] = key_of_bits(BF16 ? u[j] << 16 : u[j]);
+  }
+}
+
+// Bit j set for each real key whose masked bits compare to `prefix` as
+// asked: 0 equal, 1 greater, 2 greater or equal.
+template <int CMP, int KPT>
+__device__ __forceinline__ unsigned key_bits(const uint32_t (&u)[KPT], int nv,
+                                             uint32_t mask, uint32_t prefix) {
+  unsigned b = 0u;
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    const uint32_t mu = u[j] & mask;
+    const bool hit = CMP == 0 ? mu == prefix : CMP == 1 ? mu > prefix
+                                                        : mu >= prefix;
+    b |= (unsigned)(j < nv && hit) << j;
+  }
+  return b;
+}
+
+// True when the KPT keys share their digit at `shift` (a run of equal or
+// masked values), which one atomic then adds: a warp of such threads would
+// otherwise collide KPT times on one shared address.
+template <int KPT>
+__device__ __forceinline__ bool same_digit(const uint32_t (&u)[KPT],
+                                           int shift) {
+  uint32_t diff = 0u;
+#pragma unroll
+  for (int j = 1; j < KPT; ++j) diff |= u[j] ^ u[0];
+  return ((diff >> shift) & 255u) == 0u;
+}
+
+// u[j] for a j known only at run time, by selects (no local memory)
+template <int KPT>
+__device__ __forceinline__ uint32_t pick(const uint32_t (&u)[KPT], int j) {
+  uint32_t r = u[0];
+#pragma unroll
+  for (int q = 1; q < KPT; ++q) r = q == j ? u[q] : r;
+  return r;
+}
+
+struct Pick {
+  int digit;     // the largest digit whose count from the top reaches need
+  int above;     // keys above it
+  int at;        // keys at it
+};
+
+// _threshold_scan over a histogram by one warp: lane L owns digits
+// 8L .. 8L + 7.
+__device__ __forceinline__ Pick scan_hist(const int* h, int need) {
+  const int lane = threadIdx.x & 31;
+  const int4 a = ((const int4*)h)[2 * lane], b = ((const int4*)h)[2 * lane + 1];
+  const int own[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  int suf[9];                                // suf[j]: own[j] + .. + own[7]
+  suf[8] = 0;
+#pragma unroll
+  for (int j = 7; j >= 0; --j) suf[j] = suf[j + 1] + own[j];
+  int from_here = suf[0];                    // sum over lanes >= this one
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_down_sync(FULL, from_here, off);
+    if (lane + off < 32) from_here += n;
+  }
+  const int higher = from_here - suf[0];     // keys in the lanes above
+  // the count from the top, higher + suf[j], falls as j grows: the digits
+  // 8L + 0 .. 8L + found reach need
+  int found = -1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) found += higher + suf[j] >= need;
+  int above = 0, at = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (j == found) {
+      above = higher + suf[j + 1];
+      at = own[j];
+    }
+  // one exists: need <= the keys matching the prefix
+  const int src = 31 - __clz(__ballot_sync(FULL, found >= 0));
+  Pick p;
+  p.digit = __shfl_sync(FULL, lane * 8 + found, src);
+  p.above = __shfl_sync(FULL, above, src);
+  p.at = __shfl_sync(FULL, at, src);
+  return p;
+}
+
+// The block's round result once its histogram is complete (behind a
+// barrier): warp 0 scans and hands the result over in shared memory behind
+// one more barrier, which costs less than every warp scanning.
+__device__ __forceinline__ Pick block_pick(int* res, const int* h, int need) {
+  if (threadIdx.x < 32) {
+    const Pick p = scan_hist(h, need);
+    if (threadIdx.x == 0) {
+      res[0] = p.digit;
+      res[1] = p.above;
+      res[2] = p.at;
+    }
+  }
+  __syncthreads();
+  Pick p;
+  p.digit = res[0];
+  p.above = res[1];
+  p.at = res[2];
+  return p;
+}
+
+__device__ __forceinline__ int warp_inclusive_sum(int v) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int n = __shfl_up_sync(FULL, v, off);
+    if (lane >= off) v += n;
+  }
+  return v;
+}
+
+// One block a row, walking `tiles` tiles of span = blockDim.x * KPT
+// columns; thread t holds columns t * KPT .. t * KPT + KPT - 1 of a tile.
+template <int KPT, bool BF16>
+__global__ void __launch_bounds__(MAX_THREADS)
+radix_topk_kernel(const void* __restrict__ x, float* __restrict__ vals,
+                  int* __restrict__ idx, int V, int n_pad, int k, int tiles,
+                  int vec, float pad) {
+  __shared__ Shared s;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+  const int row = blockIdx.x;
+  const size_t row_off = (size_t)row * V;
+  const int span = nt * KPT;
+  const int first = tid * KPT;                         // this thread's column
+  const uint32_t pad_u = key_of_bits(__float_as_uint(pad));
+  constexpr unsigned ALL = (1u << KPT) - 1u;           // every key real
+
+  uint32_t u[KPT];
+  int nv = 0;
+  auto load = [&](int t) {
+    to_keys<KPT, BF16>(u, load_raw<KPT, BF16>(x, row_off, first + t * span,
+                                              V, vec, u, nv));
+  };
+  // the loads are in flight across the zeroing and its barrier
+  bool packed = false;
+  if (tiles == 1)
+    packed = load_raw<KPT, BF16>(x, row_off, first, V, vec, u, nv);
+  for (int i = tid; i < 4 * 256; i += nt) (&s.hist[0][0])[i] = 0;
+  if (tid == 0) {
+    s.n_cand = 0;
+    s.n_out = 0;
+  }
+  __syncthreads();
+  if (tiles == 1) to_keys<KPT, BF16>(u, packed);
+
+  // The selection is every key whose masked bits exceed `prefix` and the
+  // first `need` whose masked bits equal it; `all_at` once every key that
+  // equals it is needed, which fixes the selection.
+  uint32_t prefix = 0u, mask = 0u;
+  int need = k;
+  bool all_at = false;
+  auto apply = [&](const Pick& p, int shift) {
+    prefix |= (uint32_t)p.digit << shift;
+    mask |= 255u << shift;
+    need -= p.above;
+    all_at = p.at == need;
+  };
+  auto add_pad = [&](int* h, int shift) {     // by one thread
+    if (n_pad && (pad_u & mask) == prefix)
+      atomicAdd(&h[(pad_u >> shift) & 255u], n_pad);
+  };
+
+  // round 1, bits 31..24: the block walks all its keys
+  for (int t = 0; t < tiles; ++t) {
+    if (tiles > 1) load(t);
+    if (nv == KPT && same_digit(u, 24)) {
+      atomicAdd(&s.hist[0][u[0] >> 24], KPT);
+    } else if (nv == KPT) {
+#pragma unroll
+      for (int j = 0; j < KPT; ++j) atomicAdd(&s.hist[0][u[j] >> 24], 1);
+    } else {
+#pragma unroll
+      for (int j = 0; j < KPT; ++j)
+        if (j < nv) atomicAdd(&s.hist[0][u[j] >> 24], 1);
+    }
+  }
+  if (tid == 0) add_pad(s.hist[0], 24);
+  __syncthreads();
+  apply(block_pick(s.pick, s.hist[0], need), 24);
+
+  // round 2, bits 23..16, over the keys whose top byte won, which go to
+  // the candidate list in the same pass
+  int m = 0;
+  if (!all_at) {
+    for (int t = 0; t < tiles; ++t) {
+      if (tiles > 1) load(t);
+      unsigned b = key_bits<0>(u, nv, mask, prefix);
+      if (b == 0u) continue;
+      int pos = atomicAdd(&s.n_cand, __popc(b));
+      if (b == ALL && same_digit(u, 16)) {
+        atomicAdd(&s.hist[1][(u[0] >> 16) & 255u], KPT);
+#pragma unroll
+        for (int j = 0; j < KPT; ++j)
+          if (pos + j < CAP) s.cand[pos + j] = u[j];
+        continue;
+      }
+      do {
+        const uint32_t key = pick(u, __ffs(b) - 1);
+        atomicAdd(&s.hist[1][(key >> 16) & 255u], 1);
+        if (pos < CAP) s.cand[pos] = key;
+        ++pos;
+        b &= b - 1u;
+      } while (b);
+    }
+    if (tid == 0) add_pad(s.hist[1], 16);
     __syncthreads();
-    prefix = s_prefix;
-    need = s_need;
+    m = s.n_cand;
+    apply(block_pick(s.pick, s.hist[1], need), 16);
+    if (BF16 && !all_at) {
+      // A bf16 key's low 16 bits follow from its sign (0 for a value >= 0,
+      // all ones below), so the 16 bits found are the whole key: no
+      // rounds 3-4, and more ties at it than needed go to the scan path.
+      prefix |= prefix >> 31 ? 0u : 0xffffu;
+      mask = 0xffffffffu;
+    }
   }
 
-  // emission in index order: keys above u* = prefix, plus the first `need`
-  // ties; exactly k columns are selected
-  int ties_seen = 0, taken = 0;
-  for (int base = 0; base < Vp && taken < k; base += THREADS) {
-    const int i = base + tid;
-    float f = 0.0f;
-    uint32_t u = 0u;
-    if (i < Vp) {
-      f = load_value(x, row_off, i, V, bf16, pad);
-      u = monotone_u32(f);
+  // rounds 3-4, bits 15..0: warp 0 walks the list alone, with no block
+  // barrier between; when the list overflowed (a row of equal values), the
+  // block walks its keys
+  if (!all_at && !BF16) {
+    if (m <= CAP) {
+      if (warp == 0) {
+        for (int r = 2; r < 4 && !all_at; ++r) {
+          const int shift = 24 - 8 * r;
+          for (int j = lane; j < m; j += 32) {
+            const uint32_t c = s.cand[j];
+            if ((c & mask) == prefix)
+              atomicAdd(&s.hist[r][(c >> shift) & 255u], 1);
+          }
+          if (lane == 0) add_pad(s.hist[r], shift);
+          __syncwarp();
+          apply(scan_hist(s.hist[r], need), shift);
+        }
+        if (lane == 0) {
+          s.res[0] = (int)prefix;
+          s.res[1] = (int)mask;
+          s.res[2] = need;
+          s.res[3] = all_at;
+        }
+      }
+      __syncthreads();
+      prefix = (uint32_t)s.res[0];
+      mask = (uint32_t)s.res[1];
+      need = s.res[2];
+      all_at = s.res[3];
+    } else {
+      for (int r = 2; r < 4 && !all_at; ++r) {
+        const int shift = 24 - 8 * r;
+        for (int t = 0; t < tiles; ++t) {
+          if (tiles > 1) load(t);
+          unsigned b = key_bits<0>(u, nv, mask, prefix);
+          if (b == ALL && same_digit(u, shift)) {
+            atomicAdd(&s.hist[r][(u[0] >> shift) & 255u], KPT);
+            continue;
+          }
+          for (; b; b &= b - 1u)
+            atomicAdd(&s.hist[r][(pick(u, __ffs(b) - 1) >> shift) & 255u], 1);
+        }
+        if (tid == 0) add_pad(s.hist[r], shift);
+        __syncthreads();
+        apply(block_pick(s.pick, s.hist[r], need), shift);
+      }
     }
-    const bool in = i < Vp;
-    const bool tie = in && u == prefix;
-    int n_ties, n_sel;
-    const int tie_rank = ties_seen + block_exclusive_count(tie, buf, &n_ties);
-    const bool sel = (in && u > prefix) || (tie && tie_rank < need);
-    const int slot = taken + block_exclusive_count(sel, buf, &n_sel);
-    if (sel) {
-      out_v[slot] = f == 0.0f ? 0.0f : f;
-      out_i[slot] = i;
+  }
+
+  auto emit = [&](int slot, uint32_t key, int col) {
+    const float f = value_of_key(key);
+    s.out_v[slot] = f == 0.0f ? 0.0f : f;
+    s.out_i[slot] = col;
+  };
+  // the pad columns follow every real column: the last n_sel_pad slots
+  const uint32_t mp = pad_u & mask;
+  int n_sel_pad = 0;
+  if (all_at) {
+    // Every key whose masked bits reach the prefix is selected, so its
+    // slot may be any free one: the sort below orders the outputs.
+    n_sel_pad = mp >= prefix ? n_pad : 0;
+    for (int t = 0; t < tiles; ++t) {
+      if (tiles > 1) load(t);
+      unsigned b = key_bits<2>(u, nv, mask, prefix);
+      if (b == 0u) continue;
+      int slot = atomicAdd(&s.n_out, __popc(b));
+      do {
+        const int j = __ffs(b) - 1;
+        emit(slot++, pick(u, j), first + t * span + j);
+        b &= b - 1u;
+      } while (b);
     }
-    ties_seen += n_ties;
-    taken += n_sel;
+  } else {
+    // Ties to break by index: one block scan a tile of the packed counts
+    // (above << 16 | ties; a tile holds at most 16384 keys, so each fits
+    // its half) gives a thread its first slot and its first tie rank.
+    int run_g = 0, run_e = 0;                // in earlier tiles
+    for (int t = 0; t < tiles; ++t) {
+      if (tiles > 1) {
+        load(t);
+        if (t > 0) __syncthreads();          // wtot of the last tile read
+      }
+      const unsigned gt = key_bits<1>(u, nv, mask, prefix);
+      const unsigned eq = key_bits<0>(u, nv, mask, prefix);
+      const int c = __popc(gt) << 16 | __popc(eq);
+      const int incl = warp_inclusive_sum(c);
+      if (lane == 31) s.wtot[warp] = incl;
+      __syncthreads();
+      const int w = lane < n_warps ? s.wtot[lane] : 0;
+      const int b = __reduce_add_sync(FULL, lane < warp ? w : 0) + incl - c;
+      const int tb = __reduce_add_sync(FULL, w);
+      const int g_before = run_g + (b >> 16), e_before = run_e + (b & 0xffff);
+      int tie = e_before, slot = g_before + min(e_before, need);
+      // no tie of this thread is needed once e_before reaches need
+      for (unsigned bits = gt | (e_before < need ? eq : 0u); bits;
+           bits &= bits - 1u) {
+        const int j = __ffs(bits) - 1;
+        if (((eq >> j) & 1u) && tie++ >= need) continue;
+        emit(slot++, pick(u, j), first + t * span + j);
+      }
+      run_g += tb >> 16;
+      run_e += tb & 0xffff;
+    }
+    n_sel_pad = mp > prefix    ? n_pad
+                : mp == prefix ? min(max(need - run_e, 0), n_pad)
+                               : 0;
+  }
+  for (int j = tid; j < n_sel_pad; j += nt) {
+    s.out_v[k - n_sel_pad + j] = pad;
+    s.out_i[k - n_sel_pad + j] = V + j;
   }
   __syncthreads();
 
   // stable sort by value, descending: rank = outputs that precede this one
-  for (int j = tid; j < k; j += THREADS) {
-    const float vj = out_v[j];
-    const int ij = out_i[j];
-    int rank = 0;
-    for (int m = 0; m < k; ++m) {
-      const float vm = out_v[m];
-      rank += (vm > vj) || (vm == vj && out_i[m] < ij);
+  for (int j = tid; j < k; j += nt) {
+    const float vj = s.out_v[j];
+    const int ij = s.out_i[j];
+    int before = 0;
+#pragma unroll 8
+    for (int q = 0; q < k; ++q) {
+      const float vq = s.out_v[q];
+      const int iq = s.out_i[q];
+      before += (vq > vj) | ((vq == vj) & (iq < ij));
     }
-    vals[(size_t)blockIdx.x * k + rank] = vj;
-    idx[(size_t)blockIdx.x * k + rank] = ij;
+    vals[(size_t)row * k + before] = vj;
+    idx[(size_t)row * k + before] = ij;
   }
+}
+
+// The floor of a launch: an empty kernel with the same grid and block
+// (chip_smoke.py times it beside the kernel).
+__global__ void empty_kernel() {}
+
+template <int KPT>
+int launch_kpt(const void* x, void* vals, void* idx, int B, int V,
+               int n_pad, int k, int bf16, float pad, int threads,
+               int tiles, int vec, cudaStream_t stream) {
+  auto kernel = bf16 ? radix_topk_kernel<KPT, true>
+                     : radix_topk_kernel<KPT, false>;
+  kernel<<<B, threads, 0, stream>>>(x, (float*)vals, (int*)idx, V, n_pad, k,
+                                    tiles, vec, pad);
+  return (int)cudaGetLastError();
+}
+
+bool plan_ok(int V, int n_pad, int kpt, int threads, int tiles) {
+  return (kpt == 4 || kpt == 8 || kpt == 16) && threads >= 32 &&
+         threads <= MAX_THREADS && threads % 32 == 0 && tiles >= 1 &&
+         n_pad >= 0 && (long long)threads * kpt * tiles >= V;
 }
 
 }  // namespace
 
 // x (B, V) f32 (bf16 == 0) or bf16, contiguous; vals (B, k) f32 and idx
-// (B, k) i32 out.  Vp >= V is the padded row length, `pad` the pad
-// columns' value.  Requires 1 <= k <= min(V, 1024).
+// (B, k) i32 out.  n_pad pad columns of value `pad` follow each row.  The
+// plan (radix_topk/ops.py::plan): kpt keys a thread, `threads` a block,
+// `tiles` tiles a block, `vec` 16-byte loads (x 16-byte aligned and
+// V * itemsize a multiple of 16).  Requires 1 <= k <= min(V, 1024).
 // Returns cudaGetLastError() after the launch.
 extern "C" int radix_topk_launch(const void* x, void* vals, void* idx, int B,
-                                 int V, int Vp, int k, int bf16, float pad,
-                                 void* stream) {
-  if (k < 1 || k > MAX_K || k > V || Vp < V) return (int)cudaErrorInvalidValue;
+                                 int V, int n_pad, int k, int bf16,
+                                 float pad, int kpt, int threads, int tiles,
+                                 int vec, void* stream) {
+  if (k < 1 || k > MAX_K || k > V || !plan_ok(V, n_pad, kpt, threads, tiles))
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  radix_topk_kernel<<<B, THREADS, 0, (cudaStream_t)stream>>>(
-      x, (float*)vals, (int*)idx, V, Vp, k, bf16, pad);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (kpt) {
+    case 4:
+      return launch_kpt<4>(x, vals, idx, B, V, n_pad, k, bf16, pad, threads,
+                           tiles, vec, st);
+    case 8:
+      return launch_kpt<8>(x, vals, idx, B, V, n_pad, k, bf16, pad, threads,
+                           tiles, vec, st);
+    default:
+      return launch_kpt<16>(x, vals, idx, B, V, n_pad, k, bf16, pad, threads,
+                            tiles, vec, st);
+  }
+}
+
+// The empty kernel on the same B blocks of `threads`.
+extern "C" int radix_topk_empty_launch(int B, int threads, void* stream) {
+  if (threads < 1 || threads > MAX_THREADS) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  empty_kernel<<<B, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,9 @@ ops.py`` (``_threshold_scan``, ``_radix_topk``); the CUDA source is
 ``src/repro_torch/csrc/radix_topk.cu``, where both Pallas kernels are one
 kernel.  ``radix_topk`` dispatches on the tensor's device: a CPU tensor
 runs the plain version, a CUDA tensor launches the kernel or raises.
+``plan`` is the launch's host-side plan (keys a thread, threads a block,
+tiles, vector loads), a plain function of the shape, dtype and
+alignment.
 
 The function is the JAX kernel's, which is not ``torch.topk``'s:
 
@@ -27,16 +30,43 @@ selected ``+inf`` turns the Pallas emission's one-hot product into NaN).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 BLOCK_V = 2048      # the JAX wrapper's column block: rows pad to a multiple
-MAX_K = 1024        # one output per thread of the kernel's final sort
+MAX_K = 1024        # the kernel's output buffer, one slot a thread at most
+MAX_THREADS = 1024  # threads a block
+KEYS_PER_THREAD = (4, 8, 16)    # the kernel's instantiations
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _F32_MIN = float(torch.finfo(torch.float32).min)
+
+
+class Plan(NamedTuple):
+    """How the kernel's one block a row covers it: ``kpt`` keys a thread
+    in registers, ``threads`` a block, ``tiles`` tiles of ``threads * kpt``
+    columns (1: the row is read once), ``vec`` 16-byte loads."""
+    kpt: int
+    threads: int
+    tiles: int
+    vec: bool
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, v: int, dtype: torch.dtype, aligned: bool) -> Plan:
+    """The launch plan of a (b, v) row block of ``dtype`` whose data starts
+    on a 16-byte boundary when ``aligned``: the fewest keys a thread that
+    let one block hold the row in registers, and past 1024 x 16 columns
+    tiles of that size, re-read from L2 in each pass."""
+    kpt = next((p for p in KEYS_PER_THREAD if v <= MAX_THREADS * p),
+               KEYS_PER_THREAD[-1])
+    threads = min(MAX_THREADS, 32 * -(-v // (32 * kpt)))
+    tiles = -(-v // (threads * kpt))
+    itemsize = 2 if dtype == torch.bfloat16 else 4
+    return Plan(kpt, threads, tiles, aligned and v * itemsize % 16 == 0)
 
 
 def monotone_u32(x: torch.Tensor) -> torch.Tensor:
@@ -54,6 +84,7 @@ def padded_len(v: int) -> int:
     return v + (-v) % bv
 
 
+@functools.lru_cache(maxsize=None)
 def pad_value(dtype: torch.dtype) -> float:
     """The pad column's value: float32 min, cast to the input's dtype."""
     return float(torch.tensor(_F32_MIN, dtype=dtype).to(torch.float32))
@@ -77,11 +108,15 @@ def radix_topk_plain(x: torch.Tensor, k: int
     return vals.gather(1, by_val), idx.gather(1, by_val).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
+    """The kernel's library, its argument types set once."""
     lib = build.load("radix_topk")
-    fn = lib.radix_topk_launch
-    fn.argtypes = [_VP] * 3 + [_I] * 5 + [_F, _VP]
-    fn.restype = _I
+    lib.radix_topk_launch.argtypes = ([_VP] * 3 + [_I] * 5 + [_F]
+                                      + [_I] * 4 + [_VP])
+    lib.radix_topk_launch.restype = _I
+    lib.radix_topk_empty_launch.argtypes = [_I] * 2 + [_VP]
+    lib.radix_topk_empty_launch.restype = _I
     return lib
 
 
@@ -103,15 +138,26 @@ def radix_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise TypeError(f"radix_topk kernel takes f32 or bf16, got "
                         f"{x.dtype}")
     x = x.contiguous()
+    p = plan(b, v, x.dtype, x.data_ptr() % 16 == 0)
     vals = torch.empty((b, k), dtype=torch.float32, device=x.device)
     idx = torch.empty((b, k), dtype=torch.int32, device=x.device)
     code = _lib().radix_topk_launch(
-        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, v, padded_len(v),
-        k, int(x.dtype == torch.bfloat16), pad_value(x.dtype),
+        x.data_ptr(), vals.data_ptr(), idx.data_ptr(), b, v,
+        padded_len(v) - v, k, int(x.dtype == torch.bfloat16),
+        pad_value(x.dtype), p.kpt, p.threads, p.tiles, int(p.vec),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "radix_topk")
     radix_topk.launches += 1
     return vals, idx
+
+
+def empty_launch(x: torch.Tensor, p: Plan) -> None:
+    """An empty kernel on the grid and block of plan ``p`` for x's rows:
+    the floor under any launch of that shape."""
+    code = _lib().radix_topk_empty_launch(
+        x.shape[0], p.threads,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(code, "radix_topk empty kernel")
 
 
 radix_topk.launches = 0

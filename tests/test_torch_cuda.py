@@ -229,25 +229,65 @@ def test_paged_decode_kernel_matches_plain_tree(cuda, quantized, n_branches):
     assert out[1].abs().max().item() == 0
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,V,k,dtype", [
-    (32, 8256, 8, torch.float32), (16, 8192, 64, torch.float32),
-    (8, 4000, 16, torch.bfloat16), (3, 257, 4, torch.float32)])
-def test_radix_topk_kernel_matches_plain(cuda, B, V, k, dtype):
-    """Random rows plus a row of ties and a row of +-0.0 and negatives:
-    identical values and indices."""
+def _topk_rows(B, V, dtype):
+    """Random rows plus, where B allows, a row of ties, a row of +-0.0 and
+    negatives, and a row of equal values (the candidate list overflows)."""
     g = torch.Generator().manual_seed(V)
     x = torch.randn(B, V, generator=g) * 7
-    x[0] = torch.randint(-3, 4, (V,), generator=g).float()      # ties
-    # -0.0 and negatives with a few +0.0 columns: the k-th key falls among
-    # the -0.0 ties (keys rank -0.0 below +0.0)
-    x[1] = -torch.randint(0, 3, (V,), generator=g).float()
-    x[1, ::1500] = 0.0
-    x = x.to(dtype)
+    if B > 0:
+        x[0] = torch.randint(-3, 4, (V,), generator=g).float()      # ties
+    if B > 1:
+        # -0.0 and negatives with a few +0.0 columns: the k-th key falls
+        # among the -0.0 ties (keys rank -0.0 below +0.0)
+        x[1] = -torch.randint(0, 3, (V,), generator=g).float()
+        x[1, ::1500] = 0.0
+    if B > 2:
+        x[2] = 1.5
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,V,k,dtype", [
+    (32, 8256, 8, torch.float32),      # the engine's select
+    (16, 8192, 64, torch.float32),
+    (8, 4000, 16, torch.bfloat16),
+    (3, 257, 4, torch.float32),        # f32 V = 257: scalar loads
+    (4, 8256, 1024, torch.float32),    # k = MAX_K
+    (3, 257, 257, torch.float32),      # k = V
+    (5, 4001, 16, torch.bfloat16),     # odd V in bf16: scalar loads
+    (4, 2049, 8, torch.float32),       # 1 column past a block, 2047 pad
+    (3, 65536, 32, torch.float32),     # past two blocks' registers: tiles
+    (3, 20000, 8, torch.bfloat16),     # two tiles
+    (1, 32768, 8, torch.float32),      # two tiles, one row
+    (1, 8256, 8, torch.float32),       # B = 1
+    (128, 8256, 8, torch.float32),     # more rows than SMs
+    (2, 5, 3, torch.float32),          # rows shorter than a warp's keys
+    (3, 1, 1, torch.bfloat16),
+    (4, 33, 33, torch.float32),
+])
+def test_radix_topk_kernel_matches_plain(cuda, B, V, k, dtype):
+    """Random rows plus a row of ties, a row of +-0.0 and negatives and a
+    row of equal values: identical values and indices."""
+    x = _topk_rows(B, V, dtype)
     before = topk_ops.radix_topk.launches
     vals, idx = topk_ops.radix_topk(x.to(cuda), k)
     assert topk_ops.radix_topk.launches == before + 1
     ref_v, ref_i = topk_ops.radix_topk_plain(x, k)
+    assert torch.equal(idx.cpu(), ref_i)
+    assert torch.equal(vals.cpu().view(torch.int32), ref_v.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_radix_topk_kernel_unaligned_rows(cuda, dtype):
+    """Rows that start off a 16-byte boundary take scalar loads."""
+    x = _topk_rows(4, 8256, dtype)
+    flat = torch.cat([x.flatten()[:1], x.flatten()]).to(cuda)
+    xu = flat[1:].view(4, 8256)
+    assert xu.data_ptr() % 16 != 0
+    assert not topk_ops.plan(4, 8256, dtype, False).vec
+    vals, idx = topk_ops.radix_topk(xu, 8)
+    ref_v, ref_i = topk_ops.radix_topk_plain(x, 8)
     assert torch.equal(idx.cpu(), ref_i)
     assert torch.equal(vals.cpu().view(torch.int32), ref_v.view(torch.int32))
 

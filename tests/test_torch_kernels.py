@@ -445,6 +445,80 @@ def test_radix_topk_plain_matches_pallas(B, V, k):
     _topk_equal(x.astype(np.float32), k)
 
 
+def _edge_row(kind: str, B: int, V: int) -> np.ndarray:
+    rng = np.random.default_rng(B * V)
+    if kind == "equal":          # every key ties: the kernel's list overflows
+        return np.full((B, V), 1.5, np.float32)
+    x = rng.normal(size=(B, V)) * 7
+    if kind == "mixed":          # a row of ties, a row of equal values
+        x[0] = rng.integers(-3, 4, size=V)
+        x[1] = 2.0
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("kind,B,V,k,dtype", [
+    ("equal", 2, 4000, 8, jnp.float32),    # all-equal rows, pad ties
+    ("equal", 2, 1500, 1024, jnp.float32),  # k = MAX_K, no pad
+    ("normal", 2, 257, 257, jnp.float32),   # k = V
+    ("mixed", 3, 2049, 8, jnp.float32),     # 1 column past a block, 2047 pad
+    ("normal", 2, 2048, 1024, jnp.float32),  # k = MAX_K
+    ("mixed", 3, 4001, 16, jnp.bfloat16),   # odd V in bf16: unaligned rows
+])
+def test_radix_topk_plain_matches_pallas_edges(kind, B, V, k, dtype):
+    """The card's edge cases (``tests/test_torch_cuda.py``) that the
+    interpreter takes in reasonable time: plain vs Pallas, exact."""
+    x = jnp.asarray(_edge_row(kind, B, V), dtype)
+    jv, ji = jax_radix_topk(x, k)
+    tv, ti = topk_ops.radix_topk(_t(x), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.int32),
+                                  np.asarray(jv, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("B,V,dtype,aligned,expect", [
+    # the engine's select: one block of 544 threads, 16 keys each
+    (32, 8256, torch.float32, True, (16, 544, 1, True)),
+    (32, 8192, torch.float32, True, (8, 1024, 1, True)),
+    (3, 257, torch.float32, True, (4, 96, 1, False)),        # odd V
+    (4, 2049, torch.float32, True, (4, 544, 1, False)),
+    (5, 4001, torch.bfloat16, True, (4, 1024, 1, False)),
+    (8, 4000, torch.bfloat16, True, (4, 1024, 1, True)),
+    (4, 8256, torch.float32, False, (16, 544, 1, False)),    # offset start
+    (2, 1, torch.bfloat16, True, (4, 32, 1, False)),
+    # one block's registers hold 1024 x 16 columns; past them, tiles
+    (1, 16384, torch.float32, True, (16, 1024, 1, True)),
+    (1, 16385, torch.float32, True, (16, 1024, 2, False)),
+    (2, 20000, torch.bfloat16, True, (16, 1024, 2, True)),
+    (1, 32768, torch.float32, True, (16, 1024, 2, True)),
+    (1, 65536, torch.float32, True, (16, 1024, 4, True)),
+    (2, 100000, torch.float32, True, (16, 1024, 7, True)),
+])
+def test_radix_topk_plan(B, V, dtype, aligned, expect):
+    """The launch plan covers the row and obeys the kernel's limits."""
+    p = topk_ops.plan(B, V, dtype, aligned)
+    assert tuple(p) == expect
+    assert p.threads % 32 == 0 and p.threads <= topk_ops.MAX_THREADS
+    assert p.threads * p.kpt * p.tiles >= V
+
+
+def test_radix_topk_plan_leaves_no_warp_idle():
+    """Over a sweep of row lengths the plan's one block covers the row,
+    with every warp of a row read once holding a real column, no tile
+    empty, and the fewest keys a thread that fit."""
+    for v in list(range(1, 300)) + list(range(300, 70000, 97)):
+        p = topk_ops.plan(1, v, torch.float32, True)
+        assert p.threads * p.kpt * p.tiles >= v
+        if p.tiles == 1:
+            assert (p.threads - 32) * p.kpt < v
+        else:
+            assert p.threads == topk_ops.MAX_THREADS
+            assert (p.tiles - 1) * p.threads * p.kpt < v
+        if p.kpt > topk_ops.KEYS_PER_THREAD[0] and p.tiles == 1:
+            smaller = topk_ops.KEYS_PER_THREAD[
+                topk_ops.KEYS_PER_THREAD.index(p.kpt) - 1]
+            assert topk_ops.MAX_THREADS * smaller < v
+
+
 def test_radix_topk_plain_ties_negatives_and_signed_zeros():
     _topk_equal(np.asarray([[5.0, -1.0, 5.0, 5.0, 2.0, -3.0, 2.0, 0.0]],
                            np.float32), 5)

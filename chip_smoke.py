@@ -30,10 +30,14 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``batch_attention``.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
-   in the paged layout and in the contiguous layout with
-   ``use_attention_kernel`` and ``use_radix_topk``: first tokens and
-   teacher-forced top-8 overlap against thresholds.
-4. Full width, two main paths, each kernel's launch count zeroed before
+   in four cases: the paged layout; the paged layout decoding unfused
+   (``fused_decode="off"``); the paged layout with the prefix store,
+   chunked prefill and preemption, the requests split into two priority
+   classes on one schedule; the contiguous layout with
+   ``use_attention_kernel`` and
+   ``use_radix_topk``: first tokens and teacher-forced top-8 overlap
+   against thresholds.
+4. Full width, three main paths, each kernel's launch count zeroed before
    and read after each; the counts must match the layer arithmetic:
    (a) ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode auto``
    serves 64 ragged requests at 32 slots with FP8 weights (kernels
@@ -41,7 +45,15 @@ from the root of a checkout.  Phases, each of which fails the run:
    (b) ``ServingEngine`` serves the same requests over the contiguous FP8
    slot pool with ``use_attention_kernel`` and ``use_radix_topk`` (kernels
    ``fp8_gemm``, ``fp8_grouped_gemm``, ``batch_attention``,
-   ``radix_topk``).
+   ``radix_topk``);
+   (c) ``ServingEngine`` on the paged FP8 pool with the prefix store,
+   chunked prefill (128 tokens) and preemption serves 32 first visits at
+   priority 1, then 32 return visits at priority 0 (each a first visit's
+   profile and history plus one item) through ``submit`` / ``step`` /
+   ``drain`` (kernels ``fp8_gemm``, ``fp8_grouped_gemm``,
+   ``paged_decode``); resumes, prefix hits, copy-on-write pages and
+   preemptions must each occur.  The same visits are then served with
+   the three knobs off, for information.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -50,6 +62,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -71,6 +84,7 @@ FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 TOL = 2.0 ** -7
 CPU_FIRST_TOKEN_AGREE = 0.9      # card vs CPU, share of requests
 CPU_TOP8_OVERLAP = 0.85          # card vs CPU, teacher-forced mean overlap
+DEADLINE_S = 10.0                # phase 4 (c)'s deadline, for its count
 
 
 def fail(msg: str) -> None:
@@ -150,6 +164,18 @@ def time_turns(fns, iters: int, timer=time_graph_ms):
     return {name: sum(t) / len(t) for name, t in times.items()}
 
 
+def off_exact(name, shape, out, ref, exact):
+    """Shares of the kernel's and the plain version's outputs that differ
+    from the function computed with float64 sums and rounded once to bf16
+    (through f32): where the f32 sums of the two part ways."""
+    import torch
+    e = exact.float().to(torch.bfloat16)
+    shares = [(t != e).float().mean().item() for t in (out, ref)]
+    print(f"[kernel] {name} {shape}: outputs off the float64 result's bf16 "
+          f"rounding: kernel {shares[0]:.4%}, plain {shares[1]:.4%}")
+    return dict(off_exact_kernel=shares[0], off_exact_plain=shares[1])
+
+
 def check_fp8_gemm(dev, records):
     import torch
     from repro_torch.core import quant
@@ -176,6 +202,11 @@ def check_fp8_gemm(dev, records):
         worst = max(worst, err)
         if not err <= tol:
             fail(f"fp8_gemm {m}x{k}x{n}: max |diff| {err} > {tol}")
+        xq64 = quant.quantize_per_token(x)
+        exact = (xq64.data.float().double() @ ws[0].data.float().double()
+                 ) * xq64.scale.double() * sws[0].double()[:, None, :]
+        shares = off_exact("fp8_gemm", f"M={m} K={k} N={n}", out, ref, exact)
+        del xq64, exact
         it = [0]
 
         def nxt():
@@ -252,7 +283,7 @@ def check_fp8_gemm(dev, records):
             bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
             library_with_quant_ms=t["library_quant"],
             eager_ms=eager["kernel"], library_eager_ms=eager["library"],
-            max_abs_err=err))
+            max_abs_err=err, **shares))
     records["fp8_gemm"] = dict(shapes[0], max_abs_err=worst, shapes=shapes)
 
 
@@ -335,6 +366,17 @@ def check_fp8_grouped_gemm(dev, records):
         if not err <= tol:
             fail(f"fp8_grouped_gemm {e}x{c}x{k}x{n}: max |diff| {err} > "
                  f"{tol}")
+        xq64 = quant.quantize_blockwise(x, act=True)
+        xd = xq64.data.float().double().reshape(e, c, k // 128, 128)
+        wd = w.data.float().double().reshape(e, k // 128, 128, n)
+        swn = w.scale.double().repeat_interleave(128, dim=-1)
+        exact = torch.zeros((e, c, n), dtype=torch.float64, device=dev)
+        for kb in range(k // 128):
+            exact += (xd[:, :, kb] @ wd[:, kb]) \
+                * xq64.scale[:, :, kb, None].double() * swn[:, None, kb]
+        shares = off_exact("fp8_grouped_gemm", f"E={e} C={c} K={k} N={n}",
+                           out, ref, exact)
+        del xq64, xd, wd, swn, exact
         # the two passes apart: the 1 x 128 quantization, and the GEMM on
         # the xq, sx it made
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -399,7 +441,7 @@ def check_fp8_grouped_gemm(dev, records):
             library={name: (dict(ms=t[name], with_quant_eager_ms=lib_q[name])
                             if why is None else dict(refused=why))
                      for name, why in refused.items()},
-            max_abs_err=err))
+            max_abs_err=err, **shares))
     records["fp8_grouped_gemm"] = dict(shapes[0], max_abs_err=worst,
                                        shapes=shapes)
     grouped_threshold(dev, records)
@@ -773,16 +815,94 @@ def check_batch_attention(dev, records):
 # ---------------------------------------------------------------------------
 
 
-def card_vs_cpu(dev, paged: bool):
-    """``paged``: the paged layout with fused decode; else the contiguous
-    layout with ``use_attention_kernel`` and ``use_radix_topk``."""
+def visits(cfg, n_first: int, seed: int):
+    """``n_first`` ragged first visits at priority 1, and a return visit of
+    each at priority 0: the same profile, the history plus one more item
+    (``n_codebooks`` tokens), capped at ``history_len`` items."""
     import numpy as np
+    from repro_torch.serving.requests import build_requests
+    first = [dict(r, priority=1)
+             for r in build_requests(cfg, n_first, n_first, seed, True)]
+    rng = np.random.default_rng(seed + 1)
+    cap = cfg.history_len * cfg.n_codebooks
+    back = [dict(r, priority=0, tokens=np.concatenate(
+        [r["tokens"], rng.integers(0, cfg.vocab_size - 64,
+                                   size=cfg.n_codebooks)])[:cap].astype(
+            np.int32)) for r in first]
+    return first, back
+
+
+def serve_visits(engine, first, back):
+    """The first visits through ``submit``, stepped until every one is
+    admitted; then the return visits, submitted while first visits hold
+    the slots, and a drain.  The schedule follows from the construction,
+    not the clock.  Returns (items in submission order, stats, slots the
+    first visits held when the return visits came)."""
+    engine.reset_window()
+    handles = [engine.submit(r, base_s=engine._window_t0) for r in first]
+    while engine._sched.queue_depth:
+        engine.step()
+    held = engine.pool.n_used
+    handles += [engine.submit(r) for r in back]
+    engine.drain()
+    return [h.completion.item for h in handles], engine.stats(), held
+
+
+POLICY = dict(prefix_cache=True, preemption=True)
+PHASE3_CHUNK = 16                # phase 3's prefill chunk, policy cases
+
+
+def _record_seeds(engine):
+    """{request id: (top-2 ids, top-2 logits)} of the logits each request's
+    first token is drawn from, as the engine seeds it (a preempted
+    request's last seeding)."""
+    seeds = {}
+    sched = engine._sched
+    seed_slot = sched._seed_slot
+
+    def record(slot, ids_row, vals_row, lse, done, freed):
+        seeds[sched.pool[slot].request_id] = (
+            [int(x) for x in ids_row[:2]], [float(x) for x in vals_row[:2]])
+        seed_slot(slot, ids_row, vals_row, lse, done, freed)
+
+    sched._seed_slot = record
+    return seeds
+
+
+POLICY_COUNTERS = ("resume_calls", "prefix_hits", "cow_copies",
+                   "preemptions")
+
+
+@contextlib.contextmanager
+def plain_gemms():
+    """Within: the two GEMM wrappers compute their plain versions on the
+    card too (phase 3's diagnosis: what the card gives when only the
+    GEMM kernels' sums are taken out).  Their counts stay untouched."""
     import torch
+    from repro_torch.kernels.fp8_gemm import ops as gemm_ops
+    from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
+    kept = gemm_ops.fp8_gemm, grouped_ops.fp8_grouped_gemm
+
+    def gemm(x, wq, sw, *, out_dtype=torch.bfloat16):
+        return gemm_ops.fp8_gemm_plain(x, wq, sw, out_dtype)
+
+    def grouped(x, wq, sw, *, out_dtype=torch.bfloat16):
+        return grouped_ops.fp8_grouped_gemm_plain(x, wq, sw, out_dtype)
+
+    gemm_ops.fp8_gemm, grouped_ops.fp8_grouped_gemm = gemm, grouped
+    try:
+        yield
+    finally:
+        gemm_ops.fp8_gemm, grouped_ops.fp8_grouped_gemm = kept
+
+
+def _phase3_setup(case: str):
+    """Phase 3's config, params, requests and engine settings for
+    ``case``."""
     from repro_torch.configs.base import OneRecConfig, TransformerConfig
     from repro_torch.models.onerec import init_onerec
-    from repro_torch.serving import EngineConfig, ServingEngine
-    from repro_torch.serving.executor import PhaseExecutor
     from repro_torch.serving.requests import build_requests
+    paged = case != "contiguous"
     cfg = OneRecConfig(
         name="onerec-smoke-aligned", history_len=16,
         transformer=TransformerConfig(
@@ -793,25 +913,114 @@ def card_vs_cpu(dev, paged: bool):
             use_attention_kernel=not paged))
     params = init_onerec(0, cfg, device="cpu")
     reqs = build_requests(cfg, 24, 8, seed=1, ragged=True)
-    layout = dict(page_size=32) if paged else dict(
-        paged=False, fused_decode="off", use_radix_topk=True)
-    ecfg = dict(batch_size=8, kv_dtype="float8_e4m3fn", **layout)
-    outs = {}
+    policy = dict(page_size=32, prefill_chunk=PHASE3_CHUNK, **POLICY)
+    layout = {"paged": dict(page_size=32),
+              "paged-unfused": dict(page_size=32, fused_decode="off"),
+              "paged-policy": policy, "paged-return": policy,
+              "contiguous": dict(paged=False, fused_decode="off",
+                                 use_radix_topk=True)}[case]
+    return cfg, params, reqs, dict(batch_size=8, kv_dtype="float8_e4m3fn",
+                                   **layout)
+
+
+def _serve_case(engine, case: str, cfg, reqs):
+    """Serve phase 3's requests for ``case``: a closed batch, or through
+    ``serve_visits`` (``paged-policy``: the 24 requests, the last 8 at a
+    higher priority, submitted while the first 16 hold the slots;
+    ``paged-return``: 12 first visits, then a return visit of each).
+    Returns (items, stats)."""
+    if case == "paged-policy":
+        outs, stats, _ = serve_visits(
+            engine, [dict(r, priority=1) for r in reqs[:16]],
+            [dict(r, priority=0) for r in reqs[16:]])
+    elif case == "paged-return":
+        outs, stats, _ = serve_visits(engine, *visits(cfg, 12, seed=1))
+    else:
+        outs, stats = engine.serve_requests(reqs)
+    return outs, stats
+
+
+def _serve_pair(dev, case: str, *, kv_dtype=None, plain_gemm=False):
+    """Serve ``case`` on the CPU and on the card (``plain_gemm``: the
+    card's GEMM wrappers computing their plain versions).  Returns (CPU
+    items, card items, CPU seeds, card seeds, CPU counters, card
+    counters); fails unless both served every request and, on the policy
+    cases, ran the same schedule with every policy counter > 0."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cfg, params, reqs, ecfg = _phase3_setup(case)
+    if kv_dtype:
+        ecfg["kv_dtype"] = kv_dtype
+    runs = []
     for d in ("cpu", dev):
         engine = ServingEngine(params, cfg, EngineConfig(**ecfg), device=d)
-        outs[str(d)], stats = engine.serve_requests(reqs)
-        if stats["n_requests"] != len(reqs):
-            fail(f"card-vs-CPU serve on {d} completed "
-                 f"{stats['n_requests']} of {len(reqs)}")
-    first = np.mean([a[0] == b[0] for a, b in zip(outs["cpu"],
-                                                   outs[str(dev)])])
-    items = np.mean([np.array_equal(a, b) for a, b in zip(outs["cpu"],
-                                                          outs[str(dev)])])
-    # teacher-forced: the same prefill and decode inputs on both devices
-    layout = dict(page_size=32, n_pages=8 * 2) if paged else dict(
+        seeds = _record_seeds(engine)
+        with plain_gemms() if plain_gemm and d != "cpu" \
+                else contextlib.nullcontext():
+            outs, stats = _serve_case(engine, case, cfg, reqs)
+        if stats["n_requests"] != len(outs) or len(outs) != 24:
+            fail(f"card-vs-CPU {case} serve on {d} completed "
+                 f"{stats['n_requests']} of 24")
+        runs.append((outs, seeds, {k: int(stats[k]) for k in (
+            "prefill_calls", "decode_steps", *POLICY_COUNTERS)}))
+    (c_outs, c_seeds, c_cnt), (g_outs, g_seeds, g_cnt) = runs
+    if case in ("paged-policy", "paged-return"):
+        if c_cnt != g_cnt or not all(c_cnt[k] for k in POLICY_COUNTERS):
+            fail(f"card-vs-CPU {case}: counters on the CPU {c_cnt}, on "
+                 f"the card {g_cnt}: expected equal, each policy counter "
+                 f"> 0")
+    return c_outs, g_outs, c_seeds, g_seeds, c_cnt, g_cnt
+
+
+def _first_agree(case, tag, c_outs, g_outs, c_seeds, g_seeds):
+    """Share of requests whose first token agrees; prints each
+    disagreeing request's top-2 first-token logits on both devices."""
+    import numpy as np
+    for i, (a, b) in enumerate(zip(c_outs, g_outs)):
+        if a[0] != b[0]:
+            (ci, cv), (gi, gv) = c_seeds[i], g_seeds[i]
+            print(f"[card-vs-cpu] {case}{tag} request {i}: first token "
+                  f"{a[0]} on the CPU, {b[0]} on the card; top-2 logits CPU "
+                  f"{ci} {[round(v, 4) for v in cv]} (gap "
+                  f"{cv[0] - cv[1]:.4f}), card {gi} "
+                  f"{[round(v, 4) for v in gv]} (gap {gv[0] - gv[1]:.4f})")
+    return float(np.mean([a[0] == b[0] for a, b in zip(c_outs, g_outs)]))
+
+
+def card_vs_cpu(dev, case: str):
+    """``case``: ``paged`` (decode through kernel ``paged_decode``),
+    ``paged-unfused`` (the gathered view), ``paged-policy`` (prefix store,
+    chunked prefill and preemption: the same requests, the last 8 at a
+    higher priority, submitted while the first 16 hold the slots, so
+    preempted rows resume through the store), ``paged-return`` (the same
+    settings; 12 first visits, then a return visit of each that hits the
+    first visit's stored prefix) or ``contiguous`` (``use_attention_kernel``
+    and ``use_radix_topk``).  On the two policy cases the CPU and the card
+    must run the same schedule (equal counters, each policy counter > 0).
+
+    ``paged-return``'s first tokens on fp8 K/V sit under the bar (21/24,
+    ROADMAP C2): its disagreements come from the two GEMM kernels' sums,
+    amplified by e4m3 re-quantization of the K/V that return visits read
+    back.  That run is measured and printed; the first-token bar holds two
+    runs that take one amplifier out each: bf16 K/V on every kernel, and
+    fp8 K/V with the GEMM wrappers computing their plain versions on the
+    card (``paged_decode`` on its kernel).  Its teacher-forced overlap bar
+    holds on fp8 K/V."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.executor import PhaseExecutor
+    paged = case != "contiguous"
+    resumed = case in ("paged-policy", "paged-return")
+    cfg, params, reqs, _ = _phase3_setup(case)
+    c_outs, g_outs, c_seeds, g_seeds, _, counters = _serve_pair(dev, case)
+    first = _first_agree(case, "", c_outs, g_outs, c_seeds, g_seeds)
+    items = np.mean([np.array_equal(a, b) for a, b in zip(c_outs, g_outs)])
+    # teacher-forced: the same prefill (in the policy cases a first segment
+    # and its resume) and decode inputs on both devices
+    kw = dict(page_size=32, n_pages=8 * 2,
+              fused_decode=case != "paged-unfused") if paged else dict(
         paged=False, use_radix_topk=True)
     exs = [PhaseExecutor(params, cfg, n_slots=8, device=torch.device(d),
-                         kv_dtype="float8_e4m3fn", **layout)
+                         kv_dtype="float8_e4m3fn", **kw)
            for d in ("cpu", dev)]
     hists = [np.asarray(r["tokens"]) for r in reqs[:8]]
     profs = [np.asarray(r["profile"]) for r in reqs[:8]]
@@ -819,28 +1028,57 @@ def card_vs_cpu(dev, paged: bool):
         for s, h in enumerate(hists):
             if paged and not ex.grant_slot(s, len(h) + 3):
                 fail("card-vs-CPU page grant failed")
-    logits = [ex.prefill_insert(hists, profs, list(range(8))).float().cpu()
-              .numpy() for ex in exs]
+    if resumed:
+        chunk = PHASE3_CHUNK
+        for ex in exs:
+            ex.prefill_insert([h[:chunk] for h in hists], profs,
+                              list(range(8)))
+        logits = [ex.resume_prefill([h[chunk:] for h in hists],
+                                    list(range(8)), [chunk + 1] * 8)
+                  .float().cpu().numpy() for ex in exs]
+    else:
+        logits = [ex.prefill_insert(hists, profs, list(range(8))).float()
+                  .cpu().numpy() for ex in exs]
     lengths = np.asarray([len(h) + 1 for h in hists], np.int32)
-    overlaps = []
+    overlaps, devs = [], []
     for step in range(cfg.decode_len):
         top = [np.argsort(-lg, -1)[:, :8] for lg in logits]
         overlaps.append(np.mean([len(set(a) & set(b)) / 8
                                  for a, b in zip(*top)]))
+        devs.append(float(np.abs(logits[0] - logits[1]).max()
+                          / np.abs(logits[0]).max()))
         if step == cfg.decode_len - 1:
             break
         toks = np.argmax(logits[0], -1).astype(np.int32)[:, None]
         logits = [ex.decode(toks, lengths).float().cpu().numpy()
                   for ex in exs]
         lengths = lengths + 1
-    print(f"[card-vs-cpu] {cfg.name} {'paged' if paged else 'contiguous'}: "
-          f"first tokens agree on "
-          f"{first:.3f} of requests (>= {CPU_FIRST_TOKEN_AGREE}), whole "
-          f"items {items:.3f}; teacher-forced top-8 overlap per step "
+    extra = f"; counters on both devices {counters}" if resumed else ""
+    bar = f">= {CPU_FIRST_TOKEN_AGREE}" if case != "paged-return" else \
+        f"the bar {CPU_FIRST_TOKEN_AGREE} holds the two runs below"
+    print(f"[card-vs-cpu] {cfg.name} {case}: first tokens agree on "
+          f"{first:.3f} of requests ({bar}), whole items {items:.3f}; "
+          f"teacher-forced top-8 overlap per step "
           f"{[round(float(o), 3) for o in overlaps]} (>= "
-          f"{CPU_TOP8_OVERLAP})")
-    if first < CPU_FIRST_TOKEN_AGREE or min(overlaps) < CPU_TOP8_OVERLAP:
-        fail("card and CPU disagree beyond the stated thresholds")
+          f"{CPU_TOP8_OVERLAP}), max |logit diff| / max |logit| per step "
+          f"{[round(x, 4) for x in devs]}{extra}")
+    if min(overlaps) < CPU_TOP8_OVERLAP:
+        fail(f"card-vs-CPU {case}: teacher-forced overlap under the bar")
+    if case != "paged-return":
+        if first < CPU_FIRST_TOKEN_AGREE:
+            fail(f"card-vs-CPU {case}: first tokens under the bar")
+        return
+    for tag, kw in ((" bf16 K/V", dict(kv_dtype="bfloat16")),
+                    (" fp8 K/V, GEMMs plain on the card",
+                     dict(plain_gemm=True))):
+        c_outs, g_outs, c_seeds, g_seeds, _, _ = _serve_pair(dev, case,
+                                                             **kw)
+        agree = _first_agree(case, tag, c_outs, g_outs, c_seeds, g_seeds)
+        print(f"[card-vs-cpu] {cfg.name} {case},{tag}: first tokens agree "
+              f"on {agree:.3f} of requests (>= {CPU_FIRST_TOKEN_AGREE}); "
+              f"counters equal on both devices")
+        if agree < CPU_FIRST_TOKEN_AGREE:
+            fail(f"card-vs-CPU {case},{tag}: first tokens under the bar")
 
 
 # ---------------------------------------------------------------------------
@@ -864,7 +1102,8 @@ def _wrappers():
 def _drive(dev, path: str, run, expect_fn):
     """Drive one main path with every kernel's launch count zeroed just
     before and read just after; check the outputs and hold the counts
-    against ``expect_fn(stats)``, the layer arithmetic."""
+    against ``expect_fn(stats)``, the layer arithmetic.  Returns (outputs,
+    launches, stats, peak device bytes)."""
     import torch
     from repro_torch.configs.onerec_v2 import CONFIG
     wrappers = _wrappers()
@@ -873,7 +1112,7 @@ def _drive(dev, path: str, run, expect_fn):
     for w in wrappers.values():
         w.launches = 0
     t0 = time.perf_counter()
-    outs, stats = run()
+    outs, stats = run()[:2]
     wall = time.perf_counter() - t0
     launches = {n: w.launches for n, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated(dev)
@@ -902,7 +1141,7 @@ def _drive(dev, path: str, run, expect_fn):
                                      if e):
         fail(f"{path}: launch counts {launches} != layer arithmetic "
              f"{expect}")
-    return outs, launches
+    return outs, launches, stats, peak
 
 
 def full_width(dev):
@@ -922,7 +1161,7 @@ def full_width(dev):
         return {"fp8_gemm": forwards * 4 * n_layers,           # q, k, v, o
                 "fp8_grouped_gemm": forwards * 3 * n_layers}   # gate, up, down
 
-    paged_outs, paged = _drive(
+    paged_outs, paged, _, _ = _drive(
         dev, "paged", lambda: serve.main([
             "--paged", "--kv-fp8", "--fused-decode", "auto", "--requests",
             "64", "--batch", "32", "--ragged", "--seed", "0", "--device",
@@ -940,7 +1179,7 @@ def full_width(dev):
         del params       # the engine holds the quantized tree
         return engine.serve_requests(build_requests(cfg, 64, 32, 0, True))
 
-    outs, contig = _drive(
+    outs, contig, _, _ = _drive(
         dev, "contiguous", contiguous,
         lambda st: {**per_forward(st), "paged_decode": 0,
                     "radix_topk": int(st["select_calls"]),
@@ -952,7 +1191,81 @@ def full_width(dev):
           f"agrees: {bool(items == 1.0)} (information: both prefills write "
           f"only the real rows of a padded group, and the two decode "
           f"attentions round differently)")
-    return {"paged": paged, "contiguous": contig}
+    return {"paged": paged, "contiguous": contig,
+            "policy": policy_path(dev, per_forward)}
+
+
+def _policy_line(name, stats, peak, held=None):
+    held_txt = "" if held is None else \
+        f"first visits held {held} of 32 slots at the return visits; "
+    print(f"[full-width] {name}: {held_txt}p50 / p99 latency "
+          f"{stats['p50_latency_s'] * 1e3:.1f} / "
+          f"{stats['p99_latency_s'] * 1e3:.1f} ms (priority 0: p99 "
+          f"{stats['class_stats'].get('0', {}).get('p99_latency_s', 0) * 1e3:.1f}"
+          f" ms, priority 1: p99 "
+          f"{stats['class_stats'].get('1', {}).get('p99_latency_s', 0) * 1e3:.1f}"
+          f" ms), join p50 / p99 {stats['join_p50_s'] * 1e3:.1f} / "
+          f"{stats['join_p99_s'] * 1e3:.1f} ms over "
+          f"{int(stats['join_steps'])} join steps, decode stall "
+          f"{100 * stats['decode_stall_frac']:.0f}%, "
+          f"{int(stats['prefill_calls'])} prefills ("
+          f"{int(stats['resume_calls'])} resumes) + "
+          f"{int(stats['decode_steps'])} decode steps, prefix hit rate "
+          f"{stats['prefix_hit_rate']:.3f} ({int(stats['prefix_hits'])} "
+          f"hits, {int(stats['prefix_tokens_saved'])} prefill tokens "
+          f"saved, {int(stats['cow_copies'])} COW pages, "
+          f"{int(stats['prefix_evictions'])} evictions), "
+          f"{int(stats['preemptions'])} preemptions, "
+          f"{int(stats['deadline_misses'])} deadline misses of "
+          f"{int(stats['n_requests'])} (deadline {DEADLINE_S} s), peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+
+
+def policy_path(dev, per_forward):
+    """Phase 4 (c): 32 first visits, then 32 return visits, on the paged
+    FP8 pool with the prefix store, chunked prefill and preemption; then
+    the same visits with the three knobs off, for information."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.models.onerec import init_onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    n_layers = CONFIG.transformer.n_layers
+    first, back = visits(CONFIG, 32, seed=0)
+    first = [dict(r, deadline_s=DEADLINE_S) for r in first]
+    back = [dict(r, deadline_s=DEADLINE_S) for r in back]
+    runs = {}
+
+    def serve(knobs):
+        params = init_onerec(0, CONFIG, device=dev)
+        engine = ServingEngine(params, CONFIG, EngineConfig(
+            batch_size=32, kv_dtype="float8_e4m3fn", page_size=32,
+            fused_decode="auto", **knobs), device=dev)
+        del params       # the engine holds the quantized tree
+        out = serve_visits(engine, first, back)
+        runs[bool(knobs)] = out
+        return out
+
+    outs, launches, stats, peak = _drive(
+        dev, "policy", lambda: serve(dict(prefill_chunk=128, **POLICY)),
+        lambda st: {**per_forward(st), "radix_topk": 0, "batch_attention": 0,
+                    "paged_decode": int(st["decode_steps"]) * n_layers})
+    _policy_line("policy (prefix store, chunk 128, preemption)", stats, peak,
+                 runs[True][2])
+    for key in ("resume_calls", "prefix_hits", "cow_copies", "preemptions"):
+        if not stats[key] > 0:
+            fail(f"policy path: {key} = {stats[key]}, expected > 0")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    off_outs, off_stats, held = serve({})
+    _policy_line("the same visits, knobs off", off_stats,
+                 torch.cuda.max_memory_allocated(dev), held)
+    agree = np.mean([np.array_equal(a, b) for a, b in zip(outs, off_outs)])
+    first_tok = np.mean([a[0] == b[0] for a, b in zip(outs, off_outs)])
+    print(f"[full-width] policy vs knobs off: items agree on {agree:.3f} "
+          f"of 64, first tokens on {first_tok:.3f} (information: MoE "
+          f"capacity makes batch composition matter at full width)")
+    return launches
 
 
 def main() -> int:
@@ -985,8 +1298,9 @@ def main() -> int:
     check_paged_decode(dev, records)
     check_radix_topk(dev, records)
     check_batch_attention(dev, records)
-    card_vs_cpu(dev, paged=True)
-    card_vs_cpu(dev, paged=False)
+    for case in ("paged", "paged-unfused", "paged-policy", "paged-return",
+                 "contiguous"):
+        card_vs_cpu(dev, case)
     by_path = full_width(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in)

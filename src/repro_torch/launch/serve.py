@@ -4,14 +4,19 @@ the card.
   PYTHONPATH=src python -m repro_torch.launch.serve [--paged] [--kv-fp8] \
       [--fused-decode off|auto] [--reduced] [--requests 64] [--batch 32] \
       [--slots 32] [--ragged] [--no-fp8] [--page-size 32] [--pages 0] \
-      [--seed 0] [--device cuda|cpu]
+      [--rate 8.0] [--max-queue 64] [--hold-k 4] [--hold-ms 25] \
+      [--prefix-cache [--prefix-rows 32] [--second-sight]] \
+      [--prefill-chunk 32] [--preemption] [--seed 0] [--device cuda|cpu]
 
 The flags are the JAX launcher's (``repro/launch/serve.py``) that the port
-covers, with its layouts: ``--paged`` serves the paged KV pool with fused
-decode (kernel ``paged_decode``; ``--fused-decode`` defaults to ``auto``
-there and ``off`` is not ported), and without it the contiguous slot pool
-serves with ``fused_decode="off"`` (``--fused-decode auto`` is then an
-error).  The kernels ``batch_attention`` and ``radix_topk`` are reached
+covers, with its layouts: ``--paged`` serves the paged KV pool, decoding
+through kernel ``paged_decode`` (``--fused-decode auto``, the default
+there) or through the gathered view (``off``); without it the contiguous
+slot pool serves with ``fused_decode="off"`` (``--fused-decode auto`` is
+then an error).  With ``--rate`` requests are submitted at wall-clock
+Poisson arrivals (``run_open_loop``, shedding on a full ``--max-queue``);
+without it the closed-batch ``serve_requests`` serves everything queued up
+front.  The kernels ``batch_attention`` and ``radix_topk`` are reached
 through the model config's ``use_attention_kernel`` and
 ``EngineConfig.use_radix_topk``, as in the JAX package, not through flags.
 ``--device cpu`` runs every kernel's plain PyTorch version on the CPU.
@@ -21,9 +26,11 @@ from __future__ import annotations
 
 import argparse
 
+import numpy as np
+
 from repro_torch.configs import onerec_v2
 from repro_torch.models import onerec as onerec_model
-from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving import EngineConfig, ServingEngine, run_open_loop
 from repro_torch.serving.requests import build_requests
 
 
@@ -42,17 +49,44 @@ def main(argv=None):
                     help="KV-slot pool size (0 => batch size)")
     ap.add_argument("--ragged", action="store_true",
                     help="mixed history lengths")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="open-loop Poisson arrival rate in req/s: submit "
+                         "each request at its wall-clock arrival (0 = "
+                         "closed-batch serve_requests)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="admission-queue bound (0 = unbounded); open-loop "
+                         "mode sheds the rejected requests")
+    ap.add_argument("--hold-k", type=int, default=0,
+                    help="admission hold window: defer the join round "
+                         "until K arrived requests accumulated")
+    ap.add_argument("--hold-ms", type=float, default=0.0,
+                    help="max milliseconds the hold window may defer the "
+                         "oldest arrived request")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-addressed prefix reuse across requests")
+    ap.add_argument("--prefix-rows", type=int, default=0,
+                    help="prefix-store entries (0 => 2x slots)")
+    ap.add_argument("--second-sight", action="store_true",
+                    help="store a prefix only when it is offered the "
+                         "second time (requires --prefix-cache)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="max history tokens per prefill program (0 = "
+                         "monolithic)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="free the worst decoding slot for a strictly "
+                         "higher-priority arrival")
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV layout with fused decode (default: the "
-                         "contiguous slot pool)")
+                    help="paged KV layout (default: the contiguous slot "
+                         "pool)")
     ap.add_argument("--page-size", type=int, default=32)
     ap.add_argument("--pages", type=int, default=0,
                     help="page-pool size (0 = one full row per slot)")
     ap.add_argument("--fused-decode", choices=("off", "auto"),
                     default=None,
                     help="under --paged, decode attention through kernel "
-                         "paged_decode ('auto', the default; 'off' is not "
-                         "ported); without --paged only 'off'")
+                         "paged_decode ('auto', the default) or the "
+                         "gathered view ('off'); without --paged only "
+                         "'off'")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the params AND the synthetic workload")
     ap.add_argument("--device", default="cuda",
@@ -70,12 +104,32 @@ def main(argv=None):
     engine = ServingEngine(params, cfg, EngineConfig(
         batch_size=batch, use_fp8=args.fp8,
         kv_dtype="float8_e4m3fn" if args.kv_fp8 else "bfloat16",
-        n_slots=args.slots, paged=args.paged, page_size=args.page_size,
-        n_pages=args.pages, fused_decode=fused), device=args.device)
+        n_slots=args.slots, max_queue=args.max_queue, hold_k=args.hold_k,
+        hold_ms=args.hold_ms, prefix_cache=args.prefix_cache,
+        prefix_rows=args.prefix_rows,
+        store_on_first_sight=not args.second_sight,
+        prefill_chunk=args.prefill_chunk, preemption=args.preemption,
+        paged=args.paged, page_size=args.page_size, n_pages=args.pages,
+        fused_decode=fused), device=args.device)
     del params       # the engine holds the quantized tree
     requests = build_requests(cfg, args.requests, batch, args.seed,
                               args.ragged)
-    outs, stats = engine.serve_requests(requests)
+    if args.rate > 0:
+        # arrival-driven open loop: wall-clock Poisson submission
+        rng = np.random.default_rng(args.seed)
+        offsets = np.cumsum(rng.exponential(1.0 / args.rate,
+                                            size=len(requests)))
+        timed = [dict(r, arrival_s=float(t))
+                 for r, t in zip(requests, offsets)]
+        outs, stats = run_open_loop(engine, timed,
+                                    drop_on_full=bool(args.max_queue))
+        print(f"[serve] open loop @ {args.rate:.1f} req/s offered: served "
+              f"{sum(o is not None for o in outs)}/{len(requests)} "
+              f"(rejected {int(stats['rejected'])}), hold rounds "
+              f"{int(stats['hold_rounds'])}, prefill programs "
+              f"{int(stats['prefill_calls'])}")
+    else:
+        outs, stats = engine.serve_requests(requests)
 
     print(f"[serve] mode={stats['mode']} fp8={args.fp8} "
           f"kv={stats['kv_dtype']} "
@@ -87,13 +141,27 @@ def main(argv=None):
         print(f"[serve] paged KV: {int(stats['pages_total'])} pages x "
               f"{int(stats['page_size'])} positions "
               f"({int(stats['pages_free'])} free, "
-              f"{int(stats['kv_bytes_pinned'])} B pinned after drain)")
+              f"{int(stats['kv_bytes_pinned'])} B pinned after drain) | "
+              f"prefix hits: {int(stats['prefix_row_copies'])} full-row "
+              f"copies, {int(stats['cow_copies'])} COW page copies")
     if fused != "off":
         print(f"[serve] fused decode: mode={stats['fused_decode_mode']} | "
               f"{int(stats['fused_decode_steps'])}/"
               f"{int(stats['decode_steps'])} decode steps fused | "
               f"{int(stats['fused_select_hits'])} select dispatches "
               f"folded into the decode step")
+    if args.prefix_cache:
+        print(f"[serve] prefix cache: hit-rate "
+              f"{stats['prefix_hit_rate']:.2f} "
+              f"({int(stats['prefix_hits'])}/"
+              f"{int(stats['prefix_admissions'])}), "
+              f"saved {int(stats['prefix_tokens_saved'])} prefill tokens, "
+              f"{int(stats['prefix_entries'])} entries / "
+              f"{int(stats['prefix_store_bytes'])} B stored, "
+              f"peak pinned {int(stats['prefix_bytes_pinned'])} B, "
+              f"{int(stats['prefix_evictions'])} evictions"
+              + (f", {int(stats['prefix_first_sights'])} first-sight "
+                 f"record-only offers" if args.second_sight else ""))
     print(f"[serve] per-request latency: "
           f"mean={stats['mean_latency_s']*1e3:.1f}ms "
           f"p50={stats['p50_latency_s']*1e3:.1f}ms "
@@ -102,7 +170,9 @@ def main(argv=None):
     print(f"[serve] join steps: {int(stats['join_steps'])} "
           f"(p50={stats['join_p50_s']*1e3:.1f}ms "
           f"p99={stats['join_p99_s']*1e3:.1f}ms, "
-          f"decode-stall {100*stats['decode_stall_frac']:.0f}% of wall)")
+          f"decode-stall {100*stats['decode_stall_frac']:.0f}% of wall) | "
+          f"preemptions={int(stats['preemptions'])} "
+          f"resumes={int(stats['resume_calls'])}")
     return outs, stats
 
 

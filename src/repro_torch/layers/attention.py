@@ -1,27 +1,37 @@
-"""GQA attention for the serving path: per-slot prefill fill, and
-single-token decode over the paged pool or the contiguous slot pool.
+"""GQA attention for the serving path: per-slot prefill fill, resume
+prefill over a cached prefix, and single-token decode over the paged pool
+or the contiguous slot pool.
 
-Three of the JAX layer's modes (``repro/layers/attention.py``):
+The cached modes of the JAX layer (``repro/layers/attention.py``):
 
   * **prefill fill** into a contiguous per-slot cache (``init_cache``
     ``per_slot``): full causal attention over the right-padded rows, then
     the K/V of positions ``< lengths[i]`` stored (fp8 through
     ``quantize_kv`` when the cache is fp8) and the padded tail marked empty
     (``pos = -1``);
+  * **resume prefill** (``fill_cache`` with ``starts``): row i's token j
+    sits at absolute position ``starts[i] + j``; its K/V lands at the
+    host-resolved write (``KVWrite``) and the queries attend over the whole
+    post-write row, the cached prefix included, masked by ``0 <= pos <=
+    q_pos`` — through each row of a per-slot cache, or through the paged
+    pool's gathered view (``page_gather``);
   * **paged decode**: the new token's K/V written into the paged pool at
     host-resolved flat positions (``KVWrite``), then the POST-WRITE pool
-    read through kernel ``paged_decode`` (page-table gather, fp8 dequant,
-    online softmax);
+    read through kernel ``paged_decode`` (``page_tables``: page-table
+    gather, fp8 dequant, online softmax) or, unfused, through the gathered
+    view (``page_gather``) and the plain masked softmax;
   * **per-slot decode** over the contiguous slot pool: the new token's K/V
     written at ``lengths[i] % S`` of its row (a row passed index 0 is
     inactive and not written), the post-write rows dequantized to the
     query's dtype (``_read_kv``), then kernel ``batch_attention``
     (``AttnSpec.use_kernel``) or the plain length-masked softmax.
 
-Resume prefill, tree decode, chunked attention and the gathered-view
-unfused path are later slices.  Plain torch matmul and softmax stand where
-the JAX code is plain ``jnp``; scores and softmax are f32, the PV product
-takes bf16 probabilities, as there.
+The gathered view (``page_gather`` (B, Sp), the flat pool position of each
+row's logical position) is dense in logical position, so the contiguous
+masks apply to it unchanged; unmapped pages read the sentinel page (``pos``
+-1).  Tree decode and chunked attention are not ported.  Plain torch matmul
+and softmax stand where the JAX code is plain ``jnp``; scores and softmax
+are f32, the PV product takes bf16 probabilities, as there.
 
 The port updates cache tensors IN PLACE (the JAX code returns new arrays):
 a layer's cache dict holds views into the stacked cache, so a write lands
@@ -208,7 +218,9 @@ def apply_attention(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     fill_cache: bool = False,
     lengths: Optional[torch.Tensor] = None,
+    starts: Optional[torch.Tensor] = None,
     kv_write: Optional[KVWrite] = None,
+    page_gather: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
@@ -219,25 +231,37 @@ def apply_attention(
       right-padded to T, ``lengths`` (B,) the true sequence lengths; every
       position's K/V is stored and positions ``>= lengths[i]`` are marked
       empty.
+    * ``cache, fill_cache=True, starts, kv_write`` — resume prefill: ``x``
+      holds each row's suffix, token j at position ``starts[i] + j``; the
+      writes land at ``kv_write`` (rows of the flattened (B, T) new K/V),
+      then the queries attend over each post-write row of a per-slot
+      cache, or over the paged pool's rows through ``page_gather`` (B, Sp).
     * ``cache, kv_write, page_tables`` — paged single-token decode:
       ``x`` (B, 1, D), ``lengths`` (B,) the absolute index of the new
       token; the write lands at ``kv_write``, then kernel ``paged_decode``
       reads the post-write pool through ``page_tables`` (B, P).
-    * ``cache, kv_write`` with a per-slot cache and no ``page_tables`` —
-      per-slot single-token decode (the host resolves the write to the
-      flattened rows), then ``batch_attention`` or the plain masked
-      softmax over each row.
+    * ``cache, kv_write, page_gather`` — the unfused paged decode: the
+      same write, then the plain masked softmax over the gathered view.
+    * ``cache, kv_write`` with a per-slot cache and neither — per-slot
+      single-token decode (the host resolves the write to the flattened
+      rows), then ``batch_attention`` or the plain masked softmax over
+      each row.
     """
     b, t, _ = x.shape
     h, kvh, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     decode = cache is not None and not fill_cache
+    resume = cache is not None and fill_cache and starts is not None
     if decode:
         if kv_write is None or t != 1:
             raise NotImplementedError(
                 "only single-token decode with host-resolved writes is "
-                "ported (ROADMAP.md queue N: N1 unfused paged decode, N3 "
-                "tree decode)")
+                "ported (ROADMAP.md queue N: N3 tree decode)")
         positions = lengths[:, None].to(torch.int32)
+    elif resume:
+        if kv_write is None:
+            raise ValueError("resume prefill takes host-resolved writes")
+        positions = starts[:, None].to(torch.int32) + torch.arange(
+            t, dtype=torch.int32, device=x.device)[None, :]
     else:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
 
@@ -247,25 +271,22 @@ def apply_attention(
     q = apply_rope(q, positions, theta=spec.rope_theta)
     k = apply_rope(k, positions, theta=spec.rope_theta)
 
-    if decode:
-        ks, vs, k_sc, v_sc = _store_kv(cache, k[:, 0], v[:, 0])
-        # a per-slot cache takes the write on its flattened (slot, position)
-        # rows: views, so the write lands in the pool
-        flat = cache if page_tables is not None else \
-            {n: leaf.flatten(0, 1) for n, leaf in cache.items()}
-        dst, src = kv_write
-        _put(flat["k"], dst, ks, src)
-        _put(flat["v"], dst, vs, src)
-        flat["pos"][dst] = lengths.to(torch.int32)[src]
-        if k_sc is not None:
-            flat["k_scale"][dst] = k_sc[src]
-            flat["v_scale"][dst] = v_sc[src]
+    if decode or resume:
+        paged = page_tables is not None or page_gather is not None
+        _write_kv(cache, k, v, positions, kv_write, paged)
         if page_tables is not None:
             out = paged_decode_attention(q, cache, page_tables, lengths,
                                          page_size=page_size,
                                          scale=spec.scale)
-        else:
+        elif page_gather is not None:
+            g = page_gather.long()
+            out = _view_attention(q, {n: _u8(leaf)[g].view(leaf.dtype)
+                                      for n, leaf in cache.items()},
+                                  positions, spec)
+        elif decode:
             out = _slot_decode(q, cache, lengths.to(torch.int32), spec)
+        else:
+            out = _view_attention(q, cache, positions, spec)
         out = out.to(x.dtype)
     else:
         if t > 2 * spec.chunk_size and t % spec.chunk_size == 0:
@@ -292,24 +313,56 @@ def apply_attention(
     return proj, cache
 
 
-def _slot_decode(q: torch.Tensor, cache: Dict[str, torch.Tensor],
-                 idx: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
-    """Per-slot decode attention over the POST-WRITE rows: q (B, 1, H, hd)
-    at per-row absolute index ``idx`` (B,); keys valid where ``0 <= pos <=
-    idx``.  Returns (B, 1, H * hd)."""
-    ck, cv = _read_kv(cache["k"], cache["v"], cache.get("k_scale"),
-                      cache.get("v_scale"), q.dtype)
-    cpos = cache["pos"]
-    if spec.use_kernel:
-        return batch_attention(q, ck, cv, idx[:, None], cpos,
-                               scale=spec.scale)
+def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+              v: torch.Tensor, positions: torch.Tensor, kv_write: KVWrite,
+              paged: bool) -> None:
+    """Store the new K/V (B, T, Kv, hd) and their positions (B, T) at the
+    host-resolved ``kv_write``: flat positions of the paged heap, or of the
+    per-slot cache's rows flattened to ``slot * S + position`` (views, so
+    the write lands in the pool).  ``src`` indexes the flattened (B, T)
+    rows."""
+    ks, vs, k_sc, v_sc = _store_kv(cache, k.flatten(0, 1), v.flatten(0, 1))
+    flat = cache if paged else \
+        {n: leaf.flatten(0, 1) for n, leaf in cache.items()}
+    dst, src = kv_write
+    _put(flat["k"], dst, ks, src)
+    _put(flat["v"], dst, vs, src)
+    flat["pos"][dst] = positions.expand(k.shape[:2]).reshape(-1)[src]
+    if k_sc is not None:
+        flat["k_scale"][dst] = k_sc[src]
+        flat["v_scale"][dst] = v_sc[src]
+
+
+def _view_attention(q: torch.Tensor, rows: Dict[str, torch.Tensor],
+                    q_pos: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """Attention of q (B, T, H, hd) at absolute positions ``q_pos`` (B, T)
+    over per-row cache views (k/v (B, S, Kv, hd), pos (B, S), fp8 scales):
+    keys valid where ``0 <= pos <= q_pos``.  Returns (B, T, H * hd)."""
+    ck, cv = _read_kv(rows["k"], rows["v"], rows.get("k_scale"),
+                      rows.get("v_scale"), q.dtype)
+    cpos = rows["pos"]
     b, t = q.shape[:2]
     qh = q.reshape(b, t, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
                    spec.head_dim)
     scores = _gqa_scores(qh, ck, spec.scale)              # (B,K,G,T,S)
-    valid = (cpos >= 0) & (cpos <= idx[:, None])          # (B, S)
-    probs = _masked_softmax(scores, valid[:, None, None, None, :])
+    valid = (cpos[:, None, :] >= 0) \
+        & (cpos[:, None, :] <= q_pos[:, :, None])        # (B, T, S)
+    probs = _masked_softmax(scores, valid[:, None, None])
     return _gqa_combine(probs, cv).reshape(b, t, -1)
+
+
+def _slot_decode(q: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 idx: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """Per-slot decode attention over the POST-WRITE rows: q (B, 1, H, hd)
+    at per-row absolute index ``idx`` (B,); kernel ``batch_attention``
+    under ``use_kernel``, else the plain masked softmax.  Returns
+    (B, 1, H * hd)."""
+    if spec.use_kernel:
+        ck, cv = _read_kv(cache["k"], cache["v"], cache.get("k_scale"),
+                          cache.get("v_scale"), q.dtype)
+        return batch_attention(q, ck, cv, idx[:, None], cache["pos"],
+                               scale=spec.scale)
+    return _view_attention(q, cache, idx[:, None], spec)
 
 
 def _u8(t: torch.Tensor) -> torch.Tensor:

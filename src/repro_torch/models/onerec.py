@@ -1,8 +1,9 @@
 """OneRec-V2-style generative recommender (the paper's §5.1 model): a
 fat-MoE decoder over a semantic-ID vocabulary with a profile-feature prefix
 token.  The serving entry points of ``repro/models/onerec.py``: ragged
-prefill into per-slot rows, and single-token decode over the paged pool or
-the contiguous slot pool.
+prefill into per-slot rows, resume prefill of a suffix over a cached
+prefix, and single-token decode over the paged pool or the contiguous slot
+pool.
 """
 
 from __future__ import annotations
@@ -75,35 +76,52 @@ def init_page_pool(cfg: OneRecConfig, n_pages: int, page_size: int,
 
 def prefill_into_slots(params, batch: Dict[str, torch.Tensor],
                        cfg: OneRecConfig, cache: dict,
-                       lengths: torch.Tensor):
+                       lengths: torch.Tensor, *,
+                       starts: Optional[torch.Tensor] = None,
+                       kv_write: Optional[KVWrite] = None,
+                       page_gather: Optional[torch.Tensor] = None):
     """Ragged prefill into a per-slot cache.  ``batch["tokens"]`` (B, T) is
     right-padded, ``lengths`` (B,) the true history-token counts; row i
     occupies positions 0 .. lengths[i] ([profile] + tokens).  Returns each
-    row's own last-position logits (B, V) and the filled cache."""
-    seq_lens = lengths.to(torch.int32) + 1        # + profile prefix token
-    embeds = _embed_with_profile(params, batch["tokens"], batch["profile"],
-                                 cfg)
+    row's own last-position logits (B, V) and the filled cache.
+
+    With ``starts`` (B,) this is the RESUME prefill: ``batch["tokens"]``
+    holds each row's history SUFFIX (``lengths`` counts suffix tokens),
+    token j at absolute position ``starts[i] + j``, over a cache whose row
+    already holds the profile token and the prefix (positions 0 ..
+    starts[i] - 1); no profile embedding is added.  The writes land at
+    ``kv_write``; ``page_gather`` reads the paged pool's rows."""
+    if starts is None:
+        seq_lens = lengths.to(torch.int32) + 1    # + profile prefix token
+        embeds = _embed_with_profile(params, batch["tokens"],
+                                     batch["profile"], cfg)
+    else:
+        seq_lens = lengths.to(torch.int32)        # suffix tokens only
+        embeds = tfm.embed_tokens(params["backbone"], batch["tokens"])
     return tfm.forward(params["backbone"], batch["tokens"], cfg.transformer,
                        inputs_embeds=embeds, cache=cache, fill_cache=True,
-                       lengths=seq_lens, last_index=seq_lens - 1)
+                       lengths=seq_lens, starts=starts, kv_write=kv_write,
+                       page_gather=page_gather, last_index=seq_lens - 1)
 
 
 def decode_step_slots(params, tokens: torch.Tensor, cfg: OneRecConfig,
                       cache: dict, lengths: torch.Tensor, *,
                       kv_write: KVWrite,
                       page_tables: Optional[torch.Tensor] = None,
+                      page_gather: Optional[torch.Tensor] = None,
                       page_size: int = 0):
     """Per-slot decode: tokens (B, 1), row i at its own absolute index
     ``lengths[i]``; K/V written at ``kv_write``.  With ``page_tables`` the
     cache is the paged pool and attention runs kernel ``paged_decode``;
-    without, it is the contiguous slot pool (``init_slot_cache``) and
-    attention runs kernel ``batch_attention`` under
-    ``use_attention_kernel``, else the plain masked softmax.  Returns
-    (logits (B, V), cache)."""
+    with ``page_gather`` instead, the paged pool read through the gathered
+    view (the unfused paged decode); with neither, the cache is the
+    contiguous slot pool (``init_slot_cache``) and attention runs kernel
+    ``batch_attention`` under ``use_attention_kernel``, else the plain
+    masked softmax.  Returns (logits (B, V), cache)."""
     return tfm.forward(params["backbone"], tokens, cfg.transformer,
                        cache=cache, lengths=lengths.to(torch.int32),
                        kv_write=kv_write, page_tables=page_tables,
-                       page_size=page_size,
+                       page_gather=page_gather, page_size=page_size,
                        last_index=torch.zeros(tokens.shape[0],
                                               dtype=torch.int64,
                                               device=tokens.device))

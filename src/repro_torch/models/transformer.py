@@ -3,9 +3,9 @@
 Layers are grouped into homogeneous stacks (``layer_plan``); every leaf of a
 stack keeps its leading layer axis, and the JAX ``lax.scan`` over that axis
 is a Python loop here.  Only the OneRec serving path is ported: full
-attention, MoE FFN on every layer, prefill fill into a per-slot cache, and
-single-token decode over the paged pool or the per-slot cache
-(``repro/models/transformer.py``).
+attention, MoE FFN on every layer, prefill fill into a per-slot cache,
+resume prefill over a cached prefix, and single-token decode over the
+paged pool or the per-slot cache (``repro/models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -107,13 +107,10 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig, *,
 
 
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
-                 kind: LayerKind, cache_lp, fill_cache: bool, lengths,
-                 kv_write, page_tables, page_size):
+                 kind: LayerKind, cache_lp, attn_kw: dict):
     h = rmsnorm_apply(lp["attn_norm"], x, eps=cfg.norm_eps)
     attn_out, _ = apply_attention(
-        lp["attn"], h, attn_spec_for(cfg, kind), cache=cache_lp,
-        fill_cache=fill_cache, lengths=lengths, kv_write=kv_write,
-        page_tables=page_tables, page_size=page_size)
+        lp["attn"], h, attn_spec_for(cfg, kind), cache=cache_lp, **attn_kw)
     x = x + attn_out
     h = rmsnorm_apply(lp["mlp_norm"], x, eps=cfg.norm_eps)
     return x + apply_moe(lp["moe"], h, moe_spec_for(cfg))
@@ -139,7 +136,9 @@ def forward(
     compute_dtype=torch.bfloat16,
     inputs_embeds: Optional[torch.Tensor] = None,
     lengths: Optional[torch.Tensor] = None,
+    starts: Optional[torch.Tensor] = None,
     kv_write: Optional[KVWrite] = None,
+    page_gather: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
     last_index: Optional[torch.Tensor] = None,
@@ -147,11 +146,15 @@ def forward(
     """tokens (B, T) -> (logits f32, cache).
 
     ``fill_cache=True`` with a per-slot cache (``init_kv_cache``) is the
-    ragged prefill (``lengths`` the true row lengths); a paged pool
-    (``init_kv_page_pool``) with ``kv_write``/``page_tables`` is paged
+    ragged prefill (``lengths`` the true row lengths); with ``starts`` and
+    ``kv_write`` it is the resume prefill of each row's suffix over the
+    prefix already cached, in a per-slot cache or, with ``page_gather``,
+    in the paged pool (``init_kv_page_pool``).  Without ``fill_cache`` a
+    paged pool with ``kv_write`` and ``page_tables`` (kernel
+    ``paged_decode``) or ``page_gather`` (the gathered view) is paged
     single-token decode, and a per-slot cache with ``kv_write`` alone
-    per-slot single-token decode (``lengths`` the per-row write index).  Caches are
-    updated in place and returned.  ``last_index`` (B,) keeps only that
+    per-slot single-token decode (``lengths`` the per-row write index).
+    Caches are updated in place and returned.  ``last_index`` (B,) keeps only that
     position of each row before the final norm and ``lm_head``: logits
     (B, V) instead of (B, T, V) (both are row-wise, so the values are the
     same).
@@ -160,6 +163,9 @@ def forward(
         x = inputs_embeds.to(compute_dtype)
     else:
         x = embed_tokens(params, tokens, compute_dtype)
+    attn_kw = dict(fill_cache=fill_cache, lengths=lengths, starts=starts,
+                   kv_write=kv_write, page_gather=page_gather,
+                   page_tables=page_tables, page_size=page_size)
     for si, spec in enumerate(layer_plan(cfg)):
         stack_params = params["stacks"][str(si)]
         stack_cache = cache["stacks"][str(si)] if cache is not None else None
@@ -169,8 +175,7 @@ def forward(
                 c_lp = (tree.index(stack_cache[key], i)
                         if stack_cache is not None else None)
                 x = _apply_layer(tree.index(stack_params[key], i), x, cfg,
-                                 kind, c_lp, fill_cache, lengths,
-                                 kv_write, page_tables, page_size)
+                                 kind, c_lp, attn_kw)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)

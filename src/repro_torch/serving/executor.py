@@ -1,16 +1,26 @@
 """Phase executor: the device programs behind the serving engine, for two
 KV layouts, as in ``repro/serving/executor.py``.
 
-The PAGED layout (FP8 KV pool with fused decode):
+The PAGED layout (FP8 KV pool, one refcounted page heap for slots and the
+prefix store alike):
 
   * ``prefill_insert`` — ragged prefill of a join group: the profile +
     history forward for ``Bp`` new requests (right-padded to a length
     bucket) fills a throwaway per-slot cache, whose positions are then
     scattered onto the requests' granted pages.
+  * ``resume_prefill`` — the suffix of each row (a chunk past its earlier
+    segments, or past a prefix hit) at per-row offsets ``starts``, written
+    onto the slot's pages and attending over the row's gathered view.
   * ``decode`` — one token for every slot at its own absolute index: the
-    K/V write lands in the slot's page, attention reads the pool through
-    kernel ``paged_decode``, and the select (top-k + log-partition) runs on
-    the same logits; ``select_scored`` then answers from the stash.
+    K/V write lands in the slot's page; attention reads the pool through
+    kernel ``paged_decode`` and the select (top-k + log-partition) runs on
+    the same logits, which ``select_scored`` then answers from the stash
+    (``fused_decode``), or, unfused, through the gathered view, the select
+    then a call of its own.
+  * ``attach_prefix`` / ``share_prefix`` / ``release_pages`` — a prefix
+    hit maps the stored pages read-only into the slot's table and copies
+    at most one boundary page (copy-on-write); a store admit adds
+    references to the donor slot's pages; an eviction drops them.
   * ``free_slots`` — drop retired slots' page references and clear the pos
     lane of pages whose refcount hit zero.
 
@@ -19,12 +29,17 @@ to a flat pool position, exactly as the JAX executor does; a write the JAX
 program drops (out-of-range index) is simply not passed.
 
 The CONTIGUOUS layout (``paged=False``): one per-slot row of
-``context_len + 1`` positions per slot.  ``prefill_insert`` copies the
-group's whole filled rows into ``pool[:, slots]``; ``decode`` writes each
-active row's token at its own index (inactive rows, index 0, are not
-written) and attends over the rows through kernel ``batch_attention``
-(``use_attention_kernel``) or the plain masked softmax, with no select
-stash; ``free_slots`` clears the freed rows' pos lane in one batched write.
+``context_len + 1`` positions per slot, plus an ARENA of ``prefix_rows``
+rows of the same layout behind the prefix store.  ``prefill_insert``
+copies the group's whole filled rows into ``pool[:, slots]``;
+``resume_prefill`` runs on copies of the group's rows and copies the real
+ones back; ``prefix_copy_insert`` / ``prefix_save`` copy rows between the
+arena and the pool; ``decode`` writes each active row's token at its own
+index (inactive rows, index 0, are not written) and attends over the rows
+through kernel ``batch_attention`` (``use_attention_kernel``) or the plain
+masked softmax, with no select stash; ``free_slots`` clears the freed
+rows' pos lane in one batched write.  Every copy moves fp8 payloads as
+bytes, so a stored prefix round-trips bit-identically.
 
 Every select (``select_scored``) runs kernel ``radix_topk`` under
 ``use_radix_topk``, the fused stash of the paged layout included; else a
@@ -70,6 +85,18 @@ def _layer_leaves(cache: dict):
         yield from stack.values()
 
 
+def _nbytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size()
+               for leaf in _layer_leaves(cache) for t in leaf.values())
+
+
+def _rows(cache: dict, idx: torch.Tensor) -> dict:
+    """Copies of rows ``idx`` (axis 1, under the layer axis) of a per-slot
+    cache."""
+    return tree.map_with_path(
+        lambda _, t: _u8(t)[:, idx].view(t.dtype), cache)
+
+
 class PhaseExecutor:
     """Owns the quantized params, the device KV pool (paged or contiguous),
     and the prefill / decode / select phases."""
@@ -79,7 +106,8 @@ class PhaseExecutor:
                  use_radix_topk: bool = False,
                  prefill_bucket_min: int = 16,
                  kv_dtype: Optional[str] = None, paged: bool = True,
-                 page_size: int = 32, n_pages: int = 0):
+                 page_size: int = 32, n_pages: int = 0,
+                 fused_decode: bool = True, prefix_rows: int = 0):
         self.cfg = cfg
         self.n_slots = n_slots
         self.device = device
@@ -96,14 +124,23 @@ class PhaseExecutor:
             params, PAPER_POLICY if use_fp8 else BASELINE_POLICY)
         self.s_row = cfg.context_len + 1           # positions per request
         self.paged = bool(paged)
+        # paged decode through kernel paged_decode with the select folded
+        # in, else through the gathered view
+        self.fused_decode = self.paged and bool(fused_decode)
+        self.prefix_rows = prefix_rows
+        self.arena = None
         if self.paged:
             self._init_pages(page_size, n_pages)
         else:
             self.page_pool = None
             self.cache = onerec_model.init_slot_cache(
                 cfg, n_slots, dtype=self.kv_dtype, device=device)
+            if prefix_rows > 0:   # tier 2: the prefix store's rows
+                self.arena = onerec_model.init_slot_cache(
+                    cfg, prefix_rows, dtype=self.kv_dtype, device=device)
         self._fused_select: Optional[tuple] = None
         self.counters: Dict[str, int] = {"prefill_calls": 0,
+                                         "resume_calls": 0,
                                          "decode_steps": 0,
                                          "branch_tokens": 0,
                                          "fused_decode_steps": 0,
@@ -112,6 +149,8 @@ class PhaseExecutor:
                                          "prefill_padded_rows": 0,
                                          "prefill_tokens_batched": 0,
                                          "prefill_tokens_real": 0,
+                                         "prefix_row_copies": 0,
+                                         "cow_copies": 0,
                                          "pages_granted": 0}
 
     def _init_pages(self, page_size: int, n_pages: int) -> None:
@@ -179,6 +218,16 @@ class PhaseExecutor:
         self.counters["prefill_tokens_real"] += sum(lens)
         return tok, lengths, src
 
+    def _gather_indices(self, slot_ids) -> np.ndarray:
+        """(N, Sp) flat pool position of each row's logically dense view
+        (Sp = table entries x page size).  Unmapped entries point inside
+        the sentinel page (pos -1), so an empty slot gathers an all-masked
+        view."""
+        tabs = self._table_mat[as_index(slot_ids)]
+        flat = (tabs[:, :, None].astype(INDEX_DTYPE) * self.page_size
+                + np.arange(self.page_size, dtype=INDEX_DTYPE)[None, None, :])
+        return flat.reshape(len(slot_ids), -1)
+
     def _scatter_indices(self, slot_ids, logical, valid) -> np.ndarray:
         """Flat physical index of per-row ``logical`` positions; entries
         with ``valid`` False, or on an unmapped page, resolve to the drop
@@ -225,6 +274,54 @@ class PhaseExecutor:
         self._slot_pages[slot] = list(pages)
         self.counters["pages_granted"] += need
         return True
+
+    def attach_prefix(self, slot: int, entry_pages: List[int],
+                      boundary: int, n_positions: int) -> bool:
+        """Prefix-hit admission: map a stored prefix's full pages into
+        ``slot`` read-only (refcount bump, no device copy), copy the one
+        partially-matched boundary page when ``boundary`` (matched
+        positions, profile included) is not page-aligned, and allocate
+        fresh pages for the rest of the ``n_positions`` footprint."""
+        ps = self.page_size
+        full = boundary // ps
+        need = self.page_pool.pages_for(n_positions) - full
+        if need > self.page_pool.n_free:
+            return False
+        fresh = self.page_pool.alloc(need) or []
+        table = self.page_pool.share(entry_pages[:full]) + fresh
+        self._table_mat[slot] = self._sentinel
+        self._table_mat[slot, :len(table)] = table
+        self._slot_pages[slot] = table
+        self.counters["pages_granted"] += need
+        keep = boundary % ps
+        if keep:
+            # positions [full * ps, boundary) of the donor's boundary page;
+            # the rest of the fresh page stays virgin (pos -1), the paged
+            # form of prefix_copy_insert's length mask
+            off = np.arange(keep, dtype=np.int64)
+            src = self._tensor(entry_pages[full] * ps + off, torch.int64)
+            dst = self._tensor(fresh[0] * ps + off, torch.int64)
+            for leaf in self._pool_leaves():
+                for t in leaf.values():
+                    _u8(t)[:, dst] = _u8(t)[:, src]
+            self.counters["cow_copies"] += 1
+        return True
+
+    def share_prefix(self, slot: int, n_positions: int) -> List[int]:
+        """Store admit in the paged layout: one more reference on the
+        slot's pages covering ``n_positions``, returned as the entry's
+        pages.  The donor only appends past them, so they stay as
+        stored."""
+        need = self.page_pool.pages_for(n_positions)
+        owned = self._slot_pages.get(slot, [])
+        assert need <= len(owned), \
+            f"slot {slot} holds {len(owned)} pages, prefix needs {need}"
+        return self.page_pool.share(owned[:need])
+
+    def release_pages(self, pages: List[int]) -> None:
+        """Drop one reference per page (store eviction); pages whose
+        refcount hits zero get their pos lane cleared."""
+        self._free_pages_device(self.page_pool.release(pages))
 
     def _pool_leaves(self):
         return _layer_leaves(self.cache)
@@ -298,12 +395,57 @@ class PhaseExecutor:
         synchronize(self.device)
         return logits
 
+    def resume_prefill(self, tokens_list: List[np.ndarray],
+                       slots: List[int], starts: List[int]) -> torch.Tensor:
+        """Prefill only each row's uncached SUFFIX: ``tokens_list[i]`` at
+        absolute positions from ``starts[i]`` (the positions the slot
+        already holds, profile included).  Same bucketing and padding as
+        ``prefill_insert``; returns full-bucket next-token logits."""
+        tok, lengths, src = self._pad_group(tokens_list)
+        start_arr = np.asarray([starts[j] for j in src], np.int32)
+        slot_ids = np.asarray([slots[j] for j in src], np.int32)
+        b, t = tok.shape
+        n = len(slots)
+        j = np.arange(t, dtype=INDEX_DTYPE)[None, :]
+        suffix = j < as_index(lengths)[:, None]
+        batch = {"tokens": self._tensor(tok)}
+        starts_t = self._tensor(start_arr)
+        if self.paged:
+            # only the real rows are written, as in prefill_insert
+            real = np.arange(b)[:, None] < n
+            psc = self._scatter_indices(
+                slot_ids, as_index(start_arr)[:, None] + j, suffix & real)
+            logits, self.cache = onerec_model.prefill_into_slots(
+                self.params, batch, self.cfg, self.cache,
+                self._tensor(lengths), starts=starts_t,
+                kv_write=self._page_write(psc),
+                page_gather=self._tensor(self._gather_indices(slot_ids),
+                                         torch.int64))
+        else:
+            # the group's rows run on copies, the batch-padding duplicates
+            # on rows of their own, and only the real rows are copied back
+            idx = self._tensor(slot_ids, torch.int64)
+            rows_i, cols = np.nonzero(suffix)
+            dst = rows_i * self.s_row + start_arr[rows_i] + cols
+            write = KVWrite(self._tensor(dst, torch.int64),
+                            self._tensor(rows_i * t + cols, torch.int64))
+            logits, filled = onerec_model.prefill_into_slots(
+                self.params, batch, self.cfg, _rows(self.cache, idx),
+                self._tensor(lengths), starts=starts_t, kv_write=write)
+            for pool, rows in zip(self._pool_leaves(), _layer_leaves(filled)):
+                for name, f in rows.items():
+                    _u8(pool[name])[:, idx[:n]] = _u8(f)[:, :n]
+        self.counters["resume_calls"] += 1
+        synchronize(self.device)
+        return logits
+
     def decode(self, tokens: np.ndarray, lengths: np.ndarray
                ) -> torch.Tensor:
         """One decode step over the whole pool: tokens (N, 1) at per-slot
-        indices ``lengths`` (N,).  Inactive slots pass index 0; their writes
-        are not made.  In the paged layout the decode is fused: the select
-        runs on the same logits and is stashed for ``select_scored``."""
+        indices ``lengths`` (N,).  Inactive slots (free, or mid-way through
+        a chunked prefill) pass index 0; their writes are not made.  The
+        fused paged decode runs the select on the same logits and stashes
+        it for ``select_scored``."""
         li = as_index(lengths)
         if not self.paged:
             logits, self.cache = onerec_model.decode_step_slots(
@@ -312,15 +454,20 @@ class PhaseExecutor:
             self.counters["decode_steps"] += 1
             synchronize(self.device)
             return logits
-        write = self._page_write(
-            self._scatter_indices(np.arange(self.n_slots), li, li > 0))
+        rows = np.arange(self.n_slots)
+        write = self._page_write(self._scatter_indices(rows, li, li > 0))
+        if self.fused_decode:
+            read = dict(page_tables=self._tensor(self._table_mat),
+                        page_size=self.page_size)
+        else:
+            read = dict(page_gather=self._tensor(self._gather_indices(rows),
+                                                 torch.int64))
         logits, self.cache = onerec_model.decode_step_slots(
             self.params, self._tensor(tokens), self.cfg, self.cache,
-            self._tensor(li), kv_write=write,
-            page_tables=self._tensor(self._table_mat),
-            page_size=self.page_size)
-        self._fused_select = (logits, *self._select(logits))
-        self.counters["fused_decode_steps"] += 1
+            self._tensor(li), kv_write=write, **read)
+        if self.fused_decode:
+            self._fused_select = (logits, *self._select(logits))
+            self.counters["fused_decode_steps"] += 1
         self.counters["decode_steps"] += 1
         synchronize(self.device)
         return logits
@@ -344,6 +491,34 @@ class PhaseExecutor:
         last id (the JAX executor's shape bucketing)."""
         b = bucket_length(len(ids), 1)
         return np.asarray(ids + [ids[-1]] * (b - len(ids)), np.int64)
+
+    def prefix_copy_insert(self, arena_rows: List[int], slots: List[int],
+                           lengths: List[int]) -> None:
+        """Copy stored arena rows into pool slots; stored positions at or
+        past each prefix's occupancy ``lengths[i]`` (profile + history) are
+        masked empty."""
+        rows = self._tensor(np.asarray(arena_rows), torch.int64)
+        idx = self._tensor(np.asarray(slots), torch.int64)
+        ln = self._tensor(np.asarray(lengths))
+        for pool, arena in zip(self._pool_leaves(),
+                               _layer_leaves(self.arena)):
+            for name, t in arena.items():
+                if name != "pos":
+                    _u8(pool[name])[:, idx] = _u8(t)[:, rows]
+            picked = arena["pos"][:, rows]
+            keep = (picked >= 0) & (picked < ln[None, :, None])
+            pool["pos"][:, idx] = torch.where(keep, picked, -1)
+        self.counters["prefix_row_copies"] += len(slots)
+
+    def prefix_save(self, slots: List[int], arena_rows: List[int]) -> None:
+        """Copy prefilled pool rows into arena rows (store admit) whole:
+        the restore masks each row down to its entry's length."""
+        idx = self._tensor(np.asarray(slots), torch.int64)
+        rows = self._tensor(np.asarray(arena_rows), torch.int64)
+        for arena, pool in zip(_layer_leaves(self.arena),
+                               self._pool_leaves()):
+            for name, t in pool.items():
+                _u8(arena[name])[:, rows] = _u8(t)[:, idx]
 
     def free_slots(self, slots: List[int]) -> None:
         """Retire slots so they read virgin: in the paged layout drop their
@@ -369,20 +544,32 @@ class PhaseExecutor:
 
     @property
     def kv_bytes(self) -> int:
-        """Device bytes of the whole pool (payload, pos lane, fp8 scales)."""
-        return sum(t.numel() * t.element_size()
-                   for leaf in self._pool_leaves() for t in leaf.values())
+        """Device bytes of both KV tiers (payload, pos lane, fp8 scales):
+        the pool and, in the contiguous layout, the prefix arena."""
+        return _nbytes(self.cache) + (
+            _nbytes(self.arena) if self.arena is not None else 0)
 
     @property
     def page_bytes(self) -> int:
         """Device bytes one page occupies across every layer leaf."""
         assert self.paged, "page_bytes requires the paged layout"
-        return self.kv_bytes // (self.n_pages + 1)
+        return _nbytes(self.cache) // (self.n_pages + 1)
+
+    @property
+    def arena_row_bytes(self) -> int:
+        """Device bytes one stored prefix row occupies (the store's price
+        per row); in the paged layout a stored prefix is page references,
+        priced per page."""
+        if self.paged:
+            return self.page_bytes
+        if self.arena is None:
+            return 0
+        return _nbytes(self.arena) // self.prefix_rows
 
     @property
     def pool_row_bytes(self) -> int:
         """Bytes of one slot: its row of the contiguous pool, or the
         worst case of a paged slot (a full page table)."""
         if not self.paged:
-            return self.kv_bytes // self.n_slots
+            return _nbytes(self.cache) // self.n_slots
         return self._p_max * self.page_bytes

@@ -1,12 +1,17 @@
-"""Host-side KV bookkeeping for the paged serving pool: the slot pool
-(free list + per-slot decode progress) and the refcounted page allocator,
-copied from ``repro/serving/kv_cache.py`` (pure numpy/stdlib).  The
-content-addressed prefix store waits for a later slice."""
+"""Host-side KV bookkeeping of the serving pool, copied from
+``repro/serving/kv_cache.py`` (pure numpy/stdlib): the slot pool (free list
++ per-slot decode progress), the refcounted page allocator of the paged
+layout, and tier 2, the content-addressed prefix store (``PrefixStore``
+over the executor's arena rows, or over refcounted pool pages in the paged
+layout).  The digests are the JAX package's byte for byte: the same blake2b
+input bytes at the same item granularity."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import hashlib
+from collections import OrderedDict
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -212,3 +217,339 @@ class PagePool:
     @property
     def n_used(self) -> int:
         return self.n_pages - len(self._free)
+
+
+# ---------------------------------------------------------------------------
+# Tier 2: content-addressed prefix store
+# ---------------------------------------------------------------------------
+
+
+def prefix_hash_chain(profile: np.ndarray, tokens: np.ndarray,
+                      n_codebooks: int) -> Iterator[Tuple[int, str]]:
+    """Yield ``(n_tokens, digest)`` for every item-boundary prefix of
+    ``profile ⊕ tokens``, shortest first.
+
+    The digest chains block-by-block (one block = one item =
+    ``n_codebooks`` tokens), so computing every prefix hash of an
+    L-token history is one O(L) pass, and equal content always yields
+    equal digests — across requests, engines, and processes (blake2b,
+    not Python's salted ``hash``).  Only FULL items participate: a
+    trailing partial item is never a cacheable boundary.
+    """
+    profile = np.ascontiguousarray(profile, np.float32)
+    tokens = np.ascontiguousarray(tokens, np.int32)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(b"profile:")
+    h.update(profile.tobytes())
+    for i in range(len(tokens) // n_codebooks):
+        h.update(b"item:")
+        h.update(tokens[i * n_codebooks:(i + 1) * n_codebooks].tobytes())
+        yield (i + 1) * n_codebooks, h.hexdigest()
+
+
+@dataclasses.dataclass
+class PrefixEntry:
+    """One cached prefix: content digest -> arena row holding its K/V.
+
+    Because K/V rows are causal, the row is valid for EVERY item boundary
+    of its content, not just the full ``n_tokens`` — ``digests`` keeps the
+    whole boundary chain so shorter prefixes of the same content can hit
+    this row too (the restore masks positions past the matched boundary).
+    """
+
+    key: str                    # chained content digest (full boundary)
+    row: int                    # arena row index backing this prefix
+    n_tokens: int               # history tokens covered (item-aligned)
+    refcount: int = 0           # in-flight requests pinned on this row
+    digests: List[Tuple[int, str]] = dataclasses.field(default_factory=list)
+    # paged layout: the refcounted pool pages holding this prefix's K/V
+    # (``row`` stays -1 — there is no arena; eviction releases these refs)
+    pages: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def length(self) -> int:
+        """Cache positions occupied: profile token + history tokens."""
+        return self.n_tokens + 1
+
+
+class PrefixStore:
+    """Refcounted, content-addressed, LRU-evicted index over arena rows.
+
+    Invariants (held against the JAX store in ``tests/test_torch_prefix.py``):
+      * every live entry owns a distinct arena row in ``[0, n_rows)``;
+      * ``bytes_used <= max_bytes`` always;
+      * a pinned entry (``refcount > 0``) is never evicted — ``insert``
+        fails (returns None) rather than touch a pinned row;
+      * lookup/insert refresh recency; eviction takes the least-recently
+        used unpinned entry.
+
+    Admission policy: with ``store_on_first_sight=False`` the store runs
+    TinyLFU-style *second-sight* admission — the first offer of a content
+    family only records its item-boundary digests in a bounded doorkeeper;
+    an arena row is granted when an offer SHARES a boundary with an
+    earlier one (an exact repeat, or a revisiting user's extended
+    history).  One-off traffic (most requests, in a low-repeat regime)
+    then never churns the arena, while anything sighted twice — the
+    traffic that can actually produce hits — is stored exactly as before.
+    ``insert(force=True)`` bypasses the doorkeeper (preemption parks K/V
+    it KNOWS will be re-requested).
+
+    Hit/miss/saved-token stats are windowed: ``reset_window()`` zeroes them
+    while the entries (and their device rows) persist — the engine windows
+    per ``serve_requests`` call, matching its other counters.
+    """
+
+    def __init__(self, n_rows: int, row_bytes: int,
+                 max_bytes: int = 0, n_codebooks: int = 3,
+                 store_on_first_sight: bool = True,
+                 seen_capacity: int = 0,
+                 release_pages: Optional[Callable[[List[int]], None]] = None):
+        if n_rows <= 0:
+            raise ValueError(f"n_rows must be positive, got {n_rows}")
+        self.n_rows = n_rows
+        self.row_bytes = row_bytes
+        self.max_bytes = max_bytes or n_rows * row_bytes
+        self.n_codebooks = n_codebooks
+        self.store_on_first_sight = store_on_first_sight
+        # paged layout: entries hold refcounted POOL PAGES instead of arena
+        # rows — ``n_rows`` caps entry count, ``row_bytes`` is the price of
+        # one PAGE, and eviction releases the entry's page references
+        # through this callback (the executor drops them back to the
+        # PagePool and clears freed pages' device ``pos`` lane)
+        self.page_mode = release_pages is not None
+        self._release_pages = release_pages
+        self._entries: "OrderedDict[str, PrefixEntry]" = OrderedDict()
+        # every item-boundary digest of every entry -> (entry key, boundary
+        # tokens); one arena row serves all prefixes of its content
+        self._index: Dict[str, Tuple[str, int]] = {}
+        self._free_rows: List[int] = list(range(n_rows - 1, -1, -1))
+        # second-sight doorkeeper: item-boundary digests seen in offers,
+        # LRU-bounded (sized for whole boundary CHAINS, ~history-length
+        # digests per offer, across a few arena turnovers)
+        self._seen: "OrderedDict[str, None]" = OrderedDict()
+        self._seen_cap = seen_capacity or 64 * n_rows
+        self.reset_window()
+
+    # -- windowed stats -------------------------------------------------------
+
+    def reset_window(self) -> None:
+        self.admissions = 0       # requests admitted to slots (denominator)
+        self.hits = 0             # ... of which reused a stored prefix
+        self.tokens_saved = 0     # history tokens served from the store
+        self.evictions = 0
+        self.insertions = 0
+        self.first_sights = 0     # offers the doorkeeper recorded-not-stored
+        self.peak_bytes_pinned = 0
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / self.admissions if self.admissions else 0.0
+
+    def note_admission(self, hit_tokens: Optional[int]) -> None:
+        """Count one admitted request against the hit-rate window
+        (``hit_tokens`` is the reused-prefix length, or None on a miss).
+        Kept separate from ``lookup_longest`` because the scheduler
+        re-plans un-admitted queue entries every round — only admissions
+        count."""
+        self.admissions += 1
+        if hit_tokens is not None:
+            self.hits += 1
+            self.tokens_saved += hit_tokens
+
+    # -- capacity views -------------------------------------------------------
+
+    @property
+    def n_entries(self) -> int:
+        return len(self._entries)
+
+    @property
+    def bytes_used(self) -> int:
+        if self.page_mode:
+            return sum(len(e.pages) for e in self._entries.values()) \
+                * self.row_bytes
+        return len(self._entries) * self.row_bytes
+
+    @property
+    def bytes_pinned(self) -> int:
+        if self.page_mode:
+            return sum(len(e.pages) for e in self._entries.values()
+                       if e.refcount > 0) * self.row_bytes
+        return sum(1 for e in self._entries.values()
+                   if e.refcount > 0) * self.row_bytes
+
+    # -- lookup / pinning -----------------------------------------------------
+
+    def lookup_longest(self, profile: np.ndarray, tokens: np.ndarray,
+                       max_tokens: Optional[int] = None,
+                       chain: Optional[List[Tuple[int, str]]] = None
+                       ) -> Optional[Tuple[PrefixEntry, int]]:
+        """Longest stored prefix of ``profile ⊕ tokens`` (item-aligned,
+        ``<= max_tokens`` history tokens); None on miss, else
+        ``(entry, n_tokens)`` where ``n_tokens <= entry.n_tokens`` is the
+        matched boundary (the restore masks the row down to it).  A hit
+        refreshes the entry's recency; stats are counted at admission
+        (``note_admission``), not here.  ``chain`` short-circuits the
+        digest computation — content is immutable per request, so callers
+        that re-plan every round memoize it."""
+        limit = len(tokens) if max_tokens is None else max_tokens
+        if chain is None:
+            chain = prefix_hash_chain(profile, tokens, self.n_codebooks)
+        best: Optional[Tuple[str, int]] = None
+        for n_tok, digest in chain:
+            if n_tok > limit:
+                break
+            hit = self._index.get(digest)
+            if hit is not None:
+                best = hit               # chain is shortest-first: keep last
+        if best is None:
+            return None
+        entry = self._entries[best[0]]
+        self._entries.move_to_end(entry.key)
+        return entry, best[1]
+
+    def is_live(self, entry: PrefixEntry) -> bool:
+        """True while ``entry`` still owns its arena row (not evicted)."""
+        return self._entries.get(entry.key) is entry
+
+    def acquire(self, entry: PrefixEntry) -> None:
+        """Pin ``entry``'s row for an in-flight request."""
+        entry.refcount += 1
+        self.peak_bytes_pinned = max(self.peak_bytes_pinned,
+                                     self.bytes_pinned)
+
+    def release(self, entry: PrefixEntry) -> None:
+        if entry.refcount <= 0:
+            raise ValueError(f"release of unpinned prefix {entry.key}")
+        entry.refcount -= 1
+
+    # -- insertion / eviction -------------------------------------------------
+
+    def insert(self, profile: np.ndarray, tokens: np.ndarray,
+               n_tokens: int,
+               chain: Optional[List[Tuple[int, str]]] = None,
+               force: bool = False) -> Optional[PrefixEntry]:
+        """Admit the ``n_tokens``-token prefix of ``profile ⊕ tokens``.
+
+        Returns the new entry whose (caller-filled) arena row should
+        receive the K/V copy; None when the content is already stored
+        (recency refreshed), when every row is pinned / over budget, or —
+        under second-sight admission — on the content's FIRST offer (the
+        doorkeeper records it; ``force=True`` skips the doorkeeper).
+        ``n_tokens`` must be item-aligned.
+        """
+        if n_tokens <= 0 or n_tokens % self.n_codebooks:
+            raise ValueError(f"n_tokens must be a positive multiple of "
+                             f"{self.n_codebooks}, got {n_tokens}")
+        if chain is None:
+            chain = prefix_hash_chain(profile, tokens, self.n_codebooks)
+        digests = [(n, d) for n, d in chain if n <= n_tokens]
+        if not digests or digests[-1][0] != n_tokens:
+            raise ValueError(f"n_tokens {n_tokens} exceeds the history "
+                             f"({len(tokens)} tokens)")
+        key = digests[-1][1]
+        covered = self._index.get(key)
+        if covered is not None:
+            # content already stored — either as its own entry or as a
+            # boundary of a longer entry's row; refresh the owner, don't
+            # burn a second arena row on duplicate K/V
+            self._entries.move_to_end(covered[0])
+            return None
+        if not self.store_on_first_sight and not force:
+            # second-sight admission: a "sight" matches on ANY shared item
+            # boundary, not the full digest — a revisiting user's history
+            # EXTENDS between requests, so the full-history digest is
+            # fresh every visit while the visit-1 boundaries recur.  Every
+            # offer records its whole boundary chain (recency-refreshed);
+            # content sharing none of them (one-off traffic) never earns
+            # an arena row.
+            seen = any(d in self._seen for _, d in digests)
+            for _, d in digests:
+                self._seen[d] = None
+                self._seen.move_to_end(d)
+            while len(self._seen) > self._seen_cap:
+                self._seen.popitem(last=False)
+            if not seen:
+                self.first_sights += 1
+                return None
+        if self.page_mode:
+            if not self._admit_paged():
+                return None
+            row = -1   # no arena: the caller fills ``entry.pages`` instead
+        else:
+            row = self._take_row()
+            if row is None:
+                return None
+        entry = PrefixEntry(key=key, row=row, n_tokens=n_tokens,
+                            digests=digests)
+        self._entries[key] = entry
+        for n_tok, d in digests:   # the row serves ALL its item boundaries
+            # setdefault: a digest shared with an older live entry keeps its
+            # owner; eviction re-claims any shared digests for survivors, so
+            # _index always points at live entries covering the boundary
+            self._index.setdefault(d, (key, n_tok))
+        self.insertions += 1
+        return entry
+
+    def _evict_entry(self, key: str, entry: PrefixEntry) -> None:
+        """Drop ``entry`` from the index (it must be unpinned), returning
+        its page references (page mode) to the pool via the callback."""
+        del self._entries[key]
+        orphaned = [d for _, d in entry.digests
+                    if self._index.get(d, (None,))[0] == key]
+        for d in orphaned:
+            del self._index[d]
+        if orphaned:
+            # a surviving entry sharing a content prefix may still
+            # cover the dropped boundaries — re-claim them so its
+            # shorter prefixes keep hitting (bounded by
+            # n_rows x boundaries, and evictions are host-rare)
+            for k2, e2 in self._entries.items():
+                for n_tok, d in e2.digests:
+                    self._index.setdefault(d, (k2, n_tok))
+        self.evictions += 1
+        if self.page_mode and entry.pages:
+            self._release_pages(entry.pages)
+            entry.pages = []
+
+    def _lru_unpinned(self) -> Optional[Tuple[str, PrefixEntry]]:
+        for key, entry in self._entries.items():     # front = LRU
+            if entry.refcount == 0:
+                return key, entry
+        return None                                  # everything pinned
+
+    def _take_row(self) -> Optional[int]:
+        budget_rows = min(self.n_rows, self.max_bytes // self.row_bytes)
+        if len(self._entries) < budget_rows and self._free_rows:
+            return self._free_rows.pop()
+        victim = self._lru_unpinned()
+        if victim is None:
+            return None
+        key, entry = victim
+        row = entry.row
+        self._evict_entry(key, entry)
+        return row
+
+    def _admit_paged(self) -> bool:
+        """Page-mode admission: make room under the entry-count cap and
+        the byte budget (evicting LRU unpinned entries); the PAGE budget
+        itself is the PagePool's — admission there is zero-cost (the new
+        entry only shares pages a live slot already holds)."""
+        while (len(self._entries) >= self.n_rows
+               or self.bytes_used > self.max_bytes):
+            victim = self._lru_unpinned()
+            if victim is None:
+                return False
+            self._evict_entry(*victim)
+        return True
+
+    def evict_for_pages(self) -> bool:
+        """Reclaim: evict ONE least-recently-used unpinned entry,
+        releasing its page references (page mode).  The scheduler calls
+        this in a loop when an admission needs more free pages than the
+        PagePool has — store capacity yields to in-flight requests.
+        Returns False when nothing is evictable (all pinned or empty)."""
+        victim = self._lru_unpinned()
+        if victim is None:
+            return False
+        self._evict_entry(*victim)
+        return True

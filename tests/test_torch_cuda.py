@@ -327,3 +327,92 @@ def test_batch_attention_kernel_matches_plain(cuda, B, T, H, Kv, hd, S,
     assert out.shape == (B, T, H * hd) and out.dtype == torch.bfloat16
     assert out[0].abs().max().item() == 0
     _close(out, ref)
+
+
+# ---------------------------------------------------------------------------
+# Run-to-run identity (ROADMAP C3)
+# ---------------------------------------------------------------------------
+
+
+def _repeat_identical(fn, n):
+    """``n`` calls of ``fn`` give outputs bit-identical to the first; the
+    count of those that do not."""
+    first = fn()
+    bad = 0
+    for _ in range(n - 1):
+        bad += not torch.equal(fn().view(torch.int16), first.view(torch.int16))
+    return bad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape,n", [
+    ("fp8_gemm", (1, 512, 256, 512), 500),        # phase 3's q/o prefill
+    ("fp8_gemm", (1, 32, 2048, 2048), 500),       # decode, split K
+    ("fp8_gemm", (1, 12320, 2048, 2048), 50),     # a full-width prefill
+    ("fp8_grouped_gemm", (8, 256, 256, 256), 500),
+    ("fp8_grouped_gemm", (16, 8, 2048, 4096), 500),
+    ("fp8_grouped_gemm", (16, 3080, 2048, 4096), 20),
+])
+def test_gemm_kernel_repeats_are_bit_identical(cuda, kernel, shape, n):
+    """The same inputs through a GEMM kernel ``n`` times: every output
+    bit-identical to the first.  A pipeline stage read before its load
+    landed, or a read of memory nobody wrote, would break this."""
+    e, m, k, n_out = shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(e, m, k, device=cuda, generator=g).to(torch.bfloat16)
+    w = torch.randn(e, k, n_out, device=cuda, generator=g) / math.sqrt(k)
+    if kernel == "fp8_gemm":
+        wq = quant.quantize_per_channel(w)
+        sw = wq.scale.reshape(e, n_out).contiguous()
+        assert _repeat_identical(
+            lambda: gemm_ops.fp8_gemm(x, wq.data, sw), n) == 0
+    else:
+        wq = quant.quantize_blockwise(w)
+        assert _repeat_identical(
+            lambda: grouped_ops.fp8_grouped_gemm(x, wq.data, wq.scale),
+            n) == 0
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` (the repo root on the path), for phase 3's
+    setup."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+def _fill_free_blocks(device, seed):
+    """Leave the caching allocator's free blocks, small and large, holding
+    random bytes."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    sizes = torch.randint(256, 1 << 20, (2000,), generator=torch.Generator(
+    ).manual_seed(seed)).tolist() + [64 << 20] * 4
+    held = [torch.empty(s, dtype=torch.uint8, device=device).random_(
+        0, 256, generator=g) for s in sizes]
+    torch.cuda.synchronize(device)
+    del held
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["paged", "paged-return"])
+def test_phase3_case_is_run_to_run_identical(cuda, case):
+    """``chip_smoke.py`` phase 3's first case and its return-visit case
+    served six times in one process, the allocator's free blocks refilled
+    with random bytes before each: the items and the top-2 first-token
+    logits of every request are bit-identical across the six."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    cs = _chip_smoke()
+    cfg, params, reqs, ecfg = cs._phase3_setup(case)
+    runs = []
+    for i in range(6):
+        _fill_free_blocks(cuda, i)
+        engine = ServingEngine(params, cfg, EngineConfig(**ecfg),
+                               device=cuda)
+        seeds = cs._record_seeds(engine)
+        outs, _ = cs._serve_case(engine, case, cfg, reqs)
+        runs.append(([o.tolist() for o in outs], seeds))
+    assert all(r == runs[0] for r in runs[1:])

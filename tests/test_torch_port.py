@@ -275,8 +275,6 @@ def test_engine_refuses_a_quiet_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(fused_decode="off"), dict(prefix_cache=True),
-    dict(prefill_chunk=32), dict(preemption=True), dict(hold_k=4),
     dict(max_candidates=2), dict(mode="fixed"),
     dict(quant_policy=policy.PAPER_POLICY)])
 def test_unported_engine_settings_name_their_roadmap_item(setting):

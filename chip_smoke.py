@@ -27,18 +27,26 @@ from the root of a checkout.  Phases, each of which fails the run:
    recorded with the build's refusal where it refuses them), the grouped
    GEMM's two paths against each other around their threshold; and the
    contiguous decode's fp8 -> bf16 dequantization beside
-   ``batch_attention``.
+   ``batch_attention``.  Both GEMM kernels fail the run if more than
+   ``OFF_EXACT_MAX`` of their outputs differ from the bf16 rounding of the
+   same function summed in float64 (the f32 sums of the Pallas kernels),
+   ``fp8_gemm``'s static mode (one calibrated activation scale) too.  The
+   int8 product (``quant.int8_linear``) must equal its CPU result bit for
+   bit; it is timed.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
-   in four cases: the paged layout; the paged layout decoding unfused
-   (``fused_decode="off"``); the paged layout with the prefix store,
-   chunked prefill and preemption, the requests split into two priority
-   classes on one schedule; the contiguous layout with
-   ``use_attention_kernel`` and
+   in six cases, each held to both bars: the paged layout; the paged
+   layout decoding unfused (``fused_decode="off"``); the paged layout
+   with the prefix store, chunked prefill and preemption, on the requests
+   split into two priority classes and on first and return visits, each
+   on one schedule; the paged layout through a policy artifact (static
+   activation scales calibrated on the CPU, int8 k projections); the
+   contiguous layout with ``use_attention_kernel`` and
    ``use_radix_topk``: first tokens and teacher-forced top-8 overlap
    against thresholds.
-4. Full width, three main paths, each kernel's launch count zeroed before
-   and read after each; the counts must match the layer arithmetic:
+4. Full width, four main paths, each kernel's launch count (and the int8
+   product's) zeroed before and read after each; the counts must match
+   the layer arithmetic:
    (a) ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode auto``
    serves 64 ragged requests at 32 slots with FP8 weights (kernels
    ``fp8_gemm``, ``fp8_grouped_gemm``, ``paged_decode``);
@@ -53,7 +61,11 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``drain`` (kernels ``fp8_gemm``, ``fp8_grouped_gemm``,
    ``paged_decode``); resumes, prefix hits, copy-on-write pages and
    preemptions must each occur.  The same visits are then served with
-   the three knobs off, for information.
+   the three knobs off, for information;
+   (d) ``ServingEngine`` on (a)'s paged pool through a policy artifact
+   whose static scales are calibrated on the card, the k projections in
+   int8 (``fp8_gemm`` in its static mode, the int8 product,
+   ``fp8_grouped_gemm``, ``paged_decode``), serving (a)'s requests.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -82,6 +94,10 @@ FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 # scales are bit-identical, only f32 summation order (and, for attention,
 # online vs dense softmax) differs, which flips a bf16 rounding now and then
 TOL = 2.0 ** -7
+# the GEMM kernels sum exact products in f32, as the Pallas kernels do: at
+# most this share of their outputs may differ from the bf16 rounding of the
+# same function summed in float64 (their plain versions: <= 0.0103%)
+OFF_EXACT_MAX = 1e-3
 CPU_FIRST_TOKEN_AGREE = 0.9      # card vs CPU, share of requests
 CPU_TOP8_OVERLAP = 0.85          # card vs CPU, teacher-forced mean overlap
 DEADLINE_S = 10.0                # phase 4 (c)'s deadline, for its count
@@ -167,12 +183,17 @@ def time_turns(fns, iters: int, timer=time_graph_ms):
 def off_exact(name, shape, out, ref, exact):
     """Shares of the kernel's and the plain version's outputs that differ
     from the function computed with float64 sums and rounded once to bf16
-    (through f32): where the f32 sums of the two part ways."""
+    (through f32): where the f32 sums of the two part ways.  The kernel's
+    share must be at most ``OFF_EXACT_MAX``."""
     import torch
     e = exact.float().to(torch.bfloat16)
     shares = [(t != e).float().mean().item() for t in (out, ref)]
     print(f"[kernel] {name} {shape}: outputs off the float64 result's bf16 "
-          f"rounding: kernel {shares[0]:.4%}, plain {shares[1]:.4%}")
+          f"rounding: kernel {shares[0]:.4%}, plain {shares[1]:.4%} "
+          f"(bound {OFF_EXACT_MAX:.2%})")
+    if not shares[0] <= OFF_EXACT_MAX:
+        fail(f"{name} {shape}: {shares[0]:.4%} of outputs off the float64 "
+             f"result's bf16 rounding > {OFF_EXACT_MAX:.2%}")
     return dict(off_exact_kernel=shares[0], off_exact_plain=shares[1])
 
 
@@ -206,7 +227,24 @@ def check_fp8_gemm(dev, records):
         exact = (xq64.data.float().double() @ ws[0].data.float().double()
                  ) * xq64.scale.double() * sws[0].double()[:, None, :]
         shares = off_exact("fp8_gemm", f"M={m} K={k} N={n}", out, ref, exact)
-        del xq64, exact
+        # static mode: one calibrated scale for every row (here the
+        # tensor's amax / 448, as calibration over this input would give)
+        s_act = (x.float().abs().max() / 448.0).reshape(1, 1)
+        out_s = ops.fp8_gemm(x, ws[0].data, sws[0], act_scale=s_act)
+        ref_s = ops.fp8_gemm_plain(x, ws[0].data, sws[0], act_scale=s_act)
+        torch.cuda.synchronize()
+        err_s = (out_s.float() - ref_s.float()).abs().max().item()
+        tol_s = TOL * ref_s.float().abs().max().item()
+        worst = max(worst, err_s)
+        if not err_s <= tol_s:
+            fail(f"fp8_gemm static {m}x{k}x{n}: max |diff| {err_s} > "
+                 f"{tol_s}")
+        xs64 = quant.cast_to_fp8(x, s_act.reshape(1, 1, 1))
+        exact_s = (xs64.float().double() @ ws[0].data.float().double()
+                   ) * s_act.double() * sws[0].double()[:, None, :]
+        shares_s = off_exact("fp8_gemm static", f"M={m} K={k} N={n}", out_s,
+                             ref_s, exact_s)
+        del xs64, exact_s
         it = [0]
 
         def nxt():
@@ -214,17 +252,18 @@ def check_fp8_gemm(dev, records):
             return it[0]
 
         # the two passes apart: the quantization pass, and the GEMM on the
-        # xq, sx it made (its split-K counters start at zero)
-        splits, cps, xq, sx, part, counters = ops.scratch(x, ws[0].data)
+        # xh, sx it made (its split-K counters start at zero)
+        splits, cps, xh, sx, part, counters = ops.scratch(x, ws[0].data)
         counters.zero_()
-        ops.quantize_pass(x, xq, sx)
+        ops.quantize_pass(x, xh, sx)
         gout = torch.empty_like(out)
-        ops.gemm_pass(xq, sx, ws[0].data, sws[0], gout, splits, cps, part,
+        ops.gemm_pass(xh, sx, ws[0].data, sws[0], gout, splits, cps, part,
                       counters)
         torch.cuda.synchronize()
         if not torch.equal(gout, out):
             fail(f"fp8_gemm {m}x{k}x{n}: the GEMM pass alone differs from "
                  f"the wrapper's call")
+        del xq64, exact
         # library yardstick: rowwise-scaled cuBLASLt fp8 GEMM on operands
         # already quantized, and with the per-token quantization before it
         lq = quant.quantize_per_token(x[0])
@@ -233,12 +272,19 @@ def check_fp8_gemm(dev, records):
             i = nxt()
             ops.fp8_gemm(x, ws[i].data, sws[i])
 
+        def kern_static():
+            i = nxt()
+            ops.fp8_gemm(x, ws[i].data, sws[i], act_scale=s_act)
+
         def quant_pass():
-            ops.quantize_pass(x, xq, sx)
+            ops.quantize_pass(x, xh, sx)
+
+        def quant_static():
+            ops.quantize_pass(x, xh, sx, s_act)
 
         def gemm_alone():
             i = nxt()
-            ops.gemm_pass(xq, sx, ws[i].data, sws[i], gout, splits, cps,
+            ops.gemm_pass(xh, sx, ws[i].data, sws[i], gout, splits, cps,
                           part, counters)
 
         def library():
@@ -258,8 +304,9 @@ def check_fp8_gemm(dev, records):
 
         iters = 5 if m > 1024 else 50
         t = time_turns(dict(kernel=kern, gemm=gemm_alone, quant=quant_pass,
-                            library=library, library_quant=library_quant),
-                       iters)
+                            static=kern_static, quant_static=quant_static,
+                            library=library,
+                            library_quant=library_quant), iters)
         eager = time_turns(dict(kernel=kern, library=library), iters,
                            timer=time_ms)
         plain_ms = time_ms(plain, iters)
@@ -267,9 +314,11 @@ def check_fp8_gemm(dev, records):
                            2.0 * m * n * k, FP8_OPS_PER_S)
         path = "prefill" if splits == 0 else f"decode, {splits} splits"
         print(f"[kernel] fp8_gemm M={m} K={k} N={n} ({path}): "
-              f"max|diff|={err:.3g} (tol {tol:.3g}) kernel {t['kernel']:.4f}"
-              f" ms = quantization {t['quant']:.4f} + GEMM {t['gemm']:.4f} "
-              f"ms; plain {plain_ms:.4f} ms; torch._scaled_mm "
+              f"max|diff|={err:.3g}, static {err_s:.3g} (tol {tol:.3g}) "
+              f"kernel {t['kernel']:.4f} ms = quantization {t['quant']:.4f} "
+              f"+ GEMM {t['gemm']:.4f} ms; static mode {t['static']:.4f} ms "
+              f"(quantization {t['quant_static']:.4f} ms); plain "
+              f"{plain_ms:.4f} ms; torch._scaled_mm "
               f"{t['library']:.4f} ms, quantize_per_token + _scaled_mm "
               f"{t['library_quant']:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
               f"{2.0 * m * n * k / t['gemm'] / 1e9:.1f} TFLOP/s in the GEMM "
@@ -280,10 +329,12 @@ def check_fp8_gemm(dev, records):
             shape=f"M={m} K={k} N={n}", path=path, timer="cuda_graph",
             ms=t["kernel"],
             quant_ms=t["quant"], gemm_ms=t["gemm"], plain_ms=plain_ms,
+            static_ms=t["static"], static_quant_ms=t["quant_static"],
             bound_ms=b_ms, bound_by=b_by, library_ms=t["library"],
             library_with_quant_ms=t["library_quant"],
             eager_ms=eager["kernel"], library_eager_ms=eager["library"],
-            max_abs_err=err, **shares))
+            max_abs_err=err, max_abs_err_static=err_s, **shares,
+            off_exact_static=shares_s["off_exact_kernel"]))
     records["fp8_gemm"] = dict(shapes[0], max_abs_err=worst, shapes=shapes)
 
 
@@ -376,26 +427,33 @@ def check_fp8_grouped_gemm(dev, records):
                 * xq64.scale[:, :, kb, None].double() * swn[:, None, kb]
         shares = off_exact("fp8_grouped_gemm", f"E={e} C={c} K={k} N={n}",
                            out, ref, exact)
-        del xq64, xd, wd, swn, exact
+        del xd, wd, swn
         # the two passes apart: the 1 x 128 quantization, and the GEMM on
-        # the xq, sx it made
+        # the xh, sx it made
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         p = ops.plan(e, c, n, sms)
-        xq, sx = ops.scratch(x)
-        ops.quantize_pass(x, xq, sx)
+        xh, sx = ops.scratch(x)
+        ops.quantize_pass(x, xh, sx)
         gout = torch.empty_like(out)
-        ops.gemm_pass(xq, sx, w.data, w.scale, gout, p)
+        ops.gemm_pass(xh, sx, w.data, w.scale, gout, p)
         torch.cuda.synchronize()
         if not torch.equal(gout, out):
             fail(f"fp8_grouped_gemm {e}x{c}x{k}x{n}: the GEMM pass alone "
                  f"differs from the wrapper's call")
+        # the library's operands: the same e4m3 values, and the scales laid
+        # out (E, K/128, Cp) as the kernel's pass writes them
+        x8 = xq64.data.contiguous()
+        sx8 = torch.zeros(e, k // 128, -(-c // 4) * 4, device=dev)
+        sx8[:, :, :c] = xq64.scale.transpose(1, 2)
+        sx8 = sx8[:, :, :c]
+        del xq64, exact
         sbt = _library_scale_b(w.scale)
-        lib = _grouped_library(xq.view(torch.float8_e4m3fn), sx, w.data, sbt)
+        lib = _grouped_library(x8, sx8, w.data, sbt)
         refused = _refusals(lib)
         fns = dict(
             kernel=lambda: ops.fp8_grouped_gemm(x, w.data, w.scale),
-            gemm=lambda: ops.gemm_pass(xq, sx, w.data, w.scale, gout, p),
-            quant=lambda: ops.quantize_pass(x, xq, sx))
+            gemm=lambda: ops.gemm_pass(xh, sx, w.data, w.scale, gout, p),
+            quant=lambda: ops.quantize_pass(x, xh, sx))
         fns.update({name: fn for name, fn in lib.items()
                     if refused[name] is None})
         iters = 3 if c > 1024 else 20
@@ -481,6 +539,46 @@ def grouped_threshold(dev, records):
           + "; ".join(f"C={r['C']} {r['decode_ms']:.4f} / "
                       f"{r['prefill_ms']:.4f} ({r['chosen']})" for r in rows))
     records["fp8_grouped_gemm"]["threshold"] = rows
+
+
+def check_int8_product(dev, records):
+    """The W8A8 product ``quant.int8_linear`` (per-token int8 activations,
+    ``torch._int_mm``, the dequant epilogue) on the card against its CPU
+    result, bit for bit, at a 2048-wide linear's decode and prefill rows;
+    timed with the product alone.  It is no kernel of the port: the JAX
+    package computes it with an XLA int32 dot, outside any Pallas kernel."""
+    import dataclasses
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows = []
+    for m, k, n in ((32, 2048, 2048), (12320, 2048, 2048)):
+        x = torch.randn(1, m, k, device=dev, generator=g).to(torch.bfloat16)
+        w = quant.quantize_per_channel_int8(
+            torch.randn(k, n, device=dev, generator=g) / math.sqrt(k))
+        out = quant.int8_linear(x, w)
+        ref = quant.int8_linear(x.cpu(), dataclasses.replace(
+            w, data=w.data.cpu(), scale=w.scale.cpu()))
+        if not torch.equal(out.cpu().view(torch.int16),
+                           ref.view(torch.int16)):
+            bad = (out.cpu() != ref).float().mean().item()
+            fail(f"int8_linear M={m} K={k} N={n}: the card's result differs "
+                 f"from the CPU's on {bad:.4%} of outputs")
+        xq = quant.quantize_per_token_int8(x.reshape(m, k))
+        t = time_turns(dict(
+            linear=lambda: quant.int8_linear(x, w),
+            product=lambda: quant.int8_matmul(xq.data, w.data)),
+            5 if m > 1024 else 50)
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
+                           2.0 * m * n * k, FP8_OPS_PER_S)
+        print(f"[int8] int8_linear M={m} K={k} N={n}: card equals CPU bit for "
+              f"bit; {t['linear']:.4f} ms, of which torch._int_mm "
+              f"{t['product']:.4f} ms (device times, CUDA graphs); bound "
+              f"{b_ms:.4f} ms ({b_by}, int8 peak)")
+        rows.append(dict(shape=f"M={m} K={k} N={n}", ms=t["linear"],
+                         int_mm_ms=t["product"], bound_ms=b_ms,
+                         bound_by=b_by))
+    records["int8_product"] = rows
 
 
 def _decode_pool(dev, lengths, *, quantized, ps, kv, hd, n_p, seed):
@@ -883,8 +981,8 @@ def plain_gemms():
     from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
     kept = gemm_ops.fp8_gemm, grouped_ops.fp8_grouped_gemm
 
-    def gemm(x, wq, sw, *, out_dtype=torch.bfloat16):
-        return gemm_ops.fp8_gemm_plain(x, wq, sw, out_dtype)
+    def gemm(x, wq, sw, *, out_dtype=torch.bfloat16, act_scale=None):
+        return gemm_ops.fp8_gemm_plain(x, wq, sw, out_dtype, act_scale)
 
     def grouped(x, wq, sw, *, out_dtype=torch.bfloat16):
         return grouped_ops.fp8_grouped_gemm_plain(x, wq, sw, out_dtype)
@@ -894,6 +992,53 @@ def plain_gemms():
         yield
     finally:
         gemm_ops.fp8_gemm, grouped_ops.fp8_grouped_gemm = kept
+
+
+def ptq_policy():
+    """The policy of ``paged-ptq`` and phase 4 (d): the paper's, with static
+    activation scales and the k projections in int8."""
+    from repro_torch.core.policy import PAPER_POLICY
+    return PAPER_POLICY.replace(static_acts=True).override(
+        "*/attn/k_proj/kernel", "int8")
+
+
+_ARTIFACTS = {}     # case -> path of its artifact, written once a process
+
+
+def write_artifact(name, cfg, params, batches):
+    """A policy artifact of ``ptq_policy()`` whose static scales are
+    calibrated (``calibrate_static_act_scales``) by the port's forward over
+    ``batches``, on the params' device, written to ``build/`` in the
+    checkout.  Returns its path."""
+    from repro_torch.core import ptq
+    from repro_torch.core.policy import save_policy_artifact
+    from repro_torch.models.onerec import forward
+    pol = ptq_policy()
+    qparams = ptq.quantize_params(params, pol)
+    scales = ptq.calibrate_static_act_scales(
+        lambda q, b: forward(q, b, cfg), qparams, batches)
+    del qparams
+    if not scales:
+        fail(f"{name}: calibration recorded no activation scale")
+    path = os.path.join(ROOT, "build", "policy", f"{name}.json")
+    save_policy_artifact(path, pol, config=cfg.name, act_scales=scales)
+    return path
+
+
+def request_batches(reqs, size, device):
+    """``reqs`` in batches of ``size``, each request's history cut to the
+    batch's shortest, as the uncached forward's inputs."""
+    import torch
+    out = []
+    for i in range(0, len(reqs), size):
+        group = reqs[i:i + size]
+        t = min(len(r["tokens"]) for r in group)
+        out.append({
+            "tokens": torch.as_tensor(
+                [list(r["tokens"][:t]) for r in group]).to(device),
+            "profile": torch.as_tensor(
+                [list(r["profile"]) for r in group]).float().to(device)})
+    return out
 
 
 def _phase3_setup(case: str):
@@ -914,6 +1059,15 @@ def _phase3_setup(case: str):
     params = init_onerec(0, cfg, device="cpu")
     reqs = build_requests(cfg, 24, 8, seed=1, ragged=True)
     policy = dict(page_size=32, prefill_chunk=PHASE3_CHUNK, **POLICY)
+    if case == "paged-ptq":
+        # calibrated on the CPU over phase 3's own requests, one at a time;
+        # the same artifact goes to both engines
+        if "paged-ptq" not in _ARTIFACTS:
+            _ARTIFACTS["paged-ptq"] = write_artifact(
+                "paged-ptq", cfg, params, request_batches(reqs, 1, "cpu"))
+        return cfg, params, reqs, dict(
+            batch_size=8, kv_dtype="float8_e4m3fn", page_size=32,
+            quant_policy=_ARTIFACTS["paged-ptq"])
     layout = {"paged": dict(page_size=32),
               "paged-unfused": dict(page_size=32, fused_decode="off"),
               "paged-policy": policy, "paged-return": policy,
@@ -996,15 +1150,11 @@ def card_vs_cpu(dev, case: str):
     first visit's stored prefix) or ``contiguous`` (``use_attention_kernel``
     and ``use_radix_topk``).  On the two policy cases the CPU and the card
     must run the same schedule (equal counters, each policy counter > 0).
-
-    ``paged-return``'s first tokens on fp8 K/V sit under the bar (21/24,
-    ROADMAP C2): its disagreements come from the two GEMM kernels' sums,
-    amplified by e4m3 re-quantization of the K/V that return visits read
-    back.  That run is measured and printed; the first-token bar holds two
-    runs that take one amplifier out each: bf16 K/V on every kernel, and
-    fp8 K/V with the GEMM wrappers computing their plain versions on the
-    card (``paged_decode`` on its kernel).  Its teacher-forced overlap bar
-    holds on fp8 K/V."""
+    ``paged-ptq``: the paged layout through a policy artifact (static
+    activation scales calibrated on the CPU, the k projections in int8).
+    Every case is held to both bars.  ``paged-return`` also serves on bf16
+    K/V, and on fp8 K/V with the GEMM wrappers computing their plain
+    versions on the card, for information (ROADMAP C2's diagnosis)."""
     import numpy as np
     import torch
     from repro_torch.serving.executor import PhaseExecutor
@@ -1019,6 +1169,11 @@ def card_vs_cpu(dev, case: str):
     kw = dict(page_size=32, n_pages=8 * 2,
               fused_decode=case != "paged-unfused") if paged else dict(
         paged=False, use_radix_topk=True)
+    if case == "paged-ptq":
+        from repro_torch.core.policy import load_policy_artifact
+        artifact = load_policy_artifact(_ARTIFACTS[case])
+        kw.update(quant_policy=artifact["policy"],
+                  act_scales=artifact["act_scales"])
     exs = [PhaseExecutor(params, cfg, n_slots=8, device=torch.device(d),
                          kv_dtype="float8_e4m3fn", **kw)
            for d in ("cpu", dev)]
@@ -1054,19 +1209,18 @@ def card_vs_cpu(dev, case: str):
                   for ex in exs]
         lengths = lengths + 1
     extra = f"; counters on both devices {counters}" if resumed else ""
-    bar = f">= {CPU_FIRST_TOKEN_AGREE}" if case != "paged-return" else \
-        f"the bar {CPU_FIRST_TOKEN_AGREE} holds the two runs below"
     print(f"[card-vs-cpu] {cfg.name} {case}: first tokens agree on "
-          f"{first:.3f} of requests ({bar}), whole items {items:.3f}; "
+          f"{first:.3f} of requests (>= {CPU_FIRST_TOKEN_AGREE}), whole "
+          f"items {items:.3f}; "
           f"teacher-forced top-8 overlap per step "
           f"{[round(float(o), 3) for o in overlaps]} (>= "
           f"{CPU_TOP8_OVERLAP}), max |logit diff| / max |logit| per step "
           f"{[round(x, 4) for x in devs]}{extra}")
     if min(overlaps) < CPU_TOP8_OVERLAP:
         fail(f"card-vs-CPU {case}: teacher-forced overlap under the bar")
+    if first < CPU_FIRST_TOKEN_AGREE:
+        fail(f"card-vs-CPU {case}: first tokens under the bar")
     if case != "paged-return":
-        if first < CPU_FIRST_TOKEN_AGREE:
-            fail(f"card-vs-CPU {case}: first tokens under the bar")
         return
     for tag, kw in ((" bf16 K/V", dict(kv_dtype="bfloat16")),
                     (" fp8 K/V, GEMMs plain on the card",
@@ -1075,10 +1229,8 @@ def card_vs_cpu(dev, case: str):
                                                              **kw)
         agree = _first_agree(case, tag, c_outs, g_outs, c_seeds, g_seeds)
         print(f"[card-vs-cpu] {cfg.name} {case},{tag}: first tokens agree "
-              f"on {agree:.3f} of requests (>= {CPU_FIRST_TOKEN_AGREE}); "
-              f"counters equal on both devices")
-        if agree < CPU_FIRST_TOKEN_AGREE:
-            fail(f"card-vs-CPU {case},{tag}: first tokens under the bar")
+              f"on {agree:.3f} of requests (information); counters equal on "
+              f"both devices")
 
 
 # ---------------------------------------------------------------------------
@@ -1087,6 +1239,9 @@ def card_vs_cpu(dev, case: str):
 
 
 def _wrappers():
+    """Every launch counter: the five kernels, and the int8 product
+    (``torch._int_mm``, no kernel of the port)."""
+    from repro_torch.core import quant
     from repro_torch.kernels.batch_attention import ops as attn_ops
     from repro_torch.kernels.fp8_gemm import ops as gemm_ops
     from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
@@ -1096,7 +1251,8 @@ def _wrappers():
             "fp8_grouped_gemm": grouped_ops.fp8_grouped_gemm,
             "paged_decode": decode_ops.paged_decode,
             "radix_topk": topk_ops.radix_topk,
-            "batch_attention": attn_ops.batch_attention}
+            "batch_attention": attn_ops.batch_attention,
+            "int8_matmul": quant.int8_matmul}
 
 
 def _drive(dev, path: str, run, expect_fn):
@@ -1159,7 +1315,8 @@ def full_width(dev):
     def per_forward(stats):
         forwards = int(stats["prefill_calls"] + stats["decode_steps"])
         return {"fp8_gemm": forwards * 4 * n_layers,           # q, k, v, o
-                "fp8_grouped_gemm": forwards * 3 * n_layers}   # gate, up, down
+                "fp8_grouped_gemm": forwards * 3 * n_layers,   # gate, up, down
+                "int8_matmul": 0}
 
     paged_outs, paged, _, _ = _drive(
         dev, "paged", lambda: serve.main([
@@ -1192,7 +1349,8 @@ def full_width(dev):
           f"only the real rows of a padded group, and the two decode "
           f"attentions round differently)")
     return {"paged": paged, "contiguous": contig,
-            "policy": policy_path(dev, per_forward)}
+            "policy": policy_path(dev, per_forward),
+            "ptq": ptq_path(dev, per_forward, paged_outs)}
 
 
 def _policy_line(name, stats, peak, held=None):
@@ -1268,6 +1426,64 @@ def policy_path(dev, per_forward):
     return launches
 
 
+def ptq_path(dev, per_forward, paged_outs):
+    """Phase 4 (d): the paged path (page 32, fused decode, 32 slots, fp8
+    K/V) through a policy artifact: ``ptq_policy()`` with static scales
+    calibrated on the card over two batches of phase 4's requests, so q, v
+    and o run kernel ``fp8_gemm``'s static mode and k the int8 product.
+    Serves the 64 requests of phase 4 (a) and compares its items with (a)'s
+    dynamic-scale run (information)."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.models.onerec import init_onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.requests import build_requests
+    n_layers = CONFIG.transformer.n_layers
+    reqs = build_requests(CONFIG, 64, 32, 0, True)
+    t0 = time.perf_counter()
+    params = init_onerec(0, CONFIG, device=dev)
+    path = write_artifact("phase4-ptq", CONFIG, params,
+                          request_batches(reqs[:32], 16, dev))
+    del params
+    with open(path) as f:
+        n_scales = len(json.load(f)["act_scales"])
+    print(f"[full-width] ptq: artifact with {n_scales} static scales "
+          f"calibrated on the card in {time.perf_counter() - t0:.1f} s "
+          f"(init + PTQ + two forwards of 16 requests)")
+
+    def serve():
+        params = init_onerec(0, CONFIG, device=dev)
+        engine = ServingEngine(params, CONFIG, EngineConfig(
+            batch_size=32, kv_dtype="float8_e4m3fn", page_size=32,
+            fused_decode="auto", quant_policy=path), device=dev)
+        del params       # the engine holds the quantized tree
+        static = sum(1 for _, leaf in tree.leaves_with_path(
+            engine.executor.params)
+            if getattr(leaf, "act_scale", None) is not None)
+        if static != n_scales:
+            fail(f"ptq path: {static} leaves carry a static scale, the "
+                 f"artifact holds {n_scales}")
+        return engine.serve_requests(reqs)
+
+    def expect(st):
+        forwards = int(st["prefill_calls"] + st["decode_steps"])
+        return {**per_forward(st),
+                "fp8_gemm": forwards * 3 * n_layers,           # q, v, o
+                "int8_matmul": forwards * n_layers,            # k
+                "radix_topk": 0, "batch_attention": 0,
+                "paged_decode": int(st["decode_steps"]) * n_layers}
+
+    outs, launches, _, _ = _drive(dev, "ptq", serve, expect)
+    first = np.mean([a[0] == b[0] for a, b in zip(outs, paged_outs)])
+    items = np.mean([np.array_equal(a, b) for a, b in zip(outs, paged_outs)])
+    print(f"[full-width] ptq vs paged (dynamic scales, fp8 k projections): "
+          f"first tokens agree on {first:.3f} of requests, whole items on "
+          f"{items:.3f} (information)")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1289,17 +1505,18 @@ def main() -> int:
     print(f"[setup] built {len(build.SOURCES)} kernels in {secs:.1f} s")
     for name, log in build.BUILD_LOG.items():
         regs = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln or "C7517" in ln]
         print(f"[setup] ptxas {name}: " + " | ".join(regs))
 
     records = {}
     check_fp8_gemm(dev, records)
     check_fp8_grouped_gemm(dev, records)
+    check_int8_product(dev, records)
     check_paged_decode(dev, records)
     check_radix_topk(dev, records)
     check_batch_attention(dev, records)
     for case in ("paged", "paged-unfused", "paged-policy", "paged-return",
-                 "contiguous"):
+                 "paged-ptq", "contiguous"):
         card_vs_cpu(dev, case)
     by_path = full_width(dev)
 

@@ -1,22 +1,32 @@
-"""FP8 quantization primitives (the paper's §4.1 scheme), in PyTorch.
+"""FP8 and INT8 quantization primitives (the paper's §4.1 scheme), in
+PyTorch.
 
 The same numerics as ``repro.core.quant``:
 
   * Linear layers: per-CHANNEL weight scales (offline) x per-TOKEN dynamic
-    activation scales (runtime amax over the feature dim), fp8 x fp8
-    products with f32 accumulation, cast back to the compute dtype.
-  * MoE grouped GEMM: BLOCK-wise scales, activations ``1 x 128`` along the
-    reduction dim, weights ``128 x 128``.
-  * Quantized weights are ``(fp8 data, f32 scale)`` pairs.
+    activation scales (runtime amax over the feature dim), or one STATIC
+    calibrated activation scale carried on the weight (``act_scale``, from
+    ``core.ptq.apply_static_act_scales``); fp8 x fp8 products summed in f32,
+    cast back to the compute dtype.
+  * MoE grouped GEMM, and dense weights a policy marks ``"block"``:
+    BLOCK-wise scales, activations ``1 x 128`` along the reduction dim,
+    weights ``128 x 128``.
+  * INT8 W8A8 (beyond the paper): symmetric per-channel int8 weights x
+    per-token int8 activations, exact int32 sums.
+  * Quantized weights are ``(fp8 or int8 data, f32 scale)`` pairs.
 
 The fp8 products run through the port's kernels (``repro_torch.kernels``):
 on a CUDA tensor the hand-written Hopper kernel, on a CPU tensor its plain
-PyTorch version.  One difference from the JAX package is deliberate: the
-block-scaled expert product follows the Pallas kernel ``fp8_grouped_gemm``
-(each 128-deep partial scaled by ``s_x * s_w`` and accumulated in f32), not
-the JAX XLA path that folds the block scales into bf16 operands before one
-dot (``repro/core/quant.py`` ``fp8_grouped_matmul``).  The two agree to bf16
-rounding of the folded operands.
+PyTorch version; both sum the exact products of the e4m3 values in f32, as
+the Pallas kernels do.  The int8 products, which the JAX package leaves to
+an XLA int32 ``dot`` outside any Pallas kernel, are ``torch._int_mm``
+(cuBLAS) on the card and an exact product on the CPU: the int32 sums are
+exact either way.  One difference from the JAX package is deliberate: the
+block-scaled products follow the Pallas kernel ``fp8_grouped_gemm`` (each
+128-deep partial scaled by ``s_x * s_w`` and accumulated in f32), not the
+JAX XLA path that folds the block scales into bf16 operands before one dot
+(``repro/core/quant.py`` ``fp8_grouped_matmul``, ``fp8_block_matmul``).
+The two agree to bf16 rounding of the folded operands.
 
 Casts are bit-identical to the JAX package: divide by the scale (a true
 division, never a multiply by the reciprocal), clip into the finite e4m3
@@ -25,8 +35,9 @@ range (e4m3fn has no inf; an unclipped cast gives NaN), round to nearest.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,21 +61,40 @@ class QuantizedTensor:
     ``per_token`` (scale ``(..., 1)``), ``block`` (weights, one scale per
     ``block x block`` tile of the last two dims) or ``block_act``
     (activations, one scale per ``1 x block`` tile of the last dim).
-    ``tag`` names the param path the weight came from.
+    ``act_scale`` (optional) is a calibrated static activation scale for
+    the product that consumes this weight, shaped ``(*data.shape[:-2], 1,
+    1)``: ``fp8_linear`` casts its input with it instead of reducing the
+    per-token amax.  ``tag`` names the param path the weight came from; it
+    keys activation-amax capture during calibration.
 
-    Indexing (``q[i]``) slices the leading axis of data and scale together:
-    the per-layer view of a stacked leaf.
+    Indexing (``q[i]``) slices the leading axis of data, scale and
+    act_scale together, keeping the tag: the per-layer view of a stacked
+    leaf.
     """
 
     data: torch.Tensor
     scale: torch.Tensor
     granularity: str = "per_channel"
     block: int = DEFAULT_BLOCK
+    act_scale: Optional[torch.Tensor] = None
     tag: Optional[str] = None
 
     def __getitem__(self, i) -> "QuantizedTensor":
-        return dataclasses.replace(self, data=self.data[i],
-                                   scale=self.scale[i])
+        return dataclasses.replace(
+            self, data=self.data[i], scale=self.scale[i],
+            act_scale=None if self.act_scale is None else self.act_scale[i])
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        if self.granularity in ("block", "block_act"):
+            return _dequantize_block(self, dtype)
+        return (self.data.to(torch.float32) * self.scale).to(dtype)
+
+    def nbytes(self) -> int:
+        n = self.data.numel() * self.data.element_size() \
+            + 4 * self.scale.numel()
+        if self.act_scale is not None:
+            n += 4 * self.act_scale.numel()
+        return n
 
 
 def is_fp8_dtype(dtype) -> bool:
@@ -154,6 +184,20 @@ def quantize_blockwise(w: torch.Tensor, block: int = DEFAULT_BLOCK,
     return QuantizedTensor(k_major(q), scale, "block", block)
 
 
+def _dequantize_block(q: QuantizedTensor,
+                      dtype=torch.float32) -> torch.Tensor:
+    b = q.block
+    d = q.data.to(torch.float32)
+    if q.granularity == "block_act":  # activation: 1 x block tiles
+        nb = d.shape[-1] // b
+        xb = d.reshape(*d.shape[:-1], nb, b) * q.scale[..., None]
+        return xb.reshape(d.shape).to(dtype)
+    bi, bo = d.shape[-2] // b, d.shape[-1] // b
+    xb = d.reshape(*d.shape[:-2], bi, b, bo, b) \
+        * q.scale[..., :, None, :, None]
+    return xb.reshape(d.shape).to(dtype)
+
+
 def quantize_kv(x: torch.Tensor, fmt=E4M3
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """KV-cache quantization, one dynamic scale per (position, head): the
@@ -170,40 +214,87 @@ def dequantize_kv(data: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Activation-amax capture (calibration only; a host read per product)
+# ---------------------------------------------------------------------------
+
+_ACT_AMAX: Optional[Dict[str, float]] = None
+
+
+@contextlib.contextmanager
+def capture_act_amax():
+    """Record the running max |activation| per consuming weight ``tag``.
+
+    While active, every ``fp8_linear`` call on a tagged weight folds
+    ``max|x|`` into the yielded ``{tag: amax}`` dict; every layer's slice of
+    a stacked leaf folds into the leaf's one key.  Each record reads a host
+    float, so this is for calibration, never the serving path."""
+    global _ACT_AMAX
+    prev = _ACT_AMAX
+    _ACT_AMAX = {}
+    try:
+        yield _ACT_AMAX
+    finally:
+        _ACT_AMAX = prev
+
+
+def _record_act_amax(tag: Optional[str], x: torch.Tensor) -> None:
+    if _ACT_AMAX is None or tag is None:
+        return
+    amax = float(x.to(torch.float32).abs().max())
+    if amax > _ACT_AMAX.get(tag, 0.0):
+        _ACT_AMAX[tag] = amax
+
+
+# ---------------------------------------------------------------------------
 # FP8 matmuls (through the port's kernels)
 # ---------------------------------------------------------------------------
 
 
-def fp8_linear(x: torch.Tensor, wq: QuantizedTensor, *,
-               out_dtype=None) -> torch.Tensor:
-    """The paper's Linear-layer FP8 path (dynamic per-token mode): per-row
-    activation quant, fp8 x fp8 dot with f32 accumulation, rescale by
-    (act scale x channel scale), cast.  ``wq`` is one ``(in, out)`` kernel
-    (a layer slice), per-channel over the output axis.  Runs as kernel
-    ``fp8_gemm``."""
+def fp8_linear(x: torch.Tensor, wq: QuantizedTensor, *, out_dtype=None,
+               act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The paper's Linear-layer FP8 path: per-row activation quant (or,
+    with a static scale passed as ``act_scale`` or carried on the weight,
+    the cast with it: no runtime amax reduction), fp8 x fp8 dot with f32
+    accumulation, rescale by (act scale x channel scale), cast.  ``wq`` is
+    one ``(in, out)`` kernel (a layer slice), per-channel over the output
+    axis.  Runs as kernel ``fp8_gemm`` (its static mode with a scale)."""
     if wq.granularity not in ("per_channel", "per_tensor"):
         raise ValueError(f"fp8_linear needs per_channel/per_tensor weights, "
                          f"got {wq.granularity}")
     if wq.data.ndim != 2:
         raise ValueError(f"fp8_linear takes one (in, out) kernel, got shape "
                          f"{tuple(wq.data.shape)}")
+    _record_act_amax(wq.tag, x)
+    if act_scale is None:
+        act_scale = wq.act_scale
     k, n = wq.data.shape
     sw = wq.scale.reshape(1, -1).expand(1, n).contiguous()
     lead = x.shape[:-1]
     out = fp8_gemm_ops.fp8_gemm(x.reshape(1, -1, k), wq.data.unsqueeze(0),
-                                sw, out_dtype=out_dtype or x.dtype)
+                                sw, out_dtype=out_dtype or x.dtype,
+                                act_scale=act_scale)
     return out.reshape(*lead, n)
 
 
-def fp8_grouped_linear(x: torch.Tensor, wq: QuantizedTensor, *,
-                       out_dtype=None) -> torch.Tensor:
-    """Grouped GEMM with per-channel weight scales (the non-128-aligned
-    fallback): x (E, C, K) @ wq (E, K, N), scale (E, 1, N).  Kernel
-    ``fp8_gemm`` with its leading batch dim."""
-    e, _, n = wq.data.shape
-    sw = wq.scale.reshape(e, -1).expand(e, n).contiguous()
-    return fp8_gemm_ops.fp8_gemm(x, wq.data, sw,
-                                 out_dtype=out_dtype or x.dtype)
+def fp8_block_matmul(x: torch.Tensor, wq: QuantizedTensor, *,
+                     out_dtype=None) -> torch.Tensor:
+    """A dense ``(in, out)`` weight with ``128 x 128`` block scales (a
+    policy's ``"block"`` override) times x (..., in): 1 x 128 activation
+    blocks, each 128-deep partial scaled by ``s_x * s_w`` and accumulated
+    in f32.  Kernel ``fp8_grouped_gemm`` with one expert: the Pallas
+    kernel's function, not the JAX XLA path's fold into bf16 operands (the
+    deliberate departure in the module docstring)."""
+    if wq.granularity != "block" or wq.block != grouped_ops.B:
+        raise ValueError("fp8_block_matmul needs 128-block weights")
+    if wq.data.ndim != 2:
+        raise ValueError(f"fp8_block_matmul takes one (in, out) kernel, got "
+                         f"shape {tuple(wq.data.shape)}")
+    k, n = wq.data.shape
+    lead = x.shape[:-1]
+    out = grouped_ops.fp8_grouped_gemm(
+        x.reshape(1, -1, k), wq.data.unsqueeze(0), wq.scale.unsqueeze(0),
+        out_dtype=out_dtype or x.dtype)
+    return out.reshape(*lead, n)
 
 
 def fp8_grouped_matmul(x: torch.Tensor, wq: QuantizedTensor, *,
@@ -216,15 +307,121 @@ def fp8_grouped_matmul(x: torch.Tensor, wq: QuantizedTensor, *,
                                         out_dtype=out_dtype or x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# INT8 W8A8 (beyond the paper; the same scaling machinery, symmetric)
+# ---------------------------------------------------------------------------
+
+INT8_MAX = 127.0
+
+
+def _amax_to_scale_int8(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, eps) / 127, divided by a device tensor (see
+    ``amax_to_scale``)."""
+    imax = torch.full((), INT8_MAX, dtype=torch.float32, device=amax.device)
+    return torch.clamp(amax.to(torch.float32), min=_EPS) / imax
+
+
+def cast_to_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Divide by scale, round half to even, clip to +-127."""
+    y = torch.round(x.to(torch.float32) / scale)
+    return y.clamp_(-INT8_MAX, INT8_MAX).to(torch.int8)
+
+
+def quantize_per_channel_int8(w: torch.Tensor,
+                              contract_axis: int = -2) -> QuantizedTensor:
+    """Symmetric per-output-channel int8 weights; the payload laid out
+    K-major (``k_major``), the layout ``torch._int_mm`` reads as its
+    column-major second operand."""
+    scale = _amax_to_scale_int8(_amax(w, contract_axis, keepdim=True))
+    data = k_major(cast_to_int8(w, scale), contract_axis)
+    return QuantizedTensor(data, scale, "per_channel")
+
+
+def quantize_per_token_int8(x: torch.Tensor) -> QuantizedTensor:
+    scale = _amax_to_scale_int8(_amax(x, -1, keepdim=True))
+    return QuantizedTensor(cast_to_int8(x, scale), scale, "per_token")
+
+
+_INT_MM_MIN_ROWS = 17     # torch._int_mm takes more than 16 rows
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (M, K) int8 @ b (K, N) int8 -> (M, N) int32, exact.  On the card
+    ``torch._int_mm`` (cuBLAS; the JAX package's int32 ``dot`` is XLA's,
+    outside any Pallas kernel), with M padded to more than 16 rows; on the
+    CPU a float64 product, exact for |sum| < 2**53."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.float64),
+                            b.to(torch.float64)).to(torch.int32)
+    m = a.shape[0]
+    if m < _INT_MM_MIN_ROWS:
+        a = torch.cat([a, a.new_zeros(_INT_MM_MIN_ROWS - m, a.shape[1])])
+    out = torch._int_mm(a, b)
+    int8_matmul.launches += 1
+    return out[:m]
+
+
+int8_matmul.launches = 0
+
+
+def int8_linear(x: torch.Tensor, wq: QuantizedTensor, *,
+                out_dtype=None) -> torch.Tensor:
+    """W8A8: per-token int8 activations x int8 ``(in, out)`` kernel, int32
+    accumulation, dequant epilogue ``(acc * s_x) * s_w``."""
+    k, n = wq.data.shape
+    lead = x.shape[:-1]
+    xq = quantize_per_token_int8(x.reshape(-1, k))
+    acc = int8_matmul(xq.data, wq.data)
+    w_scale = wq.scale.reshape(-1) if wq.granularity == "per_channel" \
+        else wq.scale
+    out = acc.to(torch.float32) * xq.scale * w_scale
+    return out.to(out_dtype or x.dtype).reshape(*lead, n)
+
+
+def fp8_grouped_linear(x: torch.Tensor, wq: QuantizedTensor, *,
+                       out_dtype=None) -> torch.Tensor:
+    """Grouped GEMM with per-channel weight scales (the non-128-aligned
+    fallback, and int8 experts): x (E, C, K) @ wq (E, K, N), scale
+    (E, 1, N).  fp8: kernel ``fp8_gemm`` with its leading batch dim; int8:
+    the exact int8 product per expert, ``(acc * s_x) * s_w``."""
+    e, _, n = wq.data.shape
+    if wq.data.dtype == torch.int8:                       # W8A8 grouped
+        xq = quantize_per_token_int8(x)                   # scale (E, C, 1)
+        acc = torch.stack([int8_matmul(xq.data[i], wq.data[i])
+                           for i in range(e)])
+        out = acc.to(torch.float32) * xq.scale * wq.scale
+        return out.to(out_dtype or x.dtype)
+    sw = wq.scale.reshape(e, -1).expand(e, n).contiguous()
+    return fp8_gemm_ops.fp8_gemm(x, wq.data, sw,
+                                 out_dtype=out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The one dispatch point the layers funnel through
+# ---------------------------------------------------------------------------
+
+
 def matmul_any(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
-    """``x @ w`` where ``w`` is a raw tensor OR a QuantizedTensor; the one
-    dispatch point the layers funnel through.  A raw weight is cast to the
+    """``x @ w`` where ``w`` is a raw tensor OR a QuantizedTensor: block
+    weights through ``fp8_block_matmul``, int8 through ``int8_linear``,
+    the rest through ``fp8_linear``.  A raw weight is cast to the
     activation dtype and the product accumulates in f32 (computed as an
     f32 product of the bf16-valued operands, so an f32 ``out_dtype`` gets
     the unrounded sum, as ``jnp.dot(..., preferred_element_type=f32)``)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, QuantizedTensor):
+        if w.granularity == "block":
+            return fp8_block_matmul(x, w, out_dtype=out_dtype)
+        if w.data.dtype == torch.int8:
+            return int8_linear(x, w, out_dtype=out_dtype)
         return fp8_linear(x, w, out_dtype=out_dtype)
     out = torch.matmul(x.to(torch.float32),
                        w.to(x.dtype).to(torch.float32))
     return out.to(out_dtype)
+
+
+def quant_error(x: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:
+    """Relative L2 quantization error (the PTQ report's ``rel_err``)."""
+    xf = x.to(torch.float32)
+    return torch.linalg.norm(xf - q.dequantize()) \
+        / (torch.linalg.norm(xf) + _EPS)

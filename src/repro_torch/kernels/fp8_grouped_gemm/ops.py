@@ -141,24 +141,26 @@ def _fns() -> Dict[str, Any]:
 
 
 def _layout(e: int, c: int, k: int):
-    """The scratch of one call in one allocation: byte offsets of xq
-    (E, C, K) u8 and sx (E, K/128, Cp) f32, Cp = C rounded up to a
-    multiple of 4 (the prefill path's TMA reads sx rows at 16-byte
-    strides), each 16-byte aligned.  Returns (offsets, total bytes)."""
+    """The scratch of one call in one allocation: byte offsets of xh
+    (E, C, K) f16 (the e4m3 activations as the GEMM reads them, in the
+    chunks' k order, ``csrc/sm90_fp8.cuh``) and sx (E, K/128, Cp) f32,
+    Cp = C rounded up to a multiple of 4 (the prefill path's TMA reads sx
+    rows at 16-byte strides), each 16-byte aligned.  Returns (offsets,
+    total bytes)."""
     cp = -(-c // 4) * 4
     sizes = [-(-size // 16) * 16
-             for size in (e * c * k, e * (k // B) * cp * 4)]
+             for size in (e * c * k * 2, e * (k // B) * cp * 4)]
     return [0, sizes[0]], sum(sizes)
 
 
 def scratch(x: torch.Tensor):
     """The call's scratch as tensors, for running the two passes apart:
-    (xq (E, C, K) u8, sx (E, K/128, C) f32, a view with row stride Cp)."""
+    (xh (E, C, K) f16, sx (E, K/128, C) f32, a view with row stride Cp)."""
     e, c, k = x.shape
     cp = -(-c // 4) * 4
     offs, total = _layout(e, c, k)
     buf = torch.empty(total, dtype=torch.uint8, device=x.device)
-    xq = buf[:e * c * k].view(e, c, k)
+    xq = buf[:e * c * k * 2].view(torch.float16).view(e, c, k)
     sx = buf[offs[1]:offs[1] + e * (k // B) * cp * 4].view(
         torch.float32).view(e, k // B, cp)[:, :, :c]
     return xq, sx
@@ -201,7 +203,7 @@ fp8_grouped_gemm.launches = 0
 def quantize_pass(x: torch.Tensor, xq: torch.Tensor,
                   sx: torch.Tensor) -> None:
     """The 1 x 128 quantization pass of ``fp8_grouped_gemm`` alone, into
-    ``xq``, ``sx`` (for timing it apart from the GEMM; not a path of the
+    ``xq`` (f16), ``sx`` (for timing it apart from the GEMM; not a path of the
     port)."""
     e, c, k = x.shape
     build.check(_fns()["quantize"](
@@ -211,8 +213,10 @@ def quantize_pass(x: torch.Tensor, xq: torch.Tensor,
 
 def gemm_pass(xq: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor,
               sw: torch.Tensor, out: torch.Tensor, p: Plan) -> None:
-    """The GEMM of ``fp8_grouped_gemm`` alone on an already quantized
-    ``xq``, ``sx`` (for timing it apart; not a path of the port)."""
+    """The GEMM of ``fp8_grouped_gemm`` alone on already quantized
+    activations and ``sx`` (E, K/128, C) (for timing it apart; not a path
+    of the port): ``xq`` (E, C, K) f16 as the quantization pass writes
+    it."""
     e, c, k = xq.shape
     n = wq.shape[-1]
     build.check(_fns()["fp8_grouped_gemm_mma_launch"](

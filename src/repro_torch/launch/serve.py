@@ -6,7 +6,8 @@ the card.
       [--slots 32] [--ragged] [--no-fp8] [--page-size 32] [--pages 0] \
       [--rate 8.0] [--max-queue 64] [--hold-k 4] [--hold-ms 25] \
       [--prefix-cache [--prefix-rows 32] [--second-sight]] \
-      [--prefill-chunk 32] [--preemption] [--seed 0] [--device cuda|cpu]
+      [--prefill-chunk 32] [--preemption] [--quant-policy PATH] [--seed 0] \
+      [--device cuda|cpu]
 
 The flags are the JAX launcher's (``repro/launch/serve.py``) that the port
 covers, with its layouts: ``--paged`` serves the paged KV pool, decoding
@@ -19,7 +20,11 @@ without it the closed-batch ``serve_requests`` serves everything queued up
 front.  The kernels ``batch_attention`` and ``radix_topk`` are reached
 through the model config's ``use_attention_kernel`` and
 ``EngineConfig.use_radix_topk``, as in the JAX package, not through flags.
-``--device cpu`` runs every kernel's plain PyTorch version on the CPU.
+``--quant-policy`` deploys a policy artifact (``core.policy.
+save_policy_artifact``: per-group fp8 / bf16 / int8 decisions and
+calibrated static activation scales) instead of the all-or-nothing
+``--no-fp8`` switch.  ``--device cpu`` runs every kernel's plain PyTorch
+version on the CPU.
 """
 
 from __future__ import annotations
@@ -87,6 +92,12 @@ def main(argv=None):
                          "paged_decode ('auto', the default) or the "
                          "gathered view ('off'); without --paged only "
                          "'off'")
+    ap.add_argument("--quant-policy", default=None, metavar="PATH",
+                    help="load a tuned mixed-precision policy artifact "
+                         "instead of the all-or-nothing --no-fp8 switch: "
+                         "per-group fp8/bf16/int8 assignment plus "
+                         "calibrated static activation scales deploy as "
+                         "data")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the params AND the synthetic workload")
     ap.add_argument("--device", default="cuda",
@@ -110,7 +121,8 @@ def main(argv=None):
         store_on_first_sight=not args.second_sight,
         prefill_chunk=args.prefill_chunk, preemption=args.preemption,
         paged=args.paged, page_size=args.page_size, n_pages=args.pages,
-        fused_decode=fused), device=args.device)
+        fused_decode=fused, quant_policy=args.quant_policy),
+        device=args.device)
     del params       # the engine holds the quantized tree
     requests = build_requests(cfg, args.requests, batch, args.seed,
                               args.ragged)
@@ -131,6 +143,11 @@ def main(argv=None):
     else:
         outs, stats = engine.serve_requests(requests)
 
+    if args.quant_policy:
+        pol = engine.executor.quant_policy
+        print(f"[serve] quant policy: {args.quant_policy} "
+              f"({len(pol.overrides)} overrides, "
+              f"static_acts={pol.static_acts})")
     print(f"[serve] mode={stats['mode']} fp8={args.fp8} "
           f"kv={stats['kv_dtype']} "
           f"({int(stats['kv_row_bytes'])} B/row, "

@@ -61,8 +61,9 @@ def init_moe(gen: torch.Generator, spec: MoESpec, *,
 
 
 def _grouped_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x (E, C, K) @ w (E, K, N); w raw or QuantizedTensor (block-scaled, or
-    per-channel where the dims are not 128-aligned)."""
+    """x (E, C, K) @ w (E, K, N); w raw (the plain product) or a
+    QuantizedTensor: block-scaled, or per-channel (fp8 where the dims are
+    not 128-aligned, or int8 experts: the exact int8 grouped product)."""
     if isinstance(w, QuantizedTensor):
         if w.granularity == "block":
             return fp8_grouped_matmul(x, w)

@@ -15,7 +15,9 @@ or through the gathered view with ``"off"``) or the contiguous slot pool
     ``run_open_loop`` — submission at each request's wall-clock arrival.
 
 The policy knobs (prefix store, chunked prefill, preemption, hold windows)
-are the JAX engine's.  The engine runs on the card unless it is built with
+are the JAX engine's, and so is ``quant_policy``: a ``QuantPolicy``, or the
+path of a policy artifact whose calibrated static activation scales are
+attached after PTQ.  The engine runs on the card unless it is built with
 ``device="cpu"``, where every kernel runs its plain PyTorch version;
 without a card it raises.  Settings of ``EngineConfig`` that the port does
 not cover yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
@@ -32,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import OneRecConfig
+from repro_torch.core.policy import QuantPolicy, load_policy_artifact
 from repro_torch.device import resolve_device
 from repro_torch.serving.executor import PhaseExecutor
 from repro_torch.serving.kv_cache import PrefixStore, SlotPool
@@ -81,7 +84,9 @@ class EngineConfig:
     fused_decode: object = "auto"  # paged: kernel paged_decode (plain
     #                                version on the CPU), or "off" for the
     #                                gathered view; contiguous: must be off
-    quant_policy: object = None
+    quant_policy: object = None    # a QuantPolicy, or the path of a
+    #                                policy artifact (policy + calibrated
+    #                                static activation scales)
 
 
 _OFF = (False, None, "off")         # fused_decode values that mean off
@@ -91,7 +96,6 @@ _NOT_PORTED: Tuple[Tuple[Callable[[EngineConfig], bool], str, str], ...] = (
     (lambda c: c.max_candidates != 1, "max_candidates > 1 (tree decode)",
      "N3"),
     (lambda c: c.mode != "continuous", "mode other than continuous", "N4"),
-    (lambda c: c.quant_policy is not None, "quant_policy", "N5"),
 )
 
 
@@ -167,9 +171,23 @@ class ServingEngine:
         n_pages = ecfg.n_pages or -(-(self.n_slots + prefix_rows)
                                     * (cfg.context_len + 1)
                                     // ecfg.page_size)
+        # tuned mixed-precision policy: a str is a policy artifact's path
+        # (policy and calibrated static activation scales travel
+        # together); a QuantPolicy applies as it is
+        quant_policy, act_scales = ecfg.quant_policy, None
+        if isinstance(quant_policy, str):
+            artifact = load_policy_artifact(quant_policy)
+            quant_policy = artifact["policy"]
+            act_scales = artifact.get("act_scales") or None
+        elif quant_policy is not None \
+                and not isinstance(quant_policy, QuantPolicy):
+            raise ValueError(
+                f"quant_policy must be a QuantPolicy or an artifact path, "
+                f"got {type(quant_policy).__name__}")
         self.executor = PhaseExecutor(
             params, cfg, n_slots=self.n_slots, device=self.device,
             use_fp8=ecfg.use_fp8, topk=ecfg.topk,
+            quant_policy=quant_policy, act_scales=act_scales,
             use_radix_topk=ecfg.use_radix_topk,
             prefill_bucket_min=ecfg.prefill_bucket_min,
             kv_dtype=ecfg.kv_dtype, paged=ecfg.paged,

@@ -57,8 +57,9 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import OneRecConfig
-from repro_torch.core.policy import BASELINE_POLICY, PAPER_POLICY
-from repro_torch.core.ptq import quantize_params
+from repro_torch.core.policy import (BASELINE_POLICY, PAPER_POLICY,
+                                     QuantPolicy)
+from repro_torch.core.ptq import apply_static_act_scales, quantize_params
 from repro_torch.device import synchronize
 from repro_torch.kernels.radix_topk.ops import radix_topk
 from repro_torch.layers.attention import KVWrite
@@ -107,7 +108,9 @@ class PhaseExecutor:
                  prefill_bucket_min: int = 16,
                  kv_dtype: Optional[str] = None, paged: bool = True,
                  page_size: int = 32, n_pages: int = 0,
-                 fused_decode: bool = True, prefix_rows: int = 0):
+                 fused_decode: bool = True, prefix_rows: int = 0,
+                 quant_policy: Optional[QuantPolicy] = None,
+                 act_scales: Optional[Dict[str, float]] = None):
         self.cfg = cfg
         self.n_slots = n_slots
         self.device = device
@@ -120,8 +123,15 @@ class PhaseExecutor:
         # positions past its history (the scheduler's footprint)
         self.branch_stride = max(cfg.decode_len - 1, 0)
         params = tree.map_with_path(lambda _, t: t.to(device), params)
-        self.params = quantize_params(
-            params, PAPER_POLICY if use_fp8 else BASELINE_POLICY)
+        # a tuned QuantPolicy (e.g. from a policy artifact) overrides the
+        # all-or-nothing use_fp8 switch; calibrated static activation
+        # scales ride the quantized leaves (fp8_linear skips the per-token
+        # amax reduction where they are attached)
+        self.quant_policy = quant_policy if quant_policy is not None else \
+            (PAPER_POLICY if use_fp8 else BASELINE_POLICY)
+        self.params = quantize_params(params, self.quant_policy)
+        if act_scales:
+            self.params = apply_static_act_scales(self.params, act_scales)
         self.s_row = cfg.context_len + 1           # positions per request
         self.paged = bool(paged)
         # paged decode through kernel paged_decode with the select folded

@@ -416,3 +416,157 @@ def test_phase3_case_is_run_to_run_identical(cuda, case):
         outs, _ = cs._serve_case(engine, case, cfg, reqs)
         runs.append(([o.tolist() for o in outs], seeds))
     assert all(r == runs[0] for r in runs[1:])
+
+
+# ---------------------------------------------------------------------------
+# The static mode of fp8_gemm, the int8 product, and the GEMMs' f32 sums
+# (ROADMAP C2)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,M,K,N", [
+    (1, 32, 2048, 2048),     # decode
+    (1, 32, 272, 96),        # a ragged last 128-deep chunk
+    (1, 4100, 2048, 512),    # prefill
+])
+def test_fp8_gemm_static_mode_matches_plain(cuda, E, M, K, N):
+    """One calibrated scale for every row: the kernel's static mode against
+    its plain version (the cast with the scale, ``(acc * s) * sw``)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(E, M, K, device=cuda, generator=g).to(torch.bfloat16)
+    wq = quant.quantize_per_channel(
+        torch.randn(E, K, N, device=cuda, generator=g))
+    sw = wq.scale.reshape(E, N).contiguous()
+    s = (x.float().abs().max() / 300.0).reshape(1, 1)   # some rows clip
+    out = gemm_ops.fp8_gemm(x, wq.data, sw, act_scale=s)
+    ref = gemm_ops.fp8_gemm_plain(x, wq.data, sw, act_scale=s)
+    _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(32, 2048, 8256), (300, 256, 200)])
+def test_fp8_gemm_f32_output_matches_plain(cuda, M, K, N):
+    """An fp8 logits head (f32 output, OneRec-V2's vocabulary at decode):
+    the epilogue's f32 store against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(1, M, K, device=cuda, generator=g).to(torch.bfloat16)
+    wq = quant.quantize_per_channel(
+        torch.randn(1, K, N, device=cuda, generator=g))
+    sw = wq.scale.reshape(1, N).contiguous()
+    out = gemm_ops.fp8_gemm(x, wq.data, sw, out_dtype=torch.float32)
+    ref = gemm_ops.fp8_gemm_plain(x, wq.data, sw, torch.float32)
+    assert out.dtype == torch.float32
+    _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(8, 256, 128), (32, 2048, 512),
+                                   (300, 384, 200)])
+def test_int8_linear_on_the_card_equals_the_cpu(cuda, M, K, N):
+    """``torch._int_mm`` sums exactly, so the card's W8A8 product equals
+    the CPU's bit for bit (8 rows: padded above 16 for ``_int_mm``)."""
+    import dataclasses
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(2, M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = quant.quantize_per_channel_int8(
+        torch.randn(K, N, device=cuda, generator=g))
+    out = quant.int8_linear(x, w)
+    ref = quant.int8_linear(x.cpu(), dataclasses.replace(
+        w, data=w.data.cpu(), scale=w.scale.cpu()))
+    assert torch.equal(out.cpu().view(torch.int16), ref.view(torch.int16))
+
+
+def _off_exact(out, exact):
+    e = exact.float().to(torch.bfloat16)
+    return (out != e).float().mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,shape", [
+    ("fp8_gemm", (1, 32, 2048, 2048)),
+    ("fp8_gemm", (1, 4100, 2048, 2048)),
+    ("fp8_grouped_gemm", (16, 8, 2048, 4096)),
+    ("fp8_grouped_gemm", (8, 300, 256, 512)),
+])
+def test_gemm_kernels_sum_in_f32(cuda, kernel, shape):
+    """At most 0.1% of the kernels' bf16 outputs differ from the same
+    function summed in float64 and rounded once (the f32 sums of the Pallas
+    kernels; e4m3 wgmma sums put 2.4-6.8% off)."""
+    e, m, k, n = shape
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn(e, m, k, device=cuda, generator=g).to(torch.bfloat16)
+    w = torch.randn(e, k, n, device=cuda, generator=g) / math.sqrt(k)
+    if kernel == "fp8_gemm":
+        wq = quant.quantize_per_channel(w)
+        sw = wq.scale.reshape(e, n).contiguous()
+        out = gemm_ops.fp8_gemm(x, wq.data, sw)
+        xq = quant.quantize_per_token(x)
+        exact = (xq.data.double() @ wq.data.double()) * xq.scale.double() \
+            * sw.double()[:, None, :]
+    else:
+        wq = quant.quantize_blockwise(w)
+        out = grouped_ops.fp8_grouped_gemm(x, wq.data, wq.scale)
+        xq = quant.quantize_blockwise(x, act=True)
+        xd = xq.data.double().reshape(e, m, k // 128, 128)
+        wd = wq.data.double().reshape(e, k // 128, 128, n)
+        swn = wq.scale.double().repeat_interleave(128, dim=-1)
+        exact = torch.zeros(e, m, n, dtype=torch.float64, device=cuda)
+        for kb in range(k // 128):
+            exact += (xd[:, :, kb] @ wd[:, kb]) \
+                * xq.scale[:, :, kb, None].double() * swn[:, None, kb]
+    assert _off_exact(out, exact) <= 1e-3
+
+
+_PAGED_CASE = """
+import hashlib, json, sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+sys.path.insert(0, {src!r})
+import chip_smoke as cs
+from repro_torch.serving import EngineConfig, ServingEngine
+from repro_torch.serving.executor import PhaseExecutor
+dev = torch.device("cuda")
+cfg, params, reqs, ecfg = cs._phase3_setup("paged")
+engine = ServingEngine(params, cfg, EngineConfig(**ecfg), device=dev)
+seeds = cs._record_seeds(engine)
+outs, _ = cs._serve_case(engine, "paged", cfg, reqs)
+ex = PhaseExecutor(params, cfg, n_slots=8, device=dev,
+                   kv_dtype="float8_e4m3fn", page_size=32, n_pages=16)
+hists = [np.asarray(r["tokens"]) for r in reqs[:8]]
+for s, h in enumerate(hists):
+    assert ex.grant_slot(s, len(h) + 3)
+logits = ex.prefill_insert(hists, [np.asarray(r["profile"]) for r in
+                                   reqs[:8]], list(range(8)))
+lengths = np.asarray([len(h) + 1 for h in hists], np.int32)
+h = hashlib.sha256(logits.float().cpu().numpy().tobytes())
+for _ in range(cfg.decode_len - 1):
+    toks = np.argmax(logits.float().cpu().numpy(), -1).astype(np.int32)
+    logits = ex.decode(toks[:, None], lengths)
+    lengths = lengths + 1
+    h.update(logits.float().cpu().numpy().tobytes())
+print(json.dumps(dict(items=[o.tolist() for o in outs],
+                      seeds={{str(k): v for k, v in seeds.items()}},
+                      logits=h.hexdigest())))
+"""
+
+
+@pytest.mark.cuda
+def test_phase3_paged_case_is_identical_across_processes(cuda):
+    """ROADMAP C3: ``chip_smoke.py`` phase 3's ``paged`` case served in
+    three fresh processes of the port: the items, the top-2 first-token
+    logits and the teacher-forced logits (prefill and decode steps) are
+    bit-identical across them."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _PAGED_CASE.format(root=root, src=os.path.join(root, "src"))
+    runs = []
+    for _ in range(3):
+        out = subprocess.run([sys.executable, "-c", code], check=True,
+                             capture_output=True, text=True, timeout=600)
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert all(r == runs[0] for r in runs[1:])

@@ -275,8 +275,7 @@ def test_engine_refuses_a_quiet_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(max_candidates=2), dict(mode="fixed"),
-    dict(quant_policy=policy.PAPER_POLICY)])
+    dict(max_candidates=2), dict(mode="fixed")])
 def test_unported_engine_settings_name_their_roadmap_item(setting):
     cfg = onerec_v2.reduced_config()
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue N"):

@@ -10,10 +10,13 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. Kernel checks: each kernel against its plain PyTorch version on the card
    at the full-width OneRec-V2 shapes of the serving path, plus adversarial
-   page layouts and a tree-decode case for ``paged_decode``, rows of ties
+   page layouts and tree-decode cases at 16, 32 and 64 query rows a KV
+   head (fp8 and bf16 pools, dummy branches) for ``paged_decode``, rows of
+   ties
    and +-0.0 and a case for each path of ``radix_topk`` (k = 1024 and
    k = V, equal values, odd and unaligned rows, pad columns, tiles, 1 and
-   128 rows) and prefill-shaped and windowed calls for
+   128 rows, and a W = 8 beam step's 32 rows of 66048) and prefill-shaped
+   and windowed calls for
    ``batch_attention``; max |diff| against the stated tolerance (identical
    values and indices for ``radix_topk``), kernel / plain / library time,
    and the roofline bound; for ``radix_topk`` also an empty kernel of its
@@ -35,16 +38,19 @@ from the root of a checkout.  Phases, each of which fails the run:
    bit; it is timed.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
-   in six cases, each held to both bars: the paged layout; the paged
+   in nine cases, each held to both bars: the paged layout; the paged
    layout decoding unfused (``fused_decode="off"``); the paged layout
    with the prefix store, chunked prefill and preemption, on the requests
    split into two priority classes and on first and return visits, each
    on one schedule; the paged layout through a policy artifact (static
    activation scales calibrated on the CPU, int8 k projections); the
    contiguous layout with ``use_attention_kernel`` and
-   ``use_radix_topk``: first tokens and teacher-forced top-8 overlap
-   against thresholds.
-4. Full width, four main paths, each kernel's launch count (and the int8
+   ``use_radix_topk``, and the same in fixed mode; tree decode on the
+   paged layout (``max_candidates=8``, widths 1, 3, 4, 8: branch seeds
+   and ranked items); ``generate_items`` and ``beam_generate`` over the
+   batch-shared cache with ``topk_fn=radix_topk``: first tokens and
+   teacher-forced top-8 overlap against thresholds.
+4. Full width, seven main paths, each kernel's launch count (and the int8
    product's) zeroed before and read after each; the counts must match
    the layer arithmetic:
    (a) ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode auto``
@@ -65,7 +71,18 @@ from the root of a checkout.  Phases, each of which fails the run:
    (d) ``ServingEngine`` on (a)'s paged pool through a policy artifact
    whose static scales are calibrated on the card, the k projections in
    int8 (``fp8_gemm`` in its static mode, the int8 product,
-   ``fp8_grouped_gemm``, ``paged_decode``), serving (a)'s requests.
+   ``fp8_grouped_gemm``, ``paged_decode``), serving (a)'s requests;
+   (e) ``ServingEngine`` on (a)'s paged pool with ``max_candidates=8``
+   serves (a)'s requests asking for 8, 4, 3, 1 candidates in turn
+   (``paged_decode`` in tree mode): tree steps, branch tokens and fused
+   selects occur, every completion holds its distinct ranked items;
+   (f) ``ServingEngine(mode="fixed")`` on (b)'s contiguous pool serves the
+   requests in two lock-step batches (``batch_attention``,
+   ``radix_topk``), its latency beside (b)'s;
+   (g) ``generate_items`` and ``beam_generate(beam_width=8)`` on 32 full
+   histories over the batch-shared cache with ``use_attention_kernel``
+   and ``topk_fn=radix_topk`` (``batch_attention``, ``radix_topk``);
+   beams sorted, a beam of one equal to the greedy items.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -687,36 +704,138 @@ def check_paged_decode(dev, records):
                 timer="cuda_graph", ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
-    # tree decode (ROADMAP N3 launches the kernel as it is): a shared prefix
-    # of `start` positions then 4 branches of 2 (the engine's stride,
-    # decode_len - 1), C*G = 16 rows per KV head, fp8 K/V
-    n_br, stride = 4, 2
-    starts = [int(x) for x in torch.randint(7, 380, (b,), generator=gen)]
-    starts[3] = 0                               # an empty slot
-    lengths = [st + n_br * stride - 1 for st in starts]
-    lengths[3] = 0
-    cache, tables, lens = _decode_pool(dev, lengths, quantized=True, ps=ps,
-                                       kv=kv, hd=hd, n_p=n_p, seed=11)
-    q = torch.randn(b, kv, n_br * g_heads, hd, generator=gen).to(
-        torch.bfloat16).to(dev)
-    st = torch.tensor(starts, dtype=torch.int32, device=dev)
-    args = [q, cache["k"], cache["v"], cache["pos"], cache["k_scale"],
-            cache["v_scale"], tables, lens, st]
-    kw = dict(page_size=ps, group=g_heads, branch_stride=stride,
-              scale=1.0 / math.sqrt(hd))
-    out = ops.paged_decode(*args, **kw)
-    ref = ops.paged_decode(*[a.cpu() for a in args], **kw)
-    err = (out.float().cpu() - ref.float()).abs().max().item()
-    tol = TOL * ref.float().abs().max().item()
-    worst = max(worst, err)
-    if not err <= tol or bool(out[3].any()):
-        fail(f"paged_decode tree: max |diff| {err} > {tol}, or the empty "
-             f"slot is not 0")
-    tree_ms = time_graph_ms(lambda: ops.paged_decode(*args, **kw), 50)
-    print(f"[kernel] paged_decode tree B={b} Kv={kv} CG={n_br * g_heads} "
-          f"stride={stride} fp8 KV: max|diff|={err:.3g} (tol {tol:.3g}); "
-          f"kernel {tree_ms:.4f} ms (device time)")
-    records["paged_decode"].update(max_abs_err=worst, tree_ms=tree_ms)
+    records["paged_decode"]["max_abs_err"] = worst
+    check_paged_decode_tree(dev, records, gen)
+
+
+def _tree_pool(dev, starts, counts, *, n_br, stride, depth, quantized, ps,
+               kv, hd, n_p, seed):
+    """One layer of a paged pool as a tree step leaves it: slot i holds its
+    shared prefix (logical 0 .. starts[i] - 1), then its first counts[i]
+    branch spans hold depth + 1 tokens each (branch b's token t at logical
+    starts[i] + b * stride + t, pos starts[i] + t), the spans of dummy
+    branches b >= counts[i] empty; on shuffled pages, unmapped entries at
+    the sentinel page.  A slot with start 0 is empty (length 0)."""
+    import torch
+    from repro_torch.core import quant
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b = len(starts)
+    end = [0 if st == 0 else st + n_br * stride for st in starts]
+    need = [-(-e // ps) for e in end]
+    n_pages = sum(need) + 3
+    n_pos = (n_pages + 1) * ps
+    perm = torch.randperm(n_pages, generator=g).tolist()
+    tables = torch.full((b, n_p), n_pages, dtype=torch.int32)
+    pos = torch.full((n_pos,), -1, dtype=torch.int32)
+    nxt = 0
+    for i, st in enumerate(starts):
+        phys = []
+        for e in range(need[i]):
+            tables[i, e] = perm[nxt]
+            phys += [perm[nxt] * ps + o for o in range(ps)]
+            nxt += 1
+        for lg in range(st):
+            pos[phys[lg]] = lg
+        for br in range(counts[i] if st else 0):
+            for t in range(depth + 1):
+                pos[phys[st + br * stride + t]] = st + t
+    k = torch.randn(n_pos, kv, hd, generator=g)
+    v = torch.randn(n_pos, kv, hd, generator=g)
+    cache = {"pos": pos}
+    if quantized:
+        cache["k"], cache["k_scale"] = quant.quantize_kv(k)
+        cache["v"], cache["v_scale"] = quant.quantize_kv(v)
+    else:
+        cache["k"], cache["v"] = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    lengths = [0 if st == 0 else st + depth for st in starts]
+    cache = {n: t.to(dev) for n, t in cache.items()}
+    return (cache, tables.to(dev),
+            torch.tensor(lengths, dtype=torch.int32, device=dev),
+            torch.tensor(starts, dtype=torch.int32, device=dev))
+
+
+def check_paged_decode_tree(dev, records, gen):
+    """Tree mode (``starts`` and the engine's branch stride, decode_len -
+    1 = 2): C = 4, 8 and 16 branches of G = 4 (C*G = 16, 32 and 64 query
+    rows a KV head: one, two and four row tiles), fp8 and bf16 pools, at
+    the serving shape (32 slots, prefixes of 7..380 positions) and on
+    adversarial tables (empty slots, starts on and beside page
+    boundaries, the last span crossing a page); dummy branches (counts
+    below C, their spans never written) in the C = 8 serving case and
+    throughout the adversarial ones.  Each held to ``TOL`` against the
+    plain version; fp8 serving cases timed, with their bound."""
+    import torch
+    from repro_torch.kernels.paged_decode import ops
+    kv, g_heads, hd, ps, b, stride, depth = 4, 4, 128, 32, 32, 2, 1
+    serving = [int(x) for x in torch.randint(7, 380, (b,), generator=gen)]
+    adversarial = [0, 1, 31, 32, 33, 63, 64, 0, 95, 96, 349, 0, 5, 127,
+                   128, 129] * 2
+    rows, worst = [], records["paged_decode"]["max_abs_err"]
+    for n_br in (4, 8, 16):
+        n_p = -(-(388 + n_br * stride) // ps)
+        for quantized in (True, False):
+            kind = "fp8" if quantized else "bf16"
+            for name, starts in (("serving", serving),
+                                 ("adversarial", adversarial)):
+                if name == "serving":
+                    counts = [n_br if n_br != 8 else (8, 4, 3, 1)[i % 4]
+                              for i in range(b)]
+                else:
+                    counts = [1 + (i * 5) % n_br for i in range(b)]
+                cache, tables, lens, st = _tree_pool(
+                    dev, starts, counts, n_br=n_br, stride=stride,
+                    depth=depth, quantized=quantized, ps=ps, kv=kv, hd=hd,
+                    n_p=n_p, seed=n_br + quantized + len(name))
+                q = torch.randn(b, kv, n_br * g_heads, hd, generator=gen
+                                ).to(torch.bfloat16).to(dev)
+                args = [q, cache["k"], cache["v"], cache["pos"],
+                        cache.get("k_scale"), cache.get("v_scale"), tables,
+                        lens, st]
+                kw = dict(page_size=ps, group=g_heads, branch_stride=stride,
+                          scale=1.0 / math.sqrt(hd))
+                out = ops.paged_decode(*args, **kw)
+                ref = ops.paged_decode(*[a.cpu() if a is not None else None
+                                         for a in args], **kw)
+                err = (out.float().cpu() - ref.float()).abs().max().item()
+                tol = TOL * ref.float().abs().max().item()
+                worst = max(worst, err)
+                empty = [i for i, x in enumerate(starts) if x == 0]
+                cg = n_br * g_heads
+                if not err <= tol or bool(out[empty].any()):
+                    fail(f"paged_decode tree CG={cg} {name} {kind} KV: max "
+                         f"|diff| {err} > {tol}, or an empty slot is not 0")
+                print(f"[kernel] paged_decode tree CG={cg} {name} {kind} KV"
+                      f" B={b} stride={stride} (counts {min(counts)}.."
+                      f"{max(counts)}): max|diff|={err:.3g} (tol "
+                      f"{tol:.3g})")
+                if name != "serving" or not quantized:
+                    continue
+                ms = time_graph_ms(lambda: ops.paged_decode(*args, **kw),
+                                   50)
+                plain_ms = time_ms(
+                    lambda: ops.paged_decode_plain(*args, **kw), 10)
+                # keys a block reads: each slot's prefix and its written
+                # span tokens, once for all its rows; each row's product
+                # covers the prefix and its own span's tokens
+                stored = sum(x + c * (depth + 1)
+                             for x, c in zip(starts, counts))
+                seen = sum(n_br * x + c * (depth + 1)
+                           for x, c in zip(starts, counts))
+                n_bytes = (stored * kv * (2 * hd + 2 * 4) + stored * 4
+                           + b * n_p * 4 + 2 * b * 4
+                           + 2 * b * kv * cg * hd * 2)
+                n_ops = 4.0 * seen * kv * g_heads * hd
+                b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+                print(f"[kernel] paged_decode tree CG={cg} B={b} Kv={kv} "
+                      f"hd={hd} ps={ps} P={n_p} fp8 KV: kernel {ms:.4f} ms "
+                      f"(device time, CUDA graph); plain {plain_ms:.4f} ms; "
+                      f"bound {b_ms:.5f} ms ({b_by}, {stored} stored keys)")
+                rows.append(dict(
+                    cg=cg, counts=f"{min(counts)}..{max(counts)}", ms=ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    records["paged_decode"].update(
+        max_abs_err=worst, tree_ms={f"CG={r['cg']}": r["ms"] for r in rows},
+        tree_rows=rows)
 
 
 def _topk_rows(b, v, seed):
@@ -764,7 +883,10 @@ def check_radix_topk(dev, records):
              ("edge rows V=65536 (four tiles)", _topk_rows(3, 65536, 7), 32),
              ("edge rows, unaligned start", unaligned, k),
              ("logits, one row", logits[:1], k),
-             ("edge rows, 128 rows", _topk_rows(128, v, 9), k)]
+             ("edge rows, 128 rows", _topk_rows(128, v, 9), k),
+             # a W = 8 beam step's select: each row the beams' W x V
+             # candidate scores (tiles re-read from L2)
+             ("beam rows W*V=66048", _topk_rows(32, 8 * v, 10), k)]
     for name, x, kk in cases:
         x = x.to(dev)
         vals, idx = ops.radix_topk(x, kk)
@@ -791,10 +913,12 @@ def check_radix_topk(dev, records):
     xb = x.to(torch.bfloat16)
     xe = x.clone()
     xe[1] = 1.5
+    xw = _topk_rows(32, 8 * v, 10).to(dev)
     cases = {"k=64": lambda: ops.radix_topk(x, 64),
              "k=1024": lambda: ops.radix_topk(x, 1024),
              "bf16": lambda: ops.radix_topk(xb, k),
-             "one row of equal values": lambda: ops.radix_topk(xe, k)}
+             "one row of equal values": lambda: ops.radix_topk(xe, k),
+             "beam B=32 V=66048": lambda: ops.radix_topk(xw, k)}
     cases_ms = {n: time_graph_ms(fn, 50) for n, fn in cases.items()}
     b_ms, b_by = bound(b * v * 4 + b * k * 8, float(b * v), FP32_OPS_PER_S)
     print(f"[kernel] radix_topk B={b} V={v} k={k} f32 plan {tuple(p)}: "
@@ -805,7 +929,23 @@ def check_radix_topk(dev, records):
           f"{eager['library']:.4f} ms; plain {plain_ms:.4f} ms; "
           + ", ".join(f"{n} {ms:.4f}" for n, ms in cases_ms.items())
           + " ms")
+    # the W = 8 beam step's select: kernel, torch.topk and plain at its
+    # shape, and its bound
+    wv = xw.shape[1]
+    tw = time_turns(dict(kernel=lambda: ops.radix_topk(xw, k),
+                         library=lambda: torch.topk(xw, k)), 50)
+    w_plain = time_ms(lambda: ops.radix_topk_plain(xw, k), 5)
+    w_bound, w_by = bound(b * wv * 4 + b * k * 8, float(b * wv),
+                          FP32_OPS_PER_S)
+    print(f"[kernel] radix_topk beam select B={b} V={wv} k={k} f32 plan "
+          f"{tuple(ops.plan(b, wv, xw.dtype, True))}: kernel "
+          f"{tw['kernel']:.4f} ms, torch.topk {tw['library']:.4f} ms (device "
+          f"times, CUDA graphs), plain {w_plain:.4f} ms, bound "
+          f"{w_bound:.5f} ms ({w_by})")
     records["radix_topk"] = dict(
+        beam=dict(shape=f"B={b} V={wv} k={k} f32", ms=tw["kernel"],
+                  library_ms=tw["library"], plain_ms=w_plain,
+                  bound_ms=w_bound, bound_by=w_by),
         shape=f"B={b} V={v} k={k} f32", timer="cuda_graph", ms=t["kernel"],
         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=t["library"], eager_ms=eager["kernel"],
@@ -948,20 +1088,24 @@ def serve_visits(engine, first, back):
 
 POLICY = dict(prefix_cache=True, preemption=True)
 PHASE3_CHUNK = 16                # phase 3's prefill chunk, policy cases
+TREE_WIDTHS = (1, 3, 4, 8)       # phase 3 ``paged-tree``'s n_candidates
 
 
 def _record_seeds(engine):
     """{request id: (top-2 ids, top-2 logits)} of the logits each request's
-    first token is drawn from, as the engine seeds it (a preempted
-    request's last seeding)."""
+    first token is drawn from, as the continuous scheduler seeds it (a
+    preempted request's last seeding); empty for the fixed scheduler,
+    which seeds no slot."""
     seeds = {}
     sched = engine._sched
-    seed_slot = sched._seed_slot
+    seed_slot = getattr(sched, "_seed_slot", None)
+    if seed_slot is None:
+        return seeds
 
-    def record(slot, ids_row, vals_row, lse, done, freed):
+    def record(slot, r, ids_row, vals_row, lse, done, freed):
         seeds[sched.pool[slot].request_id] = (
             [int(x) for x in ids_row[:2]], [float(x) for x in vals_row[:2]])
-        seed_slot(slot, ids_row, vals_row, lse, done, freed)
+        seed_slot(slot, r, ids_row, vals_row, lse, done, freed)
 
     sched._seed_slot = record
     return seeds
@@ -1047,7 +1191,7 @@ def _phase3_setup(case: str):
     from repro_torch.configs.base import OneRecConfig, TransformerConfig
     from repro_torch.models.onerec import init_onerec
     from repro_torch.serving.requests import build_requests
-    paged = case != "contiguous"
+    paged = case not in ("contiguous", "fixed", "generate")
     cfg = OneRecConfig(
         name="onerec-smoke-aligned", history_len=16,
         transformer=TransformerConfig(
@@ -1068,11 +1212,17 @@ def _phase3_setup(case: str):
         return cfg, params, reqs, dict(
             batch_size=8, kv_dtype="float8_e4m3fn", page_size=32,
             quant_policy=_ARTIFACTS["paged-ptq"])
+    if case == "paged-tree":
+        reqs = [dict(r, n_candidates=TREE_WIDTHS[i % len(TREE_WIDTHS)])
+                for i, r in enumerate(reqs)]
+    contiguous = dict(paged=False, fused_decode="off", use_radix_topk=True)
     layout = {"paged": dict(page_size=32),
               "paged-unfused": dict(page_size=32, fused_decode="off"),
               "paged-policy": policy, "paged-return": policy,
-              "contiguous": dict(paged=False, fused_decode="off",
-                                 use_radix_topk=True)}[case]
+              "paged-tree": dict(page_size=32, max_candidates=8),
+              "contiguous": contiguous,
+              "fixed": dict(contiguous, mode="fixed"),
+              "generate": {}}[case]
     return cfg, params, reqs, dict(batch_size=8, kv_dtype="float8_e4m3fn",
                                    **layout)
 
@@ -1081,14 +1231,21 @@ def _serve_case(engine, case: str, cfg, reqs):
     """Serve phase 3's requests for ``case``: a closed batch, or through
     ``serve_visits`` (``paged-policy``: the 24 requests, the last 8 at a
     higher priority, submitted while the first 16 hold the slots;
-    ``paged-return``: 12 first visits, then a return visit of each).
-    Returns (items, stats)."""
+    ``paged-return``: 12 first visits, then a return visit of each;
+    ``paged-tree``: through ``submit`` and ``drain``, whole completions).
+    Returns (items, or completions, and stats)."""
     if case == "paged-policy":
         outs, stats, _ = serve_visits(
             engine, [dict(r, priority=1) for r in reqs[:16]],
             [dict(r, priority=0) for r in reqs[16:]])
     elif case == "paged-return":
         outs, stats, _ = serve_visits(engine, *visits(cfg, 12, seed=1))
+    elif case == "paged-tree":
+        # whole completions: every branch's ranked item and score
+        engine.reset_window()
+        handles = [engine.submit(r, base_s=engine._window_t0) for r in reqs]
+        engine.drain()
+        outs, stats = [h.completion for h in handles], engine.stats()
     else:
         outs, stats = engine.serve_requests(reqs)
     return outs, stats
@@ -1115,13 +1272,18 @@ def _serve_pair(dev, case: str, *, kv_dtype=None, plain_gemm=False):
             fail(f"card-vs-CPU {case} serve on {d} completed "
                  f"{stats['n_requests']} of 24")
         runs.append((outs, seeds, {k: int(stats[k]) for k in (
-            "prefill_calls", "decode_steps", *POLICY_COUNTERS)}))
+            "prefill_calls", "decode_steps", "decode_multi_steps",
+            "branch_tokens", *POLICY_COUNTERS)}))
     (c_outs, c_seeds, c_cnt), (g_outs, g_seeds, g_cnt) = runs
     if case in ("paged-policy", "paged-return"):
         if c_cnt != g_cnt or not all(c_cnt[k] for k in POLICY_COUNTERS):
             fail(f"card-vs-CPU {case}: counters on the CPU {c_cnt}, on "
                  f"the card {g_cnt}: expected equal, each policy counter "
                  f"> 0")
+    if case == "paged-tree" and (c_cnt != g_cnt
+                                 or not c_cnt["decode_multi_steps"]):
+        fail(f"card-vs-CPU {case}: counters on the CPU {c_cnt}, on the "
+             f"card {g_cnt}: expected equal, tree steps > 0")
     return c_outs, g_outs, c_seeds, g_seeds, c_cnt, g_cnt
 
 
@@ -1130,7 +1292,7 @@ def _first_agree(case, tag, c_outs, g_outs, c_seeds, g_seeds):
     disagreeing request's top-2 first-token logits on both devices."""
     import numpy as np
     for i, (a, b) in enumerate(zip(c_outs, g_outs)):
-        if a[0] != b[0]:
+        if a[0] != b[0] and i in c_seeds and i in g_seeds:
             (ci, cv), (gi, gv) = c_seeds[i], g_seeds[i]
             print(f"[card-vs-cpu] {case}{tag} request {i}: first token "
                   f"{a[0]} on the CPU, {b[0]} on the card; top-2 logits CPU "
@@ -1138,6 +1300,13 @@ def _first_agree(case, tag, c_outs, g_outs, c_seeds, g_seeds):
                   f"{cv[0] - cv[1]:.4f}), card {gi} "
                   f"{[round(v, 4) for v in gv]} (gap {gv[0] - gv[1]:.4f})")
     return float(np.mean([a[0] == b[0] for a, b in zip(c_outs, g_outs)]))
+
+
+def _overlap8(a, b):
+    """Mean share of the top-8 ids two (rows, V) logit arrays agree on."""
+    import numpy as np
+    top = [np.argsort(-x, -1)[:, :8] for x in (a, b)]
+    return float(np.mean([len(set(x) & set(y)) / 8 for x, y in zip(*top)]))
 
 
 def card_vs_cpu(dev, case: str):
@@ -1152,13 +1321,16 @@ def card_vs_cpu(dev, case: str):
     must run the same schedule (equal counters, each policy counter > 0).
     ``paged-ptq``: the paged layout through a policy artifact (static
     activation scales calibrated on the CPU, the k projections in int8).
-    Every case is held to both bars.  ``paged-return`` also serves on bf16
+    ``fixed``: the contiguous case's settings in ``mode="fixed"`` (three
+    lock-step batches of 8; the teacher-forced part is the contiguous
+    case's).  Every case is held to both bars.  ``paged-return`` also
+    serves on bf16
     K/V, and on fp8 K/V with the GEMM wrappers computing their plain
     versions on the card, for information (ROADMAP C2's diagnosis)."""
     import numpy as np
     import torch
     from repro_torch.serving.executor import PhaseExecutor
-    paged = case != "contiguous"
+    paged = case not in ("contiguous", "fixed")
     resumed = case in ("paged-policy", "paged-return")
     cfg, params, reqs, _ = _phase3_setup(case)
     c_outs, g_outs, c_seeds, g_seeds, _, counters = _serve_pair(dev, case)
@@ -1197,9 +1369,7 @@ def card_vs_cpu(dev, case: str):
     lengths = np.asarray([len(h) + 1 for h in hists], np.int32)
     overlaps, devs = [], []
     for step in range(cfg.decode_len):
-        top = [np.argsort(-lg, -1)[:, :8] for lg in logits]
-        overlaps.append(np.mean([len(set(a) & set(b)) / 8
-                                 for a, b in zip(*top)]))
+        overlaps.append(_overlap8(*logits))
         devs.append(float(np.abs(logits[0] - logits[1]).max()
                           / np.abs(logits[0]).max()))
         if step == cfg.decode_len - 1:
@@ -1231,6 +1401,135 @@ def card_vs_cpu(dev, case: str):
         print(f"[card-vs-cpu] {cfg.name} {case},{tag}: first tokens agree "
               f"on {agree:.3f} of requests (information); counters equal on "
               f"both devices")
+
+
+def card_vs_cpu_tree(dev):
+    """``paged-tree``: fused paged decode, fp8 K/V, ``max_candidates=8``,
+    the requests' ``n_candidates`` cycling 1, 3, 4, 8 (width buckets 4 and
+    8, dummy branches): the same schedule on both devices (equal counters,
+    tree steps > 0); every request's set of branch seeds, and its
+    top-ranked item's first token, agree on >= ``CPU_FIRST_TOKEN_AGREE``
+    of requests; whole ranked sets for information.  Teacher-forced: 8
+    slots prefilled on both devices, each seeded with the CPU's top-8
+    prefill ids at the widths above, then the tree steps fed the CPU's
+    per-branch argmax; every real branch's top-8 overlap >=
+    ``CPU_TOP8_OVERLAP`` at each step."""
+    import numpy as np
+    import torch
+    from repro_torch.serving.executor import PhaseExecutor
+    case = "paged-tree"
+    cfg, params, reqs, _ = _phase3_setup(case)
+    c_comps, g_comps, _, _, _, counters = _serve_pair(dev, case)
+    seeds = np.mean([sorted(int(i[0]) for i in a.items)
+                     == sorted(int(i[0]) for i in b.items)
+                     for a, b in zip(c_comps, g_comps)])
+    first = np.mean([a.item[0] == b.item[0]
+                     for a, b in zip(c_comps, g_comps)])
+    ranked = np.mean([len(a.items) == len(b.items) and all(
+        np.array_equal(x, y) for x, y in zip(a.items, b.items))
+        for a, b in zip(c_comps, g_comps)])
+    for c in g_comps:
+        if c.scores != sorted(c.scores, reverse=True) \
+                or len({tuple(i) for i in c.items}) != len(c.items):
+            fail(f"card-vs-CPU {case}: request {c.rid}'s items are not "
+                 f"distinct and ranked")
+    n_br = 8
+    exs = [PhaseExecutor(params, cfg, n_slots=8, device=torch.device(d),
+                         kv_dtype="float8_e4m3fn", page_size=32,
+                         n_pages=8 * 2, n_candidates=n_br)
+           for d in ("cpu", dev)]
+    hists = [np.asarray(r["tokens"]) for r in reqs[:8]]
+    profs = [np.asarray(r["profile"]) for r in reqs[:8]]
+    counts = np.asarray([TREE_WIDTHS[i % len(TREE_WIDTHS)]
+                         for i in range(8)], np.int32)
+    for ex in exs:
+        for s_i, h in enumerate(hists):
+            if not ex.grant_slot(s_i, len(h) + 1
+                                 + n_br * ex.branch_stride):
+                fail("card-vs-CPU tree page grant failed")
+    logits = [ex.prefill_insert(hists, profs, list(range(8))).float()
+              .cpu().numpy() for ex in exs]
+    overlaps = [_overlap8(*logits)]
+    starts = np.asarray([len(h) + 1 for h in hists], np.int32)
+    lengths = starts.copy()
+    toks = np.argsort(-logits[0], -1)[:, :n_br].astype(np.int32)
+    real = np.arange(n_br)[None, :] < counts[:, None]
+    for step in range(cfg.decode_len - 1):
+        logits = [ex.decode_multi(toks, lengths, starts, counts).float()
+                  .cpu().numpy() for ex in exs]
+        overlaps.append(_overlap8(logits[0][real], logits[1][real]))
+        toks = np.argmax(logits[0], -1).astype(np.int32)
+        lengths = lengths + 1
+    print(f"[card-vs-cpu] {cfg.name} {case}: branch seed sets agree on "
+          f"{seeds:.3f} of requests, top-ranked first tokens on {first:.3f} "
+          f"(>= {CPU_FIRST_TOKEN_AGREE}), whole ranked sets {ranked:.3f}; "
+          f"teacher-forced top-8 overlap (prefill, then real branches of "
+          f"each tree step) {[round(o, 3) for o in overlaps]} (>= "
+          f"{CPU_TOP8_OVERLAP}); counters on both devices {counters}")
+    if min(overlaps) < CPU_TOP8_OVERLAP:
+        fail(f"card-vs-CPU {case}: teacher-forced overlap under the bar")
+    if min(seeds, first) < CPU_FIRST_TOKEN_AGREE:
+        fail(f"card-vs-CPU {case}: seeds or first tokens under the bar")
+
+
+def card_vs_cpu_generate(dev):
+    """``generate``: ``generate_items`` and ``beam_generate(beam_width=4)``
+    with ``use_attention_kernel`` and ``topk_fn=radix_topk`` (kernels
+    ``batch_attention`` and ``radix_topk`` on the card, their plain
+    versions on the CPU) over 8 full histories, FP8 weights: greedy first
+    tokens and the top beams' first tokens agree on >=
+    ``CPU_FIRST_TOKEN_AGREE``; beams sorted on both devices, beams and
+    whole items for information.  Teacher-forced: the shared-cache prefill
+    and two decode steps fed the CPU's argmax, top-8 overlap >=
+    ``CPU_TOP8_OVERLAP`` at each step."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.kernels.radix_topk.ops import radix_topk
+    from repro_torch.models import onerec
+    from repro_torch.serving.requests import build_requests
+    cfg, params, _, _ = _phase3_setup("generate")
+    reqs = build_requests(cfg, 8, 8, seed=1, ragged=False)
+    runs = []
+    for d in ("cpu", dev):
+        qp = quantize_params(tree.map_with_path(lambda _, t: t.to(d),
+                                                params), PAPER_POLICY)
+        batch = request_batches(reqs, 8, d)[0]
+        greedy = onerec.generate_items(qp, batch, cfg, topk_fn=radix_topk)
+        beams, scores = onerec.beam_generate(qp, batch, cfg, beam_width=4,
+                                             topk_fn=radix_topk)
+        cache = onerec.init_cache(cfg, 8, device=d)
+        lg, cache = onerec.prefill(qp, batch, cfg, cache)
+        runs.append((qp, batch, cache, [lg], greedy.cpu().numpy(),
+                     beams.cpu().numpy(), scores.cpu().numpy()))
+    (cq, cb, cc, cl, cg, cbm, cs), (gq, _, gc, gl, gg, gbm, gs) = runs
+    index = cb["tokens"].shape[1] + 1
+    for step in range(cfg.decode_len - 1):
+        tok = cl[-1].float().argmax(-1)[:, None].to(torch.int32)
+        lg_c, cc = onerec.decode_step(cq, tok, cfg, cc, index + step)
+        lg_g, gc = onerec.decode_step(gq, tok.to(dev), cfg, gc, index + step)
+        cl.append(lg_c)
+        gl.append(lg_g)
+    overlaps = [_overlap8(a.float().cpu().numpy(), b.float().cpu().numpy())
+                for a, b in zip(cl, gl)]
+    first = float(np.mean(cg[:, 0] == gg[:, 0]))
+    beam_first = float(np.mean(cbm[:, 0, 0] == gbm[:, 0, 0]))
+    for sc in (cs, gs):
+        if not (np.diff(sc, axis=1) <= 0).all():
+            fail("card-vs-CPU generate: beams not sorted by score")
+    print(f"[card-vs-cpu] {cfg.name} generate: greedy first tokens agree on "
+          f"{first:.3f} of requests, whole items "
+          f"{np.mean((cg == gg).all(1)):.3f}; top beams' first tokens "
+          f"{beam_first:.3f}, whole beam sets "
+          f"{np.mean((cbm == gbm).all((1, 2))):.3f}, max |score diff| "
+          f"{np.abs(cs - gs).max():.4g}; teacher-forced top-8 overlap per "
+          f"step {[round(o, 3) for o in overlaps]} (>= {CPU_TOP8_OVERLAP})")
+    if min(overlaps) < CPU_TOP8_OVERLAP:
+        fail("card-vs-CPU generate: teacher-forced overlap under the bar")
+    if min(first, beam_first) < CPU_FIRST_TOKEN_AGREE:
+        fail("card-vs-CPU generate: first tokens under the bar")
 
 
 # ---------------------------------------------------------------------------
@@ -1318,7 +1617,7 @@ def full_width(dev):
                 "fp8_grouped_gemm": forwards * 3 * n_layers,   # gate, up, down
                 "int8_matmul": 0}
 
-    paged_outs, paged, _, _ = _drive(
+    paged_outs, paged, paged_stats, paged_peak = _drive(
         dev, "paged", lambda: serve.main([
             "--paged", "--kv-fp8", "--fused-decode", "auto", "--requests",
             "64", "--batch", "32", "--ragged", "--seed", "0", "--device",
@@ -1336,7 +1635,7 @@ def full_width(dev):
         del params       # the engine holds the quantized tree
         return engine.serve_requests(build_requests(cfg, 64, 32, 0, True))
 
-    outs, contig, _, _ = _drive(
+    outs, contig, contig_stats, _ = _drive(
         dev, "contiguous", contiguous,
         lambda st: {**per_forward(st), "paged_decode": 0,
                     "radix_topk": int(st["select_calls"]),
@@ -1350,7 +1649,205 @@ def full_width(dev):
           f"attentions round differently)")
     return {"paged": paged, "contiguous": contig,
             "policy": policy_path(dev, per_forward),
-            "ptq": ptq_path(dev, per_forward, paged_outs)}
+            "ptq": ptq_path(dev, per_forward, paged_outs),
+            "tree": tree_path(dev, per_forward, paged_stats, paged_peak),
+            "fixed": fixed_path(dev, per_forward, contig_stats),
+            **generation_path(dev)}
+
+
+def _latency_line(name, stats, ref_name, ref):
+    print(f"[full-width] {name} beside {ref_name} (same run): p50 "
+          f"{stats['p50_latency_s'] * 1e3:.1f} / "
+          f"{ref['p50_latency_s'] * 1e3:.1f} ms, p99 "
+          f"{stats['p99_latency_s'] * 1e3:.1f} / "
+          f"{ref['p99_latency_s'] * 1e3:.1f} ms, throughput "
+          f"{stats['throughput_rps']:.2f} / {ref['throughput_rps']:.2f} "
+          f"req/s")
+
+
+TREE_MIX = (8, 4, 3, 1)          # phase 4 (e)'s n_candidates, cycled
+
+
+def tree_path(dev, per_forward, paged_stats, paged_peak):
+    """Phase 4 (e): ``ServingEngine`` on (a)'s paged FP8 pool (page 32,
+    fused decode, 32 slots) with ``max_candidates=8`` serves (a)'s 64
+    ragged requests, their ``n_candidates`` cycling 8, 4, 3, 1: kernels
+    ``fp8_gemm``, ``fp8_grouped_gemm`` and ``paged_decode`` in tree mode.
+    Tree steps, branch tokens and selects answered from the fused stash
+    must each be > 0; every completion carries its ``n_candidates``
+    distinct items, ranked by non-increasing score, and the peak device
+    memory stays within 5% of (a)'s (the branch spans add 14 positions a
+    row)."""
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.models.onerec import init_onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.requests import build_requests
+    n_layers = CONFIG.transformer.n_layers
+    reqs = [dict(r, n_candidates=TREE_MIX[i % len(TREE_MIX)])
+            for i, r in enumerate(build_requests(CONFIG, 64, 32, 0, True))]
+    comps = []
+
+    def serve():
+        params = init_onerec(0, CONFIG, device=dev)
+        engine = ServingEngine(params, CONFIG, EngineConfig(
+            batch_size=32, kv_dtype="float8_e4m3fn", page_size=32,
+            fused_decode="auto", max_candidates=8), device=dev)
+        del params       # the engine holds the quantized tree
+        engine.reset_window()
+        handles = [engine.submit(r, base_s=engine._window_t0) for r in reqs]
+        engine.drain()
+        comps.extend(h.completion for h in handles)
+        return [c.item for c in comps], engine.stats()
+
+    _, launches, stats, peak = _drive(
+        dev, "tree", serve,
+        lambda st: {**per_forward(st), "radix_topk": 0, "batch_attention": 0,
+                    "paged_decode": int(st["decode_steps"]) * n_layers})
+    for key in ("decode_multi_steps", "branch_tokens", "fused_select_hits"):
+        if not stats[key] > 0:
+            fail(f"tree path: {key} = {stats[key]}, expected > 0")
+    for r, c in zip(reqs, comps):
+        if len(c.items) != r["n_candidates"] \
+                or len({tuple(i) for i in c.items}) != len(c.items) \
+                or c.scores != sorted(c.scores, reverse=True):
+            fail(f"tree path: request {c.rid} carries {len(c.items)} items "
+                 f"for n_candidates {r['n_candidates']}, or they are not "
+                 f"distinct and ranked")
+    if peak > 1.05 * paged_peak:
+        fail(f"tree path: peak device memory {peak / 2**30:.2f} GiB over "
+             f"(a)'s {paged_peak / 2**30:.2f} GiB by more than 5%")
+    print(f"[full-width] tree: {int(stats['decode_multi_steps'])} of "
+          f"{int(stats['decode_steps'])} decode steps tree steps, "
+          f"{int(stats['branch_tokens'])} branch tokens "
+          f"({stats['branches_per_decode_step']:.1f} a step), "
+          f"{int(stats['fused_select_hits'])} selects from the fused stash; "
+          f"{int(stats['pages_total'])} pages; peak device memory "
+          f"{peak / 2**30:.2f} GiB")
+    _latency_line("tree", stats, "paged (a)", paged_stats)
+    return launches
+
+
+def fixed_path(dev, per_forward, contig_stats):
+    """Phase 4 (f): ``ServingEngine(mode="fixed")`` on the contiguous FP8
+    pool, 32 slots, ``use_attention_kernel`` and ``use_radix_topk``,
+    serves the 64 requests in two lock-step batches: kernels ``fp8_gemm``,
+    ``fp8_grouped_gemm``, ``batch_attention`` and ``radix_topk``.  Its
+    latency beside (b)'s, for information (fixed mode is the JAX
+    benchmark's reference arm)."""
+    import dataclasses
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.models.onerec import init_onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.requests import build_requests
+    n_layers = CONFIG.transformer.n_layers
+    cfg = dataclasses.replace(CONFIG, transformer=dataclasses.replace(
+        CONFIG.transformer, use_attention_kernel=True))
+
+    def serve():
+        params = init_onerec(0, cfg, device=dev)
+        engine = ServingEngine(params, cfg, EngineConfig(
+            mode="fixed", batch_size=32, kv_dtype="float8_e4m3fn",
+            paged=False, fused_decode="off", use_radix_topk=True),
+            device=dev)
+        del params       # the engine holds the quantized tree
+        return engine.serve_requests(build_requests(cfg, 64, 32, 0, True))
+
+    _, launches, stats, _ = _drive(
+        dev, "fixed", serve,
+        lambda st: {**per_forward(st), "paged_decode": 0,
+                    "radix_topk": int(st["select_calls"]),
+                    "batch_attention": int(st["decode_steps"]) * n_layers})
+    if stats["prefill_calls"] != 2:
+        fail(f"fixed path: {stats['prefill_calls']} prefills for two "
+             f"batches")
+    _latency_line("fixed", stats, "contiguous (b)", contig_stats)
+    return launches
+
+
+def generation_path(dev):
+    """Phase 4 (g): ``generate_items`` and ``beam_generate(beam_width=8)``
+    over the batch-shared cache on 32 of the requests' profiles with full
+    histories (128 items), FP8 weights, ``use_attention_kernel`` and
+    ``topk_fn=radix_topk``: kernels ``fp8_gemm``, ``fp8_grouped_gemm``,
+    ``batch_attention`` and ``radix_topk``.  Launches: greedy 1 prefill +
+    3 decode steps and 3 selects, beam 1 + 2 and 3 selects; beams sorted
+    by score, ``beam_generate(beam_width=1)`` equal to ``generate_items``
+    on the card."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.kernels.radix_topk.ops import radix_topk
+    from repro_torch.models import onerec
+    from repro_torch.serving.requests import build_requests
+    n_layers = CONFIG.transformer.n_layers
+    cfg = dataclasses.replace(CONFIG, transformer=dataclasses.replace(
+        CONFIG.transformer, use_attention_kernel=True))
+    reqs = build_requests(cfg, 32, 32, 0, False)
+    batch = request_batches(reqs, 32, dev)[0]
+    if batch["tokens"].shape[1] != cfg.history_len * cfg.n_codebooks:
+        fail("generation path: histories are not full length")
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    params = quantize_params(onerec.init_onerec(0, cfg, device=dev),
+                             PAPER_POLICY)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches, walls = {}, {}
+    for name, fn in (
+            ("greedy", lambda: onerec.generate_items(
+                params, batch, cfg, topk_fn=radix_topk)),
+            ("beam", lambda: onerec.beam_generate(
+                params, batch, cfg, beam_width=8, topk_fn=radix_topk))):
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {n: w.launches for n, w in wrappers.items()}
+        if name == "greedy":
+            greedy = out.cpu().numpy()
+        else:
+            beams, scores = (t.cpu().numpy() for t in out)
+    peak = torch.cuda.max_memory_allocated(dev)
+    one, _ = onerec.beam_generate(params, batch, cfg, beam_width=1,
+                                  topk_fn=radix_topk)
+    for name, steps in (("greedy", cfg.decode_len),
+                        ("beam", cfg.decode_len - 1)):
+        forwards = 1 + steps
+        expect = {"fp8_gemm": forwards * 4 * n_layers,
+                  "fp8_grouped_gemm": forwards * 3 * n_layers,
+                  "batch_attention": steps * n_layers,
+                  "radix_topk": cfg.decode_len, "paged_decode": 0,
+                  "int8_matmul": 0}
+        if launches[name] != expect:
+            fail(f"generation {name}: launch counts {launches[name]} != "
+                 f"layer arithmetic {expect}")
+    v = cfg.vocab_size
+    for items in (greedy, beams):
+        if not ((items >= 0) & (items < v)).all():
+            fail("generation path: out-of-vocabulary ids")
+    if greedy.shape != (32, cfg.decode_len) \
+            or beams.shape != (32, 8, cfg.decode_len):
+        fail(f"generation path: shapes {greedy.shape}, {beams.shape}")
+    if not (np.diff(scores, axis=1) <= 0).all():
+        fail("generation path: beams not sorted by score")
+    if not np.array_equal(one[:, 0].cpu().numpy(), greedy):
+        fail("generation path: beam_generate(beam_width=1) differs from "
+             "generate_items")
+    print(f"[full-width] {cfg.name} generate: 32 full histories "
+          f"({batch['tokens'].shape[1]} tokens + profile); greedy "
+          f"{walls['greedy']:.3f} s, beam W=8 {walls['beam']:.3f} s (init + "
+          f"PTQ {setup_s:.1f} s apart); top beam = greedy item on "
+          f"{np.mean((beams[:, 0] == greedy).all(1)):.3f} of rows; "
+          f"beam_generate(beam_width=1) == generate_items; peak device "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    return {"generate": launches["greedy"], "beam": launches["beam"]}
 
 
 def _policy_line(name, stats, peak, held=None):
@@ -1516,8 +2013,10 @@ def main() -> int:
     check_radix_topk(dev, records)
     check_batch_attention(dev, records)
     for case in ("paged", "paged-unfused", "paged-policy", "paged-return",
-                 "paged-ptq", "contiguous"):
+                 "paged-ptq", "contiguous", "fixed"):
         card_vs_cpu(dev, case)
+    card_vs_cpu_tree(dev)
+    card_vs_cpu_generate(dev)
     by_path = full_width(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
@@ -1545,7 +2044,8 @@ def main() -> int:
             "shape": r["shape"], "timer": r["timer"], "counted_in": path,
             **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
                                        "library_eager_ms", "threshold",
-                                       "tree_ms", "floor_ms", "cases_ms")
+                                       "tree_ms", "tree_rows", "floor_ms",
+                                       "cases_ms", "beam")
                if key in r},
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas kernel repro/kernels/paged_decode/kernel.py
 // (_decode_kernel / paged_decode_pallas).  One block per (KV head h, slot
-// b) computes, for the slot's C*G query rows r = c*G + g (at most 16),
+// b) computes, for the slot's C*G query rows r = c*G + g (at most 64),
 //   * the scores of every key its page table maps (entry p covers logical
 //     positions p*ps .. p*ps + ps - 1 at physical page tables[b, p]) in f32
 //     times `scale`, against K dequantized as repro.core.quant.dequantize_kv
@@ -20,16 +20,22 @@
 // position once (fp8: 2 * Kv * hd bytes per position, plus the scales and
 // pos) and does ~4 operations per byte.  The design, after
 // batch_attention.cu:
-//   * The block's warps split the slot's keys in chunks of 32 positions; a
-//     warp walks its own chunks with its own online softmax state (m, l and
-//     the f32 accumulator in registers) and the block combines the warps'
-//     states once at the end.  Nothing but the final combine waits on
-//     another warp: no block barrier in the loop.
-//   * Each warp copies its own chunks with 16-byte cp.async (a key's K and V
-//     rows, 4-byte copies of its scales and pos) into a 2-stage ring of its
-//     own, so the next chunk is in flight while one is scored.
+//   * The query rows are NT = 1, 2 or 4 m16 tiles (C*G <= 16, 32, 64).  The
+//     block's warps form key groups of NT warps, one warp per row tile; the
+//     groups split the slot's keys in chunks of 32 positions.  A group
+//     stages each of its chunks ONCE (the K/V read is what bounds decode)
+//     and each of its warps scores that chunk against its own row tile,
+//     with its own online softmax state (m, l and the f32 accumulator in
+//     registers), so a warp holds one tile's state however many tiles there
+//     are.  The block combines the groups' states once at the end.  Nothing
+//     but a group barrier (a named barrier of NT warps; a warp sync at NT =
+//     1) and the final combine waits on another warp.
+//   * Each group copies its own chunks with 16-byte cp.async (a key's K and
+//     V rows, its warps taking every NT-th 16-byte piece, and 4-byte copies
+//     of its scales and pos) into a 2-stage ring of its own, so the next
+//     chunk is in flight while one is scored.
 //   * QK^T and PV run on the tensor cores (bf16 mma.sync.m16n8k16, f32
-//     accumulation; the <= 16 query rows are one m16 tile).  K and V are
+//     accumulation; a warp's 16 query rows are one m16 tile).  K and V are
 //     dequantized in registers while their B fragments are built: the
 //     contraction over head dims is taken in a permuted order (thread
 //     quarter q4 holds dims q4 * hd / 4 .. + hd / 4 - 1, 4 per k-step), so a
@@ -48,8 +54,11 @@
 
 namespace {
 
-constexpr int MAX_CG = 16;
-constexpr int CHUNK = 32;     // keys a warp takes at a time
+constexpr int TILE = 16;      // query rows of one m16 tile (one warp's)
+constexpr int MAX_TILES = 4;
+constexpr int MAX_CG = TILE * MAX_TILES;
+constexpr int MAX_WARPS = 8;  // a warp holds ~HD/2 + HD/4 f32 of state
+constexpr int CHUNK = 32;     // keys a group takes at a time
 constexpr int STAGES = 2;
 constexpr float NEG_INF = -2.0e38f;
 constexpr int RING_BUDGET = 200 * 1024;
@@ -108,11 +117,22 @@ __device__ __forceinline__ uint32_t deq2(uint32_t w, int shift, float s) {
   return pack_bf16(__fmul_rn(f.x, s), __fmul_rn(f.y, s));
 }
 
-// The kernel's shape for head dim HD and payload bytes EB (1: e4m3 with
-// scales, 2: bf16): a warp's ring stage holds a chunk's K rows, V rows (each
-// padded by 16 bytes), pos and scales; the warps per block are as many as
-// fit a 2-stage ring each in RING_BUDGET.
-template <int HD, int EB>
+// all NT warps of key group `id - 1` wait here (named barrier `id`)
+template <int NT>
+__device__ __forceinline__ void group_sync(int id) {
+  if constexpr (NT == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(NT * 32) : "memory");
+  }
+}
+
+// The kernel's shape for head dim HD, payload bytes EB (1: e4m3 with
+// scales, 2: bf16) and NT row tiles: a group's ring stage holds a chunk's K
+// rows, V rows (each padded by 16 bytes), pos and scales; the key groups
+// per block are as many as fit a 2-stage ring each in RING_BUDGET and
+// MAX_WARPS warps in all.
+template <int HD, int EB, int NT>
 struct Cfg {
   static constexpr bool QUANT = EB == 1;
   static constexpr int RB = HD * EB;              // payload bytes of a row
@@ -122,36 +142,42 @@ struct Cfg {
   static constexpr int KS_OFF = POS_OFF + CHUNK * 4;
   static constexpr int VS_OFF = KS_OFF + CHUNK * 4;
   static constexpr int STAGE = VS_OFF + (QUANT ? CHUNK * 4 : 0);
-  static constexpr int WARPS = 8 * STAGES * STAGE <= RING_BUDGET   ? 8
-                               : 4 * STAGES * STAGE <= RING_BUDGET ? 4
-                                                                    : 2;
+  static constexpr int KG_RING = 8 * STAGES * STAGE <= RING_BUDGET   ? 8
+                                 : 4 * STAGES * STAGE <= RING_BUDGET ? 4
+                                                                      : 2;
+  static constexpr int KG = KG_RING * NT <= MAX_WARPS ? KG_RING
+                                                      : MAX_WARPS / NT;
+  static constexpr int WARPS = KG * NT;
   static constexpr int THREADS = 32 * WARPS;
-  static constexpr int RING = WARPS * STAGES * STAGE;
+  static constexpr int RING = KG * STAGES * STAGE;
   static constexpr int KSTEPS = HD / 16;          // QK^T k-steps
   static constexpr int DPT = HD / 4;              // dims a thread quarter holds
   static constexpr int GROUPS = HD / 32;          // PV 32-dim column groups
-  // the end-of-loop combine reuses the ring: WARPS x 16 rows x (HD + 1)
-  // f32 (a padded row: the fragment stores hit distinct banks)
+  // the end-of-loop combine reuses the ring (grown where it is smaller):
+  // WARPS x 16 rows x (HD + 1) f32 (a padded row: the fragment stores hit
+  // distinct banks)
   static constexpr int RS = HD + 1;
-  static_assert(WARPS * MAX_CG * RS * 4 <= RING, "combine buffer");
+  static constexpr int RED = WARPS * TILE * RS * 4;
+  static constexpr int SCRATCH = RING > RED ? RING : RED;
   static_assert(HD % 64 == 0, "hd 64, 128 or 256");
+  static_assert(PIECES % NT == 0, "a group's warps split a row's pieces");
 };
 
-template <int HD, int EB>
+template <int HD, int EB, int NT>
 struct Layout {
-  using C = Cfg<HD, EB>;
+  using C = Cfg<HD, EB, NT>;
   int tab, live, m, l, total;
   __host__ __device__ Layout(int P, int n_chunks) {
-    tab = C::RING;
+    tab = C::SCRATCH;
     live = tab + P * 4;
     m = live + (n_chunks + 1) * 4;
-    l = m + C::WARPS * MAX_CG * 4;
-    total = l + C::WARPS * MAX_CG * 4;
+    l = m + C::WARPS * TILE * 4;
+    total = l + C::WARPS * TILE * 4;
   }
 };
 
-template <int HD, int EB>
-__global__ void __launch_bounds__(Cfg<HD, EB>::THREADS)
+template <int HD, int EB, int NT>
+__global__ void __launch_bounds__(Cfg<HD, EB, NT>::THREADS)
 paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const uint8_t* __restrict__ kp,
                     const uint8_t* __restrict__ vp,
@@ -164,13 +190,14 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out, int Kv, int CG, int P,
                     int ps, int group, int stride, int sentinel,
                     float scale) {
-  using C = Cfg<HD, EB>;
-  constexpr int W = C::WARPS, ST = C::ST, DPT = C::DPT;
+  using C = Cfg<HD, EB, NT>;
+  constexpr int KG = C::KG, ST = C::ST, DPT = C::DPT;
   const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
+  const int tile = warp % NT, kg = warp / NT;     // row tile, key group
   const int g = lane / 4, q4 = lane % 4;          // mma fragment coordinates
   const int n_keys = P * ps, n_chunks = (n_keys + CHUNK - 1) / CHUNK;
-  const Layout<HD, EB> lay(P, n_chunks);
+  const Layout<HD, EB, NT> lay(P, n_chunks);
   extern __shared__ __align__(16) uint8_t smem[];
   int* Tab = reinterpret_cast<int*>(smem + lay.tab);
   int* Live = reinterpret_cast<int*>(smem + lay.live);   // [n, chunks..]
@@ -180,13 +207,15 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = tid; i < P; i += C::THREADS) Tab[i] = tables[(size_t)b * P + i];
 
   // q's A fragments, in the permuted order: k-step kk, registers 0 / 2 hold
-  // dims q4 * DPT + 4 kk + {0, 1} / {2, 3} of row g, 1 / 3 those of g + 8
+  // dims q4 * DPT + 4 kk + {0, 1} / {2, 3} of the tile's row g, 1 / 3 those
+  // of g + 8 (rows 16 tile + g and + 8 of the slot's C*G)
+  const int row0 = TILE * tile + g;
   uint32_t qa[C::KSTEPS][4];
   {
     const __nv_bfloat16* qb = q + (size_t)(b * Kv + h) * CG * HD + q4 * DPT;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = g + 8 * hh;
+      const int r = row0 + 8 * hh;
       uint4 w[DPT / 8];
 #pragma unroll
       for (int j = 0; j < DPT / 8; ++j)
@@ -221,14 +250,16 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
   const int n_live = Live[0];
-  const int mine = n_live > warp ? (n_live - warp + W - 1) / W : 0;
+  const int mine = n_live > kg ? (n_live - kg + KG - 1) / KG : 0;
   const int length = lengths[b], start = starts[b];
-  uint8_t* ring = smem + warp * STAGES * C::STAGE;
+  uint8_t* ring = smem + kg * STAGES * C::STAGE;
 
-  // copy the warp's i-th chunk (live chunk warp + W i) into stage i % 2
+  // copy the group's i-th chunk (live chunk kg + KG i) into stage i % 2:
+  // this warp's share of it (every NT-th 16-byte piece of the K/V rows;
+  // pos and scales by the tile-0 warp)
   auto issue = [&](int i) {
     if (i < mine) {
-      const int c = Live[1 + warp + W * i];
+      const int c = Live[1 + kg + KG * i];
       uint8_t* st = ring + (i % STAGES) * C::STAGE;
       // lane = key: its physical row (row 0 past the table: zero-filled)
       const int logical = c * CHUNK + lane;
@@ -236,13 +267,16 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const size_t row =
           ok ? (size_t)Tab[logical / ps] * ps + logical % ps : 0;
       const size_t rh = row * Kv + h;
-      cp_async4(st + C::POS_OFF + 4 * lane, pos + row, ok ? 4 : 0);
-      if constexpr (C::QUANT) {
-        cp_async4(st + C::KS_OFF + 4 * lane, ks + rh, ok ? 4 : 0);
-        cp_async4(st + C::VS_OFF + 4 * lane, vs + rh, ok ? 4 : 0);
+      if (tile == 0) {
+        cp_async4(st + C::POS_OFF + 4 * lane, pos + row, ok ? 4 : 0);
+        if constexpr (C::QUANT) {
+          cp_async4(st + C::KS_OFF + 4 * lane, ks + rh, ok ? 4 : 0);
+          cp_async4(st + C::VS_OFF + 4 * lane, vs + rh, ok ? 4 : 0);
+        }
       }
 #pragma unroll
-      for (int j = 0; j < C::PIECES; ++j) {
+      for (int jj = 0; jj < C::PIECES / NT; ++jj) {
+        const int j = tile + NT * jj;
         const int i2 = lane + 32 * j, key = i2 / C::PIECES;
         const int piece = i2 % C::PIECES;
         const size_t krh = (size_t)__shfl_sync(
@@ -265,21 +299,21 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     acc[u][0] = acc[u][1] = acc[u][2] = acc[u][3] = 0.0f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.0f, 0.0f};
   // the first key of each row's own span
-  const int own0 = start + (g / group) * stride;
-  const int own1 = start + ((g + 8) / group) * stride;
+  const int own0 = start + (row0 / group) * stride;
+  const int own1 = start + ((row0 + 8) / group) * stride;
 
   for (int i = 0; i < STAGES - 1; ++i) issue(i);
   for (int i = 0; i < mine; ++i) {
     issue(i + STAGES - 1);
     cp_async_wait<STAGES - 1>();
-    __syncwarp();
+    group_sync<NT>(1 + kg);                       // the group's copies land
     const uint8_t* st = ring + (i % STAGES) * C::STAGE;
     const uint8_t* kt = st + C::K_OFF;
     const uint8_t* vt = st + C::V_OFF;
     const int* pk = reinterpret_cast<const int*>(st + C::POS_OFF);
     const float* ksc = reinterpret_cast<const float*>(st + C::KS_OFF);
     const float* vsc = reinterpret_cast<const float*>(st + C::VS_OFF);
-    const int base = Live[1 + warp + W * i] * CHUNK;
+    const int base = Live[1 + kg + KG * i] * CHUNK;
 
     // scores of the chunk's four groups of 8 keys: key 8 t + g's B fragment
     float s[4][4];
@@ -406,11 +440,12 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
                  __byte_perm(hi[2], hi[3], 0x7632));
       }
     }
-    __syncwarp();                                 // the stage may be reused
+    group_sync<NT>(1 + kg);                       // the stage may be reused
   }
   cp_async_wait<0>();
 
-  // combine the warps' states: the ring becomes [warp][row][dim] f32
+  // combine the groups' states: the ring becomes [warp][row][dim] f32, warp
+  // kg * NT + tile holding rows 16 tile .. + 15
   __syncthreads();
   float* red = reinterpret_cast<float*>(smem);
 #pragma unroll
@@ -419,8 +454,8 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     if (q4 == 0) {
-      Ms[warp * MAX_CG + g + 8 * hh] = m_r[hh];
-      Ls[warp * MAX_CG + g + 8 * hh] = l;
+      Ms[warp * TILE + g + 8 * hh] = m_r[hh];
+      Ls[warp * TILE + g + 8 * hh] = l;
     }
   }
 #pragma unroll
@@ -429,44 +464,47 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) {
       const int r = g + 8 * (e / 2);
       const int d = 32 * (u / 4) + 4 * (2 * q4 + e % 2) + u % 4;
-      red[(warp * MAX_CG + r) * C::RS + d] = acc[u][e];
+      red[(warp * TILE + r) * C::RS + d] = acc[u][e];
     }
   __syncthreads();
   __nv_bfloat16* ob = out + (size_t)(b * Kv + h) * CG * HD;
   for (int i = tid; i < CG * HD; i += C::THREADS) {
     const int r = i / HD, d = i % HD;
+    // row r's state in group w: warp w NT + r / 16, its row r % 16, so
+    // entry (w NT + r / 16) 16 + r % 16 = w NT 16 + r
     float mx = NEG_INF;
 #pragma unroll
-    for (int w = 0; w < W; ++w) mx = fmaxf(mx, Ms[w * MAX_CG + r]);
+    for (int w = 0; w < KG; ++w) mx = fmaxf(mx, Ms[w * NT * TILE + r]);
     float l = 0.0f, o = 0.0f;
 #pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const float f = expf(Ms[w * MAX_CG + r] - mx);
-      l += Ls[w * MAX_CG + r] * f;
-      o += red[(w * MAX_CG + r) * C::RS + d] * f;
+    for (int w = 0; w < KG; ++w) {
+      const float f = expf(Ms[w * NT * TILE + r] - mx);
+      l += Ls[w * NT * TILE + r] * f;
+      o += red[(w * NT * TILE + r) * C::RS + d] * f;
     }
     ob[i] = __float2bfloat16_rn(l > 0.0f ? o / fmaxf(l, 1e-20f) : 0.0f);
   }
 }
 
-template <int HD, int EB>
+template <int HD, int EB, int NT>
 int launch(const void* q, const void* k, const void* v, const void* pos,
            const void* k_scale, const void* v_scale, const void* tables,
            const void* lengths, const void* starts, void* out, int B, int Kv,
            int CG, int P, int ps, int group, int stride, int sentinel,
            float scale, cudaStream_t st) {
-  using C = Cfg<HD, EB>;
-  const Layout<HD, EB> lay(P, (P * ps + CHUNK - 1) / CHUNK);
+  using C = Cfg<HD, EB, NT>;
+  const Layout<HD, EB, NT> lay(P, (P * ps + CHUNK - 1) / CHUNK);
   static int allowed[32] = {0};                 // bytes set, per device
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 32 || lay.total > allowed[dev]) {
-    cudaFuncSetAttribute(paged_decode_kernel<HD, EB>,
+    cudaFuncSetAttribute(paged_decode_kernel<HD, EB, NT>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          lay.total);
     if (dev < 32) allowed[dev] = lay.total;
   }
-  paged_decode_kernel<HD, EB><<<dim3(Kv, B), C::THREADS, lay.total, st>>>(
+  paged_decode_kernel<HD, EB, NT>
+      <<<dim3(Kv, B), C::THREADS, lay.total, st>>>(
       (const __nv_bfloat16*)q, (const uint8_t*)k, (const uint8_t*)v,
       (const int*)pos, (const float*)k_scale, (const float*)v_scale,
       (const int*)tables, (const int*)lengths, (const int*)starts,
@@ -480,7 +518,8 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
 // != 0, then k_scale/v_scale (NPos, Kv) f32); pos (NPos) i32, the last page
 // (NPos / ps - 1) the sentinel; tables (B, P) i32; lengths/starts (B) i32;
 // out (B, Kv, CG, hd) bf16; all contiguous, 16-byte aligned.  hd 64, 128 or
-// 256; 1 <= CG <= 16.  Returns cudaGetLastError() after the launch.
+// 256; 1 <= CG <= 64 (1, 2 or 4 row tiles: 33..48 rows run 4, the last
+// one empty).  Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos,
                                    const void* k_scale, const void* v_scale,
@@ -494,15 +533,19 @@ extern "C" int paged_decode_launch(const void* q, const void* k,
   if (B == 0 || Kv == 0) return 0;
   const int sentinel = n_pos / ps - 1;
   cudaStream_t st = (cudaStream_t)stream;
+#define PAGED_DECODE_LAUNCH(D, EB, NT)                                       \
+  launch<D, EB, NT>(q, k, v, pos, EB == 1 ? k_scale : nullptr,               \
+                    EB == 1 ? v_scale : nullptr, tables, lengths, starts,    \
+                    out, B, Kv, CG, P, ps, group, stride, sentinel, scale,   \
+                    st)
+#define PAGED_DECODE_TILES(D, EB)                                            \
+  (n_tiles == 1   ? PAGED_DECODE_LAUNCH(D, EB, 1)                            \
+   : n_tiles == 2 ? PAGED_DECODE_LAUNCH(D, EB, 2)                            \
+                  : PAGED_DECODE_LAUNCH(D, EB, 4))
 #define PAGED_DECODE_HD(D)                                                   \
   case D:                                                                    \
-    return quantized                                                         \
-               ? launch<D, 1>(q, k, v, pos, k_scale, v_scale, tables,        \
-                              lengths, starts, out, B, Kv, CG, P, ps, group, \
-                              stride, sentinel, scale, st)                   \
-               : launch<D, 2>(q, k, v, pos, nullptr, nullptr, tables,        \
-                              lengths, starts, out, B, Kv, CG, P, ps, group, \
-                              stride, sentinel, scale, st);
+    return quantized ? PAGED_DECODE_TILES(D, 1) : PAGED_DECODE_TILES(D, 2);
+  const int n_tiles = (CG + TILE - 1) / TILE;
   switch (hd) {
     PAGED_DECODE_HD(64)
     PAGED_DECODE_HD(128)
@@ -511,4 +554,6 @@ extern "C" int paged_decode_launch(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
   }
 #undef PAGED_DECODE_HD
+#undef PAGED_DECODE_TILES
+#undef PAGED_DECODE_LAUNCH
 }

@@ -8,7 +8,8 @@ dispatches on the tensor's device: a CPU tensor runs the plain version (a
 dense gather through the page table plus a masked f32 softmax, the same
 arithmetic as the JAX package's unfused paged path), a CUDA tensor launches
 the kernel or raises.  ``paged_decode_attention`` is the layout wrapper of
-``repro/kernels/paged_decode/ops.py`` for single-token decode.
+``repro/kernels/paged_decode/ops.py``: single-token decode, or tree decode
+(``starts`` and a branch stride).
 
 The pool's last page is its sentinel (``pos`` -1 throughout), as the
 serving pool lays it out: the kernel skips the keys only it holds.
@@ -26,7 +27,7 @@ from repro_torch.core import quant
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
-MAX_ROWS = 16       # C*G query rows: one m16 tile of the kernel's MMAs
+MAX_ROWS = 64       # C*G query rows: up to four m16 tiles of the kernel
 HEAD_DIMS = (64, 128, 256)   # the kernel's head-dim template
 # any logical position is < table_entries * page_size, so a start pushed to
 # this value makes the whole row "shared prefix": single-token decode is the
@@ -146,24 +147,32 @@ paged_decode.launches = 0
 
 
 def paged_decode_attention(q: torch.Tensor, cache: Dict[str, torch.Tensor],
-                           tables: torch.Tensor, lengths: torch.Tensor, *,
-                           page_size: int,
+                           tables: torch.Tensor, lengths: torch.Tensor,
+                           starts: Optional[torch.Tensor] = None, *,
+                           page_size: int, branch_stride: int = 1,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Single-token decode: q (B, 1, H, hd) post-RoPE queries; ``cache``
-    holds one layer's POST-WRITE pool leaves, k/v (NPos, Kv, hd), pos
-    (NPos,), plus k_scale/v_scale (NPos, Kv) for an fp8 pool; ``tables``
-    (B, P) int32 physical page per logical entry (sentinel = unmapped).
-    Returns (B, 1, H * hd)."""
+    """q (B, C, H, hd) post-RoPE queries (C = 1, or the branch width of a
+    tree step); ``cache`` holds one layer's POST-WRITE pool leaves, k/v
+    (NPos, Kv, hd), pos (NPos,), plus k_scale/v_scale (NPos, Kv) for an fp8
+    pool; ``tables`` (B, P) int32 physical page per logical entry (sentinel
+    = unmapped).  ``starts=None`` is single-token decode (every row one
+    branch whose mask is position validity); otherwise branch c of row i
+    sees logical positions ``< starts[i]`` and its own span ``starts[i] +
+    c * branch_stride`` .. ``+ branch_stride``.  Returns (B, C, H * hd)."""
     b, c, h, hd = q.shape
     kv = cache["k"].shape[-2]
     g = h // kv
     qk = (q.reshape(b, c, kv, g, hd).permute(0, 2, 1, 3, 4)
           .reshape(b, kv, c * g, hd).contiguous())
-    starts = torch.full((b,), FAR_START, dtype=torch.int32, device=q.device)
+    if starts is None:
+        starts = torch.full((b,), FAR_START, dtype=torch.int32,
+                            device=q.device)
+        branch_stride = 1          # the span term is dead past FAR_START
     out = paged_decode(qk, cache["k"], cache["v"], cache["pos"],
                        cache.get("k_scale"), cache.get("v_scale"), tables,
-                       lengths.to(torch.int32), starts, page_size=page_size,
-                       group=g, branch_stride=1,
+                       lengths.to(torch.int32), starts.to(torch.int32),
+                       page_size=page_size, group=g,
+                       branch_stride=max(int(branch_stride), 1),
                        scale=scale or 1.0 / math.sqrt(hd))
     return (out.reshape(b, kv, c, g, hd).permute(0, 2, 1, 3, 4)
             .reshape(b, c, h * hd))

@@ -2,7 +2,8 @@
 the card.
 
   PYTHONPATH=src python -m repro_torch.launch.serve [--paged] [--kv-fp8] \
-      [--fused-decode off|auto] [--reduced] [--requests 64] [--batch 32] \
+      [--fused-decode off|auto] [--mode continuous|fixed] \
+      [--n-candidates 1] [--reduced] [--requests 64] [--batch 32] \
       [--slots 32] [--ragged] [--no-fp8] [--page-size 32] [--pages 0] \
       [--rate 8.0] [--max-queue 64] [--hold-k 4] [--hold-ms 25] \
       [--prefix-cache [--prefix-rows 32] [--second-sight]] \
@@ -17,8 +18,11 @@ slot pool serves with ``fused_decode="off"`` (``--fused-decode auto`` is
 then an error).  With ``--rate`` requests are submitted at wall-clock
 Poisson arrivals (``run_open_loop``, shedding on a full ``--max-queue``);
 without it the closed-batch ``serve_requests`` serves everything queued up
-front.  The kernels ``batch_attention`` and ``radix_topk`` are reached
-through the model config's ``use_attention_kernel`` and
+front.  ``--mode fixed`` serves lock-step fixed batches (the contiguous
+layout only); ``--n-candidates K`` asks every request for a ranked set of
+K items, decoded as a tree (continuous mode).  The kernels
+``batch_attention`` and ``radix_topk`` are reached through the model
+config's ``use_attention_kernel`` and
 ``EngineConfig.use_radix_topk``, as in the JAX package, not through flags.
 ``--quant-policy`` deploys a policy artifact (``core.policy.
 save_policy_artifact``: per-group fp8 / bf16 / int8 decisions and
@@ -46,6 +50,10 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--no-fp8", dest="fp8", action="store_false",
                     default=True)
+    ap.add_argument("--mode", choices=("continuous", "fixed"),
+                    default="continuous",
+                    help="continuous batching, or the fixed-batch reference "
+                         "(lock-step batches; contiguous layout only)")
     ap.add_argument("--kv-fp8", action="store_true",
                     help="store K/V in fp8 (e4m3) with per-(position, head) "
                          "scales; the decode kernel dequantizes in "
@@ -80,6 +88,11 @@ def main(argv=None):
     ap.add_argument("--preemption", action="store_true",
                     help="free the worst decoding slot for a strictly "
                          "higher-priority arrival")
+    ap.add_argument("--n-candidates", type=int, default=1,
+                    help="candidate items decoded per request: one "
+                         "tree-decode step advances all K branches of every "
+                         "slot over its shared prefix K/V (continuous mode; "
+                         "completions carry the ranked candidate set)")
     ap.add_argument("--paged", action="store_true",
                     help="paged KV layout (default: the contiguous slot "
                          "pool)")
@@ -113,7 +126,8 @@ def main(argv=None):
     batch = args.batch or cfg.serve_batch
     params = onerec_model.init_onerec(args.seed, cfg, device=args.device)
     engine = ServingEngine(params, cfg, EngineConfig(
-        batch_size=batch, use_fp8=args.fp8,
+        batch_size=batch, use_fp8=args.fp8, mode=args.mode,
+        max_candidates=args.n_candidates,
         kv_dtype="float8_e4m3fn" if args.kv_fp8 else "bfloat16",
         n_slots=args.slots, max_queue=args.max_queue, hold_k=args.hold_k,
         hold_ms=args.hold_ms, prefix_cache=args.prefix_cache,
@@ -125,7 +139,7 @@ def main(argv=None):
         device=args.device)
     del params       # the engine holds the quantized tree
     requests = build_requests(cfg, args.requests, batch, args.seed,
-                              args.ragged)
+                              args.ragged, n_candidates=args.n_candidates)
     if args.rate > 0:
         # arrival-driven open loop: wall-clock Poisson submission
         rng = np.random.default_rng(args.seed)
@@ -190,6 +204,11 @@ def main(argv=None):
           f"decode-stall {100*stats['decode_stall_frac']:.0f}% of wall) | "
           f"preemptions={int(stats['preemptions'])} "
           f"resumes={int(stats['resume_calls'])}")
+    if args.n_candidates > 1:
+        print(f"[serve] multi-candidate: K={args.n_candidates} | "
+              f"tree-decode steps {int(stats['decode_multi_steps'])}/"
+              f"{int(stats['decode_steps'])} decode steps | "
+              f"{stats['branches_per_decode_step']:.1f} branches/step")
     return outs, stats
 
 

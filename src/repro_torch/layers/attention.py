@@ -1,6 +1,7 @@
-"""GQA attention for the serving path: per-slot prefill fill, resume
-prefill over a cached prefix, and single-token decode over the paged pool
-or the contiguous slot pool.
+"""GQA attention for the serving path: per-slot and shared prefill fill,
+resume prefill over a cached prefix, single-token and tree decode over the
+paged pool or the contiguous slot pool, and the shared-index decode of the
+batch-shared cache.
 
 The cached modes of the JAX layer (``repro/layers/attention.py``):
 
@@ -24,14 +25,29 @@ The cached modes of the JAX layer (``repro/layers/attention.py``):
     written at ``lengths[i] % S`` of its row (a row passed index 0 is
     inactive and not written), the post-write rows dequantized to the
     query's dtype (``_read_kv``), then kernel ``batch_attention``
-    (``AttnSpec.use_kernel``) or the plain length-masked softmax.
+    (``AttnSpec.use_kernel``) or the plain length-masked softmax;
+  * **tree decode** (``branch_stride``): ``x`` carries T = C candidate
+    branches per row, all at logical depth ``lengths[i]`` (one RoPE
+    position).  Branch b's token lands at ``starts[i] + b * R + (lengths[i]
+    - starts[i])`` (R = ``branch_stride``, resolved on the host into
+    ``KVWrite``; inactive rows and dummy branches are not written) and
+    attends over the shared prefix (logical ``< starts[i]``) and its own
+    span ``[starts[i] + b * R, + R)`` only: through kernel ``paged_decode``
+    in tree mode (``page_tables``), or the plain tree mask over the
+    gathered view (``page_gather``) or over each contiguous row;
+  * **shared-index decode** (``cache_index``) over the batch-shared cache
+    (``init_cache(..., per_slot=False)``: one ``pos`` row for the batch,
+    every row at the same depth): the new K/V at ring slot ``idx % S``,
+    then kernel ``batch_attention`` (``use_kernel``, positions broadcast to
+    every row) or the plain masked softmax.  The shared prefill fill keeps
+    the last ``min(S, T)`` positions at ``pos % S``.
 
 The gathered view (``page_gather`` (B, Sp), the flat pool position of each
 row's logical position) is dense in logical position, so the contiguous
 masks apply to it unchanged; unmapped pages read the sentinel page (``pos``
--1).  Tree decode and chunked attention are not ported.  Plain torch matmul
-and softmax stand where the JAX code is plain ``jnp``; scores and softmax
-are f32, the PV product takes bf16 probabilities, as there.
+-1).  Chunked attention is not ported.  Plain torch matmul and softmax
+stand where the JAX code is plain ``jnp``; scores and softmax are f32, the
+PV product takes bf16 probabilities, as there.
 
 The port updates cache tensors IN PLACE (the JAX code returns new arrays):
 a layer's cache dict holds views into the stacked cache, so a write lands
@@ -124,11 +140,19 @@ def _kv_leaves(lead: Tuple[int, ...], spec: AttnSpec, dtype, device
 
 def init_cache(batch: int, cache_len: int, spec: AttnSpec, *,
                stack: Tuple[int, ...] = (), dtype=torch.bfloat16,
+               per_slot: bool = True,
                device=None) -> Dict[str, torch.Tensor]:
-    """Per-slot cache: k/v (..., B, S, Kv, hd) and pos (..., B, S), -1 =
-    empty; an fp8 ``dtype`` adds f32 ``k_scale``/``v_scale`` (..., B, S, Kv),
-    one scale per (position, KV head)."""
-    return _kv_leaves((*stack, batch, cache_len), spec, dtype, device)
+    """Cache slots: k/v (..., B, S, Kv, hd) and pos, -1 = empty: (..., B, S)
+    per slot (every row its own occupancy, the serving layout), or one
+    shared (..., S) with ``per_slot=False`` (every row at the same depth,
+    the generation layout).  An fp8 ``dtype`` adds f32
+    ``k_scale``/``v_scale`` (..., B, S, Kv), one scale per (position, KV
+    head)."""
+    cache = _kv_leaves((*stack, batch, cache_len), spec, dtype, device)
+    if not per_slot:
+        cache["pos"] = torch.full((*stack, cache_len), -1, dtype=torch.int32,
+                                  device=device)
+    return cache
 
 
 def init_page_cache(n_positions: int, spec: AttnSpec, *,
@@ -223,6 +247,8 @@ def apply_attention(
     page_gather: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    branch_stride: Optional[int] = None,
+    cache_index: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention layer; returns ``(out, cache)``.
 
@@ -230,7 +256,8 @@ def apply_attention(
     * ``cache, fill_cache=True`` — prefill into a per-slot cache: ``x`` is
       right-padded to T, ``lengths`` (B,) the true sequence lengths; every
       position's K/V is stored and positions ``>= lengths[i]`` are marked
-      empty.
+      empty.  Into a shared cache (1-D ``pos``) the last ``min(S, T)``
+      positions are stored at ``pos % S``.
     * ``cache, fill_cache=True, starts, kv_write`` — resume prefill: ``x``
       holds each row's suffix, token j at position ``starts[i] + j``; the
       writes land at ``kv_write`` (rows of the flattened (B, T) new K/V),
@@ -246,16 +273,32 @@ def apply_attention(
       single-token decode (the host resolves the write to the flattened
       rows), then ``batch_attention`` or the plain masked softmax over
       each row.
+    * ``branch_stride`` with any of the three decode forms above — tree
+      decode: ``x`` (B, C, D) holds C branch tokens per row at depth
+      ``lengths`` (B,), ``starts`` (B,) the rows' branch bases.
+    * ``cache, cache_index`` (an int) with a shared cache — shared-index
+      decode: ``x`` (B, 1, D) at absolute position ``cache_index``.
     """
     b, t, _ = x.shape
     h, kvh, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     decode = cache is not None and not fill_cache
     resume = cache is not None and fill_cache and starts is not None
-    if decode:
-        if kv_write is None or t != 1:
-            raise NotImplementedError(
-                "only single-token decode with host-resolved writes is "
-                "ported (ROADMAP.md queue N: N3 tree decode)")
+    tree = decode and branch_stride is not None
+    shared = decode and cache_index is not None
+    if shared:
+        if cache["pos"].ndim != 1:
+            raise ValueError("shared-index decode takes a shared cache")
+        positions = torch.full((1,), int(cache_index), dtype=torch.int32,
+                               device=x.device)
+    elif decode:
+        if kv_write is None or lengths is None:
+            raise ValueError("decode takes host-resolved writes and lengths")
+        if tree and (starts is None or branch_stride <= 0):
+            raise ValueError("tree decode takes starts and a positive "
+                             "branch_stride")
+        if not tree and t != 1:
+            raise ValueError(f"single-token decode takes one token a row, "
+                             f"got {t} (tree decode takes branch_stride)")
         positions = lengths[:, None].to(torch.int32)
     elif resume:
         if kv_write is None:
@@ -271,29 +314,40 @@ def apply_attention(
     q = apply_rope(q, positions, theta=spec.rope_theta)
     k = apply_rope(k, positions, theta=spec.rope_theta)
 
-    if decode or resume:
+    if shared:
+        out = _shared_decode(q, k, v, cache, int(cache_index), spec)
+        out = out.to(x.dtype)
+    elif decode or resume:
         paged = page_tables is not None or page_gather is not None
         _write_kv(cache, k, v, positions, kv_write, paged)
         if page_tables is not None:
-            out = paged_decode_attention(q, cache, page_tables, lengths,
-                                         page_size=page_size,
-                                         scale=spec.scale)
-        elif page_gather is not None:
-            g = page_gather.long()
-            out = _view_attention(q, {n: _u8(leaf)[g].view(leaf.dtype)
-                                      for n, leaf in cache.items()},
-                                  positions, spec)
-        elif decode:
-            out = _slot_decode(q, cache, lengths.to(torch.int32), spec)
+            out = paged_decode_attention(
+                q, cache, page_tables, lengths, starts if tree else None,
+                page_size=page_size, branch_stride=branch_stride or 1,
+                scale=spec.scale)
         else:
-            out = _view_attention(q, cache, positions, spec)
+            rows = cache
+            if page_gather is not None:
+                g = page_gather.long()
+                rows = {n: _u8(leaf)[g].view(leaf.dtype)
+                        for n, leaf in cache.items()}
+            if tree:
+                out = _tree_attention(q, rows, lengths.to(torch.int32),
+                                      starts.to(torch.int32), branch_stride,
+                                      spec)
+            elif decode and page_gather is None:
+                out = _slot_decode(q, cache, lengths.to(torch.int32), spec)
+            else:
+                out = _view_attention(q, rows, positions, spec)
         out = out.to(x.dtype)
     else:
         if t > 2 * spec.chunk_size and t % spec.chunk_size == 0:
             raise NotImplementedError("chunked attention is not ported yet "
                                       "(ROADMAP.md queue N, item N7)")
         out = _full_attention(q, k, v, positions, spec)
-        if cache is not None:
+        if cache is not None and cache["pos"].ndim == 1:
+            _shared_fill(cache, k, v, positions)
+        elif cache is not None:
             if cache["pos"].ndim != 2 or cache["pos"].shape[1] < t:
                 raise ValueError("prefill fill takes a per-slot cache of at "
                                  "least T positions")
@@ -348,6 +402,86 @@ def _view_attention(q: torch.Tensor, rows: Dict[str, torch.Tensor],
     valid = (cpos[:, None, :] >= 0) \
         & (cpos[:, None, :] <= q_pos[:, :, None])        # (B, T, S)
     probs = _masked_softmax(scores, valid[:, None, None])
+    return _gqa_combine(probs, cv).reshape(b, t, -1)
+
+
+def _tree_attention(q: torch.Tensor, rows: Dict[str, torch.Tensor],
+                    idx: torch.Tensor, starts: torch.Tensor,
+                    branch_stride: int, spec: AttnSpec) -> torch.Tensor:
+    """Tree attention of q (B, C, H, hd), C branches per row at depth
+    ``idx`` (B,), over per-row cache views indexed by logical position
+    (k/v (B, S, Kv, hd), pos (B, S), fp8 scales): branch b sees the keys
+    with ``0 <= pos <= idx`` that lie below ``starts`` or in its own span
+    ``[starts + b * R, + R)``.  Returns (B, C, H * hd)."""
+    ck, cv = _read_kv(rows["k"], rows["v"], rows.get("k_scale"),
+                      rows.get("v_scale"), q.dtype)
+    cpos = rows["pos"]
+    b, c = q.shape[:2]
+    s_len = cpos.shape[1]
+    qh = q.reshape(b, c, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
+                   spec.head_dim)
+    scores = _gqa_scores(qh, ck, spec.scale)              # (B,K,G,C,S)
+    st = starts.long()
+    phys = torch.arange(s_len, device=q.device)[None, None, :]
+    own_lo = (st[:, None] + torch.arange(c, device=q.device)[None, :]
+              * branch_stride)[..., None]                 # (B, C, 1)
+    shared = phys < st[:, None, None]                     # (B, 1, S)
+    own = (phys >= own_lo) & (phys < own_lo + branch_stride)
+    valid = (cpos[:, None, :] >= 0) \
+        & (cpos[:, None, :] <= idx[:, None, None]) & (shared | own)
+    probs = _masked_softmax(scores, valid[:, None, None])
+    return _gqa_combine(probs, cv).reshape(b, c, -1)
+
+
+def _shared_fill(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                 v: torch.Tensor, positions: torch.Tensor) -> None:
+    """Prefill into a shared cache: the last ``min(S, T)`` positions of
+    k/v (B, T, Kv, hd) at slots ``pos % S``, their positions in the shared
+    ``pos`` row."""
+    s_len, t = cache["k"].shape[1], k.shape[1]
+    keep = min(s_len, t)
+    ks, vs, k_sc, v_sc = _store_kv(cache, k[:, t - keep:], v[:, t - keep:])
+    pos_tail = positions[t - keep:]
+    slots = (pos_tail % s_len).long()
+    _u8(cache["k"])[:, slots] = _u8(ks)
+    _u8(cache["v"])[:, slots] = _u8(vs)
+    cache["pos"][slots] = pos_tail
+    if k_sc is not None:
+        cache["k_scale"][:, slots] = k_sc
+        cache["v_scale"][:, slots] = v_sc
+
+
+def _shared_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   cache: Dict[str, torch.Tensor], idx: int,
+                   spec: AttnSpec) -> torch.Tensor:
+    """Shared-index decode: the new k/v (B, 1, Kv, hd) land at ring slot
+    ``idx % S`` of every row, ``pos[idx % S] = idx``; then q (B, 1, H, hd)
+    attends over the post-write rows, keys valid where ``0 <= pos <=
+    idx``: kernel ``batch_attention`` under ``use_kernel`` (positions
+    broadcast to (B, 1) and (B, S)), else the plain masked softmax.
+    Returns (B, 1, H * hd)."""
+    s_len = cache["k"].shape[1]
+    slot = idx % s_len
+    ks, vs, k_sc, v_sc = _store_kv(cache, k, v)
+    _u8(cache["k"])[:, slot] = _u8(ks)[:, 0]
+    _u8(cache["v"])[:, slot] = _u8(vs)[:, 0]
+    cache["pos"][slot] = idx
+    if k_sc is not None:
+        cache["k_scale"][:, slot] = k_sc[:, 0]
+        cache["v_scale"][:, slot] = v_sc[:, 0]
+    ck, cv = _read_kv(cache["k"], cache["v"], cache.get("k_scale"),
+                      cache.get("v_scale"), q.dtype)
+    cpos = cache["pos"]
+    b, t = q.shape[:2]
+    if spec.use_kernel:
+        q_pos = torch.full((b, t), idx, dtype=torch.int32, device=q.device)
+        k_pos = cpos[None, :].expand(b, s_len).contiguous()
+        return batch_attention(q, ck, cv, q_pos, k_pos, scale=spec.scale)
+    qh = q.reshape(b, t, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
+                   spec.head_dim)
+    scores = _gqa_scores(qh, ck, spec.scale)              # (B,K,G,T,S)
+    valid = (cpos >= 0) & (cpos <= idx)
+    probs = _masked_softmax(scores, valid[None, None, None, None, :])
     return _gqa_combine(probs, cv).reshape(b, t, -1)
 
 

@@ -2,16 +2,19 @@
 fat-MoE decoder over a semantic-ID vocabulary with a profile-feature prefix
 token.  The serving entry points of ``repro/models/onerec.py``: ragged
 prefill into per-slot rows, resume prefill of a suffix over a cached
-prefix, and single-token decode over the paged pool or the contiguous slot
-pool.
+prefix, and single-token and tree decode over the paged pool or the
+contiguous slot pool; and its generation entry points over the
+batch-shared cache (``init_cache``, ``prefill``, ``decode_step``,
+``generate_items``, ``beam_generate``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import OneRecConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.device import resolve_device
@@ -55,12 +58,23 @@ def forward(params, batch: Dict[str, torch.Tensor],
     return logits
 
 
+def init_cache(cfg: OneRecConfig, batch: int, dtype=None, *,
+               device=None) -> dict:
+    """Generation KV cache: ``batch`` rows of ``context_len + 1`` positions
+    sharing one position occupancy (every row at the same depth).
+    ``dtype=None`` resolves ``cfg.transformer.kv_cache_dtype``."""
+    return tfm.init_kv_cache(cfg.transformer, batch, cfg.context_len + 1,
+                             dtype, per_slot=False, device=device)
+
+
 def init_slot_cache(cfg: OneRecConfig, n_slots: int, dtype=None,
                     extra_len: int = 0, *, device=None) -> dict:
     """Slot-pool KV cache: ``n_slots`` independent per-request rows of
     ``context_len + 1 + extra_len`` positions, each with its own position
-    occupancy.  ``dtype=None`` resolves ``cfg.transformer.kv_cache_dtype``;
-    an fp8 dtype adds per-(position, head) scale leaves."""
+    occupancy.  ``extra_len`` reserves the branch spans of tree decode
+    (``(max_candidates - 1) * (decode_len - 1)``).  ``dtype=None`` resolves
+    ``cfg.transformer.kv_cache_dtype``; an fp8 dtype adds per-(position,
+    head) scale leaves."""
     return tfm.init_kv_cache(cfg.transformer, n_slots,
                              cfg.context_len + 1 + extra_len, dtype,
                              device=device)
@@ -107,6 +121,8 @@ def prefill_into_slots(params, batch: Dict[str, torch.Tensor],
 def decode_step_slots(params, tokens: torch.Tensor, cfg: OneRecConfig,
                       cache: dict, lengths: torch.Tensor, *,
                       kv_write: KVWrite,
+                      starts: Optional[torch.Tensor] = None,
+                      branch_stride: Optional[int] = None,
                       page_tables: Optional[torch.Tensor] = None,
                       page_gather: Optional[torch.Tensor] = None,
                       page_size: int = 0):
@@ -117,11 +133,131 @@ def decode_step_slots(params, tokens: torch.Tensor, cfg: OneRecConfig,
     view (the unfused paged decode); with neither, the cache is the
     contiguous slot pool (``init_slot_cache``) and attention runs kernel
     ``batch_attention`` under ``use_attention_kernel``, else the plain
-    masked softmax.  Returns (logits (B, V), cache)."""
+    masked softmax.  Returns (logits (B, V), cache).
+
+    With ``starts`` (B,) and a ``branch_stride``, TREE decode: ``tokens``
+    (B, C) are C candidate branches per row, all at depth ``lengths[i]``;
+    branch b's K/V lands in its span at ``starts[i] + b * branch_stride``
+    (the host drops the writes of inactive rows and of dummy branches past
+    a row's real count, the JAX ``branch_counts``, in ``kv_write``) and
+    attends over the shared prefix and its own span.  Returns per-branch
+    logits (B, C, V)."""
+    tree_step = starts is not None and branch_stride is not None
+    last = None if tree_step else torch.zeros(
+        tokens.shape[0], dtype=torch.int64, device=tokens.device)
     return tfm.forward(params["backbone"], tokens, cfg.transformer,
                        cache=cache, lengths=lengths.to(torch.int32),
+                       starts=starts.to(torch.int32) if tree_step else None,
+                       branch_stride=branch_stride if tree_step else None,
                        kv_write=kv_write, page_tables=page_tables,
                        page_gather=page_gather, page_size=page_size,
-                       last_index=torch.zeros(tokens.shape[0],
-                                              dtype=torch.int64,
-                                              device=tokens.device))
+                       last_index=last)
+
+
+# ---------------------------------------------------------------------------
+# Generation over the batch-shared cache
+# ---------------------------------------------------------------------------
+
+TopK = Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def stable_top_k(x: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of the last axis and their ids, ties to the lowest id
+    (as ``lax.top_k``): a stable descending sort."""
+    vals, ids = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], ids[..., :k]
+
+
+def prefill(params, batch: Dict[str, torch.Tensor], cfg: OneRecConfig,
+            cache: dict) -> Tuple[torch.Tensor, dict]:
+    """Encode [profile + history] into a shared cache (``init_cache``);
+    returns the last position's logits (B, V) and the filled cache."""
+    tokens = batch["tokens"]
+    embeds = _embed_with_profile(params, tokens, batch["profile"], cfg)
+    last = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int64,
+                      device=tokens.device)
+    return tfm.forward(params["backbone"], tokens, cfg.transformer,
+                       inputs_embeds=embeds, cache=cache, fill_cache=True,
+                       last_index=last)
+
+
+def decode_step(params, tokens: torch.Tensor, cfg: OneRecConfig,
+                cache: dict, index: int) -> Tuple[torch.Tensor, dict]:
+    """One semantic-ID decode step over a shared cache: tokens (B, 1) at
+    absolute position ``index``.  Returns (logits (B, V), cache)."""
+    logits, cache = tfm.forward(params["backbone"], tokens, cfg.transformer,
+                                cache=cache, cache_index=int(index))
+    return logits[:, -1], cache
+
+
+def _map_rows(cache: dict, fn) -> dict:
+    """``fn`` over the batch axis (1, under the layer axis) of every leaf
+    that has one (k, v and the fp8 scales; the shared ``pos`` has none);
+    fp8 payloads move as bytes."""
+    def leaf(_, t):
+        if t.ndim < 4:
+            return t
+        if t.dtype == torch.float8_e4m3fn:
+            return fn(t.view(torch.uint8)).view(t.dtype)
+        return fn(t)
+    return tree.map_with_path(leaf, cache)
+
+
+def beam_generate(params, batch: Dict[str, torch.Tensor], cfg: OneRecConfig,
+                  *, beam_width: int = 0, topk_fn: Optional[TopK] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """OneRec beam search over the semantic-ID codebooks.  Returns (items
+    (B, W, decode_len) int32, log-probs (B, W)) sorted by beam score;
+    ``beam_width=1`` is greedy.  After the prefill the cache is replicated
+    per beam (B -> B * W rows), and after every step each beam's rows are
+    re-gathered from its parent's.  ``topk_fn`` defaults to
+    ``stable_top_k``; ``radix_topk`` runs the selects on the card's
+    kernel."""
+    topk_fn = topk_fn or stable_top_k
+    w = beam_width or cfg.beam_width
+    b = batch["tokens"].shape[0]
+    v = cfg.vocab_size
+    dev = batch["tokens"].device
+    cache = init_cache(cfg, b, device=dev)
+    logits, cache = prefill(params, batch, cfg, cache)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    scores, top_ids = topk_fn(logp, w)                      # (B, W)
+    beams = top_ids[..., None].to(torch.int32)              # (B, W, 1)
+    cache = _map_rows(cache, lambda t: torch.repeat_interleave(t, w, dim=1))
+    index = batch["tokens"].shape[1] + 1
+    for _ in range(cfg.decode_len - 1):
+        tok = beams[..., -1].reshape(b * w, 1)
+        logits, cache = decode_step(params, tok, cfg, cache, index)
+        index += 1
+        logp = torch.log_softmax(logits.float(), dim=-1).reshape(b, w, v)
+        cand = scores[..., None] + logp                     # (B, W, V)
+        scores, flat_ids = topk_fn(cand.reshape(b, w * v), w)
+        flat_ids = flat_ids.long()
+        parent, token = flat_ids // v, flat_ids % v
+        beams = torch.cat(
+            [torch.take_along_dim(beams, parent[..., None], dim=1),
+             token[..., None].to(torch.int32)], dim=-1)
+        rows = (torch.arange(b, device=dev)[:, None] * w + parent).reshape(-1)
+        cache = _map_rows(cache, lambda t: t.index_select(1, rows))
+    return beams, scores
+
+
+def generate_items(params, batch: Dict[str, torch.Tensor], cfg: OneRecConfig,
+                   *, topk_fn: Optional[TopK] = None) -> torch.Tensor:
+    """Greedy generation of one item (``decode_len`` tokens) per row over a
+    shared cache; ``topk_fn`` as in ``beam_generate``.  Returns (B,
+    decode_len) int32."""
+    topk_fn = topk_fn or stable_top_k
+    cache = init_cache(cfg, batch["tokens"].shape[0],
+                       device=batch["tokens"].device)
+    logits, cache = prefill(params, batch, cfg, cache)
+    index = batch["tokens"].shape[1] + 1                    # + the profile
+    out = []
+    for _ in range(cfg.decode_len):
+        _, top_ids = topk_fn(logits, 1)
+        nxt = top_ids[:, :1].to(torch.int32)
+        out.append(nxt)
+        logits, cache = decode_step(params, nxt, cfg, cache, index)
+        index += 1
+    return torch.cat(out, dim=1)

@@ -3,9 +3,11 @@
 Layers are grouped into homogeneous stacks (``layer_plan``); every leaf of a
 stack keeps its leading layer axis, and the JAX ``lax.scan`` over that axis
 is a Python loop here.  Only the OneRec serving path is ported: full
-attention, MoE FFN on every layer, prefill fill into a per-slot cache,
-resume prefill over a cached prefix, and single-token decode over the
-paged pool or the per-slot cache (``repro/models/transformer.py``).
+attention, MoE FFN on every layer, prefill fill into a per-slot or shared
+cache, resume prefill over a cached prefix, single-token and tree decode
+over the paged pool or the per-slot cache, and the shared-index decode of
+generation (``prefill``, ``decode_step``, ``decode_fused``;
+``repro/models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -141,6 +143,8 @@ def forward(
     page_gather: Optional[torch.Tensor] = None,
     page_tables: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    branch_stride: Optional[int] = None,
+    cache_index: Optional[int] = None,
     last_index: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """tokens (B, T) -> (logits f32, cache).
@@ -154,6 +158,10 @@ def forward(
     ``paged_decode``) or ``page_gather`` (the gathered view) is paged
     single-token decode, and a per-slot cache with ``kv_write`` alone
     per-slot single-token decode (``lengths`` the per-row write index).
+    ``branch_stride`` with ``starts`` makes any of those decodes a tree
+    decode: tokens (B, C) are C branches per row, logits (B, C, V).  A
+    shared cache (``init_kv_cache(..., per_slot=False)``) with
+    ``cache_index`` (an int) is the shared-index decode.
     Caches are updated in place and returned.  ``last_index`` (B,) keeps only that
     position of each row before the final norm and ``lm_head``: logits
     (B, V) instead of (B, T, V) (both are row-wise, so the values are the
@@ -165,7 +173,8 @@ def forward(
         x = embed_tokens(params, tokens, compute_dtype)
     attn_kw = dict(fill_cache=fill_cache, lengths=lengths, starts=starts,
                    kv_write=kv_write, page_gather=page_gather,
-                   page_tables=page_tables, page_size=page_size)
+                   page_tables=page_tables, page_size=page_size,
+                   branch_stride=branch_stride, cache_index=cache_index)
     for si, spec in enumerate(layer_plan(cfg)):
         stack_params = params["stacks"][str(si)]
         stack_cache = cache["stacks"][str(si)] if cache is not None else None
@@ -188,15 +197,17 @@ def forward(
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  dtype=None, *, device=None) -> dict:
-    """Per-slot serving cache: every batch row keeps its own position
-    occupancy (``init_cache``), stacked over layers like the params."""
+                  dtype=None, *, per_slot: bool = True, device=None) -> dict:
+    """KV cache stacked over layers like the params: per slot (every batch
+    row keeps its own position occupancy, the serving cache) or, with
+    ``per_slot=False``, one shared occupancy (``init_cache``)."""
     dtype = dtype or getattr(torch, cfg.kv_cache_dtype)
     return {"stacks": {
         str(si): {f"p{pi}": init_cache(batch, max_len,
                                         attn_spec_for(cfg, kind),
                                         stack=(spec.n_periods,),
-                                        dtype=dtype, device=device)
+                                        dtype=dtype, per_slot=per_slot,
+                                        device=device)
                   for pi, kind in enumerate(spec.kinds)}
         for si, spec in enumerate(layer_plan(cfg))}}
 
@@ -216,3 +227,41 @@ def init_kv_page_pool(cfg: TransformerConfig, n_pages: int, page_size: int,
                                              dtype=dtype, device=device)
                   for pi, kind in enumerate(spec.kinds)}
         for si, spec in enumerate(layer_plan(cfg))}}
+
+
+# ---------------------------------------------------------------------------
+# Generation steps over a shared cache
+# ---------------------------------------------------------------------------
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            cache: dict) -> Tuple[torch.Tensor, dict]:
+    """Run the prompt, fill the shared cache; returns last-position
+    logits (B, V)."""
+    logits, cache = forward(params, tokens, cfg, cache=cache,
+                            fill_cache=True)
+    return logits[:, -1], cache
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                cache: dict, index: int) -> Tuple[torch.Tensor, dict]:
+    """One decode step: tokens (B, 1) at absolute position ``index``."""
+    logits, cache = forward(params, tokens, cfg, cache=cache,
+                            cache_index=index)
+    return logits[:, -1], cache
+
+
+def decode_fused(params: dict, first_tokens: torch.Tensor,
+                 cfg: TransformerConfig, cache: dict, index: int,
+                 n_steps: int) -> Tuple[torch.Tensor, dict]:
+    """Greedy-generate ``n_steps`` tokens from ``first_tokens`` (B, 1) at
+    ``index``: a loop of forwards where the JAX package scans.  Step j
+    feeds its input token, the first or the argmax of step j - 1, at
+    ``index + j``.  Returns (the input tokens (B, n_steps), cache)."""
+    tok, toks = first_tokens, []
+    for j in range(n_steps):
+        logits, cache = forward(params, tok, cfg, cache=cache,
+                                cache_index=index + j)
+        toks.append(tok[:, 0])
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    return torch.stack(toks, dim=1), cache

@@ -2,7 +2,10 @@
 ``repro/serving/engine.py`` over the paged FP8 KV pool (``paged=True``, the
 default; decode through kernel ``paged_decode`` with ``fused_decode="auto"``
 or through the gathered view with ``"off"``) or the contiguous slot pool
-(``paged=False, fused_decode="off"``).
+(``paged=False, fused_decode="off"``), with the continuous scheduler
+(``mode="continuous"``; ``max_candidates > 1`` lets a request ask for a
+ranked set of ``n_candidates`` items, decoded as a tree) or the fixed-batch
+reference (``mode="fixed"``, contiguous only).
 
   * ``submit(request) -> RequestHandle`` — non-blocking admission into a
     bounded queue; a full queue (``max_queue``) raises ``AdmissionFull``;
@@ -19,9 +22,7 @@ are the JAX engine's, and so is ``quant_policy``: a ``QuantPolicy``, or the
 path of a policy artifact whose calibrated static activation scales are
 attached after PTQ.  The engine runs on the card unless it is built with
 ``device="cpu"``, where every kernel runs its plain PyTorch version;
-without a card it raises.  Settings of ``EngineConfig`` that the port does
-not cover yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them.
+without a card it raises.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -40,7 +41,8 @@ from repro_torch.serving.executor import PhaseExecutor
 from repro_torch.serving.kv_cache import PrefixStore, SlotPool
 from repro_torch.serving.requests import requests_from_arrays
 from repro_torch.serving.scheduler import (Completion, ContinuousScheduler,
-                                           Request, SchedulingPolicy)
+                                           FixedBatchScheduler, Request,
+                                           SchedulingPolicy)
 
 
 class AdmissionFull(RuntimeError):
@@ -90,13 +92,6 @@ class EngineConfig:
 
 
 _OFF = (False, None, "off")         # fused_decode values that mean off
-
-# (setting is outside the slice, what it is, ROADMAP.md item)
-_NOT_PORTED: Tuple[Tuple[Callable[[EngineConfig], bool], str, str], ...] = (
-    (lambda c: c.max_candidates != 1, "max_candidates > 1 (tree decode)",
-     "N3"),
-    (lambda c: c.mode != "continuous", "mode other than continuous", "N4"),
-)
 
 
 class RequestHandle:
@@ -155,21 +150,18 @@ class ServingEngine:
                  *, device=None):
         ecfg = engine_cfg
         _validate(ecfg)
-        for not_ported, what, item in _NOT_PORTED:
-            if not_ported(ecfg):
-                raise NotImplementedError(
-                    f"EngineConfig {what} is not ported yet "
-                    f"(ROADMAP.md queue N, item {item})")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.n_slots = ecfg.n_slots or ecfg.batch_size
         prefix_rows = (ecfg.prefix_rows or 2 * self.n_slots) \
             if ecfg.prefix_cache else 0
-        # 0 sizes the pool to (n_slots + prefix_rows) worst-case rows, as
-        # the JAX engine does, so both grant and evict the same pages
-        n_pages = ecfg.n_pages or -(-(self.n_slots + prefix_rows)
-                                    * (cfg.context_len + 1)
+        # 0 sizes the pool to (n_slots + prefix_rows) worst-case rows,
+        # branch spans included, as the JAX engine does, so both grant and
+        # evict the same pages
+        s_row = (cfg.context_len + 1 + (ecfg.max_candidates - 1)
+                 * max(cfg.decode_len - 1, 0))
+        n_pages = ecfg.n_pages or -(-(self.n_slots + prefix_rows) * s_row
                                     // ecfg.page_size)
         # tuned mixed-precision policy: a str is a policy artifact's path
         # (policy and calibrated static activation scales travel
@@ -193,7 +185,8 @@ class ServingEngine:
             kv_dtype=ecfg.kv_dtype, paged=ecfg.paged,
             page_size=ecfg.page_size, n_pages=n_pages,
             fused_decode=ecfg.fused_decode not in _OFF,
-            prefix_rows=0 if ecfg.paged else prefix_rows)
+            prefix_rows=0 if ecfg.paged else prefix_rows,
+            n_candidates=ecfg.max_candidates)
         # the store persists across stats windows (repeat traffic spans
         # them); paged, its entries are page references priced per page,
         # its budget the whole pool, and an eviction releases the pages
@@ -214,17 +207,40 @@ class ServingEngine:
                 n_codebooks=cfg.n_codebooks,
                 store_on_first_sight=ecfg.store_on_first_sight)
         self.pool = SlotPool(self.n_slots)
-        self._sched = ContinuousScheduler(
-            self.executor, self.pool, ecfg.max_prefill_groups,
-            prefix_store=self.prefix_store,
-            policy=SchedulingPolicy(prefill_chunk=ecfg.prefill_chunk,
-                                    preemption=ecfg.preemption,
-                                    hold_k=ecfg.hold_k, hold_ms=ecfg.hold_ms))
+        self._sched = self._make_scheduler(self.pool)
         self._rids = itertools.count()
         self._handles: Dict[int, RequestHandle] = {}
         self.reset_window()
 
+    def _make_scheduler(self, pool: SlotPool
+                        ) -> Union[ContinuousScheduler, FixedBatchScheduler]:
+        ecfg = self.ecfg
+        if ecfg.mode == "fixed":
+            return FixedBatchScheduler(self.executor, pool, ecfg.batch_size)
+        return ContinuousScheduler(
+            self.executor, pool, ecfg.max_prefill_groups,
+            prefix_store=self.prefix_store,
+            policy=SchedulingPolicy(prefill_chunk=ecfg.prefill_chunk,
+                                    preemption=ecfg.preemption,
+                                    hold_k=ecfg.hold_k, hold_ms=ecfg.hold_ms))
+
     # -- request lifecycle ----------------------------------------------------
+
+    def _check_candidates(self, request: Dict) -> Tuple[int, Optional[int]]:
+        n_cand = int(request.get("n_candidates", 1))
+        if not 1 <= n_cand <= self.ecfg.max_candidates:
+            raise ValueError(
+                f"n_candidates {n_cand} outside [1, "
+                f"{self.ecfg.max_candidates}] (EngineConfig.max_candidates "
+                f"sizes the branch spans of every cache row up front)")
+        first = request.get("first_token")
+        if first is not None and n_cand != 1:
+            raise ValueError("first_token (forced seed) requires "
+                             "n_candidates == 1")
+        if first is not None and self.ecfg.mode != "continuous":
+            raise ValueError("first_token requires continuous mode (the "
+                             "fixed scheduler never forces seeds)")
+        return n_cand, (int(first) if first is not None else None)
 
     def _check_history(self, i, n_tokens: int) -> None:
         max_hist = self.cfg.history_len * self.cfg.n_codebooks
@@ -236,16 +252,14 @@ class ServingEngine:
     def submit(self, request: Dict,
                base_s: Optional[float] = None) -> RequestHandle:
         """Queue one request dict ("tokens", "profile", optional
-        "arrival_s" / "deadline_s" offsets from ``base_s``, default now, and
-        "priority"); non-blocking.  Raises ``AdmissionFull`` when the
-        bounded queue (``max_queue``) is at capacity."""
+        "arrival_s" / "deadline_s" offsets from ``base_s``, default now,
+        "priority", "n_candidates" (a ranked set of K items, tree decode)
+        and "first_token" (a forced seed)); non-blocking.  Raises
+        ``AdmissionFull`` when the bounded queue (``max_queue``) is at
+        capacity."""
         tokens = np.asarray(request["tokens"], np.int32)
         self._check_history("<submit>", len(tokens))
-        if request.get("n_candidates", 1) != 1 \
-                or request.get("first_token") is not None:
-            raise NotImplementedError("multi-candidate and forced-seed "
-                                      "requests are not ported yet "
-                                      "(ROADMAP.md queue N, item N3)")
+        n_candidates, first_token = self._check_candidates(request)
         if self.ecfg.max_queue \
                 and self._sched.queue_depth >= self.ecfg.max_queue:
             raise AdmissionFull(
@@ -258,7 +272,8 @@ class ServingEngine:
             arrival_s=base + float(request.get("arrival_s", 0.0)),
             priority=int(request.get("priority", 0)),
             deadline_s=base + float(request["deadline_s"])
-            if request.get("deadline_s") is not None else None)
+            if request.get("deadline_s") is not None else None,
+            n_candidates=n_candidates, first_token=first_token)
         self._sched.enqueue(r)
         handle = RequestHandle(self, r)
         self._handles[r.rid] = handle
@@ -354,6 +369,9 @@ class ServingEngine:
             "kv_row_bytes": float(self.executor.pool_row_bytes),
             "kv_bytes": float(self.executor.kv_bytes),
             **{k: float(v) for k, v in counters.items()},
+            "branches_per_decode_step":
+                counters["branch_tokens"] / counters["decode_steps"]
+                if counters["decode_steps"] else 0.0,
             "fused_decode_mode": self._fused_decode_mode(),
             "mode": self.ecfg.mode,
             "rejected": float(self._rejected),
@@ -496,6 +514,9 @@ def _validate(ecfg: EngineConfig) -> None:
     if ecfg.max_candidates < 1:
         raise ValueError(f"max_candidates must be >= 1, got "
                          f"{ecfg.max_candidates}")
+    if ecfg.max_candidates > 1 and ecfg.mode != "continuous":
+        raise ValueError("multi-candidate decode requires continuous mode "
+                         "(fixed mode is the single-item reference)")
     if ecfg.max_candidates > ecfg.topk:
         raise ValueError(f"max_candidates ({ecfg.max_candidates}) exceeds "
                          f"topk ({ecfg.topk})")
@@ -513,6 +534,10 @@ def _validate(ecfg: EngineConfig) -> None:
     if ecfg.kv_dtype not in ("bfloat16", "float8_e4m3fn"):
         raise ValueError(f"kv_dtype must be 'bfloat16' or 'float8_e4m3fn', "
                          f"got {ecfg.kv_dtype!r}")
+    if ecfg.paged and ecfg.mode != "continuous":
+        raise ValueError("the paged KV layout requires continuous mode "
+                         "(fixed mode is the contiguous reference; pass "
+                         "paged=False, fused_decode='off')")
     if ecfg.page_size <= 0:
         raise ValueError(f"page_size must be positive, got "
                          f"{ecfg.page_size}")

@@ -17,6 +17,11 @@ prefix store alike):
     the same logits, which ``select_scored`` then answers from the stash
     (``fused_decode``), or, unfused, through the gathered view, the select
     then a call of its own.
+  * ``decode_multi`` — one TREE-decode step: C candidate branches for every
+    slot, branch b's token written in the slot's reserved span at
+    ``starts + b * branch_stride`` and attending over the shared prefix and
+    its own span (kernel ``paged_decode`` in tree mode with the select
+    folded in, the gathered view, or each contiguous row).
   * ``attach_prefix`` / ``share_prefix`` / ``release_pages`` — a prefix
     hit maps the stored pages read-only into the slot's table and copies
     at most one boundary page (copy-on-write); a store admit adds
@@ -29,8 +34,9 @@ to a flat pool position, exactly as the JAX executor does; a write the JAX
 program drops (out-of-range index) is simply not passed.
 
 The CONTIGUOUS layout (``paged=False``): one per-slot row of
-``context_len + 1`` positions per slot, plus an ARENA of ``prefix_rows``
-rows of the same layout behind the prefix store.  ``prefill_insert``
+``context_len + 1`` positions per slot (plus ``(n_candidates - 1) *
+branch_stride`` for the branch spans of tree decode), plus an ARENA of
+``prefix_rows`` rows of the same layout behind the prefix store.  ``prefill_insert``
 copies the group's whole filled rows into ``pool[:, slots]``;
 ``resume_prefill`` runs on copies of the group's rows and copies the real
 ones back; ``prefix_copy_insert`` / ``prefix_save`` copy rows between the
@@ -41,9 +47,10 @@ masked softmax, with no select stash; ``free_slots`` clears the freed
 rows' pos lane in one batched write.  Every copy moves fp8 payloads as
 bytes, so a stored prefix round-trips bit-identically.
 
-Every select (``select_scored``) runs kernel ``radix_topk`` under
-``use_radix_topk``, the fused stash of the paged layout included; else a
-stable sort (ties to the lowest id, as ``lax.top_k``).  Each phase ends in
+Every select (``select_scored``, and ``select``, fixed mode's top-k with no
+log-partition) runs kernel ``radix_topk`` under ``use_radix_topk``, the
+fused stash of the paged layout included; else a stable sort (ties to the
+lowest id, as ``lax.top_k``).  Each phase ends in
 ``torch.cuda.synchronize()`` on the card (the JAX ``block_until_ready``),
 so the scheduler's phase timings stay honest.
 """
@@ -109,8 +116,15 @@ class PhaseExecutor:
                  kv_dtype: Optional[str] = None, paged: bool = True,
                  page_size: int = 32, n_pages: int = 0,
                  fused_decode: bool = True, prefix_rows: int = 0,
+                 n_candidates: int = 1,
                  quant_policy: Optional[QuantPolicy] = None,
                  act_scales: Optional[Dict[str, float]] = None):
+        if n_candidates < 1:
+            raise ValueError(f"n_candidates must be >= 1, got {n_candidates}")
+        if n_candidates > topk:
+            raise ValueError(
+                f"n_candidates ({n_candidates}) exceeds topk ({topk}): "
+                f"branch seeds come from the top-k select")
         self.cfg = cfg
         self.n_slots = n_slots
         self.device = device
@@ -119,9 +133,14 @@ class PhaseExecutor:
         self.prefill_bucket_min = prefill_bucket_min
         self.kv_dtype = getattr(torch,
                                 kv_dtype or cfg.transformer.kv_cache_dtype)
-        # a K=1 request reserves one branch span of decode_len - 1
-        # positions past its history (the scheduler's footprint)
+        # tree decode: branch b's own tokens occupy a reserved span of
+        # branch_stride = decode_len - 1 positions past the shared prefix,
+        # so C branches need (C - 1) * stride positions beyond a
+        # single-candidate row
+        self.n_candidates = n_candidates
         self.branch_stride = max(cfg.decode_len - 1, 0)
+        extra = (n_candidates - 1) * self.branch_stride
+        self._extra = extra
         params = tree.map_with_path(lambda _, t: t.to(device), params)
         # a tuned QuantPolicy (e.g. from a policy artifact) overrides the
         # all-or-nothing use_fp8 switch; calibrated static activation
@@ -132,7 +151,9 @@ class PhaseExecutor:
         self.params = quantize_params(params, self.quant_policy)
         if act_scales:
             self.params = apply_static_act_scales(self.params, act_scales)
-        self.s_row = cfg.context_len + 1           # positions per request
+        # positions per request: profile + history + the first decode
+        # token, plus every reserved branch span
+        self.s_row = cfg.context_len + 1 + extra
         self.paged = bool(paged)
         # paged decode through kernel paged_decode with the select folded
         # in, else through the gathered view
@@ -144,14 +165,17 @@ class PhaseExecutor:
         else:
             self.page_pool = None
             self.cache = onerec_model.init_slot_cache(
-                cfg, n_slots, dtype=self.kv_dtype, device=device)
+                cfg, n_slots, dtype=self.kv_dtype, extra_len=extra,
+                device=device)
             if prefix_rows > 0:   # tier 2: the prefix store's rows
                 self.arena = onerec_model.init_slot_cache(
-                    cfg, prefix_rows, dtype=self.kv_dtype, device=device)
+                    cfg, prefix_rows, dtype=self.kv_dtype, extra_len=extra,
+                    device=device)
         self._fused_select: Optional[tuple] = None
         self.counters: Dict[str, int] = {"prefill_calls": 0,
                                          "resume_calls": 0,
                                          "decode_steps": 0,
+                                         "decode_multi_steps": 0,
                                          "branch_tokens": 0,
                                          "fused_decode_steps": 0,
                                          "fused_select_hits": 0,
@@ -188,18 +212,20 @@ class PhaseExecutor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=self.device, dtype=dtype)
 
+    def _topk(self, flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Top-k of the last axis of (N, V) logits: kernel ``radix_topk``
+        under ``use_radix_topk``, else a stable sort (ties to the lowest
+        id, as ``lax.top_k``)."""
+        if self.use_radix_topk:
+            return radix_topk(flat, self.topk)
+        return onerec_model.stable_top_k(flat, self.topk)
+
     def _select(self, logits: torch.Tensor
                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Top-k and the log-partition of the last axis, copied to the
-        host: kernel ``radix_topk`` under ``use_radix_topk``, else a stable
-        sort (ties to the lowest id, as ``lax.top_k``)."""
+        """Top-k and the log-partition of the last axis of the logits,
+        flattened to rows, copied to the host."""
         flat = logits.reshape(-1, logits.shape[-1])
-        if self.use_radix_topk:
-            vals, ids = radix_topk(flat, self.topk)
-        else:
-            vals, ids = torch.sort(flat, dim=-1, descending=True,
-                                   stable=True)
-            vals, ids = vals[:, :self.topk], ids[:, :self.topk]
+        vals, ids = self._topk(flat)
         lse = torch.logsumexp(flat.to(torch.float32), dim=-1)
         return (vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
                 lse.cpu().numpy())
@@ -366,7 +392,7 @@ class PhaseExecutor:
             # capacity drops their K/V differ from the real row's
             fresh = onerec_model.init_slot_cache(
                 self.cfg, tok.shape[0], dtype=self.kv_dtype,
-                device=self.device)
+                extra_len=self._extra, device=self.device)
             logits, filled = onerec_model.prefill_into_slots(
                 self.params, batch, self.cfg, fresh, self._tensor(lengths))
             n = len(slots)
@@ -482,18 +508,82 @@ class PhaseExecutor:
         synchronize(self.device)
         return logits
 
+    def decode_multi(self, tokens: np.ndarray, lengths: np.ndarray,
+                     starts: np.ndarray, counts: np.ndarray
+                     ) -> torch.Tensor:
+        """One TREE-decode step over the whole pool: tokens (N, C) carry C
+        candidate branches per slot, all at that slot's depth ``lengths``;
+        ``starts`` is each slot's branch base (its prefix occupancy) and
+        ``counts`` its REAL branch width.  Branch b of slot i writes
+        logical position ``starts[i] + b * branch_stride + (lengths[i] -
+        starts[i])``; inactive slots (index 0) and dummy branches (b >=
+        counts[i]) are not written, so unused spans stay empty.  Returns
+        per-branch logits (N, C, V); the fused paged decode stashes the
+        select of all N * C rows for ``select_scored``."""
+        c = tokens.shape[1]
+        if c > self.n_candidates:
+            raise ValueError(f"{c} branches exceed the executor's "
+                             f"n_candidates capacity ({self.n_candidates})")
+        li = as_index(lengths)[:, None]
+        st = as_index(starts)[:, None]
+        b = np.arange(c, dtype=INDEX_DTYPE)[None, :]
+        logical = st + b * self.branch_stride + (li - st)
+        valid = (li > 0) & (b < as_index(counts)[:, None])
+        rows = np.arange(self.n_slots)
+        read = {}
+        if self.paged:
+            write = self._page_write(
+                self._scatter_indices(rows, logical, valid))
+            if self.fused_decode:
+                read = dict(page_tables=self._tensor(self._table_mat),
+                            page_size=self.page_size)
+            else:
+                read = dict(page_gather=self._tensor(
+                    self._gather_indices(rows), torch.int64))
+        else:
+            # slot i's branch b lands at flat i * s_row + logical; past the
+            # row the JAX scatter drops it
+            r_i, b_i = np.nonzero(valid & (logical < self.s_row))
+            write = KVWrite(
+                self._tensor(r_i * self.s_row + logical[r_i, b_i],
+                             torch.int64),
+                self._tensor(r_i * c + b_i, torch.int64))
+        logits, self.cache = onerec_model.decode_step_slots(
+            self.params, self._tensor(tokens), self.cfg, self.cache,
+            self._tensor(as_index(lengths)), kv_write=write,
+            starts=self._tensor(as_index(starts)),
+            branch_stride=self.branch_stride, **read)
+        if self.fused_decode:
+            self._fused_select = (logits, *self._select(logits))
+            self.counters["fused_decode_steps"] += 1
+        self.counters["decode_steps"] += 1
+        self.counters["decode_multi_steps"] += 1
+        self.counters["branch_tokens"] += int(np.sum(counts))
+        synchronize(self.device)
+        return logits
+
+    def select(self, logits: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
+        """Host (top-k vals, ids) of (N, V) logits (fixed mode's select)."""
+        self.counters["select_calls"] += 1
+        vals, ids = self._topk(logits.reshape(-1, logits.shape[-1]))
+        return vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
+
     def select_scored(self, logits: torch.Tensor
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Host (top-k vals, ids, logsumexp) of (N, V) logits; answered
-        from the stash when ``logits`` came out of ``decode``."""
+        """Host (top-k vals, ids, logsumexp) of (N, V) or (N, C, V)
+        logits, the leading axes kept; answered from the stash when
+        ``logits`` came out of a fused ``decode`` or ``decode_multi``."""
+        lead = tuple(logits.shape[:-1])
         if self._fused_select is not None \
                 and logits is self._fused_select[0]:
             _, vals, ids, lse = self._fused_select
             self._fused_select = None
             self.counters["fused_select_hits"] += 1
-            return vals, ids, lse
-        self.counters["select_calls"] += 1
-        return self._select(logits)
+        else:
+            self.counters["select_calls"] += 1
+            vals, ids, lse = self._select(logits)
+        return (vals.reshape(lead + (self.topk,)),
+                ids.reshape(lead + (self.topk,)), lse.reshape(lead))
 
     @staticmethod
     def _pad_ids(ids: List[int]) -> np.ndarray:

@@ -1,28 +1,42 @@
-"""Continuous-batching scheduler over the executor's KV pool (paged or
-contiguous): the single-candidate path of ``repro/serving/scheduler.py``
-(``ContinuousScheduler`` with its ``SchedulingPolicy``), as an incremental
-``step()`` state machine whose queue, in-flight slots, chunked-prefill
-segments and preemption state persist across calls.
+"""Request schedulers over the executor's KV pool (paged or contiguous),
+as in ``repro/serving/scheduler.py``: the continuous scheduler with its
+``SchedulingPolicy`` seam, and the fixed-batch reference mode, both
+incremental ``step()`` state machines whose queue and in-flight state
+persist across calls.
 
-Every ``step()`` (1) advances any in-flight CHUNKED prefill by one segment,
-(2) joins arrived queued requests into free slots in policy order
-(priority class, deadline, arrival), grouped by (prefix hit, first-segment
-length bucket), each group one ragged prefill (or, on a prefix hit, a
-resume prefill of the suffix) whose logits seed the first generated token,
-then (3) runs ONE decode over the decoding slots, advancing every active
-request at its own depth; a slot retires when its item (``decode_len``
-tokens) is complete.
+``ContinuousScheduler.step()`` (1) advances any in-flight CHUNKED prefill
+by one segment, (2) joins arrived queued requests into free slots in
+policy order (priority class, deadline, arrival), grouped by (prefix hit,
+first-segment length bucket), each group one ragged prefill (or, on a
+prefix hit, a resume prefill of the suffix) whose logits seed the first
+generated token, then (3) runs ONE decode over the decoding slots,
+advancing every active request at its own depth; a slot retires when its
+item (``decode_len`` tokens) is complete.
 
 ``SchedulingPolicy`` is the policy seam: hold windows (``hold_k`` /
 ``hold_ms``) defer a join until K arrivals or T ms, released at the drain
 tail; chunked prefill (``prefill_chunk``) spreads a long history over
 steps through ``resume_prefill``; preemption frees the worst decoding slot
 for a strictly higher-priority arrival, parking its history in the prefix
-store so the requeued request resumes from it.  The admission order,
-bucket grouping, page grants, store plans and slot assignment are the JAX
-scheduler's, so both engines build the same batches from the same
-requests.  Multi-candidate tree decode (ROADMAP.md queue N, item N3) is
-not ported.
+store so the requeued request resumes from it.
+
+**Multi-candidate decode** (``Request.n_candidates = K``): a prefilled
+slot forks into K branches seeded by the top-K next-token ids; while any
+decoding slot has more than one branch, each round advances every branch
+of every slot in one tree-decode step (``executor.decode_multi``, the
+width bucketed to a power of two, narrower slots padded with dummy
+branches whose writes are dropped).  At retirement the branches are
+ranked by cumulative log-prob (ties keep seed rank) into
+``Completion.items`` / ``scores``.  ``Request.first_token`` forces the
+seed of a K = 1 decode.
+
+``FixedBatchScheduler`` is the seed engine's mode: fixed batches of
+``batch_size`` formed in submission order (the tail only under
+``draining``), one prefill, lock-step decode until the batch retires.
+
+The admission order, bucket grouping, page grants, store plans, slot
+assignment and branch handling are the JAX schedulers', so both engines
+build the same batches from the same requests.
 """
 
 from __future__ import annotations
@@ -41,6 +55,23 @@ from repro_torch.serving.kv_cache import (PrefixEntry, PrefixStore, SlotPool,
 _NO_DEADLINE = float("inf")
 
 
+def _run_to_empty(sched) -> List["Completion"]:
+    """Closed-batch drive loop of both schedulers' ``run()``: step (and
+    idle-sleep) under the ``draining`` promise until the scheduler is
+    empty."""
+    done: List[Completion] = []
+    prev, sched.draining = sched.draining, True
+    try:
+        while sched.has_work:
+            done.extend(sched.step())
+            wait = sched.idle_wait_s()
+            if wait > 0:
+                time.sleep(wait)
+    finally:
+        sched.draining = prev
+    return done
+
+
 @dataclasses.dataclass(eq=False)     # identity equality: queue.remove()
 class Request:
     rid: int
@@ -49,6 +80,8 @@ class Request:
     arrival_s: float = 0.0      # absolute perf_counter timestamp
     priority: int = 0           # SLA class: lower = more important
     deadline_s: Optional[float] = None  # absolute deadline; None = no SLA
+    n_candidates: int = 1       # candidate items decoded (tree branches)
+    first_token: Optional[int] = None   # forced seed token (n_candidates 1)
     # memoized prefix-digest chain (content is immutable, the scheduler
     # re-plans every round — hash once, not once per round)
     chain: Optional[List[Tuple[int, str]]] = None
@@ -57,11 +90,15 @@ class Request:
 @dataclasses.dataclass
 class Completion:
     rid: int
-    item: np.ndarray            # (decode_len,) generated item
+    item: np.ndarray            # (decode_len,) top-ranked generated item
     latency_s: float
     priority: int = 0
     deadline_s: Optional[float] = None
     deadline_missed: bool = False
+    # every decoded branch ranked by cumulative log-prob (items[0] is
+    # `item`), `scores` aligned with `items`; fixed mode reports the one
+    # item unscored
+    items: List[np.ndarray] = dataclasses.field(default_factory=list)
     scores: List[float] = dataclasses.field(default_factory=list)
 
 
@@ -256,19 +293,33 @@ class ContinuousScheduler:
         """Slots whose prefill is complete (mid-chunk slots don't decode)."""
         return [s for s in self.pool.used_slots() if s not in self._pending]
 
-    def _seed_slot(self, slot: int, ids_row: np.ndarray,
+    def _seed_slot(self, slot: int, r: Request, ids_row: np.ndarray,
                    vals_row: np.ndarray, lse: float, done: List[Completion],
                    freed: List[int]) -> None:
-        """Start a freshly prefilled slot's item with the top prefill token,
-        scored by its log-prob."""
+        """Fork a freshly prefilled slot into its candidate branches: the
+        top-``n_candidates`` prefill ids seed one branch each, scored by
+        their log-probs.  A forced ``first_token`` seeds the single branch
+        instead (scored by its log-prob when it is among the top-k, else
+        0)."""
         state = self.pool[slot]
+        if r.first_token is not None:
+            seeds = [int(r.first_token)]
+            match = np.nonzero(ids_row == r.first_token)[0]
+            lps = [float(vals_row[match[0]] - lse) if match.size else 0.0]
+        else:
+            seeds = [int(t) for t in ids_row[:r.n_candidates]]
+            lps = [float(v - lse) for v in vals_row[:r.n_candidates]]
+        state.n_candidates = len(seeds)
         state.branch_base = state.length
-        state.branches = [[int(ids_row[0])]]
-        state.scores = [float(vals_row[0] - lse)]
+        state.branches = [[s] for s in seeds]
+        state.scores = lps
         self._maybe_retire(slot, done, freed)     # decode_len == 1 corner
 
     def _maybe_retire(self, slot: int, done: List[Completion],
                       freed: List[int]) -> None:
+        """Retire ``slot`` once every branch holds a full item: the
+        branches ranked by cumulative log-prob (ties keep seed rank) into
+        one Completion."""
         state = self.pool[slot]
         if len(state.branches[0]) < self.decode_len:
             return
@@ -279,9 +330,13 @@ class ContinuousScheduler:
         if entry is not None:           # unpin the prefix backing this slot
             self.store.release(entry)
         finish = time.perf_counter()
+        order = sorted(range(final.n_candidates),
+                       key=lambda b: (-final.scores[b], b))
+        items = [np.asarray(final.branches[b], np.int32) for b in order]
         done.append(Completion(
-            rid=final.request_id, item=np.asarray(final.branches[0], np.int32),
-            scores=list(final.scores), latency_s=finish - final.arrival_s,
+            rid=final.request_id, item=items[0], items=items,
+            scores=[final.scores[b] for b in order],
+            latency_s=finish - final.arrival_s,
             priority=final.priority, deadline_s=final.deadline_s,
             deadline_missed=final.deadline_s is not None
             and finish > final.deadline_s))
@@ -303,8 +358,10 @@ class ContinuousScheduler:
 
     def _footprint(self, r: Request) -> int:
         """Logical cache positions ``r`` can occupy: profile + history +
-        its decode span."""
-        return len(r.tokens) + 1 + self.executor.branch_stride
+        one branch span per candidate it decodes (K = 1 traffic reserves
+        no multi-candidate spans)."""
+        return (len(r.tokens) + 1
+                + r.n_candidates * self.executor.branch_stride)
 
     def _pages_needed(self, r: Request,
                       plan: Optional[Tuple[PrefixEntry, int]]) -> int:
@@ -489,7 +546,7 @@ class ContinuousScheduler:
                 vals, ids, lse = self.executor.select_scored(logits)
                 freed: List[int] = []
                 for i, slot, r in finished:
-                    self._seed_slot(slot, ids[i], vals[i], float(lse[i]),
+                    self._seed_slot(slot, r, ids[i], vals[i], float(lse[i]),
                                     done, freed)
                 self.executor.free_slots(freed)
 
@@ -581,6 +638,7 @@ class ContinuousScheduler:
             for r in group:
                 slot = self.pool.alloc(SlotState(
                     request_id=r.rid, length=len(r.tokens) + 1,  # + profile
+                    n_candidates=r.n_candidates,
                     arrival_s=r.arrival_s, priority=r.priority,
                     deadline_s=r.deadline_s))
                 slots.append(slot)
@@ -640,33 +698,65 @@ class ContinuousScheduler:
             for i, slot in enumerate(slots):
                 if slot in self._pending:
                     continue        # mid-chunk: logits are not next-token
-                self._seed_slot(slot, ids[i], vals[i], float(lse[i]), done,
-                                freed)
+                self._seed_slot(slot, group[i], ids[i], vals[i],
+                                float(lse[i]), done, freed)
             # clear before the NEXT group can reallocate a freed slot
             # (reachable only when decode_len == 1: prefill completes)
             self.executor.free_slots(freed)
 
     def _decode_step(self, done: List[Completion]) -> None:
         """One decode over the decoding slots of the pool; free rows and
-        rows mid-chunk ride along at index 0 with their writes not made."""
+        rows mid-chunk ride along at index 0 with their writes not made.
+        While any slot has more than one branch the round is one TREE
+        decode: the width bucketed to a power of two (capped at the
+        executor's capacity), narrower slots padded with dummy branches
+        that repeat their last token, whose writes are dropped and whose
+        outputs are discarded."""
         pool = self.pool
         active = self._decoding_slots()
+        width = max((pool[s].n_candidates for s in active), default=1)
+        n_branches = sum(pool[s].n_candidates for s in active)
         self.occupancy.append(pool.occupancy)
-        tokens = np.zeros((pool.n_slots, 1), np.int32)
-        lengths = np.zeros((pool.n_slots,), np.int32)
-        for s in active:
-            tokens[s, 0] = pool[s].branches[0][-1]
-            lengths[s] = pool[s].length
-        logits = self.executor.decode(tokens, lengths)
-        self.executor.counters["branch_tokens"] += len(active)
-        vals, ids, lse = self.executor.select_scored(logits)
         freed: List[int] = []
-        for s in active:
-            st = pool[s]
-            st.length += 1           # the input token we just wrote
-            st.branches[0].append(int(ids[s, 0]))
-            st.scores[0] += float(vals[s, 0] - lse[s])
-            self._maybe_retire(s, done, freed)
+        if width == 1:
+            tokens = np.zeros((pool.n_slots, 1), np.int32)
+            lengths = np.zeros((pool.n_slots,), np.int32)
+            for s in active:
+                tokens[s, 0] = pool[s].branches[0][-1]
+                lengths[s] = pool[s].length
+            logits = self.executor.decode(tokens, lengths)
+            self.executor.counters["branch_tokens"] += n_branches
+            vals, ids, lse = self.executor.select_scored(logits)
+            for s in active:
+                st = pool[s]
+                st.length += 1           # the input token we just wrote
+                st.branches[0].append(int(ids[s, 0]))
+                st.scores[0] += float(vals[s, 0] - lse[s])
+                self._maybe_retire(s, done, freed)
+        else:
+            c = min(bucket_length(width, 1), self.executor.n_candidates)
+            tokens = np.zeros((pool.n_slots, c), np.int32)
+            lengths = np.zeros((pool.n_slots,), np.int32)
+            starts = np.zeros((pool.n_slots,), np.int32)
+            counts = np.zeros((pool.n_slots,), np.int32)
+            for s in active:
+                st = pool[s]
+                last = st.last_tokens
+                for b in range(c):       # dummy branches repeat the last
+                    tokens[s, b] = last[min(b, st.n_candidates - 1)]
+                lengths[s] = st.length
+                starts[s] = st.branch_base
+                counts[s] = st.n_candidates
+            logits = self.executor.decode_multi(tokens, lengths, starts,
+                                                counts)
+            vals, ids, lse = self.executor.select_scored(logits)
+            for s in active:
+                st = pool[s]
+                st.length += 1
+                for b in range(st.n_candidates):
+                    st.branches[b].append(int(ids[s, b, 0]))
+                    st.scores[b] += float(vals[s, b, 0] - lse[s, b])
+                self._maybe_retire(s, done, freed)
         self.executor.free_slots(freed)  # one clear per step
 
     # -- the step state machine ----------------------------------------------
@@ -694,3 +784,176 @@ class ContinuousScheduler:
             self._decode_step(done)
         return done
 
+    def run(self, requests: List[Request]) -> List[Completion]:
+        """Closed-batch wrapper over enqueue + step."""
+        for r in requests:
+            self.enqueue(r)
+        return _run_to_empty(self)
+
+
+@dataclasses.dataclass
+class _FixedBatch:
+    """One in-flight lock-step batch of the fixed scheduler."""
+
+    requests: List[Request]     # real members (tail padding excluded)
+    slots: List[int]            # one pool slot per PADDED row
+    gen: List[List[int]]        # generated tokens per padded row
+    last: np.ndarray            # (B, 1) next decode inputs
+    lengths: np.ndarray         # (B,) per-row cache occupancy
+    steps_left: int             # decode steps until retire
+
+
+class FixedBatchScheduler:
+    """The seed engine's mode: fixed batches, a padded tail, lock-step
+    decode.  Batches of ``batch_size`` form in submission order once their
+    last member has arrived (a partial tail only under ``draining``), take
+    slots 0.. of the pool (the tail padded by repeating its last request),
+    run one monolithic prefill and decode together until the item is
+    complete.  One join-step sample per batch; ``cancel`` reaches only
+    queued requests."""
+
+    def __init__(self, executor: PhaseExecutor, pool: SlotPool,
+                 batch_size: int):
+        if batch_size > pool.n_slots:
+            raise ValueError(f"batch_size {batch_size} exceeds pool size "
+                             f"{pool.n_slots}")
+        self.executor = executor
+        self.pool = pool
+        self.batch_size = batch_size
+        self.decode_len = executor.cfg.decode_len
+        self.queue: Deque[Request] = deque()   # submission order
+        self.draining = False
+        self._active: Optional[_FixedBatch] = None
+        self.reset_window()
+
+    # -- request lifecycle ----------------------------------------------------
+
+    def enqueue(self, r: Request) -> None:
+        """Queue ``r`` in submission order (batches chunk the submission
+        sequence positionally)."""
+        self.queue.append(r)
+
+    def cancel(self, r: Request) -> bool:
+        """Remove a still-queued request; an in-flight lock-step row
+        retires with its batch, so cancelling it returns False."""
+        try:
+            self.queue.remove(r)
+            return True
+        except ValueError:
+            return False
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.queue) or self._active is not None
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.queue)
+
+    def idle_wait_s(self) -> float:
+        """Gap until the next formable batch can launch (its last member's
+        arrival); 0 while a batch decodes or while formation waits on more
+        submissions."""
+        if self._active is not None or not self.queue:
+            return 0.0
+        need = self._formable()
+        if not need:
+            return 0.0
+        latest = max(self.queue[i].arrival_s for i in range(need))
+        return max(0.0, latest - time.perf_counter())
+
+    def reset_window(self) -> None:
+        self.occupancy: List[float] = []
+        self.join_step_s: List[float] = []
+        self.decode_stall_s = 0.0    # lock-step: decode never overlaps join
+        self.preemptions = 0
+        self.holds = 0               # fixed mode has no admission holds
+
+    # -- the step state machine ----------------------------------------------
+
+    def _formable(self) -> int:
+        """Members of the next launchable batch: a full ``batch_size``, or
+        the partial tail once the drive loop promised no more submissions."""
+        if len(self.queue) >= self.batch_size:
+            return self.batch_size
+        return len(self.queue) if self.draining else 0
+
+    def _form_batch(self) -> bool:
+        need = self._formable()
+        if not need:
+            return False
+        chunk = [self.queue[i] for i in range(need)]
+        # a fixed batch launches only once its LAST member has arrived
+        if max(r.arrival_s for r in chunk) > time.perf_counter():
+            return False
+        for _ in range(need):
+            self.queue.popleft()
+        padded = chunk + [chunk[-1]] * (self.batch_size - need)
+        slots = [self.pool.alloc(SlotState(
+            request_id=r.rid, length=len(r.tokens) + 1,
+            arrival_s=r.arrival_s, priority=r.priority,
+            deadline_s=r.deadline_s)) for r in padded]
+        t0 = time.perf_counter()
+        logits = self.executor.prefill_insert(
+            [r.tokens for r in padded], [r.profile for r in padded], slots)
+        _, ids = self.executor.select(logits)
+        self.join_step_s.append(time.perf_counter() - t0)
+        ids = ids[:len(slots)]                  # drop bucket-pad rows
+        self._active = _FixedBatch(
+            requests=chunk, slots=slots,
+            gen=[[int(t)] for t in ids[:, 0]],
+            last=np.asarray(ids[:, :1], np.int32),
+            lengths=np.asarray([self.pool[s].length for s in slots],
+                               np.int32),
+            steps_left=self.decode_len - 1)
+        return True
+
+    def _decode_once(self) -> None:
+        b = self._active
+        tokens = np.zeros((self.pool.n_slots, 1), np.int32)
+        lens = np.zeros((self.pool.n_slots,), np.int32)
+        tokens[b.slots, 0] = b.last[:, 0]
+        lens[b.slots] = b.lengths
+        logits = self.executor.decode(tokens, lens)
+        _, ids = self.executor.select(logits)
+        self.occupancy.append(len(b.requests) / self.pool.n_slots)
+        b.lengths = b.lengths + 1
+        b.last = np.asarray(ids[b.slots, :1], np.int32)
+        for row, toks in enumerate(b.gen):
+            toks.append(int(b.last[row, 0]))
+        b.steps_left -= 1
+
+    def _retire(self) -> List[Completion]:
+        b, self._active = self._active, None
+        finish = time.perf_counter()
+        done = []
+        for row, r in enumerate(b.requests):  # drop padded duplicates
+            item = np.asarray(b.gen[row], np.int32)
+            done.append(Completion(
+                rid=r.rid, item=item, items=[item],
+                latency_s=finish - r.arrival_s,
+                priority=r.priority, deadline_s=r.deadline_s,
+                deadline_missed=r.deadline_s is not None
+                and finish > r.deadline_s))
+        retired = sorted(set(b.slots))
+        for s in retired:
+            self.pool.free(s)
+        self.executor.free_slots(retired)   # one clear per batch
+        return done
+
+    def step(self) -> List[Completion]:
+        """One lock-step round: form and prefill the next batch, or decode
+        the active one; the batch retires when its last decode lands."""
+        if self._active is None and not self._form_batch():
+            return []
+        if self._active.steps_left > 0:
+            self._decode_once()
+        if self._active.steps_left == 0:
+            return self._retire()
+        return []
+
+    def run(self, requests: List[Request]) -> List[Completion]:
+        """Closed-batch wrapper over enqueue + step."""
+        for r in requests:
+            self.enqueue(r)
+        return _run_to_empty(self)

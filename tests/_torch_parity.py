@@ -149,6 +149,41 @@ def drive_both(jax_params, cfg, script, *, port_fused=None, **settings):
             counts(engine, engine.stats()))
 
 
+def complete_both(jax_params, cfg, requests, *, port_fused=None,
+                  **settings):
+    """Submit ``requests`` and drain, on the JAX engine (op by op) and on
+    the port's engine on the CPU.  Returns (JAX completions, port
+    completions, JAX counts, port counts), counts with the tree decode's
+    ``decode_multi_steps`` and ``branch_tokens``."""
+    jax_engine, engine = _engines(jax_params, cfg, port_fused, settings)
+    runs = []
+    with jax.disable_jit():
+        handles = [jax_engine.submit(r) for r in requests]
+        jax_engine.drain()
+    runs.append([h.completion for h in handles])
+    handles = [engine.submit(r) for r in requests]
+    engine.drain()
+    runs.append([h.completion for h in handles])
+    tree_keys = ("decode_multi_steps", "branch_tokens")
+    for eng in (jax_engine, engine):
+        stats = eng.stats()
+        runs.append({**counts(eng, stats),
+                     **{k: stats[k] for k in tree_keys}})
+    return tuple(runs)
+
+
+def assert_same_completions(ref, out, score_atol=1e-5):
+    """Token-identical ranked items, scores within ``score_atol`` (f32
+    log-probs summed in another order)."""
+    assert len(out) == len(ref)
+    for a, b in zip(out, ref):
+        assert len(a.items) == len(b.items) == len(a.scores)
+        for x, y in zip(a.items, b.items):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_allclose(a.scores, b.scores, rtol=0,
+                                   atol=score_atol)
+
+
 def assert_same_handles(ref, out):
     """Equal status per handle, token-identical items where done."""
     assert [h.status for h in out] == [h.status for h in ref]

@@ -184,11 +184,13 @@ def test_paged_decode_kernel_matches_plain(cuda, quantized, ps, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "fp8kv"])
-@pytest.mark.parametrize("n_branches", [2, 4])
+@pytest.mark.parametrize("n_branches", [2, 4, 8, 10, 16])
 def test_paged_decode_kernel_matches_plain_tree(cuda, quantized, n_branches):
     """Tree decode, the kernel's whole function: ``starts`` and a branch
     stride (a row sees the shared prefix and its own branch's span), C*G =
-    8 or 16 rows per KV head, an empty slot, a start on a page boundary."""
+    8, 16, 32, 40 or 64 rows per KV head (one, two or four m16 row tiles,
+    40 with a part-empty last tile), an empty slot, a start on a page
+    boundary."""
     g = torch.Generator().manual_seed(n_branches)
     kv, grp, hd, ps, stride = 4, 4, 128, 32, 3
     starts = torch.tensor([100, 0, 64, 37, 250, 5], dtype=torch.int32)
@@ -227,6 +229,25 @@ def test_paged_decode_kernel_matches_plain_tree(cuda, quantized, n_branches):
     torch.testing.assert_close(out.float().cpu(), ref.float(), rtol=ULP,
                                atol=ULP)
     assert out[1].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_refuses_more_rows_than_it_holds(cuda):
+    """Above ``MAX_ROWS`` query rows per KV head the wrapper raises before
+    any launch."""
+    kv, hd, ps, rows = 2, 128, 32, decode_ops.MAX_ROWS + 4
+    n_pos = 2 * ps
+    q = torch.zeros(1, kv, rows, hd, dtype=torch.bfloat16, device=cuda)
+    k = torch.zeros(n_pos, kv, hd, dtype=torch.bfloat16, device=cuda)
+    ints = dict(dtype=torch.int32, device=cuda)
+    before = decode_ops.paged_decode.launches
+    with pytest.raises(ValueError, match="rows per head"):
+        decode_ops.paged_decode(
+            q, k, k.clone(), torch.full((n_pos,), -1, **ints), None, None,
+            torch.ones(1, 1, **ints), torch.zeros(1, **ints),
+            torch.zeros(1, **ints), page_size=ps, group=4, branch_stride=2,
+            scale=1.0 / math.sqrt(hd))
+    assert decode_ops.paged_decode.launches == before
 
 
 def _topk_rows(B, V, dtype):

@@ -275,8 +275,14 @@ def test_engine_refuses_a_quiet_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(max_candidates=2), dict(mode="fixed")])
+    dict(n_dense_layers=1), dict(use_qk_norm=True)])
 def test_unported_engine_settings_name_their_roadmap_item(setting):
+    """Every ``EngineConfig`` setting is ported; what the engine still
+    refuses is a model outside the OneRec backbone (the model zoo's layer
+    plans), naming the ROADMAP item that brings it."""
     cfg = onerec_v2.reduced_config()
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue N"):
-        ServingEngine({}, cfg, EngineConfig(**setting), device="cpu")
+    cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
+        cfg.transformer, **setting))
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP\.md queue N, item N7"):
+        ServingEngine({}, cfg, EngineConfig(), device="cpu")

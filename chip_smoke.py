@@ -9,7 +9,11 @@ from the root of a checkout.  Phases, each of which fails the run:
 1. Setup: the card's name and power limit; build every CUDA kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
 2. Kernel checks: each kernel against its plain PyTorch version on the card
-   at the full-width OneRec-V2 shapes of the serving path, plus adversarial
+   at the full-width OneRec-V2 shapes of the serving path and at the LM
+   zoo's (``fp8_gemm`` at llama3-8b's gate and down, N and K = 10944 and
+   gemma3's N = 256, decode and prefill rows; ``fp8_grouped_gemm`` at 64
+   experts; ``batch_attention`` at S = 4112, hd 256 over a wrapped
+   512-slot ring, G = 1, 4 and 7), plus adversarial
    page layouts and tree-decode cases at 16, 32 and 64 query rows a KV
    head (fp8 and bf16 pools, dummy branches) for ``paged_decode``, rows of
    ties
@@ -48,9 +52,14 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``use_radix_topk``, and the same in fixed mode; tree decode on the
    paged layout (``max_candidates=8``, widths 1, 3, 4, 8: branch seeds
    and ranked items); ``generate_items`` and ``beam_generate`` over the
-   batch-shared cache with ``topk_fn=radix_topk``: first tokens and
+   batch-shared cache with ``topk_fn=radix_topk``; and two small LM
+   configs (``lm-gemma``: windows, a global layer every third, QK-norm,
+   sandwich and zero-centred norms, tied and scaled embeddings, GeGLU,
+   head_dim 256; ``lm-moe``: a leading dense layer, 16 experts top-4 with
+   shared experts and their gate, MHA) through ``lm_bundle``'s prefill and
+   8 greedy decode steps with ``use_attention_kernel``: first tokens and
    teacher-forced top-8 overlap against thresholds.
-4. Full width, seven main paths, each kernel's launch count (and the int8
+4. Full width, eight main paths, each kernel's launch count (and the int8
    product's) zeroed before and read after each; the counts must match
    the layer arithmetic:
    (a) ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode auto``
@@ -82,7 +91,15 @@ from the root of a checkout.  Phases, each of which fails the run:
    (g) ``generate_items`` and ``beam_generate(beam_width=8)`` on 32 full
    histories over the batch-shared cache with ``use_attention_kernel``
    and ``topk_fn=radix_topk`` (``batch_attention``, ``radix_topk``);
-   beams sorted, a beam of one equal to the greedy items.
+   beams sorted, a beam of one equal to the greedy items;
+   (h) ``lm-zoo``: llama3-8b, gemma3-1b, qwen2-moe-a2.7b, deepseek-moe-16b
+   and deepseek-coder-33b at their published widths and depth, FP8 PTQ
+   layer by layer at init, a prefill of 4 prompts of 4096 tokens from
+   ``SyntheticLMStream``, then 16 ``decode_fused`` steps over a shared
+   bf16 cache of 4112 positions with ``use_attention_kernel``
+   (``fp8_gemm``, ``fp8_grouped_gemm``, ``batch_attention``); finite
+   logits, counts held to the layer arithmetic for the prefill and the
+   decode apart.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -113,7 +130,8 @@ FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 TOL = 2.0 ** -7
 # the GEMM kernels sum exact products in f32, as the Pallas kernels do: at
 # most this share of their outputs may differ from the bf16 rounding of the
-# same function summed in float64 (their plain versions: <= 0.0103%)
+# same function summed in float64 (their plain versions: <= 0.0121%, but
+# one output of 1024 at gemma3-1b's decode k/v shape)
 OFF_EXACT_MAX = 1e-3
 CPU_FIRST_TOKEN_AGREE = 0.9      # card vs CPU, share of requests
 CPU_TOP8_OVERLAP = 0.85          # card vs CPU, teacher-forced mean overlap
@@ -214,6 +232,39 @@ def off_exact(name, shape, out, ref, exact):
     return dict(off_exact_kernel=shares[0], off_exact_plain=shares[1])
 
 
+# (model, (M, K, N)): OneRec-V2's decode q/o, decode k/v and a 32-request
+# prefill's q/o; the LM zoo's at phase 4 (h) (4 decode rows, 4 x 4096
+# prefill rows): llama3-8b's gate and down, deepseek-moe-16b's dense gate
+# (N = 10944, not a multiple of 128) and down (K = 10944), gemma3-1b's k/v
+# (one KV head of 256)
+GEMM_SHAPES = (
+    ("onerec-v2", (32, 2048, 2048)), ("onerec-v2", (32, 2048, 512)),
+    ("onerec-v2", (12320, 2048, 2048)),
+    ("llama3-8b gate", (4, 4096, 14336)),
+    ("llama3-8b gate", (16384, 4096, 14336)),
+    ("llama3-8b down", (4, 14336, 4096)),
+    ("llama3-8b down", (16384, 14336, 4096)),
+    ("deepseek-moe-16b dense gate", (4, 2048, 10944)),
+    ("deepseek-moe-16b dense gate", (16384, 2048, 10944)),
+    ("deepseek-moe-16b dense down", (4, 10944, 2048)),
+    ("deepseek-moe-16b dense down", (16384, 10944, 2048)),
+    ("gemma3-1b k/v", (4, 1152, 256)), ("gemma3-1b k/v", (16384, 1152, 256)))
+# (model, (E, C, K, N)): OneRec-V2's decode (C = 8 rows per expert) and
+# 32-request prefill (C = 3080) gate/up and down; the zoo's 64 experts
+# (qwen2-moe's 60 padded by ep_degree 16, deepseek-moe's 64) at decode
+# (C = 8) and at the 16384-token prefill (C = 1368 qwen2, 1920 deepseek)
+GROUPED_SHAPES = (
+    ("onerec-v2", (16, 8, 2048, 4096)), ("onerec-v2", (16, 8, 4096, 2048)),
+    ("onerec-v2", (16, 3080, 2048, 4096)),
+    ("onerec-v2", (16, 3080, 4096, 2048)),
+    ("qwen2 / deepseek-moe", (64, 8, 2048, 1408)),
+    ("qwen2 / deepseek-moe", (64, 8, 1408, 2048)),
+    ("qwen2-moe-a2.7b", (64, 1368, 2048, 1408)),
+    ("qwen2-moe-a2.7b", (64, 1368, 1408, 2048)),
+    ("deepseek-moe-16b", (64, 1920, 2048, 1408)),
+    ("deepseek-moe-16b", (64, 1920, 1408, 2048)))
+
+
 def check_fp8_gemm(dev, records):
     import torch
     from repro_torch.core import quant
@@ -221,8 +272,7 @@ def check_fp8_gemm(dev, records):
     g = torch.Generator(device=dev).manual_seed(1)
     worst = 0.0
     shapes = []
-    # (M, K, N): decode q/o, decode k/v, a 32-request prefill's q/o
-    for m, k, n in ((32, 2048, 2048), (32, 2048, 512), (12320, 2048, 2048)):
+    for model, (m, k, n) in GEMM_SHAPES:
         x = torch.randn(1, m, k, device=dev, generator=g).to(torch.bfloat16)
         # a pool of weights larger than L2, rotated so every launch streams
         # its weight from HBM as a decode step does; K-major, as PTQ lays
@@ -330,7 +380,7 @@ def check_fp8_gemm(dev, records):
         b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
                            2.0 * m * n * k, FP8_OPS_PER_S)
         path = "prefill" if splits == 0 else f"decode, {splits} splits"
-        print(f"[kernel] fp8_gemm M={m} K={k} N={n} ({path}): "
+        print(f"[kernel] fp8_gemm {model} M={m} K={k} N={n} ({path}): "
               f"max|diff|={err:.3g}, static {err_s:.3g} (tol {tol:.3g}) "
               f"kernel {t['kernel']:.4f} ms = quantization {t['quant']:.4f} "
               f"+ GEMM {t['gemm']:.4f} ms; static mode {t['static']:.4f} ms "
@@ -343,7 +393,8 @@ def check_fp8_gemm(dev, records):
               f"kernel {eager['kernel']:.4f} ms, torch._scaled_mm "
               f"{eager['library']:.4f} ms")
         shapes.append(dict(
-            shape=f"M={m} K={k} N={n}", path=path, timer="cuda_graph",
+            shape=f"M={m} K={k} N={n}", model=model, path=path,
+            timer="cuda_graph",
             ms=t["kernel"],
             quant_ms=t["quant"], gemm_ms=t["gemm"], plain_ms=plain_ms,
             static_ms=t["static"], static_quant_ms=t["quant_static"],
@@ -417,11 +468,9 @@ def check_fp8_grouped_gemm(dev, records):
     g = torch.Generator(device=dev).manual_seed(2)
     worst = 0.0
     shapes = []
-    # (E, C, K, N): decode gate/up and down (C = 8 rows per expert), and a
-    # 32-request prefill group's gate/up and down (C = 3080); each weight is
-    # 128 MiB of e4m3, beyond the 50 MB L2, so every launch streams it
-    for e, c, k, n in ((16, 8, 2048, 4096), (16, 8, 4096, 2048),
-                       (16, 3080, 2048, 4096), (16, 3080, 4096, 2048)):
+    # each weight is 128 MiB (OneRec) or 176 MiB (the zoo) of e4m3, beyond
+    # the 50 MB L2, so every launch streams it
+    for model, (e, c, k, n) in GROUPED_SHAPES:
         x = torch.randn(e, c, k, device=dev, generator=g).to(torch.bfloat16)
         w = quant.quantize_blockwise(
             torch.randn(e, k, n, device=dev, generator=g) / math.sqrt(k))
@@ -498,7 +547,8 @@ def check_fp8_grouped_gemm(dev, records):
             f"{name} {t[name]:.4f} ms (with quantize_blockwise "
             f"{lib_q[name]:.4f} ms eager)" if why is None
             else f"{name} refused: {why}" for name, why in refused.items())
-        print(f"[kernel] fp8_grouped_gemm E={e} C={c} K={k} N={n} ({path}):"
+        print(f"[kernel] fp8_grouped_gemm {model} E={e} C={c} K={k} N={n} "
+              f"({path}):"
               f" max|diff|={err:.3g} (tol {tol:.3g}) kernel {t['kernel']:.4f}"
               f" ms = quantization {t['quant']:.4f} + GEMM {t['gemm']:.4f} "
               f"ms ({2.0 * e * c * n * k / t['gemm'] / 1e9:.1f} TFLOP/s, "
@@ -508,7 +558,8 @@ def check_fp8_grouped_gemm(dev, records):
               f"library: {lib_txt}")
         one_call = refused["scaled_grouped_mm"] is None
         shapes.append(dict(
-            shape=f"E={e} C={c} K={k} N={n}", path=path, timer="cuda_graph",
+            shape=f"E={e} C={c} K={k} N={n}", model=model, path=path,
+            timer="cuda_graph",
             ms=t["kernel"], quant_ms=t["quant"], gemm_ms=t["gemm"],
             eager_ms=eager["kernel"], plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by,
@@ -1048,6 +1099,82 @@ def check_batch_attention(dev, records):
     records["batch_attention"]["max_abs_err"] = worst
 
 
+# (name, B, H, Kv, hd, S, window): the shared-index decode of phase 4 (h) at
+# its last step (position 4111 of a 4112-position cache), B = 4
+ZOO_ATTENTION = (
+    ("gemma3-1b local (wrapped 512-slot ring)", 4, 4, 1, 256, 512, 512),
+    ("gemma3-1b global", 4, 4, 1, 256, 4112, 0),
+    ("llama3-8b", 4, 32, 8, 128, 4112, 0),
+    ("qwen2-moe / deepseek-moe (G = 1)", 4, 16, 16, 128, 4112, 0),
+    ("deepseek-coder-33b (G = 7)", 4, 56, 8, 128, 4112, 0))
+ZOO_LAST = 4111                  # the query's position
+
+
+def check_batch_attention_zoo(dev, records):
+    """``batch_attention`` at the zoo's decode shapes: one query a row at
+    ``ZOO_LAST`` over a shared cache whose slot s holds the newest position
+    p with p % S == s (the 512-slot ring has wrapped eight times), against
+    the plain version (the JAX wrapper's blocks: 257 of 16 keys at S =
+    4112) to ``TOL``; device and eager times beside SDPA (boolean mask with
+    the window, grouped KV heads) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.batch_attention import ops
+    rows = []
+    for name, b, h, kv, hd, s, window in ZOO_ATTENTION:
+        g = torch.Generator(device="cpu").manual_seed(s + h)
+        q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+                   for shape in ((b, 1, h, hd), (b, s, kv, hd),
+                                 (b, s, kv, hd)))
+        slot = torch.arange(s)
+        pos = ZOO_LAST - (ZOO_LAST - slot) % s
+        k_pos = pos.to(torch.int32)[None].expand(b, s).contiguous().to(dev)
+        q_pos = torch.full((b, 1), ZOO_LAST, dtype=torch.int32, device=dev)
+        kw = dict(scale=1.0 / math.sqrt(hd), window=window)
+        args = (q, k, v, q_pos, k_pos)
+        out = ops.batch_attention(*args, **kw)
+        ref = ops.batch_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = TOL * ref.float().abs().max().item()
+        if not err <= tol:
+            fail(f"batch_attention {name}: max |diff| {err} > {tol}")
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        valid = (k_pos >= 0) & (k_pos <= ZOO_LAST)
+        if window:
+            valid &= ZOO_LAST - k_pos < window
+        mask = valid[:, None, None, :]
+        fns = dict(
+            kernel=lambda: ops.batch_attention(*args, **kw),
+            library=lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True))
+        t = time_turns(fns, 50)
+        eager = time_turns(fns, 50, timer=time_ms)
+        plain_ms = time_ms(lambda: ops.batch_attention_plain(*args, **kw), 5)
+        n_keys = int(valid.sum().item())          # valid (row, key) pairs
+        n_bytes = (n_keys * kv * hd * 2 * 2 + k_pos.numel() * 4
+                   + q_pos.numel() * 4 + 2 * q.numel() * 2)
+        b_ms, b_by = bound(n_bytes, 4.0 * n_keys * h * hd, BF16_OPS_PER_S)
+        print(f"[kernel] batch_attention zoo {name} B={b} H={h} Kv={kv} "
+              f"hd={hd} S={s} window={window}: max|diff|={err:.3g} (tol "
+              f"{tol:.3g}); kernel {t['kernel']:.4f} ms, SDPA "
+              f"{t['library']:.4f} ms (device times, CUDA graphs), eager "
+              f"{eager['kernel']:.4f} / {eager['library']:.4f} ms; plain "
+              f"{plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {n_keys} "
+              f"valid keys)")
+        rows.append(dict(shape=f"{name}: B={b} T=1 H={h} Kv={kv} hd={hd} "
+                               f"S={s} window={window}",
+                         ms=t["kernel"], eager_ms=eager["kernel"],
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=t["library"],
+                         library_eager_ms=eager["library"], max_abs_err=err))
+    records["batch_attention"]["zoo"] = rows
+    records["batch_attention"]["max_abs_err"] = max(
+        records["batch_attention"]["max_abs_err"],
+        max(r["max_abs_err"] for r in rows))
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: card against CPU on a small 128-aligned config
 # ---------------------------------------------------------------------------
@@ -1532,6 +1659,115 @@ def card_vs_cpu_generate(dev):
         fail("card-vs-CPU generate: first tokens under the bar")
 
 
+LM_PROMPT, LM_ROWS, LM_STEPS = 48, 16, 8     # phase 3's LM cases
+
+
+def lm_smoke_cfg(case: str):
+    """Phase 3's two small 128-aligned LM configs, at reduced depth:
+    ``lm-gemma`` (a window of 16 with a global layer every third, two RoPE
+    thetas, QK-norm, sandwich and zero-centred norms, tied and scaled
+    embeddings, GeGLU, head_dim 256) and ``lm-moe`` (a leading dense
+    layer, 16 experts top-4 with two shared experts and their gate, MHA);
+    both with ``use_attention_kernel`` and q chunks of 16, so the 48-token
+    prefill runs ``_chunked_attention``."""
+    from repro_torch.configs.base import TransformerConfig
+    common = dict(vocab_size=512, max_seq_len=128, remat=False,
+                  attn_chunk_size=16, use_attention_kernel=True)
+    if case == "lm-gemma":
+        return TransformerConfig(
+            name="lm-smoke-gemma", n_layers=6, d_model=256, n_heads=4,
+            n_kv_heads=1, head_dim=256, d_ff=512, act="gelu",
+            sliding_window=16, global_interval=3, rope_theta=1e6,
+            rope_theta_local=1e4, use_qk_norm=True, use_post_norm=True,
+            zero_centered_norm=True, embed_scale=True, tie_embeddings=True,
+            **common)
+    return TransformerConfig(
+        name="lm-smoke-moe", n_layers=3, d_model=256, n_heads=4,
+        n_kv_heads=4, head_dim=64, d_ff=256, moe=True, n_experts=16, top_k=4,
+        d_expert=256, n_shared_experts=2, shared_expert_gate=True,
+        n_dense_layers=1, d_ff_dense=512, capacity_factor=1.5, ep_degree=16,
+        **common)
+
+
+def card_vs_cpu_lm(dev, case: str):
+    """``lm-gemma`` / ``lm-moe``: ``LM_ROWS`` prompts of ``LM_PROMPT`` tokens
+    from ``SyntheticLMStream`` through ``lm_bundle``'s prefill step, then
+    ``LM_STEPS`` greedy steps through its decode step over a shared cache
+    of ``LM_PROMPT + LM_STEPS`` positions, FP8 weights (the same raw params
+    PTQ'd on each device); on the card kernels ``fp8_gemm``,
+    ``batch_attention`` (and ``fp8_grouped_gemm``), on the CPU their plain
+    versions.  Greedy first tokens agree on >= ``CPU_FIRST_TOKEN_AGREE`` of
+    the rows; teacher-forced (the card fed the CPU's greedy tokens) top-8
+    overlap >= ``CPU_TOP8_OVERLAP`` at the prefill and every step; whole
+    greedy sequences for information."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.data.lm import LMStreamConfig, SyntheticLMStream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    cfg = lm_smoke_cfg(case)
+    prefill, decode = (steps.lm_bundle(case, cfg, ShapeSpec(
+        kind, kind, seq_len=n, global_batch=LM_ROWS), fp8=False, seed=3,
+        device="cpu") for kind, n in (("prefill", LM_PROMPT),
+                                      ("decode", LM_PROMPT + LM_STEPS)))
+    prompts = torch.from_numpy(SyntheticLMStream(LMStreamConfig(
+        cfg.vocab_size, LM_PROMPT, LM_ROWS, seed=3)).batch_at(0)["tokens"])
+    wrappers = _wrappers()
+
+    def run(d, params, teacher=None):
+        """Prefill logits, then greedy steps (fed ``teacher``'s tokens if
+        given): (tokens (rows, 1 + steps), logits of each, launches)."""
+        for w in wrappers.values():
+            w.launches = 0
+        logits, _ = prefill.fn(params, {"tokens": prompts.to(d)})
+        cache = tree.map_with_path(lambda _, t: t.clone().to(d),
+                                   decode.args[1])
+        _, cache = tfm.prefill(params, prompts.to(d), cfg, cache)
+        out = [logits]
+        toks = [logits.argmax(-1).to(torch.int32)]
+        for i in range(LM_STEPS):
+            feed = toks[-1] if teacher is None else \
+                torch.from_numpy(teacher[:, i]).to(d)
+            lg, cache = decode.fn(params, cache, {"tokens": feed[:, None]},
+                                  LM_PROMPT + i)
+            out.append(lg)
+            toks.append(lg.argmax(-1).to(torch.int32))
+        logits = [x.float().cpu().numpy() for x in out]
+        if not all(np.isfinite(x).all() for x in logits):
+            fail(f"card-vs-CPU {case}: non-finite logits on {d}")
+        return (torch.stack(toks, 1).cpu().numpy(), logits,
+                {n: w.launches for n, w in wrappers.items()})
+
+    params = {d: quantize_params(tree.map_with_path(
+        lambda _, t: t.to(d), prefill.args[0]), PAPER_POLICY)
+        for d in ("cpu", dev)}
+    c_toks, c_logits, c_launch = run("cpu", params["cpu"])
+    g_toks, _, g_launch = run(dev, params[dev])
+    _, t_logits, _ = run(dev, params[dev], teacher=c_toks)
+    if any(c_launch.values()):
+        fail(f"card-vs-CPU {case}: kernels counted on the CPU {c_launch}")
+    if not g_launch["fp8_gemm"] or not g_launch["batch_attention"] \
+            or bool(cfg.moe) != bool(g_launch["fp8_grouped_gemm"]):
+        fail(f"card-vs-CPU {case}: card launches {g_launch}")
+    overlaps = [_overlap8(a, b) for a, b in zip(c_logits, t_logits)]
+    first = float(np.mean(c_toks[:, 0] == g_toks[:, 0]))
+    whole = float(np.mean((c_toks == g_toks).all(1)))
+    print(f"[card-vs-cpu] {cfg.name} {case}: {LM_ROWS} prompts of "
+          f"{LM_PROMPT} tokens + {LM_STEPS} greedy steps; greedy first "
+          f"tokens agree on {first:.3f} of rows (>= {CPU_FIRST_TOKEN_AGREE}),"
+          f" whole sequences {whole:.3f}; teacher-forced top-8 overlap "
+          f"(prefill, then each step) {[round(o, 3) for o in overlaps]} (>= "
+          f"{CPU_TOP8_OVERLAP}); card launches {g_launch}")
+    if min(overlaps) < CPU_TOP8_OVERLAP:
+        fail(f"card-vs-CPU {case}: teacher-forced overlap under the bar")
+    if first < CPU_FIRST_TOKEN_AGREE:
+        fail(f"card-vs-CPU {case}: first tokens under the bar")
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: full width through the launcher
 # ---------------------------------------------------------------------------
@@ -1652,7 +1888,7 @@ def full_width(dev):
             "ptq": ptq_path(dev, per_forward, paged_outs),
             "tree": tree_path(dev, per_forward, paged_stats, paged_peak),
             "fixed": fixed_path(dev, per_forward, contig_stats),
-            **generation_path(dev)}
+            **generation_path(dev), **lm_zoo_path(dev)}
 
 
 def _latency_line(name, stats, ref_name, ref):
@@ -1850,6 +2086,140 @@ def generation_path(dev):
     return {"generate": launches["greedy"], "beam": launches["beam"]}
 
 
+ZOO = ("llama3-8b", "gemma3-1b", "qwen2-moe-a2.7b", "deepseek-moe-16b",
+       "deepseek-coder-33b")
+ZOO_B, ZOO_PROMPT, ZOO_DECODE = 4, 4096, 16
+
+
+def zoo_per_forward(cfg):
+    """Kernel launches of one forward of an LM (a prefill or a decode
+    step): ``fp8_gemm`` q, k, v, o a layer, gate, up, down a dense layer
+    and a layer's shared experts; ``fp8_grouped_gemm`` gate, up, down an
+    MoE layer."""
+    n_moe = cfg.n_layers - cfg.n_dense_layers if cfg.moe else 0
+    dense = cfg.n_layers - n_moe
+    shared = n_moe if cfg.n_shared_experts else 0
+    return {"fp8_gemm": 4 * cfg.n_layers + 3 * (dense + shared),
+            "fp8_grouped_gemm": 3 * n_moe}
+
+
+def zoo_decode_floor_ms(params, cache, cfg):
+    """The least time of one decode step at the full cache, in ms: every
+    weight it reads (all padded experts, the kernel's read; the head, or
+    the tied table; not the embedding rows it gathers) and the whole K/V
+    cache, once each, over the HBM rate."""
+    from repro_torch import tree
+    from repro_torch.core.quant import QuantizedTensor
+    n = 0
+    for path, leaf in tree.leaves_with_path(params):
+        if path.startswith("embed/") and not cfg.tie_embeddings:
+            continue
+        n += leaf.nbytes() if isinstance(leaf, QuantizedTensor) \
+            else leaf.numel() * leaf.element_size()
+    n += sum(leaf.numel() * leaf.element_size()
+             for path, leaf in tree.leaves_with_path(cache)
+             if path.rsplit("/", 1)[-1] in ("k", "v"))
+    return n / HBM_BYTES_PER_S * 1e3
+
+
+def lm_zoo_path(dev):
+    """Phase 4 (h): each LM of the zoo at its published widths and depth:
+    ``lm_bundle``'s decode bundle (FP8 PTQ with the paper's policy, layer by
+    layer at init, raw leaves bf16; an empty shared bf16 cache of
+    ``ZOO_PROMPT + ZOO_DECODE`` positions), ``transformer.prefill`` of
+    ``ZOO_B`` prompts of ``ZOO_PROMPT`` tokens from ``SyntheticLMStream``
+    at the arch's vocabulary (``_chunked_attention``; gemma3-1b's 512-slot
+    rings wrap), then ``decode_fused`` for ``ZOO_DECODE`` steps with
+    ``use_attention_kernel``.  Launch counts are zeroed before and read
+    after the prefill and the decode, and must equal the layer arithmetic
+    (``batch_attention``: n_layers a decode step, none at prefill); logits
+    finite, tokens in the vocabulary.  Returns {"lm-zoo/<arch>": launches
+    of prefill + decode}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.lm import LMStreamConfig, SyntheticLMStream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    wrappers = _wrappers()
+    out = {}
+    for arch in ZOO:
+        cfg = dataclasses.replace(registry.get_arch(arch).CONFIG,
+                                  use_attention_kernel=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        bundle = steps.lm_bundle(arch, cfg, ShapeSpec(
+            "zoo-decode", "decode", seq_len=ZOO_PROMPT + ZOO_DECODE,
+            global_batch=ZOO_B), fp8=True, dtype=torch.bfloat16, device=dev)
+        params, cache = bundle.args[:2]
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        weights = torch.cuda.memory_allocated(dev)
+        prompts = torch.from_numpy(SyntheticLMStream(LMStreamConfig(
+            cfg.vocab_size, ZOO_PROMPT, ZOO_B, seed=0)).batch_at(0)["tokens"]
+        ).to(dev)
+        per = zoo_per_forward(cfg)
+        launches, walls = {}, {}
+        for phase in ("prefill", "decode"):
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            if phase == "prefill":
+                logits, cache = tfm.prefill(params, prompts, cfg, cache)
+                first = logits.argmax(-1)[:, None].to(torch.int32)
+                forwards = 1
+            else:
+                toks, cache = tfm.decode_fused(params, first, cfg, cache,
+                                               ZOO_PROMPT, ZOO_DECODE)
+                forwards = ZOO_DECODE
+            torch.cuda.synchronize()
+            walls[phase] = time.perf_counter() - t0
+            launches[phase] = {n: w.launches for n, w in wrappers.items()}
+            expect = {"fp8_gemm": forwards * per["fp8_gemm"],
+                      "fp8_grouped_gemm": forwards * per["fp8_grouped_gemm"],
+                      "batch_attention": cfg.n_layers * ZOO_DECODE
+                      if phase == "decode" else 0,
+                      "paged_decode": 0, "radix_topk": 0, "int8_matmul": 0}
+            if launches[phase] != expect:
+                fail(f"lm-zoo {arch} {phase}: launch counts "
+                     f"{launches[phase]} != layer arithmetic {expect}")
+            if phase == "decode":
+                # the last step again (its input token, position and
+                # writes are the same), outside the counted window, for
+                # its logits
+                logits, cache = tfm.decode_step(
+                    params, toks[:, -1:], cfg, cache,
+                    ZOO_PROMPT + ZOO_DECODE - 1)
+            if not bool(torch.isfinite(logits).all()):
+                fail(f"lm-zoo {arch} {phase}: non-finite logits")
+        toks = toks.cpu()
+        if toks.shape != (ZOO_B, ZOO_DECODE) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            fail(f"lm-zoo {arch}: tokens {tuple(toks.shape)} out of range")
+        peak = torch.cuda.max_memory_allocated(dev)
+        floor_ms = zoo_decode_floor_ms(params, cache, cfg)
+        print(f"[full-width] lm-zoo {arch}: {cfg.n_layers} of "
+              f"{cfg.n_layers} layers (published widths, depth uncut), "
+              f"{cfg.param_count_estimate() / 1e9:.3f} B params "
+              f"({cfg.active_param_count_estimate() / 1e9:.3f} B active); "
+              f"init + PTQ {init_s:.1f} s, weights + cache "
+              f"{weights / 2**30:.2f} GiB; prefill {ZOO_B} x {ZOO_PROMPT} "
+              f"{walls['prefill'] * 1e3:.1f} ms "
+              f"({ZOO_B * ZOO_PROMPT / walls['prefill']:.0f} tokens/s); "
+              f"decode_fused {ZOO_DECODE} steps "
+              f"{walls['decode'] * 1e3 / ZOO_DECODE:.2f} ms a step "
+              f"({ZOO_B * ZOO_DECODE / walls['decode']:.1f} generated "
+              f"tokens/s; byte floor of the last step {floor_ms:.3f} ms); "
+              f"peak device memory {peak / 2**30:.2f} GiB; "
+              f"launches {launches}")
+        out[f"lm-zoo/{arch}"] = {n: launches["prefill"][n]
+                                 + launches["decode"][n] for n in wrappers}
+        del bundle, params, cache, logits
+    return out
+
+
 def _policy_line(name, stats, peak, held=None):
     held_txt = "" if held is None else \
         f"first visits held {held} of 32 slots at the return visits; "
@@ -2012,11 +2382,14 @@ def main() -> int:
     check_paged_decode(dev, records)
     check_radix_topk(dev, records)
     check_batch_attention(dev, records)
+    check_batch_attention_zoo(dev, records)
     for case in ("paged", "paged-unfused", "paged-policy", "paged-return",
                  "paged-ptq", "contiguous", "fixed"):
         card_vs_cpu(dev, case)
     card_vs_cpu_tree(dev)
     card_vs_cpu_generate(dev)
+    for case in ("lm-gemma", "lm-moe"):
+        card_vs_cpu_lm(dev, case)
     by_path = full_width(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
@@ -2045,7 +2418,7 @@ def main() -> int:
             **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
                                        "library_eager_ms", "threshold",
                                        "tree_ms", "tree_rows", "floor_ms",
-                                       "cases_ms", "beam")
+                                       "cases_ms", "beam", "zoo")
                if key in r},
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,2 @@
-from repro_torch.configs.base import OneRecConfig, TransformerConfig  # noqa: F401
+from repro_torch.configs.base import (OneRecConfig, ShapeSpec,  # noqa: F401
+                                      TransformerConfig)

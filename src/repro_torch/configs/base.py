@@ -1,10 +1,35 @@
-"""Config schema of the port: the two dataclasses the OneRec serving path
-reads, field for field the same as ``repro.configs.base`` (the parity tests
-compare every field), without the JAX package's dry-run and zoo extras."""
+"""Config schema of the port: the shape cells and the two dataclasses the
+OneRec serving path and the LM zoo read, field for field the same as
+``repro.configs.base`` (the parity tests compare every field and the two
+parameter counts).  Every architecture module in ``repro_torch/configs``
+exposes ``CONFIG`` (the full published configuration), ``reduced_config()``
+(a small same-family config for CPU tests), ``SHAPES`` (its input-shape
+cells) and ``FAMILY``.  The recsys and GNN schemas wait for ROADMAP.md queue
+N, item N7b."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (architecture x input-shape) cell."""
+
+    name: str
+    kind: str                 # "train" | "prefill" | "decode" | "score" | "graph"
+    seq_len: int = 0
+    global_batch: int = 0
+    # recsys / gnn extras
+    n_candidates: int = 0
+    n_nodes: int = 0
+    n_edges: int = 0
+    d_feat: int = 0
+    batch_nodes: int = 0
+    fanout: Tuple[int, ...] = ()
+    note: str = ""
+    skip: Optional[str] = None   # reason string when the cell is N/A
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +79,40 @@ class TransformerConfig:
     @property
     def d_ff_for_dense(self) -> int:
         return self.d_ff_dense or self.d_ff
+
+    def param_count_estimate(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS = 6*N*D)."""
+        d, hd = self.d_model, self.head_dim
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        dense_ffn = 3 * d * self.d_ff_for_dense
+        per_moe = (3 * d * self.d_expert * self.n_experts
+                   + 3 * d * self.d_expert * self.n_shared_experts
+                   + d * self.n_experts)
+        n_moe = (self.n_layers - self.n_dense_layers) if self.moe else 0
+        n_dense = self.n_layers - n_moe
+        if not self.moe:
+            dense_ffn = 3 * d * self.d_ff
+        body = self.n_layers * attn + n_dense * dense_ffn + n_moe * per_moe
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return body + embed
+
+    def active_param_count_estimate(self) -> int:
+        """Activated params per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.param_count_estimate()
+        d = self.d_model
+        hd = self.head_dim
+        attn = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd) \
+            + (self.n_heads * hd) * d
+        per_moe_active = 3 * d * self.d_expert * (self.top_k
+                                                  + self.n_shared_experts)
+        n_moe = self.n_layers - self.n_dense_layers
+        n_dense = self.n_dense_layers
+        body = (self.n_layers * attn + n_dense * 3 * d * self.d_ff_for_dense
+                + n_moe * per_moe_active)
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return body + embed
 
 
 @dataclasses.dataclass(frozen=True)

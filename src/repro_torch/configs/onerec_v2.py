@@ -3,8 +3,13 @@
 short-context serving (paper §5.1)."""
 
 from repro_torch.configs.base import OneRecConfig, TransformerConfig
+from repro_torch.configs.shapes import onerec_shapes
 
 CONFIG = OneRecConfig()
+
+SHAPES = onerec_shapes()
+
+FAMILY = "onerec"
 
 
 def reduced_config() -> OneRecConfig:

@@ -91,10 +91,13 @@ class PTQReport:
 def quantize_params(params: Dict[str, Any],
                     policy: QuantPolicy = PAPER_POLICY, *,
                     with_report: bool = False,
-                    compute_errors: bool = False):
+                    compute_errors: bool = False, prefix: str = ""):
     """Apply the paper's PTQ scheme to a param tree.  Returns the quantized
     tree (and a ``PTQReport`` when ``with_report``); ``compute_errors``
-    also measures each tensor's relative L2 quantization error."""
+    also measures each tensor's relative L2 quantization error.  ``prefix``
+    is the path of ``params`` inside the whole tree (a layer made on its own
+    by ``models.transformer.init_transformer``), so its leaves are matched
+    and tagged by their whole-tree paths."""
     if policy.fmt == "int8":
         fmt = None                                  # symmetric int8 path
     else:
@@ -127,7 +130,7 @@ def quantize_params(params: Dict[str, Any],
                        pattern=pattern)
         return q
 
-    quantized = tree.map_with_path(_maybe_quantize, params)
+    quantized = tree.map_with_path(_maybe_quantize, params, prefix)
     if with_report:
         return quantized, report
     return quantized

@@ -9,18 +9,20 @@ Replaces ``repro/kernels/batch_attention/kernel.py``
 dispatches on the tensor's device: a CPU tensor runs the plain version, a
 CUDA tensor launches the kernel or raises.
 
-The plain version computes the Pallas kernel's function at one S block,
-which is what the JAX wrapper runs for S <= 512 (the engine's S is
-``context_len + 1``, 388 at full width): f32 scores times ``scale``,
-masked keys at -2e38, ``p = exp(s - max)`` zeroed where masked, ``l`` its
-f32 sum, the PV product of p ROUNDED TO V's DTYPE (bf16) summed in f32,
+The plain version computes the Pallas kernel's function block by block as
+the JAX wrapper runs it: S in blocks of 512 keys, halved until the block
+divides S (one block at the engine's S = 388; 257 blocks of 16 at S =
+4112), each folded into an online softmax in f32 (running max m, sum l,
+accumulator rescaled by ``exp(m_old - m_new)``): f32 scores times
+``scale``, masked keys at -2e38, ``p = exp(s - m_new)`` zeroed where
+masked, the PV product of p ROUNDED TO V's DTYPE (bf16) summed in f32,
 then ``acc / max(l, 1e-20)`` (0 for a row with no valid key) as bf16.  The
-kernel folds 128-key tiles (64 above head_dim 128) into an online
-softmax, so its p is rounded
-relative to the running max; the two agree to a bf16 ulp of the output.
-``repro/kernels/batch_attention/ref.py`` normalises first and keeps p in
-f32: it differs from both by the bf16 rounding of p, at most 2**-9 of the
-largest |v| (the JAX suite's bound against it is an absolute 0.05).
+kernel folds 128-key tiles (64 above head_dim 128) into the same online
+softmax, so its p is rounded relative to another running max; the two
+agree to a bf16 ulp of the output.  ``repro/kernels/batch_attention/ref.py``
+normalises first and keeps p in f32: it differs from both by the bf16
+rounding of p, at most 2**-9 of the largest |v| (the JAX suite's bound
+against it is an absolute 0.05).
 """
 
 from __future__ import annotations
@@ -37,24 +39,42 @@ MAX_HEAD_DIM = 256
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
+def block_size(s_len: int, block_s: int = 512) -> int:
+    """The JAX wrapper's S block: ``min(block_s, S)``, halved until it
+    divides S."""
+    bs = min(block_s, s_len)
+    while s_len % bs and bs > 1:
+        bs //= 2
+    return bs
+
+
 def batch_attention_plain(q, k, v, q_pos, k_pos, *, scale: float,
                           window: int = 0) -> torch.Tensor:
     """q (B, T, H, hd); k/v (B, S, Kv, hd); q_pos (B, T) and k_pos (B, S),
     -1 = empty key -> (B, T, H * hd) bf16."""
     b, t, h, hd = q.shape
-    kv = k.shape[2]
-    qh = q.reshape(b, t, kv, h // kv, hd)
-    s = torch.einsum("btkgh,bskh->bkgts", qh.float(), k.float()) * scale
-    kp, qp = k_pos[:, None, :], q_pos[:, :, None]
-    valid = (kp >= 0) & (kp <= qp)                        # (B, T, S)
-    if window:
-        valid = valid & (qp - kp < window)
-    valid = valid[:, None, None]                          # (B, 1, 1, T, S)
-    s = torch.where(valid, s, NEG_INF)
-    p = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
-    l = p.sum(-1, keepdim=True)
-    acc = torch.einsum("bkgts,bskh->bkgth", p.to(v.dtype).float(),
-                       v.float())
+    s_len, kv = k.shape[1], k.shape[2]
+    qh = q.reshape(b, t, kv, h // kv, hd).float()
+    qp = q_pos[:, None, None, :, None]                    # (B,1,1,T,1)
+    m = torch.full((b, kv, h // kv, t, 1), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kv, h // kv, t, hd), device=q.device)
+    bs = block_size(s_len)
+    for s0 in range(0, s_len, bs):
+        kb, vb = k[:, s0:s0 + bs], v[:, s0:s0 + bs]
+        s = torch.einsum("btkgh,bskh->bkgts", qh, kb.float()) * scale
+        kp = k_pos[:, None, None, None, s0:s0 + bs]       # (B,1,1,1,bs)
+        valid = (kp >= 0) & (kp <= qp)
+        if window:
+            valid = valid & (qp - kp < window)
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(valid, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bkgts,bskh->bkgth", p.to(v.dtype).float(), vb.float())
+        m = m_new
     out = torch.where(l > 0, acc / l.clamp_min(1e-20), 0.0)
     return (out.to(torch.bfloat16).permute(0, 3, 1, 2, 4)
             .reshape(b, t, h * hd))

@@ -39,15 +39,26 @@ The cached modes of the JAX layer (``repro/layers/attention.py``):
     (``init_cache(..., per_slot=False)``: one ``pos`` row for the batch,
     every row at the same depth): the new K/V at ring slot ``idx % S``,
     then kernel ``batch_attention`` (``use_kernel``, positions broadcast to
-    every row) or the plain masked softmax.  The shared prefill fill keeps
-    the last ``min(S, T)`` positions at ``pos % S``.
+    every row, the layer's window passed on) or the plain masked softmax,
+    keys valid where ``0 <= pos <= idx`` and, in a window layer, ``idx -
+    pos < window``.  The shared prefill fill keeps the last ``min(S, T)``
+    positions at ``pos % S``: a window layer's cache holds ``window``
+    slots (``cache_len_for``), a ring that wraps once the prompt or the
+    decode passes it.
 
 The gathered view (``page_gather`` (B, Sp), the flat pool position of each
 row's logical position) is dense in logical position, so the contiguous
 masks apply to it unchanged; unmapped pages read the sentinel page (``pos``
--1).  Chunked attention is not ported.  Plain torch matmul and softmax
-stand where the JAX code is plain ``jnp``; scores and softmax are f32, the
-PV product takes bf16 probabilities, as there.
+-1).  The uncached and prefill-fill forwards mask causally and, in a window
+layer, by ``q_pos - k_pos < window``; above ``2 * chunk_size`` tokens (and
+a multiple of it) they run ``_chunked_attention``, a loop over q chunks
+against the whole K/V.  QK-norm (``use_qk_norm``) applies a plain RMSNorm
+over head_dim to q and k before RoPE (not zero-centred, as in the JAX
+package, whatever the model's norms).  The paged, per-slot and resume
+modes take full attention only (a window raises ``ValueError``, as in the
+JAX package).  Plain torch matmul and softmax stand where the JAX code is
+plain ``jnp``; scores and softmax are f32, the PV product takes bf16
+probabilities, as there.
 
 The port updates cache tensors IN PLACE (the JAX code returns new arrays):
 a layer's cache dict holds views into the stacked cache, so a write lands
@@ -69,6 +80,7 @@ from repro_torch.core.quant import (dequantize_kv, is_fp8_dtype, matmul_any,
 from repro_torch.kernels.batch_attention.ops import batch_attention
 from repro_torch.kernels.paged_decode.ops import paged_decode_attention
 from repro_torch.layers.common import dense_init
+from repro_torch.layers.norms import rmsnorm_apply
 from repro_torch.layers.rotary import apply_rope
 
 NEG_INF = -2.0e38
@@ -81,9 +93,11 @@ class AttnSpec(NamedTuple):
     n_kv_heads: int
     head_dim: int
     rope_theta: float = 10000.0
+    window: int = 0            # 0 => full (causal) attention
+    use_qk_norm: bool = False
     softmax_scale: Optional[float] = None
     chunk_size: int = 1024     # q-chunking threshold/size for long sequences
-    use_kernel: bool = False   # per-slot decode through batch_attention
+    use_kernel: bool = False   # decode through batch_attention
 
     @property
     def scale(self) -> float:
@@ -102,19 +116,27 @@ class KVWrite(NamedTuple):
 
 
 def init_attention(gen: torch.Generator, d_model: int, spec: AttnSpec, *,
-                   stack: Tuple[int, ...] = (), device=None) -> dict:
+                   stack: Tuple[int, ...] = (), dtype=torch.float32,
+                   device=None) -> dict:
     qkv_std = 1.0 / math.sqrt(d_model)
     o_std = 1.0 / math.sqrt(spec.n_heads * spec.head_dim)
-    return {
+    kw = dict(stack=stack, dtype=dtype, device=device)
+    params = {
         "q_proj": dense_init(gen, d_model, spec.n_heads * spec.head_dim,
-                             stack=stack, stddev=qkv_std, device=device),
+                             stddev=qkv_std, **kw),
         "k_proj": dense_init(gen, d_model, spec.n_kv_heads * spec.head_dim,
-                             stack=stack, stddev=qkv_std, device=device),
+                             stddev=qkv_std, **kw),
         "v_proj": dense_init(gen, d_model, spec.n_kv_heads * spec.head_dim,
-                             stack=stack, stddev=qkv_std, device=device),
+                             stddev=qkv_std, **kw),
         "o_proj": dense_init(gen, spec.n_heads * spec.head_dim, d_model,
-                             stack=stack, stddev=o_std, device=device),
+                             stddev=o_std, **kw),
     }
+    if spec.use_qk_norm:
+        params["q_norm"] = {"scale": torch.ones((*stack, spec.head_dim),
+                                                dtype=dtype, device=device)}
+        params["k_norm"] = {"scale": torch.ones((*stack, spec.head_dim),
+                                                dtype=dtype, device=device)}
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +184,14 @@ def init_page_cache(n_positions: int, spec: AttnSpec, *,
     ``n_pages * page_size`` positions plus a trailing SENTINEL page that is
     never written (unmapped table entries point at it; its pos stays -1)."""
     return _kv_leaves((*stack, n_positions), spec, dtype, device)
+
+
+def cache_len_for(spec: AttnSpec, max_target_len: int) -> int:
+    """A window layer's cache holds ``window`` positions (a ring), a full
+    layer ``max_target_len``."""
+    if spec.window and spec.window < max_target_len:
+        return spec.window
+    return max_target_len
 
 
 def _read_kv(ck, cv, cks, cvs, dtype):
@@ -213,20 +243,49 @@ def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor
     return torch.where(mask.any(-1, keepdim=True), probs, 0.0)
 
 
-def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
-    """(T, S) causal mask (the ported layers have no sliding window)."""
-    return k_pos[None, :] <= q_pos[:, None]
+def _causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    """(T, S) mask: causal, plus sliding window when ``window > 0``."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def _attend_block(q, k, v, q_pos, k_pos, spec: AttnSpec) -> torch.Tensor:
+    """q (B, T, K, G, hd) at ``q_pos`` (T,) over k/v (B, S, K, hd) at
+    ``k_pos`` (S,) -> (B, T, K, G, hd)."""
+    scores = _gqa_scores(q, k, spec.scale)
+    mask = _causal_mask(q_pos, k_pos, spec.window)
+    probs = _masked_softmax(scores, mask[None, None, None])
+    return _gqa_combine(probs, v)
 
 
 def _full_attention(q, k, v, positions, spec: AttnSpec) -> torch.Tensor:
-    """Materialized-scores causal attention for short sequences."""
+    """Materialized-scores path for short sequences."""
     b, t = q.shape[0], q.shape[1]
     g = spec.n_heads // spec.n_kv_heads
     qh = q.reshape(b, t, spec.n_kv_heads, g, spec.head_dim)
-    scores = _gqa_scores(qh, k, spec.scale)
-    mask = _causal_mask(positions, positions)
-    probs = _masked_softmax(scores, mask[None, None, None])
-    return _gqa_combine(probs, v).reshape(b, t, spec.n_heads * spec.head_dim)
+    return _attend_block(qh, k, v, positions, positions, spec).reshape(
+        b, t, spec.n_heads * spec.head_dim)
+
+
+def _chunked_attention(q, k, v, positions, spec: AttnSpec) -> torch.Tensor:
+    """A loop over q chunks of ``chunk_size``, each against the whole K/V
+    (f32 softmax): O(chunk x S) scores at a time instead of O(T x S), the
+    JAX package's ``lax.scan`` over chunks.  Row-wise the same function as
+    ``_full_attention``."""
+    b, t = q.shape[0], q.shape[1]
+    c = spec.chunk_size
+    g = spec.n_heads // spec.n_kv_heads
+    qh = q.reshape(b, t, spec.n_kv_heads, g, spec.head_dim)
+    out = torch.empty((b, t, spec.n_kv_heads, g, spec.head_dim),
+                      dtype=v.dtype, device=q.device)
+    for i in range(t // c):
+        sl = slice(i * c, (i + 1) * c)
+        out[:, sl] = _attend_block(qh[:, sl], k, v, positions[sl],
+                                   positions, spec)
+    return out.reshape(b, t, spec.n_heads * spec.head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -249,10 +308,11 @@ def apply_attention(
     page_size: int = 0,
     branch_stride: Optional[int] = None,
     cache_index: Optional[int] = None,
+    norm_eps: float = 1e-6,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """One attention layer; returns ``(out, cache)``.
 
-    * ``cache=None`` — plain causal forward.
+    * ``cache=None`` — plain causal (and windowed) forward.
     * ``cache, fill_cache=True`` — prefill into a per-slot cache: ``x`` is
       right-padded to T, ``lengths`` (B,) the true sequence lengths; every
       position's K/V is stored and positions ``>= lengths[i]`` are marked
@@ -285,6 +345,11 @@ def apply_attention(
     resume = cache is not None and fill_cache and starts is not None
     tree = decode and branch_stride is not None
     shared = decode and cache_index is not None
+    shared_cache = cache is not None and cache["pos"].ndim == 1 and (
+        shared or (fill_cache and not resume))
+    if spec.window and cache is not None and not shared_cache:
+        raise ValueError("paged, per-slot and resume caches require full "
+                         "attention")
     if shared:
         if cache["pos"].ndim != 1:
             raise ValueError("shared-index decode takes a shared cache")
@@ -311,6 +376,9 @@ def apply_attention(
     q = matmul_any(x, params["q_proj"]["kernel"]).reshape(b, t, h, hd)
     k = matmul_any(x, params["k_proj"]["kernel"]).reshape(b, t, kvh, hd)
     v = matmul_any(x, params["v_proj"]["kernel"]).reshape(b, t, kvh, hd)
+    if spec.use_qk_norm:
+        q = rmsnorm_apply(params["q_norm"], q, eps=norm_eps)
+        k = rmsnorm_apply(params["k_norm"], k, eps=norm_eps)
     q = apply_rope(q, positions, theta=spec.rope_theta)
     k = apply_rope(k, positions, theta=spec.rope_theta)
 
@@ -342,9 +410,9 @@ def apply_attention(
         out = out.to(x.dtype)
     else:
         if t > 2 * spec.chunk_size and t % spec.chunk_size == 0:
-            raise NotImplementedError("chunked attention is not ported yet "
-                                      "(ROADMAP.md queue N, item N7)")
-        out = _full_attention(q, k, v, positions, spec)
+            out = _chunked_attention(q, k, v, positions, spec)
+        else:
+            out = _full_attention(q, k, v, positions, spec)
         if cache is not None and cache["pos"].ndim == 1:
             _shared_fill(cache, k, v, positions)
         elif cache is not None:
@@ -457,9 +525,9 @@ def _shared_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Shared-index decode: the new k/v (B, 1, Kv, hd) land at ring slot
     ``idx % S`` of every row, ``pos[idx % S] = idx``; then q (B, 1, H, hd)
     attends over the post-write rows, keys valid where ``0 <= pos <=
-    idx``: kernel ``batch_attention`` under ``use_kernel`` (positions
-    broadcast to (B, 1) and (B, S)), else the plain masked softmax.
-    Returns (B, 1, H * hd)."""
+    idx`` and, in a window layer, ``idx - pos < window``: kernel
+    ``batch_attention`` under ``use_kernel`` (positions broadcast to (B, 1)
+    and (B, S)), else the plain masked softmax.  Returns (B, 1, H * hd)."""
     s_len = cache["k"].shape[1]
     slot = idx % s_len
     ks, vs, k_sc, v_sc = _store_kv(cache, k, v)
@@ -476,11 +544,14 @@ def _shared_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if spec.use_kernel:
         q_pos = torch.full((b, t), idx, dtype=torch.int32, device=q.device)
         k_pos = cpos[None, :].expand(b, s_len).contiguous()
-        return batch_attention(q, ck, cv, q_pos, k_pos, scale=spec.scale)
+        return batch_attention(q, ck, cv, q_pos, k_pos, scale=spec.scale,
+                               window=spec.window)
     qh = q.reshape(b, t, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
                    spec.head_dim)
     scores = _gqa_scores(qh, ck, spec.scale)              # (B,K,G,T,S)
     valid = (cpos >= 0) & (cpos <= idx)
+    if spec.window:
+        valid &= (idx - cpos) < spec.window
     probs = _masked_softmax(scores, valid[None, None, None, None, :])
     return _gqa_combine(probs, cv).reshape(b, t, -1)
 

@@ -13,17 +13,19 @@ import torch
 
 
 def truncated_normal(shape, stddev: float, gen: torch.Generator,
-                     device) -> torch.Tensor:
-    """``stddev * N(0, 1)`` truncated to two standard deviations, f32."""
+                     device, dtype=torch.float32) -> torch.Tensor:
+    """``stddev * N(0, 1)`` truncated to two standard deviations, drawn in
+    f32 and cast to ``dtype``."""
     t = torch.empty(shape, dtype=torch.float32, device=device)
-    return torch.nn.init.trunc_normal_(t, 0.0, stddev, -2.0 * stddev,
-                                       2.0 * stddev, generator=gen)
+    t = torch.nn.init.trunc_normal_(t, 0.0, stddev, -2.0 * stddev,
+                                    2.0 * stddev, generator=gen)
+    return t if dtype == torch.float32 else t.to(dtype)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *,
                stack: Tuple[int, ...] = (), stddev: Optional[float] = None,
-               device=None) -> dict:
+               dtype=torch.float32, device=None) -> dict:
     """A linear projection param dict: {"kernel": (*stack, in, out)}."""
     stddev = stddev if stddev is not None else 1.0 / math.sqrt(in_dim)
     return {"kernel": truncated_normal((*stack, in_dim, out_dim), stddev,
-                                       gen, device)}
+                                       gen, device, dtype)}

@@ -8,6 +8,9 @@ of its expert's fixed-capacity buffer (assignments past capacity go to a
 trash row that is cut off), run the grouped expert FFN over
 ``(E, capacity, d)`` buffers, and combine the weighted outputs back per
 token.  The same arithmetic as ``repro/layers/moe.py`` ``_moe_local``.
+Shared experts (``n_shared_experts``) are one dense gated MLP of width
+``n_shared_experts * d_expert`` (``params["shared"]``) added to the routed
+sum.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 from repro_torch.core.quant import (QuantizedTensor, fp8_grouped_linear,
                                     fp8_grouped_matmul, matmul_any)
 from repro_torch.layers.common import truncated_normal
-from repro_torch.layers.mlp import ACTIVATIONS
+from repro_torch.layers.mlp import ACTIVATIONS, apply_mlp, init_mlp
 
 
 class MoESpec(NamedTuple):
@@ -45,19 +48,27 @@ def make_moe_spec(n_experts: int, top_k: int, d_model: int, d_expert: int,
 
 
 def init_moe(gen: torch.Generator, spec: MoESpec, *,
-             stack: Tuple[int, ...] = (), device=None) -> dict:
+             stack: Tuple[int, ...] = (), dtype=torch.float32,
+             device=None) -> dict:
     e, d, f = spec.n_experts_padded, spec.d_model, spec.d_expert
     std_in, std_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
-    return {
-        "router": {"kernel": truncated_normal((*stack, d, e), std_in, gen,
-                                              device)},
+
+    def tn(shape, std):
+        return truncated_normal(shape, std, gen, device, dtype)
+
+    params = {
+        "router": {"kernel": tn((*stack, d, e), std_in)},
         # stacked per-expert kernels == the grouped-GEMM operands
         "experts": {
-            "gate": truncated_normal((*stack, e, d, f), std_in, gen, device),
-            "up": truncated_normal((*stack, e, d, f), std_in, gen, device),
-            "down": truncated_normal((*stack, e, f, d), std_out, gen, device),
+            "gate": tn((*stack, e, d, f), std_in),
+            "up": tn((*stack, e, d, f), std_in),
+            "down": tn((*stack, e, f, d), std_out),
         },
     }
+    if spec.n_shared_experts:
+        params["shared"] = init_mlp(gen, d, spec.n_shared_experts * f,
+                                    stack=stack, dtype=dtype, device=device)
+    return params
 
 
 def _grouped_matmul(x: torch.Tensor, w) -> torch.Tensor:
@@ -127,9 +138,17 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     buf[slot] = xt[token_id]
     h = _grouped_ffn(buf[:-1].reshape(e, cap, d), params["experts"], spec.act)
 
-    # combine: gather each kept assignment's output, weight, scatter-add
+    # combine: gather each kept assignment's output, weight, and add a
+    # token's k contributions in order, each sum rounded to the activation
+    # dtype: the JAX scatter-add's order on the CPU (top-k > 2 makes the
+    # order matter), deterministic on the card (no atomics)
     contrib = h.reshape(e * cap, d)[torch.clamp(slot, max=e * cap - 1)]
     contrib = contrib * (flat_w * keep).to(contrib.dtype)[:, None]
-    y = torch.zeros((t, d), dtype=xt.dtype, device=x.device)
-    y.index_add_(0, token_id, contrib)
-    return y.reshape(b, s, d)
+    contrib = contrib.reshape(t, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    out = y.reshape(b, s, d)
+    if spec.n_shared_experts:
+        out = out + apply_mlp(params["shared"], x, act=spec.act)
+    return out

@@ -5,6 +5,10 @@ from __future__ import annotations
 import torch
 
 
+def rmsnorm_init(dim: int, dtype=torch.float32, device=None) -> dict:
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
 def rmsnorm_apply(params: dict, x: torch.Tensor, *, eps: float = 1e-6,
                   zero_centered: bool = False) -> torch.Tensor:
     """RMSNorm in f32 (``zero_centered`` = gemma-style ``(1 + scale)``)."""

@@ -41,7 +41,8 @@ def init_onerec(seed: int, cfg: OneRecConfig, *, device=None) -> dict:
 def _embed_with_profile(params, tokens, profile, cfg: OneRecConfig,
                         compute_dtype=torch.bfloat16):
     """[profile token] + semantic-ID token embeddings."""
-    tok_emb = tfm.embed_tokens(params["backbone"], tokens, compute_dtype)
+    tok_emb = tfm.embed_tokens(params["backbone"], tokens, cfg.transformer,
+                               compute_dtype)
     prof = matmul_any(profile.to(compute_dtype),
                       params["profile_proj"]["kernel"])
     return torch.cat([prof[:, None, :], tok_emb], dim=1)
@@ -111,7 +112,8 @@ def prefill_into_slots(params, batch: Dict[str, torch.Tensor],
                                      batch["profile"], cfg)
     else:
         seq_lens = lengths.to(torch.int32)        # suffix tokens only
-        embeds = tfm.embed_tokens(params["backbone"], batch["tokens"])
+        embeds = tfm.embed_tokens(params["backbone"], batch["tokens"],
+                                  cfg.transformer)
     return tfm.forward(params["backbone"], batch["tokens"], cfg.transformer,
                        inputs_embeds=embeds, cache=cache, fill_cache=True,
                        lengths=seq_lens, starts=starts, kv_write=kv_write,

@@ -1,19 +1,24 @@
-"""Decoder-only MoE transformer, layer-stacked like the JAX package.
+"""Decoder-only transformer LM (dense + MoE), layer-stacked like the JAX
+package (``repro/models/transformer.py``).
 
-Layers are grouped into homogeneous stacks (``layer_plan``); every leaf of a
-stack keeps its leading layer axis, and the JAX ``lax.scan`` over that axis
-is a Python loop here.  Only the OneRec serving path is ported: full
-attention, MoE FFN on every layer, prefill fill into a per-slot or shared
-cache, resume prefill over a cached prefix, single-token and tree decode
-over the paged pool or the per-slot cache, and the shared-index decode of
-generation (``prefill``, ``decode_step``, ``decode_fused``;
-``repro/models/transformer.py``).
+Layers are grouped into homogeneous stacks (``layer_plan``): leading dense
+layers, then periods of a repeating pattern (gemma3's 5 local : 1 global
+becomes a 6-layer period plus a remainder stack).  Every leaf of a stack
+keeps its leading layer axis, and the JAX ``lax.scan`` over that axis is a
+Python loop here.  Supports GQA and MHA, sliding-window + global
+interleave, RoPE with a second theta for window layers, QK-norm, sandwich
+and zero-centred norms, scaled and tied embeddings, dense gated MLPs
+(SwiGLU / GeGLU), MoE with shared experts and their sigmoid gate, and the
+cached modes: prefill into a per-slot or shared cache, resume prefill,
+single-token and tree decode over the paged pool or the per-slot cache,
+and the shared-index decode of generation (``prefill``, ``decode_step``,
+``decode_fused``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -21,16 +26,18 @@ from repro_torch import tree
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.layers.attention import (AttnSpec, KVWrite,
-                                          apply_attention, init_attention,
-                                          init_cache, init_page_cache)
+                                          apply_attention, cache_len_for,
+                                          init_attention, init_cache,
+                                          init_page_cache)
 from repro_torch.layers.common import dense_init, truncated_normal
+from repro_torch.layers.mlp import apply_mlp, init_mlp
 from repro_torch.layers.moe import MoESpec, apply_moe, init_moe, make_moe_spec
 from repro_torch.layers.norms import rmsnorm_apply
 
 
 class LayerKind(NamedTuple):
-    attn: str           # "full" (the JAX package also has "window")
-    ffn: str            # "moe" (the JAX package also has "dense")
+    attn: str           # "full" | "window"
+    ffn: str            # "dense" | "moe"
 
 
 class StackSpec(NamedTuple):
@@ -39,26 +46,43 @@ class StackSpec(NamedTuple):
 
 
 def layer_plan(cfg: TransformerConfig) -> List[StackSpec]:
-    """The layer list as homogeneous stacks.  The ported backbone is one
-    stack of full-attention MoE layers; leading dense layers and window
-    patterns (more stacks in the JAX package) wait for the model zoo."""
-    if (not cfg.moe or cfg.n_dense_layers or cfg.sliding_window
-            or cfg.use_post_norm or cfg.tie_embeddings or cfg.embed_scale
-            or cfg.shared_expert_gate or cfg.zero_centered_norm
-            or cfg.use_qk_norm or cfg.n_shared_experts):
-        raise NotImplementedError(
-            f"{cfg.name}: only the OneRec MoE backbone is ported; dense "
-            f"layers, windows, qk-norm, shared experts, sandwich norms, "
-            f"tied or scaled embeddings wait for the model zoo (ROADMAP.md "
-            f"queue N, item N7)")
-    return [StackSpec(cfg.n_layers, (LayerKind("full", "moe"),))]
+    """Decompose the layer list into homogeneous stacks (the JAX package's
+    plan, stack for stack: the param and cache keys ``stacks/<si>/p<pi>``
+    follow it)."""
+    plan: List[StackSpec] = []
+    n = cfg.n_layers
+    if cfg.moe and cfg.n_dense_layers:
+        plan.append(StackSpec(cfg.n_dense_layers,
+                              (LayerKind("full", "dense"),)))
+        n -= cfg.n_dense_layers
+    ffn = "moe" if cfg.moe else "dense"
+    if cfg.global_interval and cfg.sliding_window:
+        period = cfg.global_interval
+        kinds = tuple(LayerKind("window", ffn) for _ in range(period - 1)) \
+            + (LayerKind("full", ffn),)
+        n_full = n // period
+        rem = n - n_full * period
+        if n_full:
+            plan.append(StackSpec(n_full, kinds))
+        if rem:
+            plan.append(StackSpec(1, tuple(LayerKind("window", ffn)
+                                           for _ in range(rem))))
+    elif cfg.sliding_window:
+        plan.append(StackSpec(n, (LayerKind("window", ffn),)))
+    else:
+        plan.append(StackSpec(n, (LayerKind("full", ffn),)))
+    return [s for s in plan if s.n_periods > 0 and s.kinds]
 
 
 def attn_spec_for(cfg: TransformerConfig, kind: LayerKind) -> AttnSpec:
-    return AttnSpec(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                    head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
-                    chunk_size=cfg.attn_chunk_size,
-                    use_kernel=cfg.use_attention_kernel)
+    window = cfg.sliding_window if kind.attn == "window" else 0
+    theta = cfg.rope_theta
+    if kind.attn == "window" and cfg.rope_theta_local:
+        theta = cfg.rope_theta_local
+    return AttnSpec(
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+        rope_theta=theta, window=window, use_qk_norm=cfg.use_qk_norm,
+        chunk_size=cfg.attn_chunk_size, use_kernel=cfg.use_attention_kernel)
 
 
 def moe_spec_for(cfg: TransformerConfig) -> MoESpec:
@@ -74,32 +98,66 @@ def moe_spec_for(cfg: TransformerConfig) -> MoESpec:
 # ---------------------------------------------------------------------------
 
 
+def _norm_scale(cfg: TransformerConfig, dtype, device):
+    init = torch.zeros if cfg.zero_centered_norm else torch.ones
+    return {"scale": init((cfg.d_model,), dtype=dtype, device=device)}
+
+
+def init_layer(gen: torch.Generator, cfg: TransformerConfig, kind: LayerKind,
+               *, dtype=torch.float32, device=None) -> dict:
+    """One layer's params: the JAX package's ``_init_layer`` tree without
+    the leading layer axis (``init_transformer`` stacks the layers)."""
+    kw = dict(dtype=dtype, device=device)
+    p: Dict[str, Any] = {
+        "attn_norm": _norm_scale(cfg, dtype, device),
+        "attn": init_attention(gen, cfg.d_model, attn_spec_for(cfg, kind),
+                               **kw),
+        "mlp_norm": _norm_scale(cfg, dtype, device),
+    }
+    if kind.ffn == "moe":
+        p["moe"] = init_moe(gen, moe_spec_for(cfg), **kw)
+        if cfg.shared_expert_gate:
+            p["moe"]["shared_gate"] = dense_init(gen, cfg.d_model, 1, **kw)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff_for_dense, **kw)
+    if cfg.use_post_norm:
+        p["post_attn_norm"] = _norm_scale(cfg, dtype, device)
+        p["post_mlp_norm"] = _norm_scale(cfg, dtype, device)
+    return p
+
+
 def init_transformer(gen: torch.Generator, cfg: TransformerConfig, *,
-                     device=None) -> dict:
-    """Random f32 params on ``device`` from ``gen``: the JAX package's tree
-    (paths, shapes, init distributions), other random numbers."""
+                     dtype=torch.float32, device=None,
+                     transform: Optional[Callable[[str, dict], dict]] = None
+                     ) -> dict:
+    """Random params of ``dtype`` on ``device`` from ``gen``: the JAX
+    package's tree (paths, shapes, init distributions; no ``lm_head`` when
+    the embeddings are tied), other random numbers.  Each stack's layers
+    are made one at a time; ``transform(path, subtree)`` (PTQ: ``lambda p,
+    t: ptq.quantize_params(t, policy, prefix=p)``) is applied to each layer
+    as it is made and to the top-level leaves, so a full-width model never
+    holds more than one raw layer."""
+    transform = transform or (lambda _, t: t)
     d = cfg.d_model
     params: Dict[str, Any] = {
         "embed": {"table": truncated_normal((cfg.vocab_size, d),
-                                            1.0 / math.sqrt(d), gen,
-                                            device)},
-        "stacks": {},
-        "final_norm": {"scale": torch.ones(d, device=device)},
+                                            1.0 / math.sqrt(d), gen, device,
+                                            dtype)},
+        "final_norm": _norm_scale(cfg, dtype, device),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, d, cfg.vocab_size, dtype=dtype,
+                                       device=device)
+    params = transform("", params)
+    params["stacks"] = {}
     for si, spec in enumerate(layer_plan(cfg)):
-        stack = (spec.n_periods,)
-        params["stacks"][str(si)] = {
-            f"p{pi}": {
-                "attn_norm": {"scale": torch.ones(stack + (d,),
-                                                  device=device)},
-                "attn": init_attention(gen, d, attn_spec_for(cfg, kind),
-                                       stack=stack, device=device),
-                "mlp_norm": {"scale": torch.ones(stack + (d,),
-                                                 device=device)},
-                "moe": init_moe(gen, moe_spec_for(cfg), stack=stack,
-                                device=device),
-            } for pi, kind in enumerate(spec.kinds)}
-    params["lm_head"] = dense_init(gen, d, cfg.vocab_size, device=device)
+        stack = {}
+        for pi, kind in enumerate(spec.kinds):
+            def make(_, kind=kind, path=f"stacks/{si}/p{pi}"):
+                return transform(path, init_layer(gen, cfg, kind,
+                                                  dtype=dtype, device=device))
+            stack[f"p{pi}"] = tree.stack_layers(make, spec.n_periods)
+        params["stacks"][str(si)] = stack
     return params
 
 
@@ -110,22 +168,51 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig, *,
 
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
                  kind: LayerKind, cache_lp, attn_kw: dict):
-    h = rmsnorm_apply(lp["attn_norm"], x, eps=cfg.norm_eps)
+    def norm(name, y):
+        return rmsnorm_apply(lp[name], y, eps=cfg.norm_eps,
+                             zero_centered=cfg.zero_centered_norm)
+
     attn_out, _ = apply_attention(
-        lp["attn"], h, attn_spec_for(cfg, kind), cache=cache_lp, **attn_kw)
+        lp["attn"], norm("attn_norm", x), attn_spec_for(cfg, kind),
+        cache=cache_lp, norm_eps=cfg.norm_eps, **attn_kw)
+    if cfg.use_post_norm:
+        attn_out = norm("post_attn_norm", attn_out)
     x = x + attn_out
-    h = rmsnorm_apply(lp["mlp_norm"], x, eps=cfg.norm_eps)
-    return x + apply_moe(lp["moe"], h, moe_spec_for(cfg))
+    h = norm("mlp_norm", x)
+    if kind.ffn == "moe":
+        ff = apply_moe(lp["moe"], h, moe_spec_for(cfg))
+        if cfg.shared_expert_gate and "shared_gate" in lp["moe"]:
+            # the gate scales the whole MoE output, routed + shared, as in
+            # the JAX package (ROADMAP "Known, not port faults")
+            g = torch.sigmoid(matmul_any(
+                h, lp["moe"]["shared_gate"]["kernel"],
+                out_dtype=torch.float32))
+            ff = ff * g.to(ff.dtype)
+    else:
+        ff = apply_mlp(lp["mlp"], h, act=cfg.act)
+    if cfg.use_post_norm:
+        ff = norm("post_mlp_norm", ff)
+    return x + ff
 
 
-def embed_tokens(params: dict, tokens: torch.Tensor,
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
-    return params["embed"]["table"][tokens.long()].to(compute_dtype)
+    """Rows of the table in ``compute_dtype``; with ``embed_scale`` times
+    ``sqrt(d_model)`` rounded to ``compute_dtype`` (the JAX package's
+    ``jnp.asarray(math.sqrt(d), bf16)``: 34.0 for gemma3's 1152)."""
+    x = params["embed"]["table"][tokens.long()].to(compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
+    return x
 
 
-def logits_from_hidden(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return matmul_any(x, params["lm_head"]["kernel"],
-                      out_dtype=torch.float32)
+def logits_from_hidden(params: dict, x: torch.Tensor,
+                       cfg: TransformerConfig) -> torch.Tensor:
+    """f32 logits through ``lm_head``, or the raw table's transpose when
+    the embeddings are tied."""
+    w = params["embed"]["table"].T if cfg.tie_embeddings \
+        else params["lm_head"]["kernel"]
+    return matmul_any(x, w, out_dtype=torch.float32)
 
 
 def forward(
@@ -170,7 +257,7 @@ def forward(
     if inputs_embeds is not None:
         x = inputs_embeds.to(compute_dtype)
     else:
-        x = embed_tokens(params, tokens, compute_dtype)
+        x = embed_tokens(params, tokens, cfg, compute_dtype)
     attn_kw = dict(fill_cache=fill_cache, lengths=lengths, starts=starts,
                    kv_write=kv_write, page_gather=page_gather,
                    page_tables=page_tables, page_size=page_size,
@@ -187,8 +274,9 @@ def forward(
                                  kind, c_lp, attn_kw)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
-    x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
-    return logits_from_hidden(params, x), cache
+    x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
+                      zero_centered=cfg.zero_centered_norm)
+    return logits_from_hidden(params, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -199,11 +287,17 @@ def forward(
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
                   dtype=None, *, per_slot: bool = True, device=None) -> dict:
     """KV cache stacked over layers like the params: per slot (every batch
-    row keeps its own position occupancy, the serving cache) or, with
-    ``per_slot=False``, one shared occupancy (``init_cache``)."""
+    row keeps its own position occupancy, the serving cache; full attention
+    only, since ragged rows break the ring's tail-keep invariant) or, with
+    ``per_slot=False``, one shared occupancy (``init_cache``), a window
+    layer's ``cache_len_for`` positions long."""
     dtype = dtype or getattr(torch, cfg.kv_cache_dtype)
+    if per_slot and cfg.sliding_window:
+        raise ValueError("per-slot KV caches require full attention")
     return {"stacks": {
-        str(si): {f"p{pi}": init_cache(batch, max_len,
+        str(si): {f"p{pi}": init_cache(batch,
+                                        cache_len_for(attn_spec_for(
+                                            cfg, kind), max_len),
                                         attn_spec_for(cfg, kind),
                                         stack=(spec.n_periods,),
                                         dtype=dtype, per_slot=per_slot,
@@ -237,10 +331,13 @@ def init_kv_page_pool(cfg: TransformerConfig, n_pages: int, page_size: int,
 def prefill(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
             cache: dict) -> Tuple[torch.Tensor, dict]:
     """Run the prompt, fill the shared cache; returns last-position
-    logits (B, V)."""
-    logits, cache = forward(params, tokens, cfg, cache=cache,
-                            fill_cache=True)
-    return logits[:, -1], cache
+    logits (B, V), computed for that position alone (``last_index``: the
+    (B, T, V) logits of a published vocabulary at T = 4096 would not fit
+    the card; the head is row-wise, so the values are the same)."""
+    b, t = tokens.shape
+    last = torch.full((b,), t - 1, dtype=torch.int64, device=tokens.device)
+    return forward(params, tokens, cfg, cache=cache, fill_cache=True,
+                   last_index=last)
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -5,6 +5,7 @@ the small configs both packages run, the params bridge JAX -> numpy ->
 settings and compare items and counters."""
 
 import dataclasses
+import functools
 import time
 
 import jax
@@ -191,3 +192,201 @@ def assert_same_handles(ref, out):
         if b.completion is not None:
             np.testing.assert_array_equal(a.completion.item,
                                           b.completion.item)
+
+
+# ---------------------------------------------------------------------------
+# The LM zoo (tests/test_torch_zoo*.py)
+# ---------------------------------------------------------------------------
+
+ZOO_ARCHS = ("llama3-8b", "gemma3-1b", "qwen2-moe-a2.7b", "deepseek-moe-16b",
+             "deepseek-coder-33b")
+ZOO_B, ZOO_PROMPT, ZOO_STEPS = 2, 16, 4    # the smoke prefill's B x S
+
+
+def jax_lm_cfg(cfg: TransformerConfig) -> JaxTransformerConfig:
+    return JaxTransformerConfig(**dataclasses.asdict(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def zoo_params(arch: str):
+    """(JAX raw params, JAX PTQ'd, port raw, port PTQ'd) of the arch's
+    ``reduced_config()``: one JAX init (key 0, as the JAX bundles), PTQ'd
+    with the paper's policy on each side."""
+    from repro.configs import registry as jax_registry
+    from repro.core.policy import PAPER_POLICY as JAX_PAPER
+    from repro.core.ptq import quantize_params as jax_quantize_params
+    from repro.models import transformer as jax_tfm
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    jcfg = jax_registry.get_arch(arch).reduced_config()
+    raw = jax_tfm.init_transformer(jax.random.PRNGKey(0), jcfg)
+    ours = torch_params(raw)
+    return (raw, jax_quantize_params(raw, JAX_PAPER), ours,
+            quantize_params(ours, PAPER_POLICY))
+
+
+def zoo_prompt(cfg, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, size=(ZOO_B, ZOO_PROMPT)).astype(
+        np.int32)
+
+
+# raw bf16 products sum in f32 in another order than XLA's dot (a bf16
+# rounding of a projection output flips now and then and runs down its row):
+# measured 0.58-0.90% of the max |logit| on the dense archs, 1.5e-7 on the
+# MoE ones; the PTQ'd forward (per-token e4m3 activations) is equal up to
+# f32 summation order (1e-5)
+RAW_LOGIT_TOL = 2e-2
+FP8_LOGIT_TOL = 1e-5
+
+
+def check_raw_forward(arch: str):
+    """The uncached forward on raw weights, the port against JAX (op by
+    op): logits within ``RAW_LOGIT_TOL`` of the max |logit|."""
+    import jax.numpy as jnp
+    import torch
+    from repro.models import transformer as jax_tfm
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    cfg = registry.get_arch(arch).reduced_config()
+    raw, _, ours, _ = zoo_params(arch)
+    toks = zoo_prompt(cfg, seed=3)
+    with jax.disable_jit():
+        theirs, _ = jax_tfm.forward(raw, jnp.asarray(toks), jax_lm_cfg(cfg))
+    got, _ = tfm.forward(ours, torch.from_numpy(toks), cfg)
+    theirs = np.asarray(theirs)
+    assert got.shape == theirs.shape == (ZOO_B, ZOO_PROMPT, cfg.vocab_size)
+    dev = np.abs(got.numpy() - theirs).max() / np.abs(theirs).max()
+    assert dev <= RAW_LOGIT_TOL, dev
+
+
+def check_ptq(arch: str):
+    """PTQ with the paper's policy: the same leaves quantized, payloads
+    and scales bit-identical, the rest equal; the port's layer-by-layer
+    PTQ at init (``init_transformer(..., transform=...)``) gives the same
+    bytes as PTQ of the whole raw tree.  Returns the quantized leaves'
+    module paths within a layer (``attn/q_proj``, ``moe/experts``, ..)."""
+    import torch
+    from repro.core.quant import QuantizedTensor as JaxQuantizedTensor
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tree import leaves_with_path
+    _, jq, _, tq = zoo_params(arch)
+    jleaves = dict(jax.tree_util.tree_flatten_with_path(
+        jq, is_leaf=lambda x: isinstance(x, JaxQuantizedTensor))[0])
+    jleaves = {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+               for path, leaf in jleaves.items()}
+    tleaves = dict(leaves_with_path(tq))
+    assert set(jleaves) == set(tleaves)
+    kinds = set()
+    for path, leaf in tleaves.items():
+        ref = jleaves[path]
+        assert isinstance(leaf, QuantizedTensor) == isinstance(
+            ref, JaxQuantizedTensor), path
+        if isinstance(leaf, QuantizedTensor):
+            kinds.add("/".join(path.split("/")[3:-1]))
+            assert leaf.granularity == ref.granularity, path
+            np.testing.assert_array_equal(
+                leaf.data.contiguous().view(torch.uint8).numpy(),
+                np.asarray(ref.data).view(np.uint8), err_msg=path)
+            np.testing.assert_array_equal(leaf.scale.numpy(),
+                                          np.asarray(ref.scale), path)
+        else:
+            np.testing.assert_array_equal(leaf.numpy(), np.asarray(ref),
+                                          path)
+    cfg = registry.get_arch(arch).reduced_config()
+    whole = quantize_params(tfm.init_transformer(
+        torch.Generator().manual_seed(5), cfg), PAPER_POLICY)
+    made = tfm.init_transformer(
+        torch.Generator().manual_seed(5), cfg,
+        transform=lambda p, t: quantize_params(t, PAPER_POLICY, prefix=p))
+    made = dict(leaves_with_path(made))
+    for path, leaf in leaves_with_path(whole):
+        other = made[path]
+        if isinstance(leaf, QuantizedTensor):
+            assert other.tag == leaf.tag == path
+            assert other.data.stride() == leaf.data.stride(), path
+            assert torch.equal(other.data.view(torch.uint8),
+                               leaf.data.view(torch.uint8)), path
+            assert torch.equal(other.scale, leaf.scale), path
+        else:
+            assert torch.equal(other, leaf), path
+    return kinds
+
+
+def check_bundle_decode(arch: str, use_kernel: bool):
+    """``build_bundle``'s prefill step (the smoke prefill shape) on the
+    PTQ'd params, then greedy decode through the decode bundle's step over
+    a shared cache of prompt + ``ZOO_STEPS`` positions, the port against
+    the JAX bundles' steps: prefill logits and every step's logits within
+    ``FP8_LOGIT_TOL`` of the max |logit|, greedy tokens identical, the
+    caches' positions equal.  ``use_kernel``: the shared-index decode
+    through ``batch_attention`` (its plain version here, the Pallas kernel
+    in interpret mode there)."""
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import ShapeSpec as JaxShapeSpec
+    from repro.launch import steps as jax_steps
+    from repro.models import transformer as jax_tfm
+    from repro_torch.configs import registry
+    from repro_torch.kernels.batch_attention import ops as attn_ops
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(registry.get_arch(arch).reduced_config(),
+                              use_attention_kernel=use_kernel)
+    jcfg = jax_lm_cfg(cfg)
+    _, jq, _, tq = zoo_params(arch)
+    s_len = ZOO_PROMPT + ZOO_STEPS
+    shapes = [steps.SMOKE_SHAPES["lm"]["prefill"], dataclasses.replace(
+        steps.SMOKE_SHAPES["lm"]["decode"], seq_len=s_len)]
+    ours = [steps.lm_bundle(arch, cfg, sh, fp8=False, device="cpu")
+            for sh in shapes]
+    theirs = [jax_steps._lm_bundle(arch, jcfg, JaxShapeSpec(
+        **dataclasses.asdict(sh)), fp8=False, abstract=True)
+        for sh in shapes]
+    assert [b.kind for b in ours] == [b.kind for b in theirs]
+    toks = zoo_prompt(cfg)
+
+    def close(a, ref):
+        ref = np.asarray(ref)
+        dev = np.abs(a.numpy() - ref).max() / np.abs(ref).max()
+        assert dev <= FP8_LOGIT_TOL, dev
+
+    with jax.disable_jit():
+        jl, jcache = theirs[0].fn(jq, {"tokens": jnp.asarray(toks)})
+    tl, tcache = ours[0].fn(tq, {"tokens": torch.from_numpy(toks)})
+    assert tl.shape == (ZOO_B, cfg.vocab_size)
+    close(tl, jl)
+    for si, stack in tcache["stacks"].items():
+        for key, leaf in stack.items():
+            np.testing.assert_array_equal(
+                leaf["pos"].numpy(),
+                np.asarray(jcache["stacks"][si][key]["pos"]))
+    with jax.disable_jit():
+        jcache = jax_tfm.init_kv_cache(jcfg, ZOO_B, s_len)
+        jl, jcache = jax_tfm.prefill(jq, jnp.asarray(toks), jcfg, jcache)
+        jtoks = [np.asarray(jnp.argmax(jl, -1)).astype(np.int32)]
+        for i in range(ZOO_STEPS):
+            jl, jcache = theirs[1].fn(
+                jq, jcache, {"tokens": jnp.asarray(jtoks[-1][:, None])},
+                jnp.int32(ZOO_PROMPT + i))
+            jtoks.append(np.asarray(jnp.argmax(jl, -1)).astype(np.int32))
+    tcache = tfm.init_kv_cache(cfg, ZOO_B, s_len, per_slot=False)
+    tl, tcache = tfm.prefill(tq, torch.from_numpy(toks), cfg, tcache)
+    ttoks = [tl.argmax(-1).to(torch.int32).numpy()]
+    before = attn_ops.batch_attention.launches
+    for i in range(ZOO_STEPS):
+        tl, tcache = ours[1].fn(tq, tcache, {"tokens": torch.from_numpy(
+            ttoks[-1][:, None])}, ZOO_PROMPT + i)
+        ttoks.append(tl.argmax(-1).to(torch.int32).numpy())
+    assert attn_ops.batch_attention.launches == before   # plain on the CPU
+    np.testing.assert_array_equal(np.stack(ttoks), np.stack(jtoks))
+    close(tl, jl)
+    for si, stack in tcache["stacks"].items():
+        for key, leaf in stack.items():
+            np.testing.assert_array_equal(
+                leaf["pos"].numpy(),
+                np.asarray(jcache["stacks"][si][key]["pos"]))

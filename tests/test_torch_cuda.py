@@ -48,6 +48,11 @@ def _close(out, ref):
     (1, 32, 4096, 256),      # rows too long to hold in registers
     (1, 4100, 2048, 2048),   # prefill: TMA + wgmma, ragged last row tile
     (2, 300, 384, 200),      # prefill, batch of 2, ragged M and N
+    (1, 4, 2048, 10944),     # deepseek-moe-16b's dense gate at decode
+    (1, 4, 10944, 2048),     # its down: K not a multiple of 128
+    (1, 600, 2048, 10944),   # prefill: the last 128-wide tile 64 columns
+    (1, 600, 10944, 2048),   # prefill: a half-empty last 128-deep chunk
+    (1, 4, 1152, 256),       # gemma3-1b's k/v: one KV head of 256
 ])
 def test_fp8_gemm_kernel_matches_plain(cuda, E, M, K, N):
     """K-major weights from quantize_per_channel, through the decode
@@ -90,6 +95,9 @@ def test_fp8_gemm_kernel_refuses_a_row_major_weight(cuda):
     (1, 300, 128, 128),      # prefill, one expert, one 128-deep chunk
     (2, 256, 384, 256),      # prefill, C a multiple of 128
     (1, 5, 128, 128),        # decode, one expert, one chunk
+    (64, 8, 2048, 1408),     # the zoo's MoE (60 padded to 64, 64) decode
+    (64, 8, 1408, 2048),     # its down
+    (64, 40, 2048, 1408),    # prefill, ragged row tiles
 ])
 def test_fp8_grouped_gemm_kernel_matches_plain(cuda, E, C, K, N):
     """K-major block weights from quantize_blockwise, through the decode
@@ -347,6 +355,38 @@ def test_batch_attention_kernel_matches_plain(cuda, B, T, H, Kv, hd, S,
     assert attn_ops.batch_attention.launches == before + 1
     assert out.shape == (B, T, H * hd) and out.dtype == torch.bfloat16
     assert out[0].abs().max().item() == 0
+    _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Kv,hd,S,window,last", [
+    (4, 4, 1, 256, 512, 512, 4101),    # gemma3-1b local: a wrapped ring
+    (4, 4, 1, 256, 4112, 0, 4101),     # gemma3-1b global
+    (4, 16, 16, 128, 4112, 0, 4100),   # qwen2 / deepseek-moe: G = 1
+    (4, 56, 8, 128, 4112, 0, 4111),    # deepseek-coder-33b: G = 7
+])
+def test_batch_attention_kernel_at_zoo_shapes(cuda, B, H, Kv, hd, S, window,
+                                             last):
+    """The shared-index decode of the zoo: one query at position ``last``
+    over a shared cache whose slot s holds position p with p % S == s (a
+    ring wrapped past S when ``last`` >= S; slots past ``last`` empty
+    otherwise), against the plain version's blocks of the JAX wrapper."""
+    g = torch.Generator().manual_seed(S + hd)
+    q = torch.randn(B, 1, H, hd, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, S, Kv, hd, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, S, Kv, hd, generator=g).to(torch.bfloat16)
+    slot = torch.arange(S)
+    pos = last - (last - slot) % S                  # the newest p % S == s
+    k_pos = torch.where(pos >= 0, pos, -1).to(torch.int32)[None].expand(
+        B, S).contiguous()
+    q_pos = torch.full((B, 1), last, dtype=torch.int32)
+    assert window == 0 or bool((k_pos[0, 1:] < k_pos[0, :-1]).any())
+    scale = 1.0 / math.sqrt(hd)
+    ref = attn_ops.batch_attention_plain(q, k, v, q_pos, k_pos, scale=scale,
+                                         window=window)
+    out = attn_ops.batch_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                                   q_pos.to(cuda), k_pos.to(cuda),
+                                   scale=scale, window=window)
     _close(out, ref)
 
 

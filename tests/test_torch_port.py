@@ -275,14 +275,33 @@ def test_engine_refuses_a_quiet_cpu_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("setting", [
-    dict(n_dense_layers=1), dict(use_qk_norm=True)])
+    dict(n_dense_layers=1), dict(use_qk_norm=True),
+    dict(sliding_window=8)])
 def test_unported_engine_settings_name_their_roadmap_item(setting):
-    """Every ``EngineConfig`` setting is ported; what the engine still
-    refuses is a model outside the OneRec backbone (the model zoo's layer
-    plans), naming the ROADMAP item that brings it."""
-    cfg = onerec_v2.reduced_config()
+    """Since the LM zoo (ROADMAP.md N7a) the engine takes a OneRec backbone
+    with a leading dense layer or QK-norm, token-identical to the JAX
+    engine (paged, fp8 weights and K/V, op by op); a sliding window it
+    refuses with the JAX engine's ``ValueError`` (paged and per-slot
+    caches need full attention), in both layouts."""
+    from _torch_parity import assert_same_runs, jax_cfg, paged_test_cfg
+    from _torch_parity import policy_requests, serve_both
+    from repro.serving import EngineConfig as JaxEngineConfig
+    from repro.serving import ServingEngine as JaxServingEngine
+    cfg = paged_test_cfg()
     cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
         cfg.transformer, **setting))
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N7"):
-        ServingEngine({}, cfg, EngineConfig(), device="cpu")
+    jax_params = jax_onerec.init_onerec(jax.random.PRNGKey(5), jax_cfg(cfg))
+    if "sliding_window" in setting:
+        for paged in (True, False):
+            kw = dict(paged=paged, fused_decode=False, batch_size=2)
+            with pytest.raises(ValueError, match="require full attention"):
+                JaxServingEngine(jax_params, jax_cfg(cfg),
+                                 JaxEngineConfig(**kw))
+            with pytest.raises(ValueError, match="require full attention"):
+                ServingEngine(torch_params(jax_params), cfg, EngineConfig(
+                    **dict(kw, fused_decode="off")), device="cpu")
+        return
+    runs = serve_both(jax_params, cfg, policy_requests(cfg, 4, seed=11),
+                      batch_size=4, kv_dtype="float8_e4m3fn", page_size=8)
+    assert_same_runs(runs)
+    assert runs[0][3]["decode_steps"] > 0

@@ -37,9 +37,13 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``batch_attention``.  Both GEMM kernels fail the run if more than
    ``OFF_EXACT_MAX`` of their outputs differ from the bf16 rounding of the
    same function summed in float64 (the f32 sums of the Pallas kernels),
-   ``fp8_gemm``'s static mode (one calibrated activation scale) too.  The
-   int8 product (``quant.int8_linear``) must equal its CPU result bit for
-   bit; it is timed.
+   ``fp8_gemm``'s static mode (one calibrated activation scale) too.
+   ``fp8_gemm`` also runs at the recsys family's 13 quantized (K, N) (K =
+   180, 200, 270 and N = 1, 80, 200 among them: ROADMAP C5), each at the
+   rows ``serve_p99`` and the most phase 4 (i) gives it, held to both
+   bounds, beside ``torch._scaled_mm`` or its refusal.  The int8 product
+   (``quant.int8_linear``) must equal its CPU result bit for bit; it is
+   timed.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
    in nine cases, each held to both bars: the paged layout; the paged
@@ -58,8 +62,11 @@ from the root of a checkout.  Phases, each of which fails the run:
    head_dim 256; ``lm-moe``: a leading dense layer, 16 experts top-4 with
    shared experts and their gate, MHA) through ``lm_bundle``'s prefill and
    8 greedy decode steps with ``use_attention_kernel``: first tokens and
-   teacher-forced top-8 overlap against thresholds.
-4. Full width, eight main paths, each kernel's launch count (and the int8
+   teacher-forced top-8 overlap against thresholds; and the four recsys
+   ``reduced_config()``s on bf16-compute and fp8 weights (``recsys-*``):
+   scores of 512 users within relative L2 1e-2, top-10 overlap of one
+   user's retrieval over 4096 candidates >= 0.9.
+4. Full width, ten main paths, each kernel's launch count (and the int8
    product's) zeroed before and read after each; the counts must match
    the layer arithmetic:
    (a) ``repro_torch.launch.serve --paged --kv-fp8 --fused-decode auto``
@@ -99,7 +106,17 @@ from the root of a checkout.  Phases, each of which fails the run:
    bf16 cache of 4112 positions with ``use_attention_kernel``
    (``fp8_gemm``, ``fp8_grouped_gemm``, ``batch_attention``); finite
    logits, counts held to the layer arithmetic for the prefill and the
-   decode apart.
+   decode apart;
+   (i) ``recsys``: two-tower, MIND, DIN and DIEN at published widths and
+   full tables (10 M item rows), bf16-compute and fp8 weights, inputs
+   from ``SyntheticInteractions``: ``serve_p99`` (512 users),
+   ``serve_bulk`` (262144) and ``retrieval_cand`` (one user against 1 M
+   candidates, fed in chunks): ``fp8_gemm`` 6 / 1 / 3 / 3 a call (a
+   chunk), p50 ms, rows a second, peak memory, fp8 against bf16, and the
+   embedding gathers beside their byte bound;
+   (j) ``egnn`` at its published width (4 layers, d 64) on
+   ``full_graph_sm``, ``minibatch_lg`` (one ``NeighborSampler`` batch) and
+   ``molecule``: ms, peak memory, E(3) equivariance error on the card.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -1888,7 +1905,8 @@ def full_width(dev):
             "ptq": ptq_path(dev, per_forward, paged_outs),
             "tree": tree_path(dev, per_forward, paged_stats, paged_peak),
             "fixed": fixed_path(dev, per_forward, contig_stats),
-            **generation_path(dev), **lm_zoo_path(dev)}
+            **generation_path(dev), **lm_zoo_path(dev),
+            **recsys_path(dev), **egnn_path(dev)}
 
 
 def _latency_line(name, stats, ref_name, ref):
@@ -2351,6 +2369,471 @@ def ptq_path(dev, per_forward, paged_outs):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The recsys family and the EGNN: phase 2's recsys GEMMs, phase 3's recsys
+# cases, phase 4 (i) and (j)
+# ---------------------------------------------------------------------------
+
+RECSYS = ("two-tower-retrieval", "mind", "din", "dien")
+# each config's per-channel fp8 kernels under the paper's policy, in the
+# order a call launches kernel ``fp8_gemm`` on them: (layer, K, N)
+RECSYS_GEMMS = {
+    "two-tower-retrieval": (("user tower", 2304, 1024),
+                            ("user tower", 1024, 512),
+                            ("user tower", 512, 256),
+                            ("item tower", 256, 1024),
+                            ("item tower", 1024, 512),
+                            ("item tower", 512, 256)),
+    "mind": (("proj tower", 576, 64),),
+    "din": (("score mlp", 180, 200), ("score mlp", 200, 80),
+            ("score mlp", 80, 1)),
+    "dien": (("score mlp", 270, 200), ("score mlp", 200, 80),
+             ("score mlp", 80, 1)),
+}
+RECSYS_P99, RECSYS_BULK, RECSYS_CANDS = 512, 262144, 1_000_000
+# candidates a retrieval call in phase 4 (i): the whole million where the
+# working set is small; DIN's attention MLP (C x 100 rows of 72, an f32
+# copy and an f32 output of 80) and DIEN's two GRU passes over C copies of
+# the user take 4 calls of 250,000 to stay under ~60 GiB
+RECSYS_CHUNK = {"two-tower-retrieval": 1_000_000, "mind": 1_000_000,
+                "din": 250_000, "dien": 250_000}
+RECSYS_TIMED = 5                 # timed calls a cell, after one warmup
+RECSYS_SCORE_REL = 1e-2          # phase 3: card vs CPU score rel. L2
+RECSYS_TOP10 = 0.9               # phase 3: card vs CPU top-10 overlap
+
+
+def recsys_rows(arch: str, layer: str):
+    """The rows a layer's product sees at ``serve_p99`` and the most it sees
+    in phase 4 (i): the batch (serve_bulk), the retrieval chunk for the
+    item tower, times MIND's 4 interests for its proj tower."""
+    top = RECSYS_CHUNK[arch] if layer == "item tower" else RECSYS_BULK
+    mult = 4 if arch == "mind" else 1
+    return RECSYS_P99 * mult, top * mult
+
+
+def check_fp8_gemm_recsys(dev, records):
+    """Phase 2, ROADMAP C5: kernel ``fp8_gemm`` at the recsys family's 13
+    quantized (K, N) -- K = 180, 200, 270 and N = 1, 80, 200 among them --
+    at the rows ``serve_p99`` gives each and the most phase 4 (i) gives it,
+    dynamic and static scales, each held to ``TOL`` and ``OFF_EXACT_MAX``;
+    device time (calls in a CUDA graph, kernel and library in turns),
+    eager time, the plain version's, the bound, and ``torch._scaled_mm``'s
+    time on the same operands quantized beforehand, or its refusal."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels.fp8_gemm import ops
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows, worst = [], 0.0
+    for arch, layers in RECSYS_GEMMS.items():
+        for layer, k, n in layers:
+            # one weight (the serve path reuses these small towers; they
+            # stay in L2), PTQ's padded K-major payload
+            wq = quant.quantize_per_channel(torch.randn(
+                1, k, n, device=dev, generator=g) / math.sqrt(k))
+            sw = wq.scale.reshape(1, n).contiguous()
+            w = wq.data
+            for m in recsys_rows(arch, layer):
+                x = torch.randn(1, m, k, device=dev, generator=g).to(
+                    torch.bfloat16)
+                s_act = (x.float().abs().max() / 448.0).reshape(1, 1)
+                shape = f"M={m} K={k} N={n}"
+                errs, shares = [], []
+                for static in (None, s_act):
+                    out = ops.fp8_gemm(x, w, sw, act_scale=static)
+                    ref = ops.fp8_gemm_plain(x, w, sw, act_scale=static)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    tol = TOL * ref.float().abs().max().item()
+                    if not err <= tol:
+                        mode = "static" if static is not None else "dynamic"
+                        fail(f"fp8_gemm {arch} {shape} {mode}: max |diff| "
+                             f"{err} > {tol}")
+                    if static is None:
+                        xq = quant.quantize_per_token(x)
+                        xd, sx = xq.data, xq.scale.double()
+                    else:
+                        xd = quant.cast_to_fp8(x, static.reshape(1, 1, 1))
+                        sx = static.double()
+                    exact = (xd.double() @ w.double()) * sx \
+                        * sw.double()[:, None, :]
+                    shares.append(off_exact(
+                        "fp8_gemm" + (" static" if static is not None
+                                      else ""), f"{arch} {shape}", out,
+                        ref, exact)["off_exact_kernel"])
+                    errs.append(err)
+                    del out, ref, xd, exact
+                worst = max(worst, *errs)
+                lq = quant.quantize_per_token(x[0])
+
+                def library():
+                    torch._scaled_mm(lq.data, w[0], scale_a=lq.scale,
+                                     scale_b=sw, out_dtype=torch.bfloat16)
+
+                refusal = _refusals({"_scaled_mm": library})["_scaled_mm"]
+                fns = {"kernel": lambda: ops.fp8_gemm(x, w, sw)}
+                if refusal is None:
+                    fns["library"] = library
+                iters = 5 if m > 100_000 else 50
+                t = time_turns(fns, iters)
+                eager = time_ms(fns["kernel"], iters)
+                plain_ms = time_ms(lambda: ops.fp8_gemm_plain(x, w, sw),
+                                   iters=3, warmup=1)
+                b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * n * 2,
+                                   2.0 * m * n * k, FP8_OPS_PER_S)
+                splits, _ = ops.plan(1, m, n, k, ops.sm_count(dev))
+                path = "prefill" if splits == 0 else f"decode, {splits} " \
+                    f"splits"
+                lib_txt = f"torch._scaled_mm {t['library']:.4f} ms" \
+                    if refusal is None else f"torch._scaled_mm refused " \
+                    f"({refusal})"
+                print(f"[kernel] fp8_gemm recsys {arch} {layer} {shape} "
+                      f"({path}): max|diff| {errs[0]:.3g}, static "
+                      f"{errs[1]:.3g}; kernel {t['kernel']:.4f} ms device "
+                      f"/ {eager:.4f} ms eager; plain {plain_ms:.4f} ms; "
+                      f"{lib_txt}; bound {b_ms:.4f} ms ({b_by})")
+                rows.append(dict(
+                    model=f"{arch} {layer}", shape=shape, path=path,
+                    ms=t["kernel"], eager_ms=eager, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by,
+                    library_ms=t.get("library"), library_refusal=refusal,
+                    max_abs_err=errs[0], max_abs_err_static=errs[1],
+                    off_exact_kernel=shares[0], off_exact_static=shares[1]))
+                del x, lq
+    rec = records["fp8_gemm"]
+    rec["max_abs_err"] = max(rec["max_abs_err"], worst)
+    rec["recsys"] = rows
+
+
+def _recsys_batch_tensors(batch, keys, dev):
+    import torch
+    return {k: torch.from_numpy(batch[k]).to(dev) for k in keys}
+
+
+def _top_items(scores, cands, k):
+    """The ``k`` distinct candidate items of highest score (stable: ties go
+    to the lower item id)."""
+    import numpy as np
+    uniq, first = np.unique(cands, return_index=True)
+    order = np.argsort(-scores[first], kind="stable")[:k]
+    return set(uniq[order].tolist())
+
+
+def card_vs_cpu_recsys(dev, arch: str):
+    """Phase 3, ``recsys-<arch>``: the arch's ``reduced_config()``, the same
+    raw params (drawn on the CPU, copied to the card) as bf16-compute and
+    as fp8 weights (PTQ'd on each device): ``score`` of 512 users from
+    ``SyntheticInteractions`` and ``retrieval_scores`` of the first against
+    4096 candidates drawn from its 1000 items, on the card (kernel
+    ``fp8_gemm``) and on the CPU (its plain version).  Scores within
+    relative L2 ``RECSYS_SCORE_REL``; top-10 distinct items overlap >=
+    ``RECSYS_TOP10``."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.data.recsys_data import (RecsysStreamConfig,
+                                              SyntheticInteractions)
+    from repro_torch.models import recsys as recsys_model
+    cfg = registry.get_arch(arch).reduced_config()
+    raw = recsys_model.init_recsys(torch.Generator().manual_seed(5), cfg)
+    raws = {"cpu": raw, dev: tree.map_with_path(lambda _, t: t.to(dev), raw)}
+    batch = SyntheticInteractions(RecsysStreamConfig(
+        cfg.n_items, cfg.n_sparse_fields, cfg.field_vocab, cfg.seq_len,
+        RECSYS_P99, seed=3)).batch_at(0)
+    cands = np.random.default_rng(3).integers(
+        0, cfg.n_items, size=4096).astype(np.int32)
+    one = {k: batch[k][:1] for k in ("hist_ids", "target_ids", "field_ids")}
+    one["candidate_ids"] = cands
+    wrappers = _wrappers()
+    n_gemm = len(RECSYS_GEMMS[arch])
+    for arm in ("bf16", "fp8"):
+        got = {}
+        for d in ("cpu", dev):
+            params = quantize_params(raws[d], PAPER_POLICY) \
+                if arm == "fp8" else raws[d]
+            for w in wrappers.values():
+                w.launches = 0
+            s = recsys_model.score(params, _recsys_batch_tensors(
+                batch, ("hist_ids", "target_ids", "field_ids"), d), cfg)
+            r = recsys_model.retrieval_scores(
+                params, _recsys_batch_tensors(one, one, d), cfg)
+            launches = {n: w.launches for n, w in wrappers.items()}
+            expect = dict.fromkeys(wrappers, 0)
+            if arm == "fp8" and torch.device(d).type == "cuda":
+                expect["fp8_gemm"] = 2 * n_gemm
+            if launches != expect:
+                fail(f"card-vs-CPU recsys-{arch} {arm} on {d}: launches "
+                     f"{launches} != {expect}")
+            got[d] = (s.float().cpu().numpy(), r.float().cpu().numpy())
+        (cs, cr), (gs, gr) = got["cpu"], got[dev]
+        if not (np.isfinite(gs).all() and np.isfinite(gr).all()):
+            fail(f"card-vs-CPU recsys-{arch} {arm}: non-finite scores")
+        rel = float(np.linalg.norm(gs - cs) / np.linalg.norm(cs))
+        overlap = len(_top_items(gr, cands, 10)
+                      & _top_items(cr, cands, 10)) / 10
+        print(f"[card-vs-cpu] {cfg.name} recsys-{arch} {arm}: score of "
+              f"{RECSYS_P99} users relative L2 {rel:.3e} (<= "
+              f"{RECSYS_SCORE_REL}), max |diff| "
+              f"{np.abs(gs - cs).max():.3e}; retrieval over 4096 candidates "
+              f"top-10 overlap {overlap:.2f} (>= {RECSYS_TOP10}); fp8_gemm "
+              f"launches on the card {2 * n_gemm if arm == 'fp8' else 0}")
+        if not rel <= RECSYS_SCORE_REL:
+            fail(f"card-vs-CPU recsys-{arch} {arm}: score rel. L2 {rel}")
+        if overlap < RECSYS_TOP10:
+            fail(f"card-vs-CPU recsys-{arch} {arm}: top-10 overlap "
+                 f"{overlap}")
+
+
+def recsys_path(dev):
+    """Phase 4 (i): each recsys config at published widths and full tables
+    (10 M item rows, 8 x 100 k field rows; two-tower's item table 10.24
+    GB of f32), seed 0, bf16-compute (raw f32 weights) and fp8 (PTQ'd with
+    the paper's policy; the tables shared) arms, inputs from
+    ``SyntheticInteractions`` (Zipf-skewed histories and targets):
+    ``serve_p99`` (512 users), ``serve_bulk`` (262144 users) and
+    ``retrieval_cand`` (the first user against 1,000,000 uniform candidates,
+    ``RECSYS_CHUNK`` a call).  Launch counts of each cell's first call must
+    equal the layer arithmetic (fp8_gemm: the quantized layers a call, a
+    chunk); then ``RECSYS_TIMED`` calls on the host clock ending in
+    ``synchronize``.  Returns {"recsys/<arch>": fp8 arm launches}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.data.recsys_data import (RecsysStreamConfig,
+                                              SyntheticInteractions)
+    from repro_torch.models import recsys as recsys_model
+    wrappers = _wrappers()
+    out = {}
+    for arch in RECSYS:
+        cfg = registry.get_arch(arch).CONFIG
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        raw = recsys_model.init_recsys(
+            torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+        arms = {"bf16": raw, "fp8": quantize_params(raw, PAPER_POLICY)}
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        table_gb = raw["item_embed"]["table"].nbytes / 1e9
+        t0 = time.perf_counter()
+        bulk_np = SyntheticInteractions(RecsysStreamConfig(
+            cfg.n_items, cfg.n_sparse_fields, cfg.field_vocab, cfg.seq_len,
+            RECSYS_BULK, seed=0)).batch_at(0)
+        keys = ("hist_ids", "target_ids", "field_ids")
+        bulk = _recsys_batch_tensors(bulk_np, keys, dev)
+        data_s = time.perf_counter() - t0
+        p99 = {k: v[:RECSYS_P99] for k, v in bulk.items()}
+        ret = {k: v[:1] for k, v in bulk.items()}
+        ret["candidate_ids"] = torch.randint(
+            0, cfg.n_items, (RECSYS_CANDS,), dtype=torch.int32, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        chunk = RECSYS_CHUNK[arch]
+        n_gemm = len(RECSYS_GEMMS[arch])
+        n_chunks = -(-RECSYS_CANDS // chunk)
+        cells = {
+            "serve_p99": (lambda p: recsys_model.score(p, p99, cfg),
+                          RECSYS_P99, n_gemm),
+            "serve_bulk": (lambda p: recsys_model.score(p, bulk, cfg),
+                           RECSYS_BULK, n_gemm),
+            "retrieval_cand": (lambda p: recsys_model.retrieval_scores_chunked(
+                p, ret, cfg, chunk), RECSYS_CANDS, n_gemm * n_chunks)}
+        print(f"[full-width] recsys {arch}: published widths, tables "
+              f"{cfg.n_items} x {cfg.embed_dim} items ({table_gb:.2f} GB "
+              f"f32) + {cfg.n_sparse_fields} x {cfg.field_vocab} field rows; "
+              f"init + PTQ {init_s:.1f} s; SyntheticInteractions batch of "
+              f"{RECSYS_BULK} on the host {data_s:.1f} s; retrieval chunk "
+              f"{chunk} ({n_chunks} calls)")
+        results, counted = {}, dict.fromkeys(wrappers, 0)
+        for arm, params in arms.items():
+            for cell, (fn, rows, n_launch) in cells.items():
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                for w in wrappers.values():
+                    w.launches = 0
+                res = fn(params)
+                torch.cuda.synchronize()
+                launches = {n: w.launches for n, w in wrappers.items()}
+                expect = dict.fromkeys(wrappers, 0)
+                expect["fp8_gemm"] = n_launch if arm == "fp8" else 0
+                if launches != expect:
+                    fail(f"recsys {arch} {arm} {cell}: launch counts "
+                         f"{launches} != layer arithmetic {expect}")
+                if arm == "fp8":
+                    counted = {n: counted[n] + launches[n] for n in counted}
+                if res.shape != (rows,) or not bool(
+                        torch.isfinite(res).all()):
+                    fail(f"recsys {arch} {arm} {cell}: output "
+                         f"{tuple(res.shape)} not ({rows},) and finite")
+                walls = []
+                for _ in range(RECSYS_TIMED):
+                    t0 = time.perf_counter()
+                    fn(params)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                p50 = float(np.median(walls))
+                peak = torch.cuda.max_memory_allocated(dev)
+                unit = "candidates" if cell == "retrieval_cand" else "rows"
+                print(f"[full-width] recsys {arch} {arm} {cell}: p50 "
+                      f"{p50 * 1e3:.2f} ms over {RECSYS_TIMED} calls (min "
+                      f"{min(walls) * 1e3:.2f}, max {max(walls) * 1e3:.2f}); "
+                      f"{rows / p50:.0f} {unit}/s; peak device memory "
+                      f"{peak / 2**30:.2f} GiB; launches {launches}")
+                results[(arm, cell)] = res.float()
+                del res
+        a, b = results[("fp8", "serve_bulk")], results[("bf16", "serve_bulk")]
+        rel = ((a - b).norm() / b.norm()).item()
+        top = [set(results[(arm, "retrieval_cand")].topk(100).indices.tolist())
+               for arm in ("fp8", "bf16")]
+        print(f"[full-width] recsys {arch} fp8 vs bf16: serve_bulk score "
+              f"relative L2 {rel:.4e}; retrieval top-100 overlap "
+              f"{len(top[0] & top[1]) / 100:.2f}")
+
+        def gathers():
+            recsys_model._hist_vecs(raw, bulk["hist_ids"])
+            recsys_model._target_vecs(raw, bulk["target_ids"])
+            recsys_model._field_vecs(raw, bulk["field_ids"], cfg)
+
+        g_ms = time_ms(gathers, iters=5, warmup=1)
+        n_rows = RECSYS_BULK * (cfg.seq_len + 1 + cfg.n_sparse_fields)
+        g_bound = n_rows * cfg.embed_dim * (4 + 2) / HBM_BYTES_PER_S * 1e3
+        print(f"[full-width] recsys {arch} serve_bulk embedding gathers "
+              f"(hist + target + fields, {n_rows} rows of {cfg.embed_dim}): "
+              f"{g_ms:.3f} ms (eager, CUDA events) against a byte bound of "
+              f"{g_bound:.3f} ms (f32 rows read, bf16 written, 3.35 TB/s)")
+        out[f"recsys/{arch}"] = counted
+        del raw, arms, bulk, p99, ret, results
+    return out
+
+
+EGNN_LG_DEGREE = 100   # random_geometric_graph's avg_degree argument for
+#                        minibatch_lg's graph (it keeps ~0.41 of the draws)
+EGNN_TIMED = 5
+# equivariance bounds, relative to max |x| and max |h|: the coordinate
+# weights are f32 tanh of a bf16 MLP output over rotation-invariant bf16
+# inputs, so a bf16 rounding flip there (or another order of the card's
+# atomic f32 segment sums) moves an update by up to ~2**-8 of its |dx|
+EGNN_EQUIV_X, EGNN_EQUIV_H = 2.0 ** -7, 2.0 ** -4
+EGNN_CPU_REL = 2.0 ** -4     # card against CPU logits, of max |logit|
+
+
+def egnn_path(dev):
+    """Phase 4 (j): ``egnn`` at its published width (4 layers, d_hidden
+    64), unquantized, seed 0: ``node_logits`` on ``full_graph_sm`` (2708
+    nodes, the first 10556 edges of ``random_geometric_graph``, d_feat
+    1433, ``graph_batch``) and on ``minibatch_lg`` (one ``NeighborSampler``
+    batch, 1024 seeds, fanout (15, 10), padded to 169984 nodes, from a
+    graph of 232,965 nodes with d_feat 602; its average degree cut to
+    ~41 from reddit's 492: the batch's shapes do not depend on it), and
+    ``graph_logits`` on ``molecule`` (128 graphs x 30 nodes x 64 edges,
+    d_feat 16).  ms p50 over ``EGNN_TIMED`` calls (host clock ending in
+    ``synchronize``), peak device memory, and the coordinates' E(3)
+    equivariance error under a random rotation and translation on the
+    card (bounds ``EGNN_EQUIV_X``, ``EGNN_EQUIV_H``); no kernel of the port
+    runs (counts 0).  Returns {"egnn/<cell>": launches}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.data import graph
+    from repro_torch.models import gnn
+    mod = registry.get_arch("egnn")
+    cfg, n_classes = mod.CONFIG, mod.N_CLASSES
+    spec = mod.SHAPES
+    t0 = time.perf_counter()
+    sm = graph.random_geometric_graph(
+        spec["full_graph_sm"].n_nodes, 10, spec["full_graph_sm"].d_feat,
+        n_classes, seed=0)
+    if len(sm.edges) < spec["full_graph_sm"].n_edges:
+        fail(f"egnn full_graph_sm: {len(sm.edges)} edges drawn")
+    sm = dataclasses.replace(
+        sm, edges=sm.edges[:spec["full_graph_sm"].n_edges])
+    lg_spec = spec["minibatch_lg"]
+    big = graph.random_geometric_graph(lg_spec.n_nodes, EGNN_LG_DEGREE,
+                                       lg_spec.d_feat, n_classes, seed=0)
+    mol = spec["molecule"]
+    cells = {
+        "full_graph_sm": (graph.graph_batch(sm), 0),
+        "minibatch_lg": (graph.NeighborSampler(
+            big, lg_spec.fanout, lg_spec.batch_nodes, seed=0).sample_at(0),
+            0),
+        "molecule": (graph.molecule_batch(mol.global_batch, mol.n_nodes,
+                                          mol.n_edges, mol.d_feat,
+                                          n_classes, seed=0),
+                     mol.global_batch)}
+    print(f"[full-width] egnn: graphs built on the host in "
+          f"{time.perf_counter() - t0:.1f} s; minibatch_lg's graph "
+          f"{lg_spec.n_nodes} nodes, {len(big.edges)} edges (average degree "
+          f"{len(big.edges) / lg_spec.n_nodes:.1f}; reddit's 492 cut)")
+    wrappers = _wrappers()
+    out = {}
+    for cell, (batch_np, n_graphs) in cells.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        params = gnn.init_egnn(torch.Generator(device=dev).manual_seed(0),
+                               cfg, batch["feat"].shape[1], n_classes,
+                               device=dev)
+        if n_graphs:
+            def fn():
+                return gnn.graph_logits(params, batch, cfg, n_graphs)
+        else:
+            def fn():
+                return gnn.node_logits(params, batch, cfg)
+        for w in wrappers.values():
+            w.launches = 0
+        logits = fn()
+        torch.cuda.synchronize()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        rows = n_graphs or batch["feat"].shape[0]
+        if any(launches.values()) or logits.shape != (rows, n_classes) \
+                or not bool(torch.isfinite(logits).all()):
+            fail(f"egnn {cell}: logits {tuple(logits.shape)}, launches "
+                 f"{launches}")
+        walls = []
+        for _ in range(EGNN_TIMED):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        err_x, err_h = gnn.equivariance_error(
+            params, batch, cfg, torch.Generator(device=dev).manual_seed(1))
+        # the same input twice: the card's run-to-run spread (atomic adds)
+        x_a = gnn.egnn_forward(params, batch, cfg)[1]
+        x_b = gnn.egnn_forward(params, batch, cfg)[1]
+        repeat = ((x_a - x_b).abs().max() / x_a.abs().max()).item()
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_e = int(batch["edge_mask"].sum().item())
+        cpu_txt = ""
+        if cell != "minibatch_lg":    # the small graphs, on the CPU too
+            cpu = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+            cparams = tree.map_with_path(lambda _, t: t.cpu(), params)
+            ref = (gnn.graph_logits(cparams, cpu, cfg, n_graphs) if n_graphs
+                   else gnn.node_logits(cparams, cpu, cfg))
+            rel = ((logits.cpu() - ref).abs().max()
+                   / ref.abs().max()).item()
+            cpu_txt = f"; logits against the CPU's {rel:.3e} of max |logit| " \
+                f"(<= {EGNN_CPU_REL})"
+            if not rel <= EGNN_CPU_REL:
+                fail(f"egnn {cell}: card logits {rel} off the CPU's")
+        print(f"[full-width] egnn {cell}: {batch['feat'].shape[0]} nodes "
+              f"(d_feat {batch['feat'].shape[1]}), {batch['edges'].shape[0]} "
+              f"edges ({n_e} real), {'graph' if n_graphs else 'node'}_logits "
+              f"p50 {np.median(walls) * 1e3:.2f} ms over {EGNN_TIMED} calls; "
+              f"peak device memory {peak / 2**30:.3f} GiB; equivariance "
+              f"error: coordinates {err_x:.3e} (<= {EGNN_EQUIV_X}), node "
+              f"embeddings {err_h:.3e} (<= {EGNN_EQUIV_H}); the same input "
+              f"twice: coordinates {repeat:.3e} apart{cpu_txt}")
+        if not (err_x <= EGNN_EQUIV_X and err_h <= EGNN_EQUIV_H):
+            fail(f"egnn {cell}: equivariance error {err_x}, {err_h}")
+        out[f"egnn/{cell}"] = launches
+        del batch, params, logits, x_a, x_b
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2377,6 +2860,7 @@ def main() -> int:
 
     records = {}
     check_fp8_gemm(dev, records)
+    check_fp8_gemm_recsys(dev, records)
     check_fp8_grouped_gemm(dev, records)
     check_int8_product(dev, records)
     check_paged_decode(dev, records)
@@ -2390,6 +2874,8 @@ def main() -> int:
     card_vs_cpu_generate(dev)
     for case in ("lm-gemma", "lm-moe"):
         card_vs_cpu_lm(dev, case)
+    for arch in RECSYS:
+        card_vs_cpu_recsys(dev, arch)
     by_path = full_width(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
@@ -2418,7 +2904,8 @@ def main() -> int:
             **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
                                        "library_eager_ms", "threshold",
                                        "tree_ms", "tree_rows", "floor_ms",
-                                       "cases_ms", "beam", "zoo")
+                                       "cases_ms", "beam", "zoo",
+                                       "recsys")
                if key in r},
             "launches_by_path": {p: c[name] for p, c in by_path.items()}})
     print(json.dumps({"kernels": kernels}))

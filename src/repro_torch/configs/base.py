@@ -1,11 +1,10 @@
-"""Config schema of the port: the shape cells and the two dataclasses the
-OneRec serving path and the LM zoo read, field for field the same as
-``repro.configs.base`` (the parity tests compare every field and the two
-parameter counts).  Every architecture module in ``repro_torch/configs``
-exposes ``CONFIG`` (the full published configuration), ``reduced_config()``
-(a small same-family config for CPU tests), ``SHAPES`` (its input-shape
-cells) and ``FAMILY``.  The recsys and GNN schemas wait for ROADMAP.md queue
-N, item N7b."""
+"""Config schema of the port: the shape cells and the four dataclasses the
+OneRec serving path, the LM zoo, the recsys family and the EGNN read, field
+for field the same as ``repro.configs.base`` (the parity tests compare
+every field and the two parameter counts).  Every architecture module in
+``repro_torch/configs`` exposes ``CONFIG`` (the full published
+configuration), ``reduced_config()`` (a small same-family config for CPU
+tests), ``SHAPES`` (its input-shape cells) and ``FAMILY``."""
 
 from __future__ import annotations
 
@@ -113,6 +112,36 @@ class TransformerConfig:
                 + n_moe * per_moe_active)
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return body + embed
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    family: str                       # "two_tower" | "mind" | "din" | "dien"
+    embed_dim: int
+    n_items: int = 1_000_000          # item-vocab rows
+    n_users: int = 1_000_000
+    n_sparse_fields: int = 8          # categorical context fields
+    field_vocab: int = 100_000
+    seq_len: int = 100                # behavior-history length
+    # family-specific
+    tower_mlp: Tuple[int, ...] = ()
+    mlp: Tuple[int, ...] = ()
+    attn_mlp: Tuple[int, ...] = ()
+    n_interests: int = 0
+    capsule_iters: int = 0
+    gru_dim: int = 0
+    use_fp8: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    family: str = "egnn"
+    n_layers: int = 4
+    d_hidden: int = 64
+    d_coord: int = 3
+    use_fp8: bool = False             # inapplicable; kept for API uniformity
 
 
 @dataclasses.dataclass(frozen=True)

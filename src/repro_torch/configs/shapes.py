@@ -1,5 +1,4 @@
-"""Assigned input-shape cells (one set per architecture family).  The
-recsys and GNN sets wait for ROADMAP.md queue N, item N7b."""
+"""Assigned input-shape cells (one set per architecture family)."""
 
 from __future__ import annotations
 
@@ -24,6 +23,34 @@ def lm_shapes(long_ctx_skip: Optional[str] = None) -> Dict[str, ShapeSpec]:
 
 FULL_ATTN_SKIP = ("pure full-attention stack: 500k decode has no "
                   "sub-quadratic/windowed structure (DESIGN.md §4)")
+
+
+def recsys_shapes() -> Dict[str, ShapeSpec]:
+    return {
+        "train_batch": ShapeSpec("train_batch", "train", global_batch=65536),
+        "serve_p99": ShapeSpec("serve_p99", "score", global_batch=512),
+        "serve_bulk": ShapeSpec("serve_bulk", "score", global_batch=262144),
+        "retrieval_cand": ShapeSpec("retrieval_cand", "retrieval",
+                                    global_batch=1, n_candidates=1_000_000),
+    }
+
+
+def gnn_shapes() -> Dict[str, ShapeSpec]:
+    return {
+        "full_graph_sm": ShapeSpec("full_graph_sm", "graph", n_nodes=2708,
+                                   n_edges=10556, d_feat=1433,
+                                   note="cora full-batch"),
+        "minibatch_lg": ShapeSpec("minibatch_lg", "graph", n_nodes=232_965,
+                                  n_edges=114_615_892, batch_nodes=1024,
+                                  fanout=(15, 10), d_feat=602,
+                                  note="reddit neighbor-sampled"),
+        "ogb_products": ShapeSpec("ogb_products", "graph", n_nodes=2_449_029,
+                                  n_edges=61_859_140, d_feat=100,
+                                  note="full-batch large"),
+        "molecule": ShapeSpec("molecule", "graph", n_nodes=30, n_edges=64,
+                              global_batch=128, d_feat=16,
+                              note="batched small graphs"),
+    }
 
 
 def onerec_shapes() -> Dict[str, ShapeSpec]:

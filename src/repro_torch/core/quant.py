@@ -130,12 +130,25 @@ def _amax(x: torch.Tensor, dim, keepdim: bool = False) -> torch.Tensor:
     return torch.amax(x.to(torch.float32).abs(), dim=dim, keepdim=keepdim)
 
 
+K_ALIGN = 16     # bytes (e4m3 / int8 elements) a K-major payload row spans
+
+
 def k_major(t: torch.Tensor, contract_axis: int = -2) -> torch.Tensor:
     """The same values and shape, laid out with the contraction axis
     innermost in memory: an ``(..., in, out)`` kernel becomes the transpose
-    view of a contiguous ``(..., out, in)`` array (``stride(-2) == 1``)."""
-    moved = t.movedim(contract_axis, -1).contiguous()
-    return moved.movedim(-1, contract_axis)
+    view of a contiguous ``(..., out, K16)`` array (``stride(-2) == 1``),
+    ``K16`` the contraction length rounded up to a multiple of ``K_ALIGN``
+    with a zero tail past it: TMA copies rows at 16-byte strides, so a
+    kernel of any K (DIN's 180) has rows the kernels can read."""
+    moved = t.movedim(contract_axis, -1)
+    k = moved.shape[-1]
+    k16 = -(-k // K_ALIGN) * K_ALIGN
+    # a fresh allocation, not ``contiguous()``: that keeps a view whose
+    # size-1 axes (one output channel) have strides TMA refuses
+    base = (moved.new_empty if k16 == k else moved.new_zeros)(
+        (*moved.shape[:-1], k16))
+    base[..., :k] = moved
+    return base[..., :k].movedim(-1, contract_axis)
 
 
 def quantize_per_channel(w: torch.Tensor, contract_axis: int = -2,
@@ -143,8 +156,9 @@ def quantize_per_channel(w: torch.Tensor, contract_axis: int = -2,
     """Offline weight quantization, one scale per output channel; reduces
     only over the contraction axis, so a stacked ``(L, in, out)`` kernel
     gets independent ``(L, 1, out)`` scales per layer.  The payload is laid
-    out K-major (``k_major``), the layout kernel ``fp8_gemm`` reads; its
-    shape and values are those of the row-major cast."""
+    out K-major (``k_major``, rows padded to 16 bytes), the layout kernel
+    ``fp8_gemm`` reads; its shape and values are those of the row-major
+    cast."""
     scale = amax_to_scale(_amax(w, contract_axis, keepdim=True), fmt)
     data = k_major(cast_to_fp8(w, scale, fmt), contract_axis)
     return QuantizedTensor(data, scale, "per_channel")

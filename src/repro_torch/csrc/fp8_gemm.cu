@@ -30,10 +30,15 @@
 //   by TMA as they are.  Each consumer thread converts its own A fragment
 //   from the tile in registers (register-sourced A), so the weight's rows
 //   are wgmma's M at every size: out^T = w^T . xq^T.
-// * Quantization pass: one warp per row, 16-byte loads of 8 bf16, the amax
+// * Quantization pass: one warp per row, 16-byte loads of 8 bf16 (element
+//   loads for a row off a 16-byte boundary or K % 8 != 0), the amax
 //   (dynamic mode), then the row cast to e4m3 and written as f16 in the
 //   chunks' k order (sm90_fp8.cuh), rows padded with zeros to a multiple of
 //   128: the B operand, which TMA copies to shared memory as it is.
+// * Any K and N (the recsys towers' K = 180, 200, 270 and N = 1, 80, 200):
+//   the weight's tensor map has dimension K at its padded row stride
+//   (core.quant.k_major pads rows to 16 bytes), so TMA fills the boxes past
+//   K, and past N, with zeros; the epilogues store only n < N and m < M.
 // * Prefill (M >= 256): blocks of 128 weight rows x 128 activation rows, a
 //   producer warpgroup (one thread) keeping a 4-stage ring of 128-deep
 //   chunks in flight with TMA (16 KB of e4m3 weight, 32 KB of f16
@@ -60,13 +65,39 @@ using namespace sm90;
 
 constexpr int HELD = 8;   // 16-byte loads a lane keeps: rows up to 2048 wide
 
+// the 8 bf16 of row `src` (K values) from element 8c, as one 16-byte
+// vector: a 16-byte load when VEC (every row starts on a 16-byte boundary:
+// x does and K % 8 == 0), else element by element, zeros past K (DIN's
+// K = 180: a row every 360 bytes, 7 of 8 rows off the boundary).  VEC is
+// a template parameter, so the aligned path compiles to the 16-byte loads
+// alone: a run-time choice inside the loop slowed it (PERF.md, PR 20)
+template <bool VEC>
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ src,
+                                       int c, int K) {
+  if constexpr (VEC) {
+    return reinterpret_cast<const uint4*>(src)[c];
+  } else {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(src);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 8 * c + 2 * i;
+      w[i] = (k < K ? (uint32_t)h[k] : 0u) |
+             ((k + 1 < K ? (uint32_t)h[k + 1] : 0u) << 16);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // x (R, K) bf16 -> xh (R, Kp) f16 in the chunks' k order (Kp = K rounded
-// up to 128, zeros past K) and sx (R) f32, one warp per row; K % 8 == 0.
-// `fixed` null: the dynamic scale of each row; else *fixed for every row.
-// A row of up to 2048 elements is read once and held in registers; a
-// longer one is read twice (the second time from cache).  Also zeroes
-// `counters` (n_counters ints) for the split-K reduction of the GEMM
-// launched after it on the same stream.
+// up to 128, zeros past K) and sx (R) f32, one warp per row; any K >= 1
+// and rows at any 2-byte boundary (load8<false>).  `fixed` null: the dynamic
+// scale of each row; else *fixed for every row.  A row of up to 2048
+// elements is read once and held in registers; a longer one is read twice
+// (the second time from cache).  Also zeroes `counters` (n_counters ints)
+// for the split-K reduction of the GEMM launched after it on the same
+// stream.
+template <bool VEC>
 __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
                      uint32_t* __restrict__ xh, float* __restrict__ sx,
@@ -78,9 +109,9 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
   const int lane = threadIdx.x % 32;
   const long row = (long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= R) return;
-  const uint4* src = reinterpret_cast<const uint4*>(x + row * K);
+  const __nv_bfloat16* src = x + row * K;
   uint32_t* dst = xh + row * (Kp / 2);
-  const int vecs = K / 8;
+  const int vecs = (K + 7) / 8;
   const bool held = vecs <= 32 * HELD;
   float s = fixed != nullptr ? *fixed : 0.0f;
   uint4 v[HELD];
@@ -89,11 +120,12 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < HELD; ++i) {
       const int c = lane + 32 * i;
-      v[i] = c < vecs ? src[c] : make_uint4(0, 0, 0, 0);
+      v[i] = c < vecs ? load8<VEC>(src, c, K) : make_uint4(0, 0, 0, 0);
       a = amax8(v[i], a);
     }
   } else if (fixed == nullptr) {
-    for (int c = lane; c < vecs; c += 32) a = amax8(src[c], a);
+    for (int c = lane; c < vecs; c += 32)
+      a = amax8(load8<VEC>(src, c, K), a);
   }
   if (fixed == nullptr) {
     for (int o = 16; o > 0; o /= 2)
@@ -109,7 +141,7 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
     }
   } else {
     for (int c = lane; c < vecs; c += 32)
-      store_perm8(dst, c, quant8_f16(src[c], s));
+      store_perm8(dst, c, quant8_f16(load8<VEC>(src, c, K), s));
   }
   for (int c = vecs + lane; c < Kp / 8; c += 32)
     store_perm8(dst, c, make_uint4(0, 0, 0, 0));
@@ -477,7 +509,10 @@ int padded(int K) { return (K + CHUNK - 1) / CHUNK * CHUNK; }
 
 int quantize(const void* x, void* xh, void* sx, const void* fixed, long rows,
              int K, void* counters, int n_counters, cudaStream_t st) {
-  quantize_rows_kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+  const bool vec = K % 8 == 0 && ((uintptr_t)x & 15) == 0;
+  auto kernel =
+      vec ? quantize_rows_kernel<true> : quantize_rows_kernel<false>;
+  kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       (const __nv_bfloat16*)x, (uint32_t*)xh, (float*)sx, rows, K, padded(K),
       (const float*)fixed, (int*)counters, n_counters);
   return (int)cudaGetLastError();
@@ -536,8 +571,9 @@ int gemm(const void* xh, const void* w, const void* sx, const void* sw,
 // static scale.  splits == 0 runs the prefill path; splits >= 1 the decode
 // path with `splits` splits of `cps` chunks each, with part (splits * tiles
 // * 2048) f32 and counters (E * ceil(M / 32) * ceil(N / 64) ints, zeroed
-// here by the quantization pass) as its scratch.  K % 16 == 0, ldw and sew
-// multiples of 16, pointers 16-byte aligned.  Returns cudaGetLastError()
+// here by the quantization pass) as its scratch.  Any K, N >= 1; ldw
+// (>= K) and sew multiples of 16; w and the scratch 16-byte aligned, x
+// 2-byte aligned.  Returns cudaGetLastError()
 // after the launches, or minus the CUresult of a refused tensor-map
 // encoding.
 extern "C" int fp8_gemm_launch(const void* x, const void* w, const void* sw,

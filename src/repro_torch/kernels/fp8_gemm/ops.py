@@ -11,9 +11,11 @@ version (the port of ``repro/kernels/fp8_gemm/ref.py``, i.e.
 CUDA tensor launches the kernel or raises.
 
 The kernel reads the weight K-major: ``wq`` (E, K, N) must be the transpose
-view of an (E, N, K) array (``wq.stride(-2) == 1``), the layout
-``core.quant.quantize_per_channel`` gives every per-channel payload.  Any
-other layout raises: the wrapper never transposes per call.
+view of an (E, N, K16) array (``wq.stride(-2) == 1``, rows padded to a
+multiple of 16 bytes), the layout ``core.quant.quantize_per_channel`` gives
+every per-channel payload.  Any other layout raises: the wrapper never
+transposes per call.  K and N may be any size (the recsys towers run K =
+180, 200, 270 and N = 1, 80, 200), and x's rows any 2-byte boundary.
 """
 
 from __future__ import annotations
@@ -85,22 +87,20 @@ def check_layout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     if tuple(wq.shape) != (e, k, n) or tuple(sw.shape) != (e, n):
         raise ValueError(f"fp8_gemm shapes: x {tuple(x.shape)}, w "
                          f"{tuple(wq.shape)}, sw {tuple(sw.shape)}")
-    if k % 16:
-        raise ValueError(f"fp8_gemm kernel needs K % 16 == 0 (TMA copies "
-                         f"rows of K bytes at 16-byte strides); got K={k}")
     se, sk, sn = wq.stride()
     if sk != 1 or sn % 16 or (e > 1 and se % 16):
         raise ValueError(
             f"fp8_gemm kernel takes the weight K-major: wq (E, K, N) as the "
-            f"transpose view of an (E, N, K) array, wq.stride(-2) == 1 and "
-            f"the other strides multiples of 16 (the layout "
-            f"quant.quantize_per_channel gives); got strides {wq.stride()}")
+            f"transpose view of an (E, N, K16) array (rows padded to 16 "
+            f"bytes), wq.stride(-2) == 1 and the other strides multiples of "
+            f"16 (the layout quant.quantize_per_channel gives); got strides "
+            f"{wq.stride()}")
     if not (x.is_contiguous() and sw.is_contiguous()):
         raise ValueError("fp8_gemm takes contiguous x and sw")
     if x.device != wq.device or sw.device != x.device:
         raise ValueError("fp8_gemm takes tensors on one device")
-    if x.data_ptr() % 16 or wq.data_ptr() % 16:
-        raise ValueError("fp8_gemm takes 16-byte aligned x and wq")
+    if wq.data_ptr() % 16:
+        raise ValueError("fp8_gemm takes a 16-byte aligned wq")
 
 
 _FNS: Dict[str, Any] = {}

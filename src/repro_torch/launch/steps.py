@@ -4,20 +4,23 @@
 function and its concrete arguments on one device (the card unless the
 caller passes ``device="cpu"``), the JAX package's
 ``repro/launch/steps.py`` for the families and kinds the port covers:
-the five LMs and OneRec-V2, ``prefill`` and ``decode``.  Abstract
-bundles (the JAX dry-run's shapes, no allocation) and the ``train`` kind
-wait for ROADMAP.md queue N, item N9; the recsys and GNN families for
-N7b.  The step functions run on the device of their inputs.
+the five LMs and OneRec-V2 (``prefill``, ``decode``) and the four recsys
+architectures (``score``, ``retrieval``).  Abstract bundles (the JAX
+dry-run's shapes, no allocation), the ``train`` kind and the GNN family's
+``graph`` bundles (a training step) wait for ROADMAP.md queue N, item N9.
+The step functions run on the device of their inputs.
 
 Step signatures (uniform per kind):
   prefill:    step(params, batch)                     -> (logits, cache)
   decode:     step(params, cache, batch, index)       -> (logits, cache)
+  score:      step(params, batch)                     -> scores
+  retrieval:  step(params, batch)                     -> scores
 
 Random parameters come from a ``torch.Generator`` seeded with ``seed`` on
-the bundle's device, random tokens from another; with ``fp8`` the params
-are PTQ'd with the paper's policy layer by layer as they are made
-(``models.transformer.init_transformer``'s ``transform``), so a full-width
-LM never holds more than one raw layer on the card.
+the bundle's device, random inputs from another; with ``fp8`` the params
+are PTQ'd with the paper's policy (an LM's layer by layer as they are made,
+``models.transformer.init_transformer``'s ``transform``, so a full-width
+LM never holds more than one raw layer on the card).
 """
 
 from __future__ import annotations
@@ -28,12 +31,13 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.configs import registry
-from repro_torch.configs.base import (OneRecConfig, ShapeSpec,
-                                      TransformerConfig)
+from repro_torch.configs.base import (OneRecConfig, RecsysConfig,
+                                      ShapeSpec, TransformerConfig)
 from repro_torch.core.policy import PAPER_POLICY
 from repro_torch.core.ptq import quantize_params
 from repro_torch.device import resolve_device
 from repro_torch.models import onerec as onerec_model
+from repro_torch.models import recsys as recsys_model
 from repro_torch.models import transformer as tfm
 
 
@@ -111,6 +115,54 @@ def lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
 
 
 # ---------------------------------------------------------------------------
+# Recsys cells
+# ---------------------------------------------------------------------------
+
+
+def _recsys_inputs(cfg: RecsysConfig, b: int, gen: torch.Generator, *,
+                   n_candidates: int = 0) -> dict:
+    """A batch of ``b`` users (uniform ids: histories, targets, fields) and
+    ``n_candidates`` candidate items, drawn from ``gen`` on its device."""
+    def ids(shape, high):
+        return torch.randint(0, high, shape, generator=gen,
+                             device=gen.device, dtype=torch.int32)
+
+    batch = {"hist_ids": ids((b, cfg.seq_len), cfg.n_items),
+             "target_ids": ids((b,), cfg.n_items),
+             "field_ids": ids((b, cfg.n_sparse_fields), cfg.field_vocab)}
+    if n_candidates:
+        batch["candidate_ids"] = ids((n_candidates,), cfg.n_items)
+    return batch
+
+
+def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
+                  fp8: bool, seed: int = 0, device=None) -> StepBundle:
+    """A score (``global_batch`` users, one target each) or retrieval (one
+    user against ``n_candidates`` items) bundle: f32 params (the towers
+    PTQ'd with the paper's policy when ``fp8``; the tables stay f32)."""
+    dev = resolve_device(device)
+    if shape.kind == "train":
+        raise _not_ported(f"the train step of {arch}", "N9")
+    if shape.kind not in ("score", "retrieval"):
+        raise ValueError(f"unknown recsys shape kind {shape.kind}")
+    params = recsys_model.init_recsys(_generator(seed, dev), cfg, device=dev)
+    if fp8:
+        params = quantize_params(params, PAPER_POLICY)
+    gen = _generator(seed + 1, dev)
+    if shape.kind == "score":
+        def step(params, batch):
+            return recsys_model.score(params, batch, cfg)
+        batch = _recsys_inputs(cfg, shape.global_batch, gen)
+    else:
+        def step(params, batch):
+            return recsys_model.retrieval_scores(params, batch, cfg)
+        batch = _recsys_inputs(cfg, shape.global_batch, gen,
+                               n_candidates=shape.n_candidates)
+    return StepBundle(arch, shape.name, shape.kind, step, (params, batch),
+                      cfg=cfg, note="fp8" if fp8 else "bf16")
+
+
+# ---------------------------------------------------------------------------
 # OneRec cells (the paper's model)
 # ---------------------------------------------------------------------------
 
@@ -179,21 +231,28 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     shape = shape_override or mod.SHAPES[shape_name]
     if shape.skip:
         raise ValueError(f"cell {arch}/{shape_name} is N/A: {shape.skip}")
+    if mod.FAMILY == "gnn":
+        raise _not_ported(f"the graph (training) step of {arch}", "N9")
     if fp8 is None:
         fp8 = getattr(cfg, "use_fp8", False) or mod.FAMILY in ("lm", "onerec")
-    build = lm_bundle if mod.FAMILY == "lm" else onerec_bundle
+    build = {"lm": lm_bundle, "onerec": onerec_bundle,
+             "recsys": recsys_bundle}[mod.FAMILY]
     return build(arch, cfg, shape, fp8=fp8, seed=seed, device=device)
 
 
 # Reduced-shape cells for CPU smoke testing (the JAX package's, tiny dims):
-# the ported kinds only (train waits for N9; the recsys and GNN families'
-# cells for N7b)
+# the ported kinds only (train and the GNN family's graph cells wait for N9)
 SMOKE_SHAPES = {
     "lm": {
         "prefill": ShapeSpec("smoke_prefill", "prefill", seq_len=16,
                              global_batch=2),
         "decode": ShapeSpec("smoke_decode", "decode", seq_len=32,
                             global_batch=2),
+    },
+    "recsys": {
+        "score": ShapeSpec("smoke_score", "score", global_batch=8),
+        "retrieval": ShapeSpec("smoke_retrieval", "retrieval",
+                               global_batch=1, n_candidates=64),
     },
     "onerec": {
         "prefill": ShapeSpec("smoke_prefill", "prefill", seq_len=24,
@@ -206,8 +265,11 @@ SMOKE_SHAPES = {
 
 def smoke_bundles(arch: str, fp8: bool = False, device=None):
     """Concrete reduced-config bundles of every ported step kind of the
-    arch."""
+    arch (none of the GNN family's yet: its graph step is a training step,
+    N9)."""
     mod = registry.get_arch(arch)
+    if mod.FAMILY == "gnn":
+        raise _not_ported(f"the graph (training) step of {arch}", "N9")
     return [build_bundle(arch, shape.name, reduced=True, fp8=fp8,
                          shape_override=shape, device=device)
             for shape in SMOKE_SHAPES[mod.FAMILY].values()]

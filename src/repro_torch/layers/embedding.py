@@ -1,0 +1,93 @@
+"""Embedding tables and EmbeddingBag, the JAX package's
+``repro/layers/embedding.py`` in PyTorch.
+
+The JAX package builds the bag lookup from ``jnp.take`` +
+``jax.ops.segment_sum`` / ``segment_max``, XLA ops with no Pallas kernel;
+here they are ``index_select`` + ``index_add_`` / ``scatter_reduce`` over
+f32 rows, so every mode sums and compares in f32 as the JAX package does
+(``torch.nn.functional.embedding_bag`` is not used: it reduces in the
+table's dtype).  An empty bag gives 0 in every mode: ``segment_max`` gives
+``-inf`` there and the JAX code maps it to 0, so the max starts from
+``-inf`` (``include_self=False`` over a ``-inf`` fill) and non-finite
+results become 0.  Row sharding of the tables waits for ROADMAP.md queue N,
+item N9.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.layers.common import truncated_normal
+
+
+def init_embedding(gen: torch.Generator, vocab: int, dim: int, *,
+                   stddev: Optional[float] = None, dtype=torch.float32,
+                   device=None) -> dict:
+    stddev = stddev if stddev is not None else 1.0 / math.sqrt(dim)
+    return {"table": truncated_normal((vocab, dim), stddev, gen, device,
+                                      dtype)}
+
+
+def embed_lookup(params: dict, ids: torch.Tensor, *,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain gather of ``ids``' rows, cast to ``compute_dtype``."""
+    flat = params["table"].index_select(0, ids.reshape(-1).long())
+    return flat.reshape(*ids.shape, -1).to(compute_dtype)
+
+
+def _gather_f32(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    flat = table.index_select(0, ids.reshape(-1).long())
+    return flat.reshape(*ids.shape, -1).to(torch.float32)
+
+
+def embedding_bag(params: dict, ids: torch.Tensor,
+                  offsets_or_segments: torch.Tensor, *, n_bags: int,
+                  mode: str = "sum", weights: Optional[torch.Tensor] = None,
+                  compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """EmbeddingBag(sum|mean|max) over ragged id lists: ``ids`` (nnz,)
+    rows of the table, ``offsets_or_segments`` (nnz,) the bag of each
+    entry; optional per-entry ``weights``.  Returns (n_bags, dim)."""
+    seg = offsets_or_segments.long()
+    vecs = _gather_f32(params["table"], ids)
+    if weights is not None:
+        vecs = vecs * weights.to(torch.float32)[:, None]
+    out = vecs.new_zeros((n_bags, vecs.shape[-1]))
+    if mode == "sum":
+        out.index_add_(0, seg, vecs)
+    elif mode == "mean":
+        out.index_add_(0, seg, vecs)
+        cnt = vecs.new_zeros((n_bags,)).index_add_(
+            0, seg, torch.ones_like(seg, dtype=torch.float32))
+        out = out / torch.clamp(cnt, min=1.0)[:, None]
+    elif mode == "max":
+        out = out.fill_(-math.inf).scatter_reduce_(
+            0, seg[:, None].expand_as(vecs), vecs, "amax",
+            include_self=False)
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    else:
+        raise ValueError(f"unknown mode {mode}")
+    return out.to(compute_dtype)
+
+
+def multi_hot_bag(params: dict, ids: torch.Tensor, *, mode: str = "sum",
+                  pad_id: int = 0, compute_dtype=torch.bfloat16
+                  ) -> torch.Tensor:
+    """Fixed-width multi-hot lookup: ``ids`` (batch, n_per_bag), ``pad_id``
+    entries empty (masked out of the reduction)."""
+    vecs = _gather_f32(params["table"], ids)
+    mask = (ids != pad_id).to(torch.float32)[..., None]
+    vecs = vecs * mask
+    if mode == "sum":
+        out = vecs.sum(-2)
+    elif mode == "mean":
+        out = vecs.sum(-2) / torch.clamp(mask.sum(-2), min=1.0)
+    elif mode == "max":
+        out = torch.where(mask > 0, vecs, torch.full_like(vecs, -math.inf)
+                          ).amax(-2)
+        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+    else:
+        raise ValueError(f"unknown mode {mode}")
+    return out.to(compute_dtype)

@@ -43,11 +43,13 @@ def index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
 def _stacked_like(t: torch.Tensor, n: int) -> torch.Tensor:
     """Empty (n, *t.shape) storage whose slices have t's memory layout: a
     K-major payload (``stride(-2) == 1``, the transpose view of an (.., out,
-    in) array) stays K-major."""
+    in) array, rows padded as ``quant.k_major`` pads them) stays K-major."""
     if t.ndim >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1:
-        base = torch.empty((n, *t.shape[:-2], t.shape[-1], t.shape[-2]),
-                           dtype=t.dtype, device=t.device)
-        return base.transpose(-1, -2)
+        k, ld = t.shape[-2], t.stride(-1)      # rows padded past K, if so
+        alloc = torch.empty if ld == k else torch.zeros
+        base = alloc((n, *t.shape[:-2], t.shape[-1], ld), dtype=t.dtype,
+                     device=t.device)
+        return base[..., :k].transpose(-1, -2)
     return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
 
 

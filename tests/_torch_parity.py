@@ -390,3 +390,160 @@ def check_bundle_decode(arch: str, use_kernel: bool):
             np.testing.assert_array_equal(
                 leaf["pos"].numpy(),
                 np.asarray(jcache["stacks"][si][key]["pos"]))
+
+
+# ---------------------------------------------------------------------------
+# The recsys family (tests/test_torch_recsys.py)
+# ---------------------------------------------------------------------------
+
+RECSYS_ARCHS = ("two-tower-retrieval", "mind", "din", "dien")
+RECSYS_B = RECSYS_N = 16     # users a score batch, candidates a user (one
+# size: the op-by-op JAX side compiles each op once a shape)
+CUT_ITEMS, CUT_FIELD_VOCAB = 1000, 50   # the published widths' cut tables
+
+
+def recsys_cfg(arch: str, size: str):
+    """The arch's ``reduced_config()`` (size "reduced"), or its ``CONFIG``
+    at published widths with the tables cut to ``CUT_ITEMS`` item rows and
+    ``CUT_FIELD_VOCAB`` rows a field (size "published")."""
+    from repro_torch.configs import registry
+    mod = registry.get_arch(arch)
+    if size == "reduced":
+        return mod.reduced_config()
+    return dataclasses.replace(mod.CONFIG, n_items=CUT_ITEMS,
+                               n_users=CUT_ITEMS,
+                               field_vocab=CUT_FIELD_VOCAB)
+
+
+@functools.lru_cache(maxsize=None)
+def recsys_params(arch: str, size: str):
+    """(JAX raw params, JAX PTQ'd, port raw, port PTQ'd): one JAX init (key
+    0, as the JAX bundles), bridged through numpy, PTQ'd with the paper's
+    policy on each side."""
+    from repro.configs.base import RecsysConfig as JaxRecsysConfig
+    from repro.core.policy import PAPER_POLICY as JAX_PAPER
+    from repro.core.ptq import quantize_params as jax_quantize_params
+    from repro.models import recsys as jax_recsys
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    cfg = recsys_cfg(arch, size)
+    raw = jax_recsys.init_recsys(jax.random.PRNGKey(0), JaxRecsysConfig(
+        **dataclasses.asdict(cfg)))
+    ours = torch_params(raw)
+    return (raw, jax_quantize_params(raw, JAX_PAPER), ours,
+            quantize_params(ours, PAPER_POLICY))
+
+
+def recsys_batch(cfg, b: int = RECSYS_B, n: int = RECSYS_N, step: int = 0):
+    """``SyntheticInteractions``' batch ``step`` (Zipf histories, targets,
+    fields, labels) for ``b`` users, and ``n`` candidates for the first."""
+    from repro_torch.data.recsys_data import (RecsysStreamConfig,
+                                              SyntheticInteractions)
+    stream = SyntheticInteractions(RecsysStreamConfig(
+        n_items=cfg.n_items, n_fields=cfg.n_sparse_fields,
+        field_vocab=cfg.field_vocab, seq_len=cfg.seq_len, global_batch=b,
+        seed=7))
+    batch = stream.batch_at(step)
+    cand = np.random.default_rng(step).integers(
+        0, cfg.n_items, size=n).astype(np.int32)
+    one = {k: batch[k][:1] for k in ("hist_ids", "target_ids", "field_ids")}
+    return batch, dict(one, candidate_ids=cand)
+
+
+def rel_dev(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    got = np.asarray(got.float() if hasattr(got, "float") else got,
+                     np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def recsys_outputs(arch: str, size: str, fp8: bool):
+    """Scores, retrieval scores and the train loss value of both packages
+    (the JAX side op by op) on one batch: {name: (port, JAX)}."""
+    import jax.numpy as jnp
+    import torch
+    from repro.configs.base import RecsysConfig as JaxRecsysConfig
+    from repro.models import recsys as jax_recsys
+    from repro_torch.models import recsys
+    cfg = recsys_cfg(arch, size)
+    jcfg = JaxRecsysConfig(**dataclasses.asdict(cfg))
+    jraw, jq, traw, tq = recsys_params(arch, size)
+    jp, tp = (jq, tq) if fp8 else (jraw, traw)
+    batch, one = recsys_batch(cfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    j1 = {k: jnp.asarray(v) for k, v in one.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    t1 = {k: torch.from_numpy(v) for k, v in one.items()}
+    with jax.disable_jit():
+        theirs = {"score": jax_recsys.score(jp, jb, jcfg),
+                  "retrieval": jax_recsys.retrieval_scores(jp, j1, jcfg),
+                  "loss": jax_recsys.train_loss(jp, jb, jcfg)}
+    ours = {"score": recsys.score(tp, tb, cfg),
+            "retrieval": recsys.retrieval_scores(tp, t1, cfg),
+            "loss": recsys.train_loss(tp, tb, cfg)}
+    return {k: (ours[k], np.asarray(theirs[k], np.float32)) for k in ours}
+
+
+# ---------------------------------------------------------------------------
+# The EGNN (tests/test_torch_gnn.py)
+# ---------------------------------------------------------------------------
+
+GNN_CLASSES = 16
+
+
+@functools.lru_cache(maxsize=None)
+def egnn_params(which: str, d_feat: int):
+    """(JAX params, port params) of ``egnn``'s ``CONFIG`` or
+    ``reduced_config()``: one JAX init (key 0), bridged through numpy."""
+    from repro.configs import registry as jax_registry
+    from repro.models import gnn as jax_gnn
+    mod = jax_registry.get_arch("egnn")
+    cfg = mod.CONFIG if which == "CONFIG" else mod.reduced_config()
+    raw = jax_gnn.init_egnn(jax.random.PRNGKey(0), cfg, d_feat=d_feat,
+                            n_classes=GNN_CLASSES)
+    return raw, torch_params(raw)
+
+
+def egnn_batches(d_feat: int = 12):
+    """A padded node-level graph (``random_geometric_graph`` +
+    ``graph_batch``, masked padding nodes and edges) and a batch of small
+    graphs (``molecule_batch``)."""
+    from repro_torch.data import graph
+    g = graph.random_geometric_graph(60, 6, d_feat, n_classes=GNN_CLASSES,
+                                     seed=1)
+    node = graph.graph_batch(g, pad_nodes=64, pad_edges=len(g.edges) + 9)
+    mol = graph.molecule_batch(5, 7, 12, d_feat, n_classes=GNN_CLASSES,
+                               seed=2)
+    return {"node": node, "graph": mol}
+
+
+def egnn_outputs(which: str, level: str):
+    """The forward's h and coordinates, the level's logits and loss value
+    of both packages (the JAX side op by op): {name: (port, JAX)}."""
+    import jax.numpy as jnp
+    import torch
+    from repro.models import gnn as jax_gnn
+    from repro_torch.configs import registry
+    from repro_torch.models import gnn
+    mod = registry.get_arch("egnn")
+    cfg = mod.CONFIG if which == "CONFIG" else mod.reduced_config()
+    batch = egnn_batches()[level]
+    jp, tp = egnn_params(which, batch["feat"].shape[1])
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    n_graphs = len(batch["labels"]) if level == "graph" else 0
+    with jax.disable_jit():
+        jh, jx = jax_gnn.egnn_forward(jp, jb, cfg)
+        jl = (jax_gnn.graph_logits(jp, jb, cfg, n_graphs) if n_graphs
+              else jax_gnn.node_logits(jp, jb, cfg))
+        jloss = jax_gnn.train_loss(jp, jb, cfg, level=level,
+                                   n_graphs=n_graphs)
+    th, tx = gnn.egnn_forward(tp, tb, cfg)
+    tl = (gnn.graph_logits(tp, tb, cfg, n_graphs) if n_graphs
+          else gnn.node_logits(tp, tb, cfg))
+    tloss = gnn.train_loss(tp, tb, cfg, level=level, n_graphs=n_graphs)
+    return {name: (ours, np.asarray(theirs, np.float32))
+            for name, ours, theirs in (("h", th, jh), ("coord", tx, jx),
+                                       ("logits", tl, jl),
+                                       ("loss", tloss, jloss))}

@@ -485,6 +485,50 @@ def test_phase3_case_is_run_to_run_identical(cuda, case):
 # ---------------------------------------------------------------------------
 
 
+# the recsys family's per-channel fp8 kernels under the paper's policy
+# (K, N): two-tower's towers, MIND's proj tower, DIN's and DIEN's score MLPs
+RECSYS_GEMMS = [(2304, 1024), (1024, 512), (512, 256), (256, 1024),
+                (576, 64), (180, 200), (200, 80), (80, 1), (270, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [100, 512], ids=["decode", "prefill"])
+@pytest.mark.parametrize("K,N", RECSYS_GEMMS)
+def test_fp8_gemm_at_recsys_shapes(cuda, K, N, M):
+    """Any K and N (C5): PTQ's padded K-major payload, dynamic and static
+    scales, through the decode (split K) and prefill paths."""
+    g = torch.Generator(device=cuda).manual_seed(K + N)
+    x = torch.randn(1, M, K, device=cuda, generator=g).to(torch.bfloat16)
+    wq = quant.quantize_per_channel(
+        torch.randn(1, K, N, device=cuda, generator=g) / math.sqrt(K))
+    sw = wq.scale.reshape(1, N).contiguous()
+    _close(gemm_ops.fp8_gemm(x, wq.data, sw),
+           gemm_ops.fp8_gemm_plain(x, wq.data, sw))
+    s = (x.float().abs().max() / 448.0).reshape(1, 1)
+    _close(gemm_ops.fp8_gemm(x, wq.data, sw, act_scale=s),
+           gemm_ops.fp8_gemm_plain(x, wq.data, sw, act_scale=s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [5, 300], ids=["decode", "prefill"])
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("K", [1, 7, 180])
+def test_fp8_gemm_any_k_and_n_on_unaligned_rows(cuda, K, N, M):
+    """K and N far from any tile (C5), x starting 2 bytes past a 16-byte
+    boundary, so no row is read with 16-byte loads; batch of 2."""
+    g = torch.Generator(device=cuda).manual_seed(K * N + M)
+    buf = torch.randn(2 * M * K + 1, device=cuda, generator=g).to(
+        torch.bfloat16)
+    x = buf[1:].view(2, M, K)
+    assert x.data_ptr() % 16 == 2
+    wq = quant.quantize_per_channel(
+        torch.randn(2, K, N, device=cuda, generator=g))
+    sw = wq.scale.reshape(2, N).contiguous()
+    out = gemm_ops.fp8_gemm(x, wq.data, sw)
+    assert out.shape == (2, M, N)
+    _close(out, gemm_ops.fp8_gemm_plain(x, wq.data, sw))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("E,M,K,N", [
     (1, 32, 2048, 2048),     # decode

@@ -179,9 +179,11 @@ def test_fp8_gemm_prefill_plan():
                                   "shape"])
 def test_fp8_gemm_kernel_layout_checks(case):
     """What the CUDA kernel refuses, named before any launch: a row-major
-    weight (the kernel reads it K-major and never transposes per call),
-    K % 16 != 0 (TMA's 16-byte row strides), other dtypes and shapes.
-    ``check_layout`` is pure Python, so it runs here on CPU tensors."""
+    weight (the kernel reads it K-major and never transposes per call), a
+    K-major weight whose rows are not padded to 16 bytes (TMA's row
+    strides; PTQ's payload at K = 72 is padded and accepted), other dtypes
+    and shapes.  ``check_layout`` is pure Python, so it runs here on CPU
+    tensors."""
     k = 80 if case == "k-ragged" else 64
     x = torch.randn(1, 4, k).to(torch.bfloat16)
     wq = quant.quantize_per_channel(torch.randn(1, k, 48))
@@ -193,7 +195,9 @@ def test_fp8_gemm_kernel_layout_checks(case):
     elif case == "k-ragged":
         x = torch.randn(1, 4, 72).to(torch.bfloat16)
         w = quant.quantize_per_channel(torch.randn(1, 72, 48)).data
-        err, match = ValueError, "K % 16"
+        assert w.stride() == (48 * 80, 1, 80)
+        gemm_ops.check_layout(x, w, sw, torch.bfloat16)
+        w, err, match = w.mT.contiguous().mT, ValueError, "K-major"
     elif case == "dtype":
         x, err, match = x.float(), TypeError, "bf16 x"
     else:

@@ -1,7 +1,8 @@
 """The LM zoo's configs and pieces, the port against the JAX package on
 the CPU: every config field, the layer plan and both parameter counts of
 the five LMs (``CONFIG`` and ``reduced_config()``), their shape cells, the
-registry (the recsys and GNN names wait for N7b), ``SyntheticLMStream``,
+registry (all eleven JAX names; the recsys and GNN families' training
+cells wait for N9), ``SyntheticLMStream``,
 chunked and windowed attention, and ``batch_attention``'s plain version
 above one 512-key block.  The per-arch model parity is in
 ``test_torch_zoo_dense.py`` and ``test_torch_zoo_moe.py``.
@@ -36,7 +37,7 @@ from repro_torch.launch import steps
 from repro_torch.layers import attention as attn
 from repro_torch.models import transformer as tfm
 
-N7B = ("egnn", "two-tower-retrieval", "mind", "din", "dien")
+RECSYS_GNN = ("egnn", "two-tower-retrieval", "mind", "din", "dien")
 
 
 @pytest.mark.parametrize("which", ["CONFIG", "reduced_config"])
@@ -76,22 +77,24 @@ def test_gemma3_and_deepseek_moe_plans():
 
 
 def test_registry_lists_the_ported_archs():
-    assert registry.list_archs() == [
-        a for a in jax_registry.list_archs() if a not in N7B]
+    assert registry.list_archs() == jax_registry.list_archs()
     for arch in registry.list_archs():
         assert registry.get_arch(arch).SHAPES
     with pytest.raises(KeyError):
         registry.get_arch("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", N7B)
+@pytest.mark.parametrize("arch", RECSYS_GNN)
 def test_recsys_and_gnn_archs_name_their_roadmap_item(arch):
-    assert arch in jax_registry.list_archs()
+    """Each name resolves to the JAX config's values; its training cell
+    (recsys ``train_batch``, every GNN ``graph`` cell) names N9."""
+    mod, jmod = registry.get_arch(arch), jax_registry.get_arch(arch)
+    assert dataclasses.asdict(mod.CONFIG) == dataclasses.asdict(jmod.CONFIG)
+    assert mod.FAMILY == jmod.FAMILY
+    train = "train_batch" if mod.FAMILY == "recsys" else "full_graph_sm"
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N7b"):
-        registry.get_arch(arch)
-    with pytest.raises(NotImplementedError, match="N7b"):
-        steps.build_bundle(arch, "serve_p99", device="cpu")
+                       match=r"ROADMAP\.md queue N, item N9"):
+        steps.build_bundle(arch, train, reduced=True, device="cpu")
 
 
 def test_bundles_refuse_what_waits_for_n9():

@@ -43,7 +43,12 @@ from the root of a checkout.  Phases, each of which fails the run:
    rows ``serve_p99`` and the most phase 4 (i) gives it, held to both
    bounds, beside ``torch._scaled_mm`` or its refusal.  The int8 product
    (``quant.int8_linear``) must equal its CPU result bit for bit; it is
-   timed.
+   timed.  The raw (unquantized) bf16 products (ROADMAP C6: cuBLAS on the
+   tensor cores through ``quant.raw_matmul``) at OneRec-V2's lm_head and
+   router, llama3-8b's lm_head, two-tower's user tower and DIN's attention
+   MLP at 262144 rows, a raw expert product and the plain attention's
+   scores and PV at the zoo prefill's chunk, each held to
+   ``OFF_EXACT_MAX`` and timed against the f32 product it replaced.
 3. Card against CPU: the same ragged requests on a small 128-aligned
    config through the engine on the card and on the CPU (plain versions),
    in nine cases, each held to both bars: the paged layout; the paged
@@ -116,7 +121,18 @@ from the root of a checkout.  Phases, each of which fails the run:
    embedding gathers beside their byte bound;
    (j) ``egnn`` at its published width (4 layers, d 64) on
    ``full_graph_sm``, ``minibatch_lg`` (one ``NeighborSampler`` batch) and
-   ``molecule``: ms, peak memory, E(3) equivariance error on the card.
+   ``molecule``: ms, peak memory, E(3) equivariance error on the card;
+   two forwards of each bit-identical (ROADMAP C7), and in (i) two
+   ``embedding_bag`` ``sum`` / ``mean`` calls at two-tower's
+   ``serve_bulk`` shape; ``segment_sum`` timed against ``index_add_``.
+   (a)'s decode steps after the first run under
+   ``analysis.guards.steady_state()``: no unsanctioned host sync, no
+   kernel build (N10a).
+5. The paper's distribution analysis and auto-tuner (N9a): the Fig.-1
+   report of the full-width OneRec-V2 params and of one 32-request
+   forward's activation taps, the same for DIN at published widths, each
+   with ``feasibility_verdict``, time and peak memory; one reduced DIN
+   search whose artifact is deployed.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -125,6 +141,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -664,6 +681,135 @@ def check_int8_product(dev, records):
                          int_mm_ms=t["product"], bound_ms=b_ms,
                          bound_by=b_by))
     records["int8_product"] = rows
+
+
+# (name, M, K, N, f32 output): the raw (unquantized) products of the main
+# paths, ROADMAP C6: OneRec-V2's lm_head at a decode step and a 32-request
+# prefill and its router, llama3-8b's lm_head at the zoo's 4 decode rows,
+# two-tower's user tower and DIN's attention MLP at serve_bulk's 262144 rows
+RAW_SHAPES = (
+    ("onerec-v2 lm_head", 32, 2048, 8256, True),
+    ("onerec-v2 lm_head", 12320, 2048, 8256, True),
+    ("onerec-v2 router", 12320, 2048, 16, True),
+    ("llama3-8b lm_head", 4, 4096, 128256, True),
+    ("two-tower user tower", 262144, 2304, 1024, False),
+    ("din attn_mlp 0", 262144, 72, 80, False),
+    ("din attn_mlp 1", 262144, 80, 40, False),
+)
+# the zoo prefill's plain attention, llama3-8b: one q chunk of 1024 against
+# the prompt's 4096 keys, 4 prompts, 8 KV heads of 4 query heads, hd 128
+RAW_ATTENTION = (4, 1024, 4096, 8, 4, 128)
+
+
+def _raw_check(name, shape, fns, exact, b_ms, b_by, iters):
+    """One raw product: ``fns`` holds ``new`` (the port's), ``old`` (the
+    f32 product of the same bf16 values that it replaced) and ``one`` (one
+    cuBLAS call over the whole K with an f32 result, which the port does
+    not use).  The port's share off the float64 product's bf16 rounding is
+    held to ``OFF_EXACT_MAX``; the three are timed in turns."""
+    import torch
+    bf = torch.bfloat16
+    shares = off_exact(name, shape, fns["new"]().to(bf),
+                       fns["old"]().to(bf), exact)
+    e = exact.float().to(bf)
+    shares["off_exact_one_call"] = (fns["one"]().to(bf) != e).float(
+        ).mean().item()
+    del e
+    t = time_turns(fns, iters)
+    print(f"[raw] {name} {shape}: {t['new']:.4f} ms on the tensor cores "
+          f"against {t['old']:.4f} ms for the f32 product it replaces "
+          f"({t['old'] / t['new']:.1f}x); one cuBLAS call over the whole K "
+          f"{t['one']:.4f} ms with {shares['off_exact_one_call']:.4%} of "
+          f"outputs off (device times, CUDA graphs, in turns); bound "
+          f"{b_ms:.4f} ms ({b_by}, bf16 peak)")
+    return dict(name=name, shape=shape, ms=t["new"], f32_ms=t["old"],
+                one_call_ms=t["one"], bound_ms=b_ms, bound_by=b_by, **shares)
+
+
+def check_raw_products(dev, records):
+    """Phase 2, ROADMAP C6: the raw products of bf16 operands through
+    ``quant.raw_matmul`` (cuBLAS on the tensor cores, each
+    ``RAW_K_CHUNK``-deep chunk's product added into an f32 result) at
+    ``RAW_SHAPES``, one raw expert
+    product (``moe._grouped_matmul``, E = 16, a prefill's 3080 rows an
+    expert) and the plain attention's scores and PV at ``RAW_ATTENTION``:
+    each held to ``OFF_EXACT_MAX`` of outputs off the bf16 rounding of the
+    float64-summed product, and timed against the f32 product of the same
+    bf16 values that it replaces (the port's code before C6) and against
+    one cuBLAS call over the whole K.  No kernel of the port: the JAX
+    package's are XLA dots."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.layers import attention, moe
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(bf)
+
+    for name, m, k, n, f32_out in RAW_SHAPES:
+        out_dtype = f32 if f32_out else bf
+        x, w = randn(m, k), randn(k, n, scale=k ** -0.5)
+        if quant.matmul_any(x, w, out_dtype=out_dtype).dtype != out_dtype:
+            fail(f"raw {name}: output not {out_dtype}")
+        b_ms, b_by = bound(2 * (m * k + k * n) + m * n * (4 if f32_out
+                                                           else 2),
+                           2.0 * m * k * n, BF16_OPS_PER_S)
+        rows.append(_raw_check(
+            f"raw {name}", f"M={m} K={k} N={n}", dict(
+                new=lambda: quant.matmul_any(x, w, out_dtype=out_dtype),
+                old=lambda: torch.matmul(x.float(), w.float()).to(
+                    out_dtype),
+                one=lambda: torch.mm(x, w, out_dtype=f32)),
+            x.double() @ w.double(), b_ms, b_by, 3 if m * n > 1e8 else 20))
+        del x, w
+    e, c, k, n = 16, 3080, 2048, 4096
+    x, w = randn(e, c, k), randn(e, k, n, scale=k ** -0.5)
+    b_ms, b_by = bound(2 * (e * c * k + e * k * n + e * c * n),
+                       2.0 * e * c * k * n, BF16_OPS_PER_S)
+    rows.append(_raw_check(
+        "raw expert", f"E={e} C={c} K={k} N={n}", dict(
+            new=lambda: moe._grouped_matmul(x, w),
+            old=lambda: torch.matmul(x.float(), w.float()).to(bf),
+            one=lambda: torch.bmm(x, w, out_dtype=f32)),
+        torch.bmm(x.double(), w.double()), b_ms, b_by, 3))
+    del x, w
+    b, tq, s, kv, grp, hd = RAW_ATTENTION
+    q, kk, v = randn(b, tq, kv, grp, hd), randn(b, s, kv, hd), \
+        randn(b, s, kv, hd)
+    scale = hd ** -0.5
+    shape = f"B={b} T={tq} S={s} Kv={kv} G={grp} hd={hd}"
+    n_ops = 2.0 * b * kv * grp * tq * s * hd
+    n_scores = b * kv * grp * tq * s
+    b_ms, b_by = bound(2 * (q.numel() + kk.numel()) + 4 * n_scores, n_ops,
+                       BF16_OPS_PER_S)
+    qm = q.permute(0, 2, 3, 1, 4).reshape(b * kv, grp * tq, hd)
+    km = kk.permute(0, 2, 3, 1).reshape(b * kv, hd, s)
+    rows.append(_raw_check(
+        "raw attention scores", shape, dict(
+            new=lambda: attention._gqa_scores(q, kk, scale),
+            old=lambda: torch.einsum("btkgh,bskh->bkgts", q.float(),
+                                     kk.float()) * scale,
+            one=lambda: (torch.bmm(qm, km, out_dtype=f32) * scale).view(
+                b, kv, grp, tq, s)),
+        torch.einsum("btkgh,bskh->bkgts", q.double(), kk.double()) * scale,
+        b_ms, b_by, 3))
+    probs = torch.softmax(attention._gqa_scores(q, kk, scale), dim=-1).to(bf)
+    pm = probs.reshape(b * kv, grp * tq, s)
+    vm = v.permute(0, 2, 1, 3).reshape(b * kv, s, hd)
+    b_ms, b_by = bound(2 * (probs.numel() + v.numel() + q.numel()), n_ops,
+                       BF16_OPS_PER_S)
+    rows.append(_raw_check(
+        "raw attention PV", shape, dict(
+            new=lambda: attention._gqa_combine(probs, v),
+            old=lambda: torch.einsum("bkgts,bskh->btkgh", probs.float(),
+                                     v.float()).to(bf),
+            one=lambda: torch.bmm(pm, vm, out_dtype=f32).view(
+                b, kv, grp, tq, hd).permute(0, 3, 1, 2, 4)),
+        torch.einsum("bkgts,bskh->btkgh", probs.double(), v.double()),
+        b_ms, b_by, 3))
+    records["raw_products"] = rows
 
 
 def _decode_pool(dev, lengths, *, quantized, ps, kv, hd, n_p, seed):
@@ -1852,6 +1998,39 @@ def _drive(dev, path: str, run, expect_fn):
     return outs, launches, stats, peak
 
 
+@contextlib.contextmanager
+def guarded_decode_steps(dev, path: str):
+    """Phase 4 (a)'s decode steps under ``analysis.guards.steady_state``
+    (N10a): every ``PhaseExecutor.decode`` after an engine's first (the
+    warmup) runs inside the guard, so an unsanctioned host sync or a
+    kernel build fails the run.  Yields the sanctioned syncs of each
+    guarded step (the explicit staging of the step's inputs and the fused
+    select's readback)."""
+    from repro_torch.analysis.guards import (SteadyStateViolation,
+                                             steady_state)
+    from repro_torch.serving.executor import PhaseExecutor
+    decode = PhaseExecutor.decode
+    per_step = []
+
+    def guarded(self, *args, **kwargs):
+        if not self.counters["decode_steps"]:
+            return decode(self, *args, **kwargs)
+        try:
+            with steady_state(dev) as mon:
+                out = decode(self, *args, **kwargs)
+        except (RuntimeError, SteadyStateViolation) as e:
+            fail(f"{path}: decode step {self.counters['decode_steps']} "
+                 f"under steady_state(): {e}")
+        per_step.append(mon.sanctioned)
+        return out
+
+    PhaseExecutor.decode = guarded
+    try:
+        yield per_step
+    finally:
+        PhaseExecutor.decode = decode
+
+
 def full_width(dev):
     """Phase 4: the paged path through the launcher, then the contiguous
     path through ``ServingEngine``.  Returns each path's launch counts."""
@@ -1870,13 +2049,22 @@ def full_width(dev):
                 "fp8_grouped_gemm": forwards * 3 * n_layers,   # gate, up, down
                 "int8_matmul": 0}
 
-    paged_outs, paged, paged_stats, paged_peak = _drive(
-        dev, "paged", lambda: serve.main([
-            "--paged", "--kv-fp8", "--fused-decode", "auto", "--requests",
-            "64", "--batch", "32", "--ragged", "--seed", "0", "--device",
-            str(dev)]),
-        lambda st: {**per_forward(st), "radix_topk": 0, "batch_attention": 0,
-                    "paged_decode": int(st["decode_steps"]) * n_layers})
+    with guarded_decode_steps(dev, "paged") as sanctioned_per_step:
+        paged_outs, paged, paged_stats, paged_peak = _drive(
+            dev, "paged", lambda: serve.main([
+                "--paged", "--kv-fp8", "--fused-decode", "auto",
+                "--requests", "64", "--batch", "32", "--ragged", "--seed",
+                "0", "--device", str(dev)]),
+            lambda st: {**per_forward(st), "radix_topk": 0,
+                        "batch_attention": 0,
+                        "paged_decode": int(st["decode_steps"]) * n_layers})
+    if len(sanctioned_per_step) != int(paged_stats["decode_steps"]) - 1:
+        fail(f"paged: {len(sanctioned_per_step)} decode steps guarded of "
+             f"{int(paged_stats['decode_steps'])}")
+    print(f"[steady-state] paged: {len(sanctioned_per_step)} decode steps "
+          f"after the first under steady_state(): 0 unsanctioned host "
+          f"syncs, 0 kernel builds; sanctioned syncs per step (count: "
+          f"steps) {dict(collections.Counter(sanctioned_per_step))}")
 
     def contiguous():
         cfg = dataclasses.replace(CONFIG, transformer=dataclasses.replace(
@@ -2704,8 +2892,70 @@ def recsys_path(dev):
               f"{g_ms:.3f} ms (eager, CUDA events) against a byte bound of "
               f"{g_bound:.3f} ms (f32 rows read, bf16 written, 3.35 TB/s)")
         out[f"recsys/{arch}"] = counted
-        del raw, arms, bulk, p99, ret, results
+        del arms, p99, ret, results
+        if arch == "two-tower-retrieval":
+            torch.cuda.empty_cache()
+            bag_identity(dev, raw["item_embed"]["table"], bulk["hist_ids"])
+        del raw, bulk
     return out
+
+
+def segment_sum_times(tag, vals, seg, n):
+    """ROADMAP C7: ``layers.embedding.segment_sum`` (a stable sort by
+    segment, then ``torch.segment_reduce``) on the card: two calls must be
+    bit-identical.  Timed (eager, CUDA events) against ``index_add_``,
+    which adds with atomics in no fixed order, and against the
+    deterministic ``index_add_`` that ``torch.use_deterministic_algorithms``
+    selects (the other fixed-order candidate), on the same inputs."""
+    import torch
+    from repro_torch.layers.embedding import segment_sum
+
+    def atomic():
+        return vals.new_zeros((n, *vals.shape[1:])).index_add_(0, seg, vals)
+
+    def deterministic():
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            return atomic()
+        finally:
+            torch.use_deterministic_algorithms(prev)
+
+    if not torch.equal(segment_sum(vals, seg, n), segment_sum(vals, seg, n)):
+        fail(f"{tag}: two segment_sum calls differ")
+    t = {name: time_ms(fn, iters=10, warmup=2) for name, fn in (
+        ("segment_sum", lambda: segment_sum(vals, seg, n)),
+        ("index_add_", atomic), ("deterministic index_add_", deterministic))}
+    print(f"[C7] {tag}: {vals.shape[0]} rows of {vals[0].numel()} into {n} "
+          f"segments: segment_sum {t['segment_sum']:.4f} ms (two calls "
+          f"bit-identical), index_add_ {t['index_add_']:.4f} ms, "
+          f"deterministic index_add_ {t['deterministic index_add_']:.4f} "
+          f"ms (eager, CUDA events)")
+    return t
+
+
+def bag_identity(dev, table, hist_ids):
+    """ROADMAP C7: ``embedding_bag`` ``sum`` and ``mean`` at two-tower's
+    ``serve_bulk`` shape (262144 bags of the history's ids, rows of the
+    10 M-row item table): two calls of each mode bit-identical, timed;
+    then the segment sum alone against ``index_add_``."""
+    import torch
+    from repro_torch.layers import embedding
+    b, l = hist_ids.shape
+    ids = hist_ids.reshape(-1)
+    seg = torch.arange(b, device=dev).repeat_interleave(l)
+    for mode in ("sum", "mean"):
+        def call():
+            return embedding.embedding_bag({"table": table}, ids, seg,
+                                           n_bags=b, mode=mode)
+        if not torch.equal(call(), call()):
+            fail(f"embedding_bag {mode} at serve_bulk: two calls differ")
+        print(f"[C7] embedding_bag {mode}, {b} bags of {l} rows of "
+              f"{table.shape[1]}: two calls bit-identical; "
+              f"{time_ms(call, iters=3, warmup=1):.3f} ms a call (eager)")
+    vals = embedding._gather_f32(table, ids)
+    segment_sum_times("embedding_bag's segment sum at serve_bulk", vals, seg,
+                      b)
 
 
 EGNN_LG_DEGREE = 100   # random_geometric_graph's avg_degree argument for
@@ -2713,8 +2963,8 @@ EGNN_LG_DEGREE = 100   # random_geometric_graph's avg_degree argument for
 EGNN_TIMED = 5
 # equivariance bounds, relative to max |x| and max |h|: the coordinate
 # weights are f32 tanh of a bf16 MLP output over rotation-invariant bf16
-# inputs, so a bf16 rounding flip there (or another order of the card's
-# atomic f32 segment sums) moves an update by up to ~2**-8 of its |dx|
+# inputs, so a bf16 rounding flip there moves an update by up to ~2**-8 of
+# its |dx|
 EGNN_EQUIV_X, EGNN_EQUIV_H = 2.0 ** -7, 2.0 ** -4
 EGNN_CPU_REL = 2.0 ** -4     # card against CPU logits, of max |logit|
 
@@ -2801,10 +3051,12 @@ def egnn_path(dev):
             walls.append(time.perf_counter() - t0)
         err_x, err_h = gnn.equivariance_error(
             params, batch, cfg, torch.Generator(device=dev).manual_seed(1))
-        # the same input twice: the card's run-to-run spread (atomic adds)
-        x_a = gnn.egnn_forward(params, batch, cfg)[1]
-        x_b = gnn.egnn_forward(params, batch, cfg)[1]
-        repeat = ((x_a - x_b).abs().max() / x_a.abs().max()).item()
+        # the same input twice: bit-identical since C7 (segment sums in a
+        # fixed order)
+        h_a, x_a = gnn.egnn_forward(params, batch, cfg)
+        h_b, x_b = gnn.egnn_forward(params, batch, cfg)
+        if not (torch.equal(h_a, h_b) and torch.equal(x_a, x_b)):
+            fail(f"egnn {cell}: two forwards of the same input differ")
         peak = torch.cuda.max_memory_allocated(dev)
         n_e = int(batch["edge_mask"].sum().item())
         cpu_txt = ""
@@ -2826,12 +3078,156 @@ def egnn_path(dev):
               f"peak device memory {peak / 2**30:.3f} GiB; equivariance "
               f"error: coordinates {err_x:.3e} (<= {EGNN_EQUIV_X}), node "
               f"embeddings {err_h:.3e} (<= {EGNN_EQUIV_H}); the same input "
-              f"twice: coordinates {repeat:.3e} apart{cpu_txt}")
+              f"twice: bit-identical{cpu_txt}")
+        segment_sum_times(
+            f"egnn {cell} message sum", torch.randn(
+                (batch["edges"].shape[0], cfg.d_hidden), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(2)),
+            batch["edges"][:, 1].long(), batch["feat"].shape[0])
         if not (err_x <= EGNN_EQUIV_X and err_h <= EGNN_EQUIV_H):
             fail(f"egnn {cell}: equivariance error {err_x}, {err_h}")
         out[f"egnn/{cell}"] = launches
-        del batch, params, logits, x_a, x_b
+        del batch, params, logits, h_a, h_b, x_a, x_b
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the paper's distribution analysis and the auto-tuner (N9a)
+# ---------------------------------------------------------------------------
+
+STATS_REQUESTS = 32              # the activation report's prefill group
+SEARCH_STEPS = 2                 # phase 5's search: candidate evaluations
+
+
+def _timed_report(dev, tag, fn):
+    """``fn()`` -> a report, with its wall time (ending in ``synchronize``)
+    and its peak device memory above what was allocated before it."""
+    import torch
+    from repro_torch.core import stats
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    report = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+    print(f"[stats] {tag}: {report.summary()} -> "
+          f"{stats.feasibility_verdict(report)}; {secs:.2f} s, peak "
+          f"{peak:.2f} GiB above the model's")
+    for row in report.csv_rows():
+        print(f"[stats] csv {row}")
+    if not report.per_tensor or not all(
+            math.isfinite(v) for t in report.per_tensor
+            for v in (t.variance, t.absmax, t.absp99)):
+        fail(f"stats {tag}: empty report or non-finite statistics")
+    return report
+
+
+def distribution_phase(dev):
+    """Phase 5 (N9a): the Fig.-1 report (``core.stats``) of the full-width
+    OneRec-V2 params before PTQ (f32, as ``init_onerec`` makes them; every
+    leaf's statistics on the card) and of the activations of one
+    ``STATS_REQUESTS``-request forward through ``capture_taps``; the same
+    for DIN at published widths with its 10 M-row tables (a ``serve_p99``
+    batch of 512 users); ``feasibility_verdict`` for each.  Then one
+    search (``make_eval_task("din")``, reduced, ``max_steps``
+    ``SEARCH_STEPS``) whose artifact is loaded and deployed: PTQ with its
+    policy, its static scales attached, one retrieval call whose launches
+    of ``fp8_gemm`` and the int8 product equal its quantized leaves."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.core import autotune, ptq, stats
+    from repro_torch.core.policy import load_policy_artifact
+    from repro_torch.core.quant import QuantizedTensor
+    from repro_torch.data.recsys_data import (RecsysStreamConfig,
+                                              SyntheticInteractions)
+    from repro_torch.models import onerec, recsys
+    from repro_torch.tree import leaves_with_path
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    params = onerec.init_onerec(0, CONFIG, device=dev)
+    n_params = sum(t.numel() for _, t in leaves_with_path(params))
+    _timed_report(dev, f"onerec-v2 weights ({n_params / 1e9:.2f} B "
+                       f"params, f32)",
+                  lambda: stats.collect_weight_stats(params, "onerec-v2"))
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(
+        0, CONFIG.vocab_size, (STATS_REQUESTS,
+                               CONFIG.history_len * CONFIG.n_codebooks),
+        generator=g, device=dev, dtype=torch.int32),
+        "profile": torch.randn((STATS_REQUESTS, onerec.PROFILE_DIM),
+                               generator=g, device=dev)}
+
+    def activations():
+        with stats.capture_taps() as taps:
+            onerec.forward(params, batch, CONFIG)
+        return stats.collect_activation_stats(taps, "onerec-v2")
+
+    act = _timed_report(dev, f"onerec-v2 activations ({STATS_REQUESTS} "
+                                f"requests, forward + report)", activations)
+    print(f"[stats] onerec-v2 activation taps: "
+          f"{[t.name for t in act.per_tensor]}")
+    del params, batch
+    torch.cuda.empty_cache()
+    cfg = registry.get_arch("din").CONFIG
+    params = recsys.init_recsys(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    _timed_report(dev, f"din weights ({cfg.n_items} x {cfg.embed_dim} item "
+                       f"table)",
+                  lambda: stats.collect_weight_stats(params, "din"))
+    bnp = SyntheticInteractions(RecsysStreamConfig(
+        cfg.n_items, cfg.n_sparse_fields, cfg.field_vocab, cfg.seq_len,
+        RECSYS_P99, seed=0)).batch_at(0)
+    rb = _recsys_batch_tensors(bnp, ("hist_ids", "target_ids", "field_ids"),
+                               dev)
+
+    def din_activations():
+        with stats.capture_taps() as taps:
+            recsys.score(params, rb, cfg)
+        return stats.collect_activation_stats(taps, "din")
+
+    _timed_report(dev, f"din activations ({RECSYS_P99} users)",
+                  din_activations)
+    del params, rb
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    task = autotune.make_eval_task("din", seed=0, device=dev)
+    res = autotune.autotune(task, target=0.6, max_steps=SEARCH_STEPS)
+    path = os.path.join(ROOT, "build", "smoke_quant_policy_din.json")
+    res.save(path, config="din")
+    search_s = time.perf_counter() - t0
+    art = load_policy_artifact(path)
+    q = ptq.quantize_params(task.params, art["policy"])
+    if art["act_scales"]:
+        q = ptq.apply_static_act_scales(q, art["act_scales"])
+    n_q = sum(isinstance(leaf, QuantizedTensor)
+              for _, leaf in leaves_with_path(q))
+    wrappers = _wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    dcfg = registry.get_arch("din").reduced_config()
+    scores = recsys.retrieval_scores(q, task.calib_batches[0], dcfg)
+    torch.cuda.synchronize()
+    launched = wrappers["fp8_gemm"].launches + \
+        wrappers["int8_matmul"].launches
+    deployed = task.overlap(q)
+    trace = [(t["action"], t["group"], round(t["overlap"], 4),
+              t["accepted"]) for t in res.trace]
+    print(f"[autotune] din (reduced, max_steps {SEARCH_STEPS}) on the card "
+          f"in {search_s:.2f} s: trace {trace}; "
+          f"overlap {res.overlap:.4f} (uniform "
+          f"{res.uniform['overlap']:.4f}), bytes {res.bytes_quantized} "
+          f"(uniform {res.uniform['bytes_quantized']}); artifact {path} "
+          f"deployed: {n_q} quantized leaves, {launched} quantized "
+          f"products a retrieval call, overlap {deployed:.4f}")
+    if scores.shape != (64,) or not bool(torch.isfinite(scores).all()) \
+            or launched != n_q or n_q == 0 or deployed < res.target:
+        fail(f"autotune din: the artifact did not deploy ({n_q} leaves, "
+             f"{launched} launches, overlap {deployed})")
+    print(f"[stats] phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -2863,6 +3259,7 @@ def main() -> int:
     check_fp8_gemm_recsys(dev, records)
     check_fp8_grouped_gemm(dev, records)
     check_int8_product(dev, records)
+    check_raw_products(dev, records)
     check_paged_decode(dev, records)
     check_radix_topk(dev, records)
     check_batch_attention(dev, records)
@@ -2877,6 +3274,7 @@ def main() -> int:
     for arch in RECSYS:
         card_vs_cpu_recsys(dev, arch)
     by_path = full_width(dev)
+    distribution_phase(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
     replaces = {

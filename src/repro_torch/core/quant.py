@@ -415,13 +415,66 @@ def fp8_grouped_linear(x: torch.Tensor, wq: QuantizedTensor, *,
 # ---------------------------------------------------------------------------
 
 
+# depth of the f32 partial sums of a raw product on the card: cuBLAS's
+# bf16 tensor-core sums keep fewer bits than IEEE f32 adds (at K = 2048 -
+# 4096 one call puts 0.11-0.24% of outputs off the bf16 rounding of the
+# float64 product, ``chip_smoke.py`` phase 2), so K is cut into chunks this
+# deep whose f32 products are added in f32, as the fp8 GEMM kernels fold
+# their f32 sums every 128 deep
+RAW_K_CHUNK = 512
+
+
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of 16-bit operands on the card with an f32 result: one
+    cuBLAS call if K fits one chunk; else for a 2-D ``b`` one batched call
+    over the whole chunks (``a`` (M, K) read as (K / c, M, c) in place),
+    their partials summed, the ragged tail's product added by an ``addmm``
+    epilogue; for a 3-D ``b`` each chunk's product added by a ``baddbmm``
+    epilogue."""
+    k, c, f32 = a.shape[-1], RAW_K_CHUNK, torch.float32
+    if b.ndim == 3:
+        acc = torch.bmm(a[..., :c], b[:, :c], out_dtype=f32)
+        for i in range(c, k, c):
+            torch.baddbmm(acc, a[..., i:i + c], b[:, i:i + c],
+                          out_dtype=f32, out=acc)
+        return acc
+    if k <= c:
+        return torch.mm(a, b, out_dtype=f32)
+    whole = k // c * c
+    acc = torch.bmm(a[:, :whole].unflatten(1, (-1, c)).transpose(0, 1),
+                    b[:whole].unflatten(0, (-1, c)), out_dtype=f32).sum(0)
+    if whole < k:
+        torch.addmm(acc, a[:, whole:], b[whole:], out_dtype=f32, out=acc)
+    return acc
+
+
+def raw_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """``a @ b`` of raw operands of one dtype, summed in f32 and rounded
+    once to ``out_dtype`` (``jnp.dot(..., preferred_element_type=f32)
+    .astype(out_dtype)``).  On the CPU, and for f32 operands, the f32
+    product of the operands' values: the bit-parity path against the JAX
+    package.  On the card, 16-bit operands run on the tensor cores (cuBLAS
+    with f32 accumulation, ``device.py``) with no f32 copies: one
+    ``matmul`` when K fits one ``RAW_K_CHUNK`` and ``out_dtype`` is theirs,
+    else ``RAW_K_CHUNK``-deep f32 partials (``_f32_product``).  ``b`` is
+    2-D, or 3-D with ``a`` 3-D (a batch of products)."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
+        return torch.matmul(a.to(torch.float32),
+                            b.to(torch.float32)).to(out_dtype)
+    if a.shape[-1] <= RAW_K_CHUNK and out_dtype == a.dtype:
+        return torch.matmul(a, b)
+    if b.ndim == 3:
+        return _f32_product(a, b).to(out_dtype)
+    out = _f32_product(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(*a.shape[:-1], b.shape[-1]).to(out_dtype)
+
+
 def matmul_any(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     """``x @ w`` where ``w`` is a raw tensor OR a QuantizedTensor: block
     weights through ``fp8_block_matmul``, int8 through ``int8_linear``,
     the rest through ``fp8_linear``.  A raw weight is cast to the
-    activation dtype and the product accumulates in f32 (computed as an
-    f32 product of the bf16-valued operands, so an f32 ``out_dtype`` gets
-    the unrounded sum, as ``jnp.dot(..., preferred_element_type=f32)``)."""
+    activation dtype and multiplied by ``raw_matmul`` (f32 sums, so an f32
+    ``out_dtype`` gets the unrounded sum)."""
     out_dtype = out_dtype or x.dtype
     if isinstance(w, QuantizedTensor):
         if w.granularity == "block":
@@ -429,9 +482,7 @@ def matmul_any(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
         if w.data.dtype == torch.int8:
             return int8_linear(x, w, out_dtype=out_dtype)
         return fp8_linear(x, w, out_dtype=out_dtype)
-    out = torch.matmul(x.to(torch.float32),
-                       w.to(x.dtype).to(torch.float32))
-    return out.to(out_dtype)
+    return raw_matmul(x, w.to(x.dtype), out_dtype)
 
 
 def quant_error(x: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:

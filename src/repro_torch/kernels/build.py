@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}      # name -> ptxas report of the last build
+BUILDS = 0      # nvcc runs started in this process (``analysis.guards``)
 
 
 def _nvcc() -> str:
@@ -59,10 +60,12 @@ def _lib_path(name: str) -> Path:
 def build_all() -> float:
     """Compile every kernel whose library is missing, one ``nvcc`` per
     source, all in parallel.  Returns the wall seconds spent."""
+    global BUILDS
     t0 = time.perf_counter()
     todo = {n: _lib_path(n) for n in SOURCES if not _lib_path(n).exists()}
     if not todo:
         return 0.0
+    BUILDS += len(todo)
     nvcc = _nvcc()
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = {}

@@ -76,7 +76,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.quant import (dequantize_kv, is_fp8_dtype, matmul_any,
-                                    quantize_kv)
+                                    quantize_kv, raw_matmul)
 from repro_torch.kernels.batch_attention.ops import batch_attention
 from repro_torch.kernels.paged_decode.ops import paged_decode_attention
 from repro_torch.layers.common import dense_init
@@ -223,16 +223,33 @@ def _store_kv(cache, k, v):
 
 def _gqa_scores(q: torch.Tensor, k: torch.Tensor, scale: float
                 ) -> torch.Tensor:
-    """q (B,T,K,G,hd) x k (B,S,K,hd) -> scores (B,K,G,T,S) in f32."""
-    return torch.einsum("btkgh,bskh->bkgts", q.float(), k.float()) * scale
+    """q (B,T,K,G,hd) x k (B,S,K,hd) -> scores (B,K,G,T,S) in f32.  On the
+    CPU an f32 einsum of the operands' values; on the card one batch of
+    (G*T, hd) x (hd, S) products per (row, KV head) through ``raw_matmul``
+    (bf16 operands on the tensor cores, f32 out)."""
+    if q.device.type == "cpu":
+        return torch.einsum("btkgh,bskh->bkgts", q.float(), k.float()) \
+            * scale
+    b, t, kv, g, hd = q.shape
+    s = k.shape[1]
+    qm = q.permute(0, 2, 3, 1, 4).reshape(b * kv, g * t, hd)
+    km = k.permute(0, 2, 3, 1).reshape(b * kv, hd, s)
+    return raw_matmul(qm, km, torch.float32).view(b, kv, g, t, s) * scale
 
 
 def _gqa_combine(probs: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """probs (B,K,G,T,S) x v (B,S,K,hd) -> (B,T,K,G,hd), f32 sums of the
-    bf16-rounded probabilities, cast to v's dtype."""
-    out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype).float(),
-                       v.float())
-    return out.to(v.dtype)
+    probabilities rounded to v's dtype, cast to v's dtype (on the card
+    through ``raw_matmul``, as ``_gqa_scores``)."""
+    if probs.device.type == "cpu":
+        out = torch.einsum("bkgts,bskh->btkgh", probs.to(v.dtype).float(),
+                           v.float())
+        return out.to(v.dtype)
+    b, kv, g, t, s = probs.shape
+    pm = probs.to(v.dtype).reshape(b * kv, g * t, s)
+    vm = v.permute(0, 2, 1, 3).reshape(b * kv, s, v.shape[-1])
+    out = raw_matmul(pm, vm, v.dtype).view(b, kv, g, t, v.shape[-1])
+    return out.permute(0, 3, 1, 2, 4)
 
 
 def _masked_softmax(scores: torch.Tensor, mask: torch.Tensor

@@ -3,11 +3,15 @@
 
 The JAX package builds the bag lookup from ``jnp.take`` +
 ``jax.ops.segment_sum`` / ``segment_max``, XLA ops with no Pallas kernel;
-here they are ``index_select`` + ``index_add_`` / ``scatter_reduce`` over
+here they are ``index_select`` + ``segment_sum`` / ``scatter_reduce`` over
 f32 rows, so every mode sums and compares in f32 as the JAX package does
 (``torch.nn.functional.embedding_bag`` is not used: it reduces in the
-table's dtype).  An empty bag gives 0 in every mode: ``segment_max`` gives
-``-inf`` there and the JAX code maps it to 0, so the max starts from
+table's dtype).  ``segment_sum`` adds each segment's rows in their order
+on either device (the EGNN's message passing uses it too): ``index_add_``
+on the CPU, a stable sort by segment then ``torch.segment_reduce`` on the
+card, where ``index_add_`` adds with atomics in no fixed order; the two
+give the same bits.  An empty bag gives 0 in every mode: ``segment_max``
+gives ``-inf`` there and the JAX code maps it to 0, so the max starts from
 ``-inf`` (``include_self=False`` over a ``-inf`` fill) and non-finite
 results become 0.  Row sharding of the tables waits for ROADMAP.md queue N,
 item N9.
@@ -43,6 +47,20 @@ def _gather_f32(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return flat.reshape(*ids.shape, -1).to(torch.float32)
 
 
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """f32 sums of ``vals``' rows by segment id ``seg`` (int64) into ``n``
+    rows (``jax.ops.segment_sum``), each segment summed in row order."""
+    vals = vals.to(torch.float32)
+    if vals.device.type == "cpu":
+        return vals.new_zeros((n, *vals.shape[1:])).index_add_(0, seg, vals)
+    order = torch.argsort(seg, stable=True)
+    lengths = torch.zeros(n, dtype=torch.int64, device=seg.device
+                          ).index_add_(0, seg, torch.ones_like(order))
+    return torch.segment_reduce(vals.index_select(0, order), "sum",
+                                lengths=lengths, axis=0, unsafe=True)
+
+
 def embedding_bag(params: dict, ids: torch.Tensor,
                   offsets_or_segments: torch.Tensor, *, n_bags: int,
                   mode: str = "sum", weights: Optional[torch.Tensor] = None,
@@ -54,16 +72,16 @@ def embedding_bag(params: dict, ids: torch.Tensor,
     vecs = _gather_f32(params["table"], ids)
     if weights is not None:
         vecs = vecs * weights.to(torch.float32)[:, None]
-    out = vecs.new_zeros((n_bags, vecs.shape[-1]))
     if mode == "sum":
-        out.index_add_(0, seg, vecs)
+        out = segment_sum(vecs, seg, n_bags)
     elif mode == "mean":
-        out.index_add_(0, seg, vecs)
-        cnt = vecs.new_zeros((n_bags,)).index_add_(
-            0, seg, torch.ones_like(seg, dtype=torch.float32))
-        out = out / torch.clamp(cnt, min=1.0)[:, None]
+        cnt = segment_sum(torch.ones_like(seg, dtype=torch.float32), seg,
+                          n_bags)
+        out = segment_sum(vecs, seg, n_bags) \
+            / torch.clamp(cnt, min=1.0)[:, None]
     elif mode == "max":
-        out = out.fill_(-math.inf).scatter_reduce_(
+        out = vecs.new_full((n_bags, vecs.shape[-1]), -math.inf
+                            ).scatter_reduce_(
             0, seg[:, None].expand_as(vecs), vecs, "amax",
             include_self=False)
         out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))

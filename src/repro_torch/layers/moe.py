@@ -21,7 +21,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core.quant import (QuantizedTensor, fp8_grouped_linear,
-                                    fp8_grouped_matmul, matmul_any)
+                                    fp8_grouped_matmul, matmul_any,
+                                    raw_matmul)
 from repro_torch.layers.common import truncated_normal
 from repro_torch.layers.mlp import ACTIVATIONS, apply_mlp, init_mlp
 
@@ -72,15 +73,14 @@ def init_moe(gen: torch.Generator, spec: MoESpec, *,
 
 
 def _grouped_matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x (E, C, K) @ w (E, K, N); w raw (the plain product) or a
+    """x (E, C, K) @ w (E, K, N); w raw (``raw_matmul``) or a
     QuantizedTensor: block-scaled, or per-channel (fp8 where the dims are
     not 128-aligned, or int8 experts: the exact int8 grouped product)."""
     if isinstance(w, QuantizedTensor):
         if w.granularity == "block":
             return fp8_grouped_matmul(x, w)
         return fp8_grouped_linear(x, w)
-    out = torch.matmul(x.to(torch.float32), w.to(x.dtype).to(torch.float32))
-    return out.to(x.dtype)
+    return raw_matmul(x, w.to(x.dtype), x.dtype)
 
 
 def _grouped_ffn(buf: torch.Tensor, experts: dict, act: str) -> torch.Tensor:

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -13,10 +15,19 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
     return (1.0 / (theta ** exponent)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_frequencies(head_dim: int, theta: float,
+                        device: torch.device) -> torch.Tensor:
+    """``rope_frequencies``, made and copied to ``device`` once per
+    (head_dim, theta, device): a copy to the card waits for it, so a
+    decode step must not make one (``analysis.guards``).  Read only."""
+    return rope_frequencies(head_dim, theta, device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
                theta: float = 10000.0) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (seq,) or (batch, seq)."""
-    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    freqs = _cached_frequencies(x.shape[-1], float(theta), x.device)
     angles = positions.to(torch.float32)[..., None] * freqs
     angles = angles[..., None, :]          # broadcast over the head axis
     sin, cos = torch.sin(angles), torch.cos(angles)

@@ -3,7 +3,8 @@ package's ``repro/models/gnn.py`` in PyTorch (the forward and the loss
 value; the training step waits for ROADMAP.md queue N, item N9).
 
 Message passing is edge-index gathers (``index_select``) and segment sums
-(``index_add_`` over f32 rows): the JAX package builds it from ``jnp.take``
+(``layers.embedding.segment_sum`` over f32 rows, in a fixed order on
+either device): the JAX package builds it from ``jnp.take``
 and ``jax.ops.segment_sum``, XLA ops with no Pallas kernel.  The paper's
 FP8 scheme is inapplicable to this family (64-wide MLPs, a numerically
 sensitive coordinate update), so it runs unquantized, in bf16 with f32
@@ -29,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.layers.common import mlp_stack_apply, mlp_stack_init, split
+from repro_torch.layers.embedding import segment_sum
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -64,13 +66,6 @@ def init_egnn(gen: torch.Generator, cfg: GNNConfig, d_feat: int,
     return params
 
 
-def _segment_sum(vals: torch.Tensor, seg: torch.Tensor,
-                 n: int) -> torch.Tensor:
-    """f32 sums of ``vals``' rows by segment id (``jax.ops.segment_sum``)."""
-    vals = vals.to(torch.float32)
-    return vals.new_zeros((n, *vals.shape[1:])).index_add_(0, seg, vals)
-
-
 def _egnn_layer(lp: dict, h: torch.Tensor, x: torch.Tensor,
                 src: torch.Tensor, dst: torch.Tensor,
                 edge_mask: torch.Tensor, n_nodes: int
@@ -89,11 +84,11 @@ def _egnn_layer(lp: dict, h: torch.Tensor, x: torch.Tensor,
     w = torch.tanh(mlp_stack_apply(lp["coord_mlp"]["tower"], m,
                                    act=silu).to(torch.float32))
     upd = dx * w * edge_mask[:, None].to(torch.float32)
-    deg = _segment_sum(edge_mask, dst, n_nodes)
-    x = x + _segment_sum(upd, dst, n_nodes) \
+    deg = segment_sum(edge_mask, dst, n_nodes)
+    x = x + segment_sum(upd, dst, n_nodes) \
         / torch.clamp(deg, min=1.0)[:, None]
 
-    agg = _segment_sum(m, dst, n_nodes).to(h.dtype)
+    agg = segment_sum(m, dst, n_nodes).to(h.dtype)
     h = h + mlp_stack_apply(lp["node_mlp"]["tower"],
                             torch.cat([h, agg], dim=-1), act=silu)
     return h, x
@@ -152,9 +147,9 @@ def graph_logits(params: dict, batch, cfg: GNNConfig,
     h, _ = egnn_forward(params, batch, cfg)
     mask = batch["node_mask"].to(torch.float32)
     gids = batch["graph_ids"].long()
-    pooled = _segment_sum(h.to(torch.float32) * mask[:, None], gids,
-                          n_graphs)
-    cnt = _segment_sum(mask, gids, n_graphs)
+    pooled = segment_sum(h.to(torch.float32) * mask[:, None], gids,
+                         n_graphs)
+    cnt = segment_sum(mask, gids, n_graphs)
     pooled = (pooled / torch.clamp(cnt, min=1.0)[:, None]).to(h.dtype)
     return mlp_stack_apply(params["head"]["tower"], pooled,
                            act=silu).to(torch.float32)

@@ -23,8 +23,9 @@ Scoring entry points:
   * ``train_loss(params, batch, cfg)``       -- the loss value (its gradient
     and the optimizer wait for ROADMAP.md queue N, item N9)
 
-Differences from the JAX module: no ``constrain`` (sharding waits for N9)
-and no ``stats_tap`` (``core/stats.py`` waits for N9); ``lax.scan`` is a
+Activations are tapped at the JAX module's points (``core.stats.tap``:
+``hist_embed``, ``din_pooled``, ``din_logit``).  Differences from the JAX
+module: no ``constrain`` (sharding waits for N9); ``lax.scan`` is a
 Python loop over the history; ``dien_retrieval`` skips the one-user
 interest pass whose result the JAX function never reads (XLA drops it
 under ``jit``).  Tables are drawn with ``randn`` in f32 on the device.
@@ -39,6 +40,7 @@ import torch
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.quant import matmul_any
+from repro_torch.core.stats import tap
 from repro_torch.layers.common import (dense_init, mlp_stack_apply,
                                        mlp_stack_init, split,
                                        truncated_normal)
@@ -74,8 +76,11 @@ def _field_vecs(params, field_ids: torch.Tensor,
 def _hist_vecs(params, hist_ids: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, L) -> embeddings (B, L, d) bf16 + mask (B, L) f32."""
-    return (embed_lookup(params["item_embed"], hist_ids),
-            (hist_ids != 0).to(torch.float32))
+    table = params["item_embed"]["table"]
+    vecs = embed_lookup(params["item_embed"], hist_ids,
+                        compute_dtype=table.dtype)
+    tap("hist_embed", vecs)
+    return vecs.to(torch.bfloat16), (hist_ids != 0).to(torch.float32)
 
 
 def _target_vecs(params, target_ids: torch.Tensor) -> torch.Tensor:
@@ -186,9 +191,12 @@ def din_score(params, batch, cfg) -> torch.Tensor:
     hist, mask = _hist_vecs(params, batch["hist_ids"])
     target = _target_vecs(params, batch["target_ids"])
     pooled = _din_attention(params, hist, mask, target)
+    tap("din_pooled", pooled)
     x = torch.cat([pooled, target,
                    _field_vecs(params, batch["field_ids"], cfg)], dim=-1)
-    return mlp_stack_apply(params["score"]["score_mlp"], x)[..., 0]
+    out = mlp_stack_apply(params["score"]["score_mlp"], x)[..., 0]
+    tap("din_logit", out)
+    return out
 
 
 def din_train_loss(params, batch, cfg) -> torch.Tensor:

@@ -25,6 +25,7 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.quant import matmul_any
+from repro_torch.core.stats import tap
 from repro_torch.layers.attention import (AttnSpec, KVWrite,
                                           apply_attention, cache_len_for,
                                           init_attention, init_cache,
@@ -258,6 +259,7 @@ def forward(
         x = inputs_embeds.to(compute_dtype)
     else:
         x = embed_tokens(params, tokens, cfg, compute_dtype)
+    tap("embed_out", x)
     attn_kw = dict(fill_cache=fill_cache, lengths=lengths, starts=starts,
                    kv_write=kv_write, page_gather=page_gather,
                    page_tables=page_tables, page_size=page_size,
@@ -272,11 +274,15 @@ def forward(
                         if stack_cache is not None else None)
                 x = _apply_layer(tree.index(stack_params[key], i), x, cfg,
                                  kind, c_lp, attn_kw)
+                tap(f"layer_out/{key}", x)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
                       zero_centered=cfg.zero_centered_norm)
-    return logits_from_hidden(params, x, cfg), cache
+    tap("final_hidden", x)
+    logits = logits_from_hidden(params, x, cfg)
+    tap("logits", logits)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

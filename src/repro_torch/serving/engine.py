@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch.analysis.guards import steady_state
 from repro_torch.configs.base import OneRecConfig
 from repro_torch.core.policy import QuantPolicy, load_policy_artifact
 from repro_torch.device import resolve_device
@@ -327,6 +328,18 @@ class ServingEngine:
     def drain(self) -> None:
         """Step until every accepted request has retired."""
         self._drain_until(lambda: False)
+
+    def steady_state(self):
+        """Guarded region holding the warmed-up engine to the steady-state
+        contract on its device (``analysis.guards.steady_state``): no
+        unsanctioned host sync, no kernel build.  Warm the engine first on
+        a representative batch, then step inside the guard::
+
+            engine.serve_requests(reqs)          # warmup builds kernels
+            with engine.steady_state() as mon:
+                engine.serve_requests(reqs)
+        """
+        return steady_state(self.device)
 
     # -- windowed metrics -----------------------------------------------------
 

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.analysis.guards import sanctioned
 from repro_torch.configs.base import OneRecConfig
 from repro_torch.core.policy import (BASELINE_POLICY, PAPER_POLICY,
                                      QuantPolicy)
@@ -209,8 +210,11 @@ class PhaseExecutor:
             device=self.device)
 
     def _tensor(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(
-            device=self.device, dtype=dtype)
+        """Stage a host array on the device: an explicit copy, which the
+        steady-state guard allows (``analysis.guards.sanctioned``)."""
+        with sanctioned():
+            return torch.from_numpy(np.ascontiguousarray(a)).to(
+                device=self.device, dtype=dtype)
 
     def _topk(self, flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k of the last axis of (N, V) logits: kernel ``radix_topk``
@@ -227,8 +231,9 @@ class PhaseExecutor:
         flat = logits.reshape(-1, logits.shape[-1])
         vals, ids = self._topk(flat)
         lse = torch.logsumexp(flat.to(torch.float32), dim=-1)
-        return (vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
-                lse.cpu().numpy())
+        with sanctioned():                  # the select's readback
+            return (vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy(),
+                    lse.cpu().numpy())
 
     # -- host-side padding and page tables ----------------------------------
 
@@ -371,7 +376,7 @@ class PhaseExecutor:
                 + np.arange(self.page_size)[None, :]).reshape(-1)
         idx = self._tensor(flat, torch.int64)
         for leaf in self._pool_leaves():
-            leaf["pos"][:, idx] = -1
+            leaf["pos"].index_fill_(1, idx, -1)
 
     # -- phases ---------------------------------------------------------------
 
@@ -566,7 +571,8 @@ class PhaseExecutor:
         """Host (top-k vals, ids) of (N, V) logits (fixed mode's select)."""
         self.counters["select_calls"] += 1
         vals, ids = self._topk(logits.reshape(-1, logits.shape[-1]))
-        return vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
+        with sanctioned():                  # the select's readback
+            return vals.cpu().numpy(), ids.to(torch.int32).cpu().numpy()
 
     def select_scored(self, logits: torch.Tensor
                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -630,7 +636,7 @@ class PhaseExecutor:
             idx = self._tensor(self._pad_ids([int(s) for s in slots]),
                                torch.int64)
             for leaf in self._pool_leaves():
-                leaf["pos"][:, idx] = -1
+                leaf["pos"].index_fill_(1, idx, -1)
             return
         freed: List[int] = []
         for s in dict.fromkeys(int(s) for s in slots):

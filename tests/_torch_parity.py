@@ -547,3 +547,27 @@ def egnn_outputs(which: str, level: str):
             for name, ours, theirs in (("h", th, jh), ("coord", tx, jx),
                                        ("logits", tl, jl),
                                        ("loss", tloss, jloss))}
+
+
+# ---------------------------------------------------------------------------
+# The distribution analysis and the auto-tuner (tests/test_torch_stats.py,
+# tests/test_torch_autotune.py)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def onerec_params():
+    """(JAX raw params, port raw params) of OneRec-V2's ``reduced_config()``:
+    one JAX init (key 0), bridged through numpy."""
+    from repro.configs import registry as jax_registry
+    from repro.models import onerec as jax_onerec
+    cfg = jax_registry.get_arch("onerec-v2").reduced_config()
+    raw = jax_onerec.init_onerec(jax.random.PRNGKey(0), cfg)
+    return raw, torch_params(raw)
+
+
+def onerec_batch(cfg, b: int = 4, seed: int = 0):
+    """A numpy batch of ``b`` full histories (tokens and profiles)."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, size=(
+                b, cfg.history_len * cfg.n_codebooks)).astype(np.int32),
+            "profile": rng.normal(size=(b, 64)).astype(np.float32)}

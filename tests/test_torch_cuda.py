@@ -675,3 +675,158 @@ def test_phase3_paged_case_is_identical_across_processes(cuda):
                              capture_output=True, text=True, timeout=600)
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
     assert all(r == runs[0] for r in runs[1:])
+
+
+# ---------------------------------------------------------------------------
+# Raw products on the tensor cores (ROADMAP C6), fixed-order segment sums
+# (C7), the steady-state guard and the distribution statistics (N9a, N10a)
+# ---------------------------------------------------------------------------
+
+
+def _off_exact(out, exact):
+    """Share of outputs off the bf16 rounding of the float64 product."""
+    ref = exact.float().to(torch.bfloat16)
+    return (out.to(torch.bfloat16) != ref).float().mean().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,f32_out", [
+    (32, 2048, 8256, True),       # OneRec-V2's lm_head at a decode step
+    (4100, 2048, 16, True),       # its router
+    (4, 4096, 32000, True),       # an LM head at 4 decode rows
+    (3000, 2304, 1024, False),    # two-tower's user tower
+    (5000, 72, 80, False),        # DIN's attention MLP
+])
+def test_raw_products_run_on_the_tensor_cores(cuda, M, K, N, f32_out):
+    """``matmul_any`` of a raw bf16 weight on the card: bf16 operands (no
+    f32 copies), the output dtype asked for, at most 0.1% of outputs off
+    the bf16 rounding of the float64 product (the GEMM kernels' bound)."""
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(K, N, device=cuda, generator=g) / math.sqrt(K)).to(
+        torch.bfloat16)
+    out_dtype = torch.float32 if f32_out else torch.bfloat16
+    out = quant.matmul_any(x, w, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (M, N)
+    assert _off_exact(out, x.double() @ w.double()) <= 1e-3
+    x3 = x.reshape(2, M // 2, K)
+    out3 = quant.matmul_any(x3, w, out_dtype=out_dtype)
+    assert torch.equal(out3.reshape(M, N), out)
+
+
+@pytest.mark.cuda
+def test_raw_expert_path(cuda):
+    """The raw grouped expert product (``moe._grouped_matmul``) within the
+    off-exact bound, and a whole raw MoE layer on the card within 1 bf16
+    ulp of its CPU result (the CPU's f32 product of the same values)."""
+    from repro_torch import tree
+    from repro_torch.layers import moe
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(4, 96, 512, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(4, 512, 256, device=cuda, generator=g) / 512 ** 0.5
+         ).to(torch.bfloat16)
+    out = moe._grouped_matmul(x, w)
+    assert out.dtype == torch.bfloat16
+    assert _off_exact(out, torch.bmm(x.double(), w.double())) <= 1e-3
+    spec = moe.make_moe_spec(8, 2, 256, 512, capacity_factor=4.0,
+                             ep_degree=8)
+    params = moe.init_moe(torch.Generator(device=cuda).manual_seed(6), spec,
+                          device=cuda)
+    h = torch.randn(2, 64, 256, device=cuda, generator=g).to(torch.bfloat16)
+    card = moe.apply_moe(params, h, spec)
+    cpu = moe.apply_moe(tree.map_with_path(lambda _, t: t.cpu(), params),
+                        h.cpu(), spec)
+    _close(card, cpu)
+
+
+@pytest.mark.cuda
+def test_egnn_forwards_and_bags_are_bit_identical(cuda):
+    """Segment sums in a fixed order (C7): two EGNN forwards of one input
+    are bit-identical, and so are two ``sum`` / ``mean`` bag calls, which
+    also equal the CPU's (``index_add_`` adds each segment in row order
+    there, as the sort + ``segment_reduce`` does on the card)."""
+    from repro_torch.configs import registry
+    from repro_torch.data import graph
+    from repro_torch.layers import embedding
+    from repro_torch.models import gnn
+    cfg = registry.get_arch("egnn").reduced_config()
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in graph.graph_batch(
+        graph.random_geometric_graph(500, 8, 12, seed=0)).items()}
+    params = gnn.init_egnn(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           12, 16, device=cuda)
+    h_a, x_a = gnn.egnn_forward(params, batch, cfg)
+    h_b, x_b = gnn.egnn_forward(params, batch, cfg)
+    assert torch.equal(h_a, h_b) and torch.equal(x_a, x_b)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    table = torch.randn(5000, 64, device=cuda, generator=g)
+    ids = torch.randint(0, 5000, (20000,), device=cuda, generator=g)
+    seg = torch.randint(0, 700, (20000,), device=cuda, generator=g)
+    for mode in ("sum", "mean"):
+        def call(t, i, s):
+            return embedding.embedding_bag({"table": t}, i, s, n_bags=700,
+                                           mode=mode,
+                                           compute_dtype=torch.float32)
+        first = call(table, ids, seg)
+        assert torch.equal(first, call(table, ids, seg))
+        assert torch.equal(first.cpu(), call(table.cpu(), ids.cpu(),
+                                             seg.cpu()))
+
+
+@pytest.mark.cuda
+def test_guard_over_a_replayed_paged_engine(cuda):
+    """The port-side form of ``tests/test_steady_state.py`` on the card: a
+    paged fp8-KV engine with fused decode, warmed on the requests it
+    replays, steps >= 8 times under ``steady_state()`` with no
+    unsanctioned host sync and no kernel build, and gives the warmup's
+    items again; a stray ``.item()`` under the guard raises, and the sync
+    debug mode is restored after it."""
+    import numpy as np
+    from repro_torch.configs.base import OneRecConfig, TransformerConfig
+    from repro_torch.models import onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.requests import make_request
+    cfg = OneRecConfig(     # head_dim 64: the kernel's smallest
+        name="onerec-steady-test", history_len=8,
+        transformer=TransformerConfig(
+            name="onerec-steady-test-backbone",
+            n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+            d_ff=256, vocab_size=256, moe=True, n_experts=4, top_k=2,
+            d_expert=128, capacity_factor=64.0, ep_degree=4,
+            max_seq_len=64, remat=False),
+        serve_batch=4, beam_width=4)
+    rng = np.random.default_rng(31)
+    reqs = [make_request(rng.integers(0, 192, size=int(rng.integers(
+        2, cfg.history_len + 1)) * cfg.n_codebooks),
+        rng.normal(size=onerec.PROFILE_DIM)) for _ in range(12)]
+    engine = ServingEngine(onerec.init_onerec(0, cfg, device=cuda), cfg,
+                           EngineConfig(batch_size=4, n_slots=3,
+                                        kv_dtype="float8_e4m3fn",
+                                        page_size=8), device=cuda)
+    warm, _ = engine.serve_requests(reqs)
+    before = torch.cuda.get_sync_debug_mode()
+    with engine.steady_state() as mon:
+        out, stats = engine.serve_requests(reqs)
+    assert stats["decode_steps"] >= 8
+    assert stats["fused_decode_steps"] == stats["decode_steps"]
+    assert mon.builds == 0 and mon.sanctioned > 0
+    for a, b in zip(out, warm):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with engine.steady_state():
+            torch.ones(4, device=cuda).sum().item()
+    assert torch.cuda.get_sync_debug_mode() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 1000, 123457, 1 << 22])
+def test_tensor_stats_on_the_card_match_the_cpu(cuda, n):
+    """``core.stats.tensor_stats`` on the card: ``absmax`` and ``absp99``
+    equal to the CPU's, the float64-summed variance within 1e-9."""
+    from repro_torch.core import stats
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, device=cuda, generator=g) * 3
+    x[: n // 3] = x[: n // 3].round()                       # ties
+    card, cpu = stats.tensor_stats("x", x), stats.tensor_stats("x", x.cpu())
+    assert (card.numel, card.absmax, card.absp99) == \
+        (cpu.numel, cpu.absmax, cpu.absp99)
+    assert card.variance == pytest.approx(cpu.variance, rel=1e-9)

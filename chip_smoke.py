@@ -133,6 +133,21 @@ from the root of a checkout.  Phases, each of which fails the run:
    forward's activation taps, the same for DIN at published widths, each
    with ``feasibility_verdict``, time and peak memory; one reduced DIN
    search whose artifact is deployed.
+6. Training (N9b), every kernel's launch count zeroed before and read
+   after (a train step runs raw cuBLAS products: all stay 0):
+   (k) OneRec-V2 at full width and ``TRAIN_LAYERS`` of its 12 layers (f32
+   params, gradients and AdamW's f32 moments hold 16 bytes a parameter,
+   ~79.9 GB at 12 layers), the ``train_b512`` bundle at 32 of its 512 rows
+   of 384 tokens, 3 steps: step, device and host times, loss, global norm,
+   peak memory against 16 bytes a parameter; a second run from the same
+   seed bit-identical; (l) the Table-1 analogue, ``tests/test_system.py``'s
+   config, schedule and bounds: OneRec-mini trained 120 steps, its Fig.-1
+   report, BF16 and FP8 hit rates through the engine, PTQ coverage; (m)
+   DIN (reduced) trained until its loss falls below ``DIN_LOSS_DROP`` of
+   its start, then the FP8 against BF16 score deviation of the trained and
+   the initial params; (n) one gradient of reduced OneRec-V2 and of a
+   reduced MoE LM with the load-balance loss on the card against the CPU,
+   and one AdamW step on equal gradients.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -3230,6 +3245,335 @@ def distribution_phase(dev):
     print(f"[stats] phase 5 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: gradients, AdamW and the single-card train step (N9b)
+# ---------------------------------------------------------------------------
+
+# (k): OneRec-V2 at full width, 6 of its 12 layers: f32 params, gradients
+# and AdamW's f32 mu and nu hold 16 bytes a parameter, ~79.9 GB at 12
+# layers (more than the card before any activation), ~40.2 GB at 6
+TRAIN_LAYERS = 6
+TRAIN_ROWS, TRAIN_STEPS = 32, 3   # train_b512's 384 tokens, 32 of 512 rows
+TABLE1_STEPS = 120                # (l): tests/test_system.py's schedule
+DIN_STEPS, DIN_ROWS = 100, 512    # (m): DIN reduced, its loss falls by
+DIN_LOSS_DROP = 0.8               # ... at least this factor (last 10 / first
+#                                   10 steps' mean)
+DIN_HELD_OUT = 4096               # (m): users scored fp8 against bf16
+# (n): card against CPU, one step: the loss (f32 sums in another order)
+# and the gradients (bf16 products summed in f32 chunks on the card, the
+# f32 product on the CPU), held as tests/_torch_parity.py holds the port
+# against JAX: >= 2-D leaves one by one, 1-D leaves as one vector
+TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-4, 1e-2
+
+
+def _timed_steps(dev, step, params, opt, batches, tag):
+    """Run ``step`` over ``batches`` on the card: per step the wall time
+    (ending in ``synchronize``), the device time (CUDA events around the
+    step) and the host time (until the step returned, before the sync);
+    the loss and the global gradient norm.  Returns (params, opt, losses,
+    lines)."""
+    import torch
+    losses, lines = [], []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        loss, params, opt = step(params, opt, batch)
+        end.record()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses.append(loss.item())
+        gnorm = step.metrics["grad_norm"].item()
+        lines.append(f"[train] {tag} step {i}: loss {losses[-1]:.6f}, "
+                     f"global norm {gnorm:.6f}, wall {wall * 1e3:.1f} ms, "
+                     f"device {start.elapsed_time(end):.1f} ms, host "
+                     f"{host * 1e3:.1f} ms")
+        if not math.isfinite(losses[-1]) or not math.isfinite(gnorm):
+            fail(f"train {tag}: non-finite loss or norm at step {i}")
+    return params, opt, losses, lines
+
+
+def onerec_train_path(dev, cfg=None, rows=TRAIN_ROWS, seq=None):
+    """(k) OneRec-V2 at full width, ``TRAIN_LAYERS`` layers: the
+    ``train_b512`` bundle (``steps.onerec_bundle``: f32 params, AdamW with
+    the JAX ``OPT_CFG``, ``remat``) at ``rows`` rows of its 384 tokens,
+    ``TRAIN_STEPS`` steps; step times, losses, global norms and the peak
+    device memory against 16 bytes a parameter.  Every kernel's launch
+    count is zeroed before and read after: training runs raw products
+    (cuBLAS), so all must stay 0.  A second run from the same seed must
+    give bit-identical losses and params."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.onerec_v2 import CONFIG, SHAPES
+    from repro_torch.launch import steps
+    cfg = cfg or dataclasses.replace(CONFIG, transformer=dataclasses.replace(
+        CONFIG.transformer, n_layers=TRAIN_LAYERS))
+    shape = dataclasses.replace(SHAPES["train_b512"], global_batch=rows,
+                                seq_len=seq or SHAPES["train_b512"].seq_len)
+    wrappers = _wrappers()
+    runs = []
+    for run in range(2):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for w in wrappers.values():
+            w.launches = 0
+        b = steps.onerec_bundle("onerec-v2", cfg, shape, fp8=False, seed=0,
+                                device=dev)
+        params, opt, batch = b.args
+        n_params = sum(t.numel() for _, t in tree.leaves_with_path(params))
+        params, opt, losses, lines = _timed_steps(
+            dev, b.fn, params, opt, [batch] * TRAIN_STEPS,
+            f"onerec-v2 x{cfg.transformer.n_layers} run {run}")
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        launches = {n: w.launches for n, w in wrappers.items()}
+        for line in lines:
+            print(line)
+        state = n_params * 16 / 2**30
+        print(f"[train] onerec-v2 x{cfg.transformer.n_layers} run {run}: "
+              f"{n_params / 1e9:.4f} B params, {rows} x {shape.seq_len} "
+              f"tokens, remat {cfg.transformer.remat}; peak device memory "
+              f"{peak:.2f} GiB against {state:.2f} GiB of params, "
+              f"gradients, mu and nu (16 B a param): "
+              f"{peak - state:.2f} GiB of activations and temporaries; "
+              f"launches {launches}")
+        if any(launches.values()):
+            fail(f"train: the raw train step launched a kernel {launches}")
+        del opt, batch, b
+        runs.append((losses, params))
+    (l0, p0), (l1, p1) = runs
+    same = l0 == l1 and all(torch.equal(a, p1_leaf) for (_, a), (_, p1_leaf)
+                            in zip(tree.leaves_with_path(p0),
+                                   tree.leaves_with_path(p1)))
+    print(f"[train] onerec-v2 two runs of {TRAIN_STEPS} steps from seed 0: "
+          f"losses {l0} / {l1}; params bit-identical: {same}")
+    if not same:
+        fail("train: two runs from one seed differ (run-to-run identity)")
+    del runs, p0, p1
+    torch.cuda.empty_cache()
+
+
+def table1_path(dev, steps_n=TABLE1_STEPS):
+    """(l) The Table-1 analogue on the card, ``tests/test_system.py``'s
+    config, schedule and bounds: OneRec-mini trained ``steps_n`` steps (lr
+    2e-3, batch 16, ``SemanticIDStream``), its Fig.-1 weight report, BF16
+    and FP8 serving through the port's engine (first-codebook hit rate of
+    4 x 16 held-out requests) in the contiguous layout, the JAX engine's
+    default (kernel ``paged_decode`` takes head_dim 64, 128 or 256, and
+    OneRec-mini's is 16), PTQ coverage."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import stats
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.data.onerec_data import (OneRecStreamConfig,
+                                              SemanticIDStream)
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models import onerec
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    from repro_torch.serving import EngineConfig, ServingEngine
+    t0 = time.perf_counter()
+    cfg = get_arch("onerec-v2").reduced_config()
+    stream = SemanticIDStream(OneRecStreamConfig(
+        codebook_size=cfg.transformer.vocab_size - 64,
+        history_len=cfg.history_len, global_batch=16, n_interests=8))
+    params = onerec.init_onerec(0, cfg, device=dev)
+    step = train_step(lambda p, b: onerec.train_loss(p, b, cfg),
+                      OptimizerConfig(lr=2e-3, warmup_steps=5,
+                                      total_steps=steps_n))
+    batches = ({k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(i).items() if k != "target"}
+               for i in range(steps_n))
+    params, _, losses, _ = _timed_steps(dev, step, params, adamw_init(params),
+                                        batches, "onerec-mini")
+    train_s = time.perf_counter() - t0
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    rep = stats.collect_weight_stats(params, "onerec-mini")
+
+    def hitrate(use_fp8):
+        eng = ServingEngine(params, cfg, EngineConfig(
+            batch_size=16, use_fp8=use_fp8, paged=False,
+            fused_decode="off"), device=dev)
+        hits = total = 0
+        for i in range(100, 104):
+            r = stream.serve_request_at(i)
+            out = eng.generate_batch(r["tokens"], r["profile"])
+            hits += int((out[:, 0] == r["target"][:, 0]).sum())
+            total += out.shape[0]
+        return hits / total
+
+    h_bf16, h_fp8 = hitrate(False), hitrate(True)
+    _, ptq = quantize_params(params, PAPER_POLICY, with_report=True,
+                             compute_errors=True)
+    print(f"[train] table-1 onerec-mini on the card: {steps_n} steps in "
+          f"{train_s:.2f} s, loss first-10 mean {first:.4f} -> last-10 mean "
+          f"{last:.4f} ({last / first:.3f}); weights mean variance "
+          f"{rep.mean_variance:.4e}, mean absmax {rep.mean_absmax:.4f}; "
+          f"first-codebook hit rate bf16 {h_bf16:.4f} fp8 {h_fp8:.4f}; PTQ "
+          f"{ptq.n_quantized} leaves, mean rel err {ptq.mean_rel_err:.4f}, "
+          f"bytes {ptq.bytes_after / ptq.bytes_before:.4f} of the "
+          f"original")
+    if not (last < 0.7 * first and rep.mean_variance < 1.0
+            and rep.mean_absmax < 50.0 and h_bf16 > 0.2
+            and abs(h_fp8 - h_bf16) <= 0.11 and ptq.n_quantized >= 7
+            and ptq.mean_rel_err < 0.05
+            and ptq.bytes_after < 0.35 * ptq.bytes_before):
+        fail("train: the Table-1 analogue missed tests/test_system.py's "
+             "bounds")
+
+
+def din_trained_fp8(dev, steps_n=DIN_STEPS):
+    """(m) DIN (reduced) trained ``steps_n`` steps on ``SyntheticInteractions``
+    (batch ``DIN_ROWS``, lr 1e-2); its loss must fall below
+    ``DIN_LOSS_DROP`` of its start.  Then the FP8 (PTQ'd with the paper's
+    policy) against BF16-compute score deviation, relative L2 over
+    ``DIN_HELD_OUT`` held-out users (phase 4 (i)'s measure), of the
+    trained params and of the same params at init."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.data.recsys_data import (RecsysStreamConfig,
+                                              SyntheticInteractions)
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models import recsys
+    from repro_torch.optim import OptimizerConfig, adamw_init
+    cfg = registry.get_arch("din").reduced_config()
+
+    def stream(rows, seed):
+        return SyntheticInteractions(RecsysStreamConfig(
+            cfg.n_items, cfg.n_sparse_fields, cfg.field_vocab, cfg.seq_len,
+            rows, seed=seed))
+
+    held = {k: torch.from_numpy(v).to(dev)
+            for k, v in stream(DIN_HELD_OUT, 1).batch_at(0).items()}
+
+    def deviation(p):
+        a = recsys.score(quantize_params(p, PAPER_POLICY), held, cfg).float()
+        b = recsys.score(p, held, cfg).float()
+        return ((a - b).norm() / b.norm()).item()
+
+    params = recsys.init_recsys(torch.Generator(device=dev).manual_seed(0),
+                                cfg, device=dev)
+    at_init = deviation(params)
+    train = stream(DIN_ROWS, 0)
+    step = train_step(lambda p, b: recsys.train_loss(p, b, cfg),
+                      OptimizerConfig(lr=1e-2, warmup_steps=10,
+                                      total_steps=steps_n))
+    batches = ({k: torch.from_numpy(v).to(dev)
+                for k, v in train.batch_at(i).items()}
+               for i in range(steps_n))
+    t0 = time.perf_counter()
+    params, _, losses, _ = _timed_steps(dev, step, params, adamw_init(params),
+                                        batches, "din")
+    first, last = np.mean(losses[:10]), np.mean(losses[-10:])
+    trained = deviation(params)
+    print(f"[train] din (reduced) {steps_n} steps x {DIN_ROWS} users in "
+          f"{time.perf_counter() - t0:.2f} s: loss first-10 mean "
+          f"{first:.4f} -> last-10 mean {last:.4f} ({last / first:.3f}, "
+          f"bound {DIN_LOSS_DROP}); fp8 against bf16 score relative L2 over "
+          f"{DIN_HELD_OUT} held-out users: trained {trained:.4e}, at init "
+          f"{at_init:.4e}")
+    if not last < DIN_LOSS_DROP * first or not math.isfinite(trained):
+        fail("train: DIN's loss did not fall by the stated margin")
+
+
+def _grad_gap(card, cpu):
+    """(loss rel. difference, worst >= 2-D leaf and its rel. L2, rel. L2 of
+    the 1-D leaves as one vector) of the card's (loss, grads) against the
+    CPU's."""
+    from repro_torch import tree
+    (cl, cg), (hl, hg) = card, cpu
+    loss_rel = abs(cl.item() - hl.item()) / abs(hl.item())
+    got = dict(tree.leaves_with_path(cg))
+    worst, worst_rel, num, den = "", 0.0, 0.0, 0.0
+    for path, ref in tree.leaves_with_path(hg):
+        ref = ref.double()
+        err = (got[path].double().cpu() - ref).norm().item()
+        if ref.ndim >= 2:
+            rel = err / max(ref.norm().item(), 1e-30)
+            if rel >= worst_rel:
+                worst, worst_rel = path, rel
+        else:
+            num, den = num + err ** 2, den + ref.norm().item() ** 2
+    return loss_rel, worst, worst_rel, math.sqrt(num / max(den, 1e-60))
+
+
+def train_card_vs_cpu(dev):
+    """(n) One gradient of reduced OneRec-V2 and of a reduced MoE LM with
+    the load-balance loss on (qwen2-moe, ``aux_loss_weight`` 0.05), on the
+    card and on the CPU from the same weights and batch; then one AdamW
+    step on each from the CPU's gradients."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.data.onerec_data import (OneRecStreamConfig,
+                                              SemanticIDStream)
+    from repro_torch.models import onerec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
+    ocfg = registry.get_arch("onerec-v2").reduced_config()
+    b = SemanticIDStream(OneRecStreamConfig(
+        codebook_size=ocfg.vocab_size - 64, history_len=ocfg.history_len,
+        global_batch=4, n_interests=8)).batch_at(0)
+    obatch = {k: torch.from_numpy(b[k]) for k in ("tokens", "profile",
+                                                  "labels")}
+    lcfg = dataclasses.replace(
+        registry.get_arch("qwen2-moe-a2.7b").reduced_config(),
+        aux_loss_weight=0.05)
+    tok = torch.randint(0, lcfg.vocab_size, (2, 16),
+                        generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int32)
+    cases = {
+        "onerec-v2 reduced": (onerec.init_onerec(0, ocfg, device="cpu"),
+                              obatch, lambda p, x: onerec.train_loss(
+                                  p, x, ocfg)),
+        "qwen2-moe reduced, aux 0.05": (
+            tfm.init_transformer(torch.Generator().manual_seed(0), lcfg),
+            {"tokens": tok, "labels": tok},
+            lambda p, x: tfm.train_loss(p, x, lcfg))}
+    for name, (params, batch, loss_fn) in cases.items():
+        cpu = tree.value_and_grad(loss_fn, params, batch)
+        on_card = tree.map_with_path(lambda _, t: t.to(dev), params)
+        card = tree.value_and_grad(loss_fn, on_card, {
+            k: v.to(dev) for k, v in batch.items()})
+        loss_rel, worst, worst_rel, rel_1d = _grad_gap(card, cpu)
+        opt_cfg = OptimizerConfig(clip_norm=0.0)
+        p_cpu, _, _ = adamw_update(params, tree.map_with_path(
+            lambda _, t: t.clone(), cpu[1]), adamw_init(params), opt_cfg)
+        p_card, _, _ = adamw_update(on_card, tree.map_with_path(
+            lambda _, t: t.to(dev), cpu[1]), adamw_init(on_card), opt_cfg)
+        ulps = max(int((a.cpu().view(torch.int32).long()
+                        - c.view(torch.int32).long()).abs().max())
+                   for (_, a), (_, c) in zip(tree.leaves_with_path(p_card),
+                                             tree.leaves_with_path(p_cpu)))
+        print(f"[train] card vs cpu, {name}: loss {card[0].item():.6f} / "
+              f"{cpu[0].item():.6f} (rel {loss_rel:.3e}); worst gradient "
+              f"leaf {worst} rel L2 {worst_rel:.3e}, 1-D leaves "
+              f"{rel_1d:.3e}; AdamW on equal gradients: params within "
+              f"{ulps} f32 ulp(s)")
+        if loss_rel > TRAIN_LOSS_REL or worst_rel > TRAIN_GRAD_REL \
+                or rel_1d > TRAIN_GRAD_REL or ulps > 1:
+            fail(f"train: card vs cpu {name} beyond its bounds")
+
+
+def training_phase(dev):
+    """Phase 6 (N9b): (k), (l), (m), (n)."""
+    t0 = time.perf_counter()
+    onerec_train_path(dev)
+    table1_path(dev)
+    din_trained_fp8(dev)
+    train_card_vs_cpu(dev)
+    print(f"[train] phase 6 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3275,6 +3619,7 @@ def main() -> int:
         card_vs_cpu_recsys(dev, arch)
     by_path = full_width(dev)
     distribution_phase(dev)
+    training_phase(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
     replaces = {

@@ -254,7 +254,9 @@ def capture_act_amax():
 def _record_act_amax(tag: Optional[str], x: torch.Tensor) -> None:
     if _ACT_AMAX is None or tag is None:
         return
-    amax = float(x.to(torch.float32).abs().max())
+    amax = x.to(torch.float32).abs().max()
+    # calibration only (capture_act_amax), never the serving path
+    amax = float(amax)  # lint: allow[hidden-host-sync]
     if amax > _ACT_AMAX.get(tag, 0.0):
         _ACT_AMAX[tag] = amax
 
@@ -448,17 +450,14 @@ def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def raw_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    """``a @ b`` of raw operands of one dtype, summed in f32 and rounded
-    once to ``out_dtype`` (``jnp.dot(..., preferred_element_type=f32)
-    .astype(out_dtype)``).  On the CPU, and for f32 operands, the f32
-    product of the operands' values: the bit-parity path against the JAX
-    package.  On the card, 16-bit operands run on the tensor cores (cuBLAS
-    with f32 accumulation, ``device.py``) with no f32 copies: one
-    ``matmul`` when K fits one ``RAW_K_CHUNK`` and ``out_dtype`` is theirs,
-    else ``RAW_K_CHUNK``-deep f32 partials (``_f32_product``).  ``b`` is
-    2-D, or 3-D with ``a`` 3-D (a batch of products)."""
-    if a.device.type == "cpu" or a.dtype == torch.float32:
+def _card_product(a: torch.Tensor, b: torch.Tensor,
+                  out_dtype) -> torch.Tensor:
+    """``raw_matmul`` on the card: one ``matmul`` when K fits one
+    ``RAW_K_CHUNK`` and ``out_dtype`` is the operands', else
+    ``RAW_K_CHUNK``-deep f32 partials (``_f32_product``) rounded once.
+    Operands of two dtypes (an f32 gradient against a 16-bit operand) are
+    multiplied as f32, as XLA multiplies them."""
+    if a.dtype != b.dtype:
         return torch.matmul(a.to(torch.float32),
                             b.to(torch.float32)).to(out_dtype)
     if a.shape[-1] <= RAW_K_CHUNK and out_dtype == a.dtype:
@@ -467,6 +466,52 @@ def raw_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
         return _f32_product(a, b).to(out_dtype)
     out = _f32_product(a.reshape(-1, a.shape[-1]), b)
     return out.reshape(*a.shape[:-1], b.shape[-1]).to(out_dtype)
+
+
+class _CardProduct(torch.autograd.Function):
+    """``_card_product`` with the JAX transpose of ``jnp.dot(a, b,
+    preferred_element_type=f32)`` as its backward: dA = dY @ Bᵀ and dB =
+    Aᵀ @ dY, each summed in f32 in ``RAW_K_CHUNK``-deep chunks and rounded
+    once to its operand's dtype (autograd refuses the chunked product's
+    ``out=`` epilogues)."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype):
+        ctx.save_for_backward(a, b)
+        return _card_product(a, b, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _card_product(dy, b.transpose(-1, -2), a.dtype)
+        if ctx.needs_input_grad[1]:
+            if b.ndim == 3:
+                db = _card_product(a.transpose(-1, -2), dy, b.dtype)
+            else:
+                db = _card_product(a.reshape(-1, a.shape[-1]).T,
+                                   dy.reshape(-1, dy.shape[-1]), b.dtype)
+        return da, db, None
+
+
+def raw_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """``a @ b`` of raw operands of one dtype, summed in f32 and rounded
+    once to ``out_dtype`` (``jnp.dot(..., preferred_element_type=f32)
+    .astype(out_dtype)``).  On the CPU, and for f32 operands, the f32
+    product of the operands' values: the bit-parity path against the JAX
+    package, whose autograd rounds each gradient product once at the
+    casts, as JAX's transpose does.  On the card, 16-bit operands run on
+    the tensor cores (cuBLAS with f32 accumulation, ``device.py``) with no
+    f32 copies (``_card_product``), through ``_CardProduct`` whose backward
+    sums the same way.  ``b`` is 2-D, or 3-D with ``a`` 3-D (a batch of
+    products)."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
+        return torch.matmul(a.to(torch.float32),
+                            b.to(torch.float32)).to(out_dtype)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _CardProduct.apply(a, b, out_dtype)
+    return _card_product(a, b, out_dtype)
 
 
 def matmul_any(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:

@@ -3,18 +3,26 @@
 ``build_bundle(arch, shape)`` returns a :class:`StepBundle`: the step
 function and its concrete arguments on one device (the card unless the
 caller passes ``device="cpu"``), the JAX package's
-``repro/launch/steps.py`` for the families and kinds the port covers:
-the five LMs and OneRec-V2 (``prefill``, ``decode``) and the four recsys
-architectures (``score``, ``retrieval``).  Abstract bundles (the JAX
-dry-run's shapes, no allocation), the ``train`` kind and the GNN family's
-``graph`` bundles (a training step) wait for ROADMAP.md queue N, item N9.
-The step functions run on the device of their inputs.
+``repro/launch/steps.py``: the five LMs and OneRec-V2 (``train``,
+``prefill``, ``decode``), the four recsys architectures (``train``,
+``score``, ``retrieval``) and the EGNN (``graph``, a training step).
+Abstract bundles (the JAX dry-run's shapes, no allocation) and the
+``ogb_products`` graph cell (61.86 M edges: chunked or sharded segment
+sums) wait for ROADMAP.md queue N, item N9d.  The step functions run on
+the device of their inputs.
 
 Step signatures (uniform per kind):
+  train:      step(params, opt_state, batch)          -> (loss, params, opt)
   prefill:    step(params, batch)                     -> (logits, cache)
   decode:     step(params, cache, batch, index)       -> (logits, cache)
   score:      step(params, batch)                     -> scores
   retrieval:  step(params, batch)                     -> scores
+  graph:      step(params, opt_state, batch)          -> (loss, params, opt)
+
+A training step is one ``tree.value_and_grad`` of the family's
+``train_loss`` and one AdamW update with the JAX package's ``OPT_CFG``
+(``optim.adamw_update``, in place: the params and the optimizer state
+passed in are the ones returned).  Its params are f32, never PTQ'd.
 
 Random parameters come from a ``torch.Generator`` seeded with ``seed`` on
 the bundle's device, random inputs from another; with ``fp8`` the params
@@ -30,15 +38,20 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs import registry
-from repro_torch.configs.base import (OneRecConfig, RecsysConfig,
+from repro_torch.configs.base import (GNNConfig, OneRecConfig, RecsysConfig,
                                       ShapeSpec, TransformerConfig)
 from repro_torch.core.policy import PAPER_POLICY
 from repro_torch.core.ptq import quantize_params
 from repro_torch.device import resolve_device
+from repro_torch.models import gnn as gnn_model
 from repro_torch.models import onerec as onerec_model
 from repro_torch.models import recsys as recsys_model
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
+
+OPT_CFG = OptimizerConfig()
 
 
 @dataclasses.dataclass
@@ -63,6 +76,21 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
     return gen
 
 
+def train_step(loss_fn: Callable[[dict, dict], torch.Tensor],
+               opt_cfg: OptimizerConfig = OPT_CFG) -> Callable:
+    """step(params, opt_state, batch) -> (loss, params, opt_state): the
+    value and gradient of ``loss_fn(params, batch)``, then one AdamW
+    update in place.  ``step.metrics`` holds the last update's
+    ``grad_norm`` and ``lr`` (device tensors)."""
+    def step(params, opt_state, batch):
+        loss, grads = tree.value_and_grad(loss_fn, params, batch)
+        params, opt_state, step.metrics = adamw_update(
+            params, grads, opt_state, opt_cfg)
+        return loss, params, opt_state
+    step.metrics = {}
+    return step
+
+
 # ---------------------------------------------------------------------------
 # LM transformer cells
 # ---------------------------------------------------------------------------
@@ -76,13 +104,23 @@ def lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
     ``dtype``, bf16 at full width on the card), ``global_batch`` x ``seq_len``
     prompt tokens (prefill; the step makes its shared cache of
     ``seq_len`` positions) or one token a row, an empty shared cache of
-    ``seq_len`` positions and index ``seq_len - 1`` (decode)."""
+    ``seq_len`` positions and index ``seq_len - 1`` (decode); or a train
+    bundle: f32 params (``fp8`` and ``dtype`` do not apply) and
+    ``global_batch`` x ``seq_len`` tokens, their own labels."""
     dev = resolve_device(device)
-    if shape.kind == "train":
-        raise _not_ported(f"the train step of {arch}", "N9")
-    if shape.kind not in ("prefill", "decode"):
+    if shape.kind not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown LM shape kind {shape.kind}")
     b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        params = tfm.init_transformer(_generator(seed, dev), cfg,
+                                      device=dev)
+        tok = torch.randint(0, cfg.vocab_size, (b, s),
+                            generator=_generator(seed + 1, dev), device=dev,
+                            dtype=torch.int32)
+        step = train_step(lambda p, batch: tfm.train_loss(p, batch, cfg))
+        return StepBundle(arch, shape.name, "train", step,
+                          (params, adamw_init(params),
+                           {"tokens": tok, "labels": tok}), cfg=cfg)
     serve_cfg = dataclasses.replace(cfg, remat=False)
     transform = (lambda path, t: quantize_params(t, PAPER_POLICY,
                                                  prefix=path)) if fp8 else None
@@ -137,18 +175,26 @@ def _recsys_inputs(cfg: RecsysConfig, b: int, gen: torch.Generator, *,
 
 def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
                   fp8: bool, seed: int = 0, device=None) -> StepBundle:
-    """A score (``global_batch`` users, one target each) or retrieval (one
-    user against ``n_candidates`` items) bundle: f32 params (the towers
-    PTQ'd with the paper's policy when ``fp8``; the tables stay f32)."""
+    """A train (``global_batch`` users with click labels), score
+    (``global_batch`` users, one target each) or retrieval (one user
+    against ``n_candidates`` items) bundle: f32 params (for scoring, the
+    towers PTQ'd with the paper's policy when ``fp8``; the tables stay
+    f32)."""
     dev = resolve_device(device)
-    if shape.kind == "train":
-        raise _not_ported(f"the train step of {arch}", "N9")
-    if shape.kind not in ("score", "retrieval"):
+    if shape.kind not in ("train", "score", "retrieval"):
         raise ValueError(f"unknown recsys shape kind {shape.kind}")
     params = recsys_model.init_recsys(_generator(seed, dev), cfg, device=dev)
+    gen = _generator(seed + 1, dev)
+    if shape.kind == "train":
+        batch = _recsys_inputs(cfg, shape.global_batch, gen)
+        batch["labels"] = (torch.rand((shape.global_batch,), generator=gen,
+                                      device=dev) < 0.3).to(torch.float32)
+        step = train_step(
+            lambda p, b: recsys_model.train_loss(p, b, cfg))
+        return StepBundle(arch, shape.name, "train", step,
+                          (params, adamw_init(params), batch), cfg=cfg)
     if fp8:
         params = quantize_params(params, PAPER_POLICY)
-    gen = _generator(seed + 1, dev)
     if shape.kind == "score":
         def step(params, batch):
             return recsys_model.score(params, batch, cfg)
@@ -169,16 +215,30 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
 
 def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
                   fp8: bool, seed: int = 0, device=None) -> StepBundle:
-    """A prefill (``seq_len`` history tokens and a profile a row, into a
-    shared cache of ``context_len + 1`` positions) or decode (one token a
-    row at index ``seq_len - 1`` of an empty shared cache) bundle."""
+    """A train (``seq_len`` tokens, a profile and ``seq_len + 1`` labels a
+    row over [profile] + tokens), prefill (``seq_len`` history tokens and
+    a profile a row, into a shared cache of ``context_len + 1`` positions)
+    or decode (one token a row at index ``seq_len - 1`` of an empty shared
+    cache) bundle."""
     dev = resolve_device(device)
-    if shape.kind == "train":
-        raise _not_ported(f"the train step of {arch}", "N9")
-    if shape.kind not in ("prefill", "decode"):
+    if shape.kind not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown OneRec shape kind {shape.kind}")
     b, t = shape.global_batch, shape.seq_len
     params = onerec_model.init_onerec(seed, cfg, device=dev)
+    if shape.kind == "train":
+        gen = _generator(seed + 1, dev)
+
+        def ids(n):
+            return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
+                                 device=dev, dtype=torch.int32)
+        batch = {"tokens": ids(t),
+                 "profile": torch.randn((b, onerec_model.PROFILE_DIM),
+                                        generator=gen, device=dev),
+                 "labels": ids(t + 1)}
+        step = train_step(
+            lambda p, bt: onerec_model.train_loss(p, bt, cfg))
+        return StepBundle(arch, shape.name, "train", step,
+                          (params, adamw_init(params), batch), cfg=cfg)
     if fp8:
         params = quantize_params(params, PAPER_POLICY)
     serve_cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
@@ -213,6 +273,75 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
 
 
 # ---------------------------------------------------------------------------
+# GNN cells (a training step each)
+# ---------------------------------------------------------------------------
+
+
+def _pad_graph(n: int, mult: int = 2048) -> int:
+    """Node / edge counts padded as the JAX package pads them (to a
+    multiple of 2048 from 2048 up, for its sharding); the padding entries
+    are ordinary random edges and nodes, as there."""
+    if n < mult:
+        return n
+    return ((n + mult - 1) // mult) * mult
+
+
+def _gnn_cell_dims(shape: ShapeSpec) -> Tuple[int, int, int, str, int]:
+    """(n_nodes, n_edges, d_feat, level, n_graphs) of a graph cell."""
+    if shape.name == "minibatch_lg" or shape.fanout:
+        seeds = shape.batch_nodes
+        n1 = seeds * shape.fanout[0]
+        n2 = n1 * shape.fanout[1]
+        return (_pad_graph(seeds + n1 + n2), _pad_graph(n1 + n2),
+                shape.d_feat, "node", 0)
+    if shape.global_batch:                    # batched small graphs
+        n = shape.n_nodes * shape.global_batch
+        e = shape.n_edges * shape.global_batch
+        return _pad_graph(n), _pad_graph(e), shape.d_feat, "graph", \
+            shape.global_batch
+    return (_pad_graph(shape.n_nodes), _pad_graph(shape.n_edges),
+            shape.d_feat, "node", 0)
+
+
+def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
+               n_classes: int = 16, seed: int = 0,
+               device=None) -> StepBundle:
+    """The EGNN's training step on the cell's graph: random features,
+    coordinates, edges and labels (node labels, or one a graph for the
+    batched small graphs), every edge and node real."""
+    if shape.name == "ogb_products":
+        raise _not_ported(f"the graph step of {arch} on ogb_products "
+                          f"(61.86 M edges: chunked or sharded segment "
+                          f"sums)", "N9d")
+    dev = resolve_device(device)
+    n, e, d_feat, level, n_graphs = _gnn_cell_dims(shape)
+    gen = _generator(seed + 1, dev)
+    batch = {
+        "feat": torch.randn((n, d_feat), generator=gen, device=dev),
+        "coord": torch.randn((n, 3), generator=gen, device=dev),
+        "edges": torch.randint(0, n, (e, 2), generator=gen, device=dev,
+                               dtype=torch.int32),
+        "edge_mask": torch.ones((e,), device=dev),
+        "node_mask": torch.ones((n,), device=dev),
+        "labels": torch.randint(0, n_classes,
+                                (n_graphs if level == "graph" else n,),
+                                generator=gen, device=dev,
+                                dtype=torch.int32),
+        "graph_ids": (torch.arange(n_graphs, dtype=torch.int32, device=dev
+                                   ).repeat_interleave(n // max(n_graphs, 1))
+                      if level == "graph" else
+                      torch.zeros((n,), dtype=torch.int32, device=dev)),
+    }
+    params = gnn_model.init_egnn(_generator(seed, dev), cfg, d_feat,
+                                 n_classes, device=dev)
+    step = train_step(lambda p, b: gnn_model.train_loss(
+        p, b, cfg, level=level, n_graphs=n_graphs))
+    return StepBundle(arch, shape.name, "graph", step,
+                      (params, adamw_init(params), batch), cfg=cfg,
+                      note=level)
+
+
+# ---------------------------------------------------------------------------
 # Entry points
 # ---------------------------------------------------------------------------
 
@@ -225,14 +354,16 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     (``reduced``: the arch's ``reduced_config()``; ``fp8`` None: PTQ'd, as
     the JAX package decides for the LM and OneRec families)."""
     if abstract:
-        raise _not_ported("abstract bundles (the dry-run's)", "N9")
+        raise _not_ported("abstract bundles (the dry-run's)", "N9d")
     mod = registry.get_arch(arch)
     cfg = mod.reduced_config() if reduced else mod.CONFIG
     shape = shape_override or mod.SHAPES[shape_name]
     if shape.skip:
         raise ValueError(f"cell {arch}/{shape_name} is N/A: {shape.skip}")
     if mod.FAMILY == "gnn":
-        raise _not_ported(f"the graph (training) step of {arch}", "N9")
+        return gnn_bundle(arch, cfg, shape,
+                          n_classes=getattr(mod, "N_CLASSES", 16),
+                          seed=seed, device=device)
     if fp8 is None:
         fp8 = getattr(cfg, "use_fp8", False) or mod.FAMILY in ("lm", "onerec")
     build = {"lm": lm_bundle, "onerec": onerec_bundle,
@@ -240,21 +371,31 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     return build(arch, cfg, shape, fp8=fp8, seed=seed, device=device)
 
 
-# Reduced-shape cells for CPU smoke testing (the JAX package's, tiny dims):
-# the ported kinds only (train and the GNN family's graph cells wait for N9)
+# Reduced-shape cells for CPU smoke testing (the JAX package's, tiny dims)
 SMOKE_SHAPES = {
     "lm": {
+        "train": ShapeSpec("smoke_train", "train", seq_len=16,
+                           global_batch=2),
         "prefill": ShapeSpec("smoke_prefill", "prefill", seq_len=16,
                              global_batch=2),
         "decode": ShapeSpec("smoke_decode", "decode", seq_len=32,
                             global_batch=2),
     },
     "recsys": {
+        "train": ShapeSpec("smoke_train", "train", global_batch=8),
         "score": ShapeSpec("smoke_score", "score", global_batch=8),
         "retrieval": ShapeSpec("smoke_retrieval", "retrieval",
                                global_batch=1, n_candidates=64),
     },
+    "gnn": {
+        "graph": ShapeSpec("smoke_graph", "graph", n_nodes=40, n_edges=120,
+                           d_feat=16),
+        "molecule": ShapeSpec("smoke_molecule", "graph", n_nodes=10,
+                              n_edges=20, global_batch=4, d_feat=16),
+    },
     "onerec": {
+        "train": ShapeSpec("smoke_train", "train", seq_len=27,
+                           global_batch=2),
         "prefill": ShapeSpec("smoke_prefill", "prefill", seq_len=24,
                              global_batch=2),
         "decode": ShapeSpec("smoke_decode", "decode", seq_len=27,
@@ -264,12 +405,8 @@ SMOKE_SHAPES = {
 
 
 def smoke_bundles(arch: str, fp8: bool = False, device=None):
-    """Concrete reduced-config bundles of every ported step kind of the
-    arch (none of the GNN family's yet: its graph step is a training step,
-    N9)."""
+    """Concrete reduced-config bundles of every step kind of the arch."""
     mod = registry.get_arch(arch)
-    if mod.FAMILY == "gnn":
-        raise _not_ported(f"the graph (training) step of {arch}", "N9")
     return [build_bundle(arch, shape.name, reduced=True, fp8=fp8,
                          shape_override=shape, device=device)
             for shape in SMOKE_SHAPES[mod.FAMILY].values()]

@@ -41,7 +41,9 @@ def split(gen: torch.Generator) -> torch.Generator:
     the port's ``jax.random.split``, so one module's init draws from its own
     stream whatever the others draw."""
     seed = torch.randint(0, 2 ** 62, (), generator=gen, device=gen.device)
-    return torch.Generator(device=gen.device).manual_seed(int(seed))
+    # init only: a seed read once per module made, never while serving
+    return torch.Generator(device=gen.device).manual_seed(
+        int(seed))  # lint: allow[hidden-host-sync]
 
 
 def mlp_stack_init(gen: torch.Generator, dims: Sequence[int], *,

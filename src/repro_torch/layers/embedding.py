@@ -13,8 +13,10 @@ card, where ``index_add_`` adds with atomics in no fixed order; the two
 give the same bits.  An empty bag gives 0 in every mode: ``segment_max``
 gives ``-inf`` there and the JAX code maps it to 0, so the max starts from
 ``-inf`` (``include_self=False`` over a ``-inf`` fill) and non-finite
-results become 0.  Row sharding of the tables waits for ROADMAP.md queue N,
-item N9.
+results become 0.  Row gathers go through ``gather_rows``, whose gradient
+is that ``segment_sum`` (the JAX gather's transpose, a scatter-add), so a
+backward adds each row's contributions in a fixed order on the card too.
+Row sharding of the tables waits for ROADMAP.md queue N, item N9d.
 """
 
 from __future__ import annotations
@@ -35,18 +37,6 @@ def init_embedding(gen: torch.Generator, vocab: int, dim: int, *,
                                       dtype)}
 
 
-def embed_lookup(params: dict, ids: torch.Tensor, *,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """Plain gather of ``ids``' rows, cast to ``compute_dtype``."""
-    flat = params["table"].index_select(0, ids.reshape(-1).long())
-    return flat.reshape(*ids.shape, -1).to(compute_dtype)
-
-
-def _gather_f32(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    flat = table.index_select(0, ids.reshape(-1).long())
-    return flat.reshape(*ids.shape, -1).to(torch.float32)
-
-
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
                 n: int) -> torch.Tensor:
     """f32 sums of ``vals``' rows by segment id ``seg`` (int64) into ``n``
@@ -59,6 +49,44 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
                           ).index_add_(0, seg, torch.ones_like(order))
     return torch.segment_reduce(vals.index_select(0, order), "sum",
                                 lengths=lengths, axis=0, unsafe=True)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table.index_select(0, idx)`` whose gradient is ``segment_sum``:
+    autograd's own (``index_add_``) adds with atomics on the card, in no
+    fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        return segment_sum(grad, idx, ctx.rows).to(grad.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (any shape, any integer dtype) of ``table``: (*idx.shape,
+    *table.shape[1:]).  Its backward sums the rows' gradients in f32 in
+    ``idx`` order (``segment_sum``) and rounds once to the gradient's
+    dtype, the same bits on either device."""
+    flat = idx.reshape(-1).long()
+    rows = _GatherRows.apply(table, flat) if torch.is_grad_enabled() \
+        and table.requires_grad else table.index_select(0, flat)
+    return rows.reshape(*idx.shape, *table.shape[1:])
+
+
+def embed_lookup(params: dict, ids: torch.Tensor, *,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain gather of ``ids``' rows, cast to ``compute_dtype``."""
+    return gather_rows(params["table"], ids).to(compute_dtype)
+
+
+def _gather_f32(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return gather_rows(table, ids).to(torch.float32)
 
 
 def embedding_bag(params: dict, ids: torch.Tensor,

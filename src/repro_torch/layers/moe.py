@@ -24,6 +24,7 @@ from repro_torch.core.quant import (QuantizedTensor, fp8_grouped_linear,
                                     fp8_grouped_matmul, matmul_any,
                                     raw_matmul)
 from repro_torch.layers.common import truncated_normal
+from repro_torch.layers.embedding import gather_rows
 from repro_torch.layers.mlp import ACTIVATIONS, apply_mlp, init_mlp
 
 
@@ -135,14 +136,15 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
 
     # dispatch into the fixed (E*C [+1 trash], D) buffer
     buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=x.device)
-    buf[slot] = xt[token_id]
+    buf[slot] = gather_rows(xt, token_id)
     h = _grouped_ffn(buf[:-1].reshape(e, cap, d), params["experts"], spec.act)
 
     # combine: gather each kept assignment's output, weight, and add a
     # token's k contributions in order, each sum rounded to the activation
     # dtype: the JAX scatter-add's order on the CPU (top-k > 2 makes the
     # order matter), deterministic on the card (no atomics)
-    contrib = h.reshape(e * cap, d)[torch.clamp(slot, max=e * cap - 1)]
+    contrib = gather_rows(h.reshape(e * cap, d),
+                          torch.clamp(slot, max=e * cap - 1))
     contrib = contrib * (flat_w * keep).to(contrib.dtype)[:, None]
     contrib = contrib.reshape(t, k, d)
     y = contrib[:, 0]
@@ -152,3 +154,19 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     if spec.n_shared_experts:
         out = out + apply_mlp(params["shared"], x, act=spec.act)
     return out
+
+
+def load_balance_loss(params: dict, x: torch.Tensor,
+                      spec: MoESpec) -> torch.Tensor:
+    """Auxiliary load-balancing loss (Switch-style f_i * P_i) of the
+    router ``params["router"]`` over x (B, S, D), as the JAX package's:
+    the padded experts unmasked, top-k by a stable descending sort."""
+    xt = x.reshape(-1, spec.d_model)
+    logits = matmul_any(xt, params["router"]["kernel"],
+                        out_dtype=torch.float32)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    topi = torch.sort(probs, dim=-1, descending=True,
+                      stable=True)[1][:, :spec.top_k]
+    frac = torch.mean(torch.nn.functional.one_hot(
+        topi, spec.n_experts_padded).to(torch.float32), dim=(0, 1))
+    return spec.n_experts_padded * torch.sum(frac * torch.mean(probs, dim=0))

@@ -1,8 +1,8 @@
 """EGNN: E(n)-equivariant graph network [arXiv:2102.09844], the JAX
-package's ``repro/models/gnn.py`` in PyTorch (the forward and the loss
-value; the training step waits for ROADMAP.md queue N, item N9).
+package's ``repro/models/gnn.py`` in PyTorch: the forward and the training
+loss (``launch/steps.py``'s graph bundles take its gradient).
 
-Message passing is edge-index gathers (``index_select``) and segment sums
+Message passing is edge-index gathers (``gather_rows``) and segment sums
 (``layers.embedding.segment_sum`` over f32 rows, in a fixed order on
 either device): the JAX package builds it from ``jnp.take``
 and ``jax.ops.segment_sum``, XLA ops with no Pallas kernel.  The paper's
@@ -30,15 +30,39 @@ import torch
 
 from repro_torch.configs.base import GNNConfig
 from repro_torch.layers.common import mlp_stack_apply, mlp_stack_init, split
-from repro_torch.layers.embedding import segment_sum
+from repro_torch.layers.embedding import gather_rows, segment_sum
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+class _Silu(torch.autograd.Function):
+    """``x * logistic(x)`` with JAX's derivative: the cotangent ``ct`` gives
+    ``ct * s + (ct * x) * (s * (1 - s))`` (``logistic``'s JVP rule), each
+    product rounded in x's dtype.  Autograd through the spelled-out steps
+    would multiply ``exp(-x)``'s overflow (inf) by 0 below x = -88: NaN."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = _logistic(x)
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, s = ctx.saved_tensors
+        return ct * s + (ct * x) * (s * (1 - s))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` on the CPU in x's dtype: XLA computes a bf16
-    ``logistic`` as ``1 / (1 + exp(-x))`` rounding each step to bf16 (a
-    third of ``torch.sigmoid``'s bf16 results differ from it by an ulp), so
-    the steps are spelled out."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``jax.nn.silu`` in x's dtype: XLA computes a bf16 ``logistic`` as
+    ``1 / (1 + exp(-x))`` rounding each step to bf16 (a third of
+    ``torch.sigmoid``'s bf16 results differ from it by an ulp), so the
+    steps are spelled out; its gradient is JAX's (``_Silu``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Silu.apply(x)
+    return x * _logistic(x)
 
 
 def init_egnn(gen: torch.Generator, cfg: GNNConfig, d_feat: int,
@@ -70,9 +94,9 @@ def _egnn_layer(lp: dict, h: torch.Tensor, x: torch.Tensor,
                 src: torch.Tensor, dst: torch.Tensor,
                 edge_mask: torch.Tensor, n_nodes: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    h_src = h.index_select(0, src)
-    h_dst = h.index_select(0, dst)
-    dx = x.index_select(0, src) - x.index_select(0, dst)      # (E, 3) f32
+    h_src = gather_rows(h, src)
+    h_dst = gather_rows(h, dst)
+    dx = gather_rows(x, src) - gather_rows(x, dst)            # (E, 3) f32
     d2 = torch.sum(torch.square(dx), dim=-1, keepdim=True)
 
     m = mlp_stack_apply(lp["edge_mlp"]["tower"],
@@ -109,10 +133,10 @@ def equivariance_error(params: dict, batch: Dict[str, torch.Tensor],
     h, x = egnn_forward(params, batch, cfg)
     moved = dict(batch, coord=batch["coord"].to(torch.float32) @ rot + shift)
     h2, x2 = egnn_forward(params, moved, cfg)
-    err_x = ((x2 - (x @ rot + shift)).abs().max() / x.abs().max()).item()
-    err_h = ((h2.float() - h.float()).abs().max()
-             / h.float().abs().max()).item()
-    return err_x, err_h
+    err_x = (x2 - (x @ rot + shift)).abs().max() / x.abs().max()
+    err_h = (h2.float() - h.float()).abs().max() / h.float().abs().max()
+    # a diagnostic's two numbers, read once a call: not a serving path
+    return err_x.item(), err_h.item()  # lint: allow[hidden-host-sync]
 
 
 def egnn_forward(params: dict, batch: Dict[str, torch.Tensor],
@@ -157,7 +181,8 @@ def graph_logits(params: dict, batch, cfg: GNNConfig,
 
 def train_loss(params: dict, batch, cfg: GNNConfig, *,
                level: str = "node", n_graphs: int = 0) -> torch.Tensor:
-    """The loss value (forward only: the gradient and AdamW wait for N9)."""
+    """Masked mean cross entropy of node logits, or of graph logits
+    (``level="graph"``, ``n_graphs`` mean-pooled graphs)."""
     if level == "graph":
         logits = graph_logits(params, batch, cfg, n_graphs)
         mask = torch.ones(n_graphs, dtype=torch.float32,

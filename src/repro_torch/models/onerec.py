@@ -59,6 +59,14 @@ def forward(params, batch: Dict[str, torch.Tensor],
     return logits
 
 
+def train_loss(params, batch: Dict[str, torch.Tensor],
+               cfg: OneRecConfig) -> torch.Tensor:
+    """Next-token CE over the target item's semantic-ID tokens: ``labels``
+    (B, T + 1) aligned with [profile, tokens...], history positions masked
+    (-1), so only the final ``decode_len`` target tokens count."""
+    return tfm.token_nll(forward(params, batch, cfg), batch["labels"])
+
+
 def init_cache(cfg: OneRecConfig, batch: int, dtype=None, *,
                device=None) -> dict:
     """Generation KV cache: ``batch`` rows of ``context_len + 1`` positions

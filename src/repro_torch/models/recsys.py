@@ -20,12 +20,13 @@ Scoring entry points:
   * ``retrieval_scores(params, batch, cfg)`` -- one user vs N candidates
     (``batch["candidate_ids"]`` (N,)); ``retrieval_scores_chunked`` feeds
     the candidates through it C at a time
-  * ``train_loss(params, batch, cfg)``       -- the loss value (its gradient
-    and the optimizer wait for ROADMAP.md queue N, item N9)
+  * ``train_loss(params, batch, cfg)``       -- the training loss
+    (differentiable: ``launch/steps.py``'s train bundles take its
+    gradient through ``tree.value_and_grad``)
 
 Activations are tapped at the JAX module's points (``core.stats.tap``:
 ``hist_embed``, ``din_pooled``, ``din_logit``).  Differences from the JAX
-module: no ``constrain`` (sharding waits for N9); ``lax.scan`` is a
+module: no ``constrain`` (sharding waits for N9d); ``lax.scan`` is a
 Python loop over the history; ``dien_retrieval`` skips the one-user
 interest pass whose result the JAX function never reads (XLA drops it
 under ``jit``).  Tables are drawn with ``randn`` in f32 on the device.
@@ -411,8 +412,7 @@ def score(params, batch, cfg: RecsysConfig) -> torch.Tensor:
 
 
 def train_loss(params, batch, cfg: RecsysConfig) -> torch.Tensor:
-    """The loss value (forward only: the step's gradient and AdamW wait for
-    ROADMAP.md queue N, item N9)."""
+    """The architecture's training loss (``TRAIN_LOSS``)."""
     return TRAIN_LOSS[cfg.family](params, batch, cfg)
 
 

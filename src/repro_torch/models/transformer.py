@@ -21,6 +21,7 @@ import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.configs.base import TransformerConfig
@@ -31,8 +32,10 @@ from repro_torch.layers.attention import (AttnSpec, KVWrite,
                                           init_attention, init_cache,
                                           init_page_cache)
 from repro_torch.layers.common import dense_init, truncated_normal
+from repro_torch.layers.embedding import gather_rows
 from repro_torch.layers.mlp import apply_mlp, init_mlp
-from repro_torch.layers.moe import MoESpec, apply_moe, init_moe, make_moe_spec
+from repro_torch.layers.moe import (MoESpec, apply_moe, init_moe,
+                                    load_balance_loss, make_moe_spec)
 from repro_torch.layers.norms import rmsnorm_apply
 
 
@@ -201,7 +204,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     """Rows of the table in ``compute_dtype``; with ``embed_scale`` times
     ``sqrt(d_model)`` rounded to ``compute_dtype`` (the JAX package's
     ``jnp.asarray(math.sqrt(d), bf16)``: 34.0 for gemma3's 1152)."""
-    x = params["embed"]["table"][tokens.long()].to(compute_dtype)
+    x = gather_rows(params["embed"]["table"], tokens).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
     return x
@@ -264,16 +267,26 @@ def forward(
                    kv_write=kv_write, page_gather=page_gather,
                    page_tables=page_tables, page_size=page_size,
                    branch_stride=branch_stride, cache_index=cache_index)
+    # the JAX scan body under jax.checkpoint: a layer's activations are
+    # recomputed in the backward (training only; serving turns remat off)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled() \
+        and x.requires_grad
     for si, spec in enumerate(layer_plan(cfg)):
         stack_params = params["stacks"][str(si)]
         stack_cache = cache["stacks"][str(si)] if cache is not None else None
+        layers = {key: tree.unbind(lp, spec.n_periods)
+                  for key, lp in stack_params.items()}
         for i in range(spec.n_periods):
             for pi, kind in enumerate(spec.kinds):
                 key = f"p{pi}"
                 c_lp = (tree.index(stack_cache[key], i)
                         if stack_cache is not None else None)
-                x = _apply_layer(tree.index(stack_params[key], i), x, cfg,
-                                 kind, c_lp, attn_kw)
+                if remat:
+                    x = checkpoint(_apply_layer, layers[key][i], x, cfg,
+                                   kind, c_lp, attn_kw, use_reentrant=False)
+                else:
+                    x = _apply_layer(layers[key][i], x, cfg, kind, c_lp,
+                                     attn_kw)
                 tap(f"layer_out/{key}", x)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
@@ -368,3 +381,45 @@ def decode_fused(params: dict, first_tokens: torch.Tensor,
         toks.append(tok[:, 0])
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
     return torch.stack(toks, dim=1), cache
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy of f32 ``logits`` (B, T, V) against
+    ``labels`` (B, T), labels < 0 masked (the JAX package's ``log_softmax``
+    + ``take_along_axis``; each position's gradient lands in its own row,
+    so the gather's backward adds nothing twice)."""
+    mask = (labels >= 0).to(torch.float32)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.take_along_dim(
+        logp, torch.clamp(labels.long(), min=0)[..., None], dim=-1)[..., 0]
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def train_loss(params: dict, batch: Dict[str, torch.Tensor],
+               cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross entropy; labels < 0 are masked.
+
+    With ``cfg.aux_loss_weight > 0`` the Switch-style load-balance loss of
+    every MoE router is added, computed on the embedded inputs (the JAX
+    package's proxy for per-layer activations) with each stack's first
+    layer's router."""
+    logits, _ = forward(params, batch["tokens"], cfg)
+    loss = token_nll(logits, batch["labels"])
+    if cfg.moe and cfg.aux_loss_weight > 0.0:
+        spec = moe_spec_for(cfg)
+        x = embed_tokens(params, batch["tokens"], cfg)
+        aux, n = 0.0, 0
+        for si, sspec in enumerate(layer_plan(cfg)):
+            for pi, kind in enumerate(sspec.kinds):
+                if kind.ffn != "moe":
+                    continue
+                lp = params["stacks"][str(si)][f"p{pi}"]["moe"]
+                aux = aux + load_balance_loss(tree.index(lp, 0), x, spec)
+                n += 1
+        loss = loss + cfg.aux_loss_weight * aux / max(n, 1)
+    return loss

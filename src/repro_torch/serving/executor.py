@@ -216,6 +216,13 @@ class PhaseExecutor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(
                 device=self.device, dtype=dtype)
 
+    def _index(self, a: np.ndarray) -> torch.Tensor:
+        """Stage host index math (``INDEX_DTYPE``, ``kv_cache.as_index``)
+        as a device gather / scatter operand: int64, the index dtype of
+        PyTorch's indexing ops.  The one place the host's int32 index
+        math widens."""
+        return self._tensor(a, torch.int64)
+
     def _topk(self, flat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k of the last axis of (N, V) logits: kernel ``radix_topk``
         under ``use_radix_topk``, else a stable sort (ties to the lowest
@@ -290,8 +297,8 @@ class PhaseExecutor:
         the flattened new K/V)."""
         flat = psc.reshape(-1)
         keep = np.nonzero(flat != self._drop)[0]
-        return KVWrite(self._tensor(flat[keep], torch.int64),
-                       self._tensor(keep, torch.int64))
+        return KVWrite(self._index(flat[keep]),
+                       self._index(keep))
 
     def _slot_write(self, lengths: np.ndarray) -> KVWrite:
         """The contiguous decode writes: slot i's token lands at position
@@ -300,8 +307,8 @@ class PhaseExecutor:
         (the JAX layer drops their write)."""
         rows = np.nonzero(lengths > 0)[0]
         dst = rows * self.s_row + lengths[rows] % self.s_row
-        return KVWrite(self._tensor(dst, torch.int64),
-                       self._tensor(rows, torch.int64))
+        return KVWrite(self._index(dst),
+                       self._index(rows))
 
     def grant_slot(self, slot: int, n_positions: int) -> bool:
         """Allocate the pages covering ``n_positions`` logical positions for
@@ -340,8 +347,8 @@ class PhaseExecutor:
             # the rest of the fresh page stays virgin (pos -1), the paged
             # form of prefix_copy_insert's length mask
             off = np.arange(keep, dtype=np.int64)
-            src = self._tensor(entry_pages[full] * ps + off, torch.int64)
-            dst = self._tensor(fresh[0] * ps + off, torch.int64)
+            src = self._index(entry_pages[full] * ps + off)
+            dst = self._index(fresh[0] * ps + off)
             for leaf in self._pool_leaves():
                 for t in leaf.values():
                     _u8(t)[:, dst] = _u8(t)[:, src]
@@ -374,7 +381,7 @@ class PhaseExecutor:
             return
         flat = (np.asarray(pages, np.int64)[:, None] * self.page_size
                 + np.arange(self.page_size)[None, :]).reshape(-1)
-        idx = self._tensor(flat, torch.int64)
+        idx = self._index(flat)
         for leaf in self._pool_leaves():
             leaf["pos"].index_fill_(1, idx, -1)
 
@@ -401,7 +408,7 @@ class PhaseExecutor:
             logits, filled = onerec_model.prefill_into_slots(
                 self.params, batch, self.cfg, fresh, self._tensor(lengths))
             n = len(slots)
-            idx = self._tensor(np.asarray(slots), torch.int64)
+            idx = self._index(np.asarray(slots))
             for pool, rows in zip(self._pool_leaves(), _layer_leaves(filled)):
                 for name, f in rows.items():
                     _u8(pool[name])[:, idx] = _u8(f)[:, :n]
@@ -460,16 +467,15 @@ class PhaseExecutor:
                 self.params, batch, self.cfg, self.cache,
                 self._tensor(lengths), starts=starts_t,
                 kv_write=self._page_write(psc),
-                page_gather=self._tensor(self._gather_indices(slot_ids),
-                                         torch.int64))
+                page_gather=self._index(self._gather_indices(slot_ids)))
         else:
             # the group's rows run on copies, the batch-padding duplicates
             # on rows of their own, and only the real rows are copied back
-            idx = self._tensor(slot_ids, torch.int64)
+            idx = self._index(slot_ids)
             rows_i, cols = np.nonzero(suffix)
             dst = rows_i * self.s_row + start_arr[rows_i] + cols
-            write = KVWrite(self._tensor(dst, torch.int64),
-                            self._tensor(rows_i * t + cols, torch.int64))
+            write = KVWrite(self._index(dst),
+                            self._index(rows_i * t + cols))
             logits, filled = onerec_model.prefill_into_slots(
                 self.params, batch, self.cfg, _rows(self.cache, idx),
                 self._tensor(lengths), starts=starts_t, kv_write=write)
@@ -501,8 +507,7 @@ class PhaseExecutor:
             read = dict(page_tables=self._tensor(self._table_mat),
                         page_size=self.page_size)
         else:
-            read = dict(page_gather=self._tensor(self._gather_indices(rows),
-                                                 torch.int64))
+            read = dict(page_gather=self._index(self._gather_indices(rows)))
         logits, self.cache = onerec_model.decode_step_slots(
             self.params, self._tensor(tokens), self.cfg, self.cache,
             self._tensor(li), kv_write=write, **read)
@@ -543,16 +548,15 @@ class PhaseExecutor:
                 read = dict(page_tables=self._tensor(self._table_mat),
                             page_size=self.page_size)
             else:
-                read = dict(page_gather=self._tensor(
-                    self._gather_indices(rows), torch.int64))
+                read = dict(page_gather=self._index(
+                    self._gather_indices(rows)))
         else:
             # slot i's branch b lands at flat i * s_row + logical; past the
             # row the JAX scatter drops it
             r_i, b_i = np.nonzero(valid & (logical < self.s_row))
             write = KVWrite(
-                self._tensor(r_i * self.s_row + logical[r_i, b_i],
-                             torch.int64),
-                self._tensor(r_i * c + b_i, torch.int64))
+                self._index(r_i * self.s_row + logical[r_i, b_i]),
+                self._index(r_i * c + b_i))
         logits, self.cache = onerec_model.decode_step_slots(
             self.params, self._tensor(tokens), self.cfg, self.cache,
             self._tensor(as_index(lengths)), kv_write=write,
@@ -603,8 +607,8 @@ class PhaseExecutor:
         """Copy stored arena rows into pool slots; stored positions at or
         past each prefix's occupancy ``lengths[i]`` (profile + history) are
         masked empty."""
-        rows = self._tensor(np.asarray(arena_rows), torch.int64)
-        idx = self._tensor(np.asarray(slots), torch.int64)
+        rows = self._index(np.asarray(arena_rows))
+        idx = self._index(np.asarray(slots))
         ln = self._tensor(np.asarray(lengths))
         for pool, arena in zip(self._pool_leaves(),
                                _layer_leaves(self.arena)):
@@ -619,8 +623,8 @@ class PhaseExecutor:
     def prefix_save(self, slots: List[int], arena_rows: List[int]) -> None:
         """Copy prefilled pool rows into arena rows (store admit) whole:
         the restore masks each row down to its entry's length."""
-        idx = self._tensor(np.asarray(slots), torch.int64)
-        rows = self._tensor(np.asarray(arena_rows), torch.int64)
+        idx = self._index(np.asarray(slots))
+        rows = self._index(np.asarray(arena_rows))
         for arena, pool in zip(_layer_leaves(self.arena),
                                self._pool_leaves()):
             for name, t in pool.items():
@@ -633,8 +637,7 @@ class PhaseExecutor:
         if not self.paged:
             if not slots:
                 return
-            idx = self._tensor(self._pad_ids([int(s) for s in slots]),
-                               torch.int64)
+            idx = self._index(self._pad_ids([int(s) for s in slots]))
             for leaf in self._pool_leaves():
                 leaf["pos"].index_fill_(1, idx, -1)
             return

@@ -9,7 +9,7 @@ q_proj/kernel``), the same strings the JAX package's pytree paths give, so
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Iterator, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 import torch
 
@@ -22,6 +22,35 @@ def leaves_with_path(tree: Dict[str, Any], prefix: str = ""
             yield from leaves_with_path(val, path)
         else:
             yield path, val
+
+
+def flat_leaves(tree: Dict[str, Any]) -> List[Any]:
+    """The leaves in the JAX flatten order: each dict's keys sorted (so
+    ``"10"`` comes before ``"2"``, as ``jax.tree_util`` orders them)."""
+    out: List[Any] = []
+    for key in sorted(tree):
+        val = tree[key]
+        out.extend(flat_leaves(val) if isinstance(val, dict) else [val])
+    return out
+
+
+def value_and_grad(fn: Callable[..., torch.Tensor], params: Dict[str, Any],
+                   *args, **kwargs) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """``jax.value_and_grad(fn)(params, *args)``: the scalar ``fn(params,
+    ...)`` and its gradient tree (the params' paths).  The params are not
+    marked: ``fn`` sees detached aliases that require grad, so the caller's
+    tensors stay plain leaves (updatable in place, servable without a
+    graph)."""
+    paths = [path for path, _ in leaves_with_path(params)]
+    alias = map_with_path(lambda _, p: p.detach().requires_grad_(), params)
+    loss = fn(alias, *args, **kwargs)
+    leaves = dict(leaves_with_path(alias))
+    grads = torch.autograd.grad(loss, [leaves[p] for p in paths],
+                                allow_unused=True)
+    by_path = {p: torch.zeros_like(leaves[p]) if g is None else g
+               for p, g in zip(paths, grads)}
+    return loss.detach(), map_with_path(lambda path, _: by_path[path],
+                                        params)
 
 
 def map_with_path(fn: Callable[[str, Any], Any], tree: Dict[str, Any],
@@ -38,6 +67,17 @@ def index(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Slice the leading (layer) axis of every leaf: the per-layer view of a
     stacked tree (views, no copies)."""
     return map_with_path(lambda _, leaf: leaf[i], tree)
+
+
+def unbind(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The ``n`` per-layer trees of a stacked tree, each tensor leaf split
+    once (``unbind``): one layer's gradient is written into a slice of the
+    stacked leaf's, where ``index`` would give every layer a zero gradient
+    of the whole stack to add.  ``QuantizedTensor`` leaves are indexed."""
+    parts = map_with_path(
+        lambda _, leaf: leaf.unbind(0) if torch.is_tensor(leaf)
+        else [leaf[i] for i in range(n)], tree)
+    return [map_with_path(lambda _, p, i=i: p[i], parts) for i in range(n)]
 
 
 def _stacked_like(t: torch.Tensor, n: int) -> torch.Tensor:

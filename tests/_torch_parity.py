@@ -571,3 +571,88 @@ def onerec_batch(cfg, b: int = 4, seed: int = 0):
     return {"tokens": rng.integers(0, cfg.vocab_size, size=(
                 b, cfg.history_len * cfg.n_codebooks)).astype(np.int32),
             "profile": rng.normal(size=(b, 64)).astype(np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# Gradients (tests/test_torch_train*.py)
+# ---------------------------------------------------------------------------
+
+# loss: equal up to f32 summation order; gradients: both packages round
+# each f32 gradient product to bf16 once at the cast, in another summation
+# order.  Kernels and tables are held leaf by leaf; the 1-D leaves (biases,
+# norm scales) together, as one vector a model: each is a batch sum of
+# bf16 cotangents, which XLA adds in bf16 and the port in f32 (rounded
+# once), a few bf16 ulps apart on a scalar whose terms cancel (DIEN's last
+# score bias: 1.4%), and a bias under a softmax has a gradient of pure
+# rounding noise (DIN's last attention bias).  Measured worst: 8.7e-3 for
+# a >= 2-D leaf (reduced OneRec-V2's router kernel; qwen2-moe's q_proj
+# 8.5e-3, the recsys and EGNN leaves <= 5.1e-3), 7.0e-3 for the 1-D
+# vector (DIEN); losses within 7.5e-8.
+LOSS_REL = 1e-5
+GRAD_REL_L2 = 1e-2
+
+
+def flat_numpy(nested, prefix=""):
+    """A JAX gradient tree (nested dicts) as {path: float64 array}."""
+    out = {}
+    for k, v in nested.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        out.update(flat_numpy(v, path) if isinstance(v, dict)
+                   else {path: np.asarray(v, np.float64)})
+    return out
+
+
+def jax_value_and_grad(fn, params, *args, **kw):
+    """``jax.value_and_grad`` of ``fn(params, *args, **kw)``, op by op."""
+    with jax.disable_jit():
+        return jax.value_and_grad(lambda p: fn(p, *args, **kw))(params)
+
+
+def grad_deviation(ours, theirs):
+    """(loss rel. difference, {leaf path: rel. L2} of the >= 2-D leaves,
+    rel. L2 of the 1-D leaves as one vector) of the port's ``(loss,
+    grads)`` against JAX's."""
+    from repro_torch import tree
+    (tl, tg), (jl, jg) = ours, theirs
+    jl = float(jl)
+    loss_rel = abs(float(tl) - jl) / max(abs(jl), 1e-30)
+    ref = flat_numpy(to_numpy(jg))
+    got = {p: t.detach().double().numpy()
+           for p, t in tree.leaves_with_path(tg)}
+    assert set(ref) == set(got)
+    rel, num, den = {}, 0.0, 0.0
+    for path, r in ref.items():
+        assert got[path].shape == r.shape, path
+        err = np.linalg.norm(got[path] - r)
+        if r.ndim >= 2:
+            rel[path] = float(err / max(np.linalg.norm(r), 1e-30))
+        else:
+            num, den = num + err ** 2, den + np.linalg.norm(r) ** 2
+    return loss_rel, rel, float(np.sqrt(num / max(den, 1e-60)))
+
+
+def check_grads(ours, theirs):
+    loss_rel, rel, rel_1d = grad_deviation(ours, theirs)
+    worst = max(rel, key=rel.get)
+    assert loss_rel <= LOSS_REL, loss_rel
+    assert rel[worst] <= GRAD_REL_L2, (worst, rel[worst])
+    assert rel_1d <= GRAD_REL_L2, rel_1d
+    return rel
+
+
+def assert_takes_a_step(bundle):
+    """A train / graph bundle takes one step: a finite scalar loss, every
+    kernel (>= 2-D leaf) moved, the step counter at 1."""
+    import torch
+    from repro_torch import tree
+    assert bundle.kind in ("train", "graph")
+    params, opt, batch = bundle.args
+    before = {p: t.clone() for p, t in tree.leaves_with_path(params)}
+    loss, params, opt = bundle.fn(params, opt, batch)
+    assert loss.shape == () and bool(torch.isfinite(loss)), loss
+    assert int(opt["step"]) == 1
+    for path, t in tree.leaves_with_path(params):
+        assert bool(torch.isfinite(t).all()), path
+        if t.ndim >= 2:
+            assert not torch.equal(t, before[path]), path
+    return float(loss)

@@ -830,3 +830,185 @@ def test_tensor_stats_on_the_card_match_the_cpu(cuda, n):
     assert (card.numel, card.absmax, card.absp99) == \
         (cpu.numel, cpu.absmax, cpu.absp99)
     assert card.variance == pytest.approx(cpu.variance, rel=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# Gradients, AdamW and the train step (N9b)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,f32_out", [
+    ((700, 2048, 1100), False),     # both backward products chunked
+    ((4100, 2048, 16), True),       # the router: f32 cotangent
+    ((96, 300, 200), False),        # K, N within one chunk
+    ((4, 96, 1024, 600), False),    # 3-D: the raw expert product
+    ((16, 700, 128, 520), True),    # 3-D, f32 out (attention scores)
+])
+def test_raw_matmul_backward_matches_the_f64_transpose(cuda, shape,
+                                                       f32_out):
+    """``raw_matmul``'s backward on the card (``_CardProduct``): dA = dY
+    Bᵀ and dB = Aᵀ dY in the operands' dtype, each at most 0.1% of its
+    elements off the bf16 rounding of the float64 product."""
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    lead, k, n = shape[:-2], shape[-2], shape[-1]
+    a = torch.randn(*lead, k, device=cuda, generator=g).to(torch.bfloat16)
+    b = (torch.randn(*lead[:-1], k, n, device=cuda, generator=g)
+         / math.sqrt(k)).to(torch.bfloat16)
+    a.requires_grad_()
+    b.requires_grad_()
+    out_dtype = torch.float32 if f32_out else torch.bfloat16
+    y = quant.raw_matmul(a, b, out_dtype)
+    dy = torch.randn(y.shape, device=cuda, generator=g).to(out_dtype)
+    y.backward(dy)
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    da = dy.double() @ b.detach().double().transpose(-1, -2)
+    if b.ndim == 3:
+        db = a.detach().double().transpose(-1, -2) @ dy.double()
+    else:
+        db = a.detach().double().reshape(-1, k).T @ dy.double().reshape(
+            -1, n)
+    assert _off_exact(a.grad, da) <= 1e-3
+    assert _off_exact(b.grad, db) <= 1e-3
+
+
+def _two_grads(fn, *leaves):
+    """The gradients of ``fn(*leaves).sum()`` (scaled by a fixed random
+    cotangent) twice: each backward's gradients."""
+    out = []
+    for _ in range(2):
+        xs = [t.detach().clone().requires_grad_() for t in leaves]
+        y = fn(*xs)
+        ct = torch.randn(y.shape, device=y.device,
+                         generator=torch.Generator(device=y.device
+                                                   ).manual_seed(9))
+        torch.autograd.backward(y, ct.to(y.dtype))
+        out.append([x.grad for x in xs])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", ["gather_rows", "embed_tokens", "moe",
+                                  "token_nll", "egnn"])
+def test_gather_backwards_are_bit_identical(cuda, site):
+    """Every gather of the train path adds its backward in a fixed order
+    (``gather_rows``: ``segment_sum``), so two backward passes give the
+    same bits: the embedding tables, the MoE dispatch and combine, the
+    loss's ``take_along_dim`` (one entry a row), the EGNN's edge gathers."""
+    from repro_torch.configs import registry
+    from repro_torch.layers import embedding, moe
+    from repro_torch.models import gnn
+    from repro_torch.models import transformer as tfm
+    g = torch.Generator(device=cuda).manual_seed(1)
+    if site == "gather_rows":
+        table = torch.randn(97, 64, device=cuda, generator=g)
+        ids = torch.randint(0, 97, (20000,), device=cuda, generator=g)
+        runs = _two_grads(lambda t: embedding.gather_rows(t, ids), table)
+    elif site == "embed_tokens":
+        cfg = registry.get_arch("llama3-8b").reduced_config()
+        table = torch.randn(cfg.vocab_size, cfg.d_model, device=cuda,
+                            generator=g)
+        tok = torch.randint(0, 8, (16, 512), device=cuda, generator=g)
+        runs = _two_grads(lambda t: tfm.embed_tokens(
+            {"embed": {"table": t}}, tok, cfg), table)
+    elif site == "moe":
+        spec = moe.make_moe_spec(8, 4, 256, 512, capacity_factor=1.0,
+                                 ep_degree=8)
+        params = moe.init_moe(torch.Generator(device=cuda).manual_seed(2),
+                              spec, device=cuda)
+        x = torch.randn(4, 512, 256, device=cuda, generator=g).to(
+            torch.bfloat16)
+        runs = _two_grads(lambda h, r: moe.apply_moe(
+            {**params, "router": {"kernel": r}}, h, spec), x,
+            params["router"]["kernel"])
+    elif site == "token_nll":
+        logits = torch.randn(8, 300, 1000, device=cuda, generator=g)
+        labels = torch.randint(-1, 1000, (8, 300), device=cuda, generator=g)
+        runs = _two_grads(lambda z: tfm.token_nll(z, labels)[None], logits)
+    else:
+        cfg = registry.get_arch("egnn").CONFIG
+        n, e = 3000, 40000
+        batch = {"feat": torch.randn(n, 16, device=cuda, generator=g),
+                 "coord": torch.randn(n, 3, device=cuda, generator=g),
+                 "edges": torch.randint(0, n, (e, 2), device=cuda,
+                                        generator=g),
+                 "node_mask": torch.ones(n, device=cuda),
+                 "labels": torch.randint(0, 16, (n,), device=cuda,
+                                         generator=g)}
+        params = gnn.init_egnn(torch.Generator(device=cuda).manual_seed(3),
+                               cfg, 16, 16, device=cuda)
+        w = params["layers"]["0"]["edge_mlp"]["tower"]["0"]["kernel"]
+
+        def loss(kernel, feat):
+            params["layers"]["0"]["edge_mlp"]["tower"]["0"]["kernel"] = \
+                kernel
+            return gnn.train_loss(params, dict(batch, feat=feat), cfg)[None]
+        runs = _two_grads(loss, w, batch["feat"])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip_norm", [0.0, 1.0])
+def test_adamw_on_the_card_equals_the_cpu(cuda, clip_norm):
+    """Three AdamW steps from equal gradients on the card and the CPU:
+    ``mu`` and ``nu`` bit-identical without clipping (the elementwise f32
+    steps, divisions by device tensors); params and, with clipping (the
+    global norm's reduction order), all three within 2 f32 ulps."""
+    from repro_torch import tree
+    from repro_torch.optim import OptimizerConfig, adamw_init, adamw_update
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=10,
+                          clip_norm=clip_norm)
+    g = torch.Generator().manual_seed(0)
+    shapes = {"w": (3, 64, 48), "b": (48,), "k": (64, 64)}
+    cpu = {name: torch.randn(s, generator=g) for name, s in shapes.items()}
+    card = tree.map_with_path(lambda _, t: t.to(cuda), cpu)
+    s_cpu, s_card = adamw_init(cpu), adamw_init(card)
+    for _ in range(3):
+        grads = {name: 3 * torch.randn(s, generator=g)
+                 for name, s in shapes.items()}
+        cpu, s_cpu, _ = adamw_update(cpu, tree.map_with_path(
+            lambda _, t: t.clone(), grads), s_cpu, cfg)
+        card, s_card, _ = adamw_update(card, tree.map_with_path(
+            lambda _, t: t.to(cuda), grads), s_card, cfg)
+
+    def ulps(a, b):
+        return int((a.cpu().view(torch.int32).long()
+                    - b.view(torch.int32).long()).abs().max())
+
+    for name in shapes:
+        for got, ref in ((card[name], cpu[name]),
+                         (s_card["mu"][name], s_cpu["mu"][name]),
+                         (s_card["nu"][name], s_cpu["nu"][name])):
+            assert ulps(got, ref) <= 2, name
+        if not clip_norm:
+            assert torch.equal(s_card["mu"][name].cpu(), s_cpu["mu"][name])
+            assert torch.equal(s_card["nu"][name].cpu(), s_cpu["nu"][name])
+
+
+@pytest.mark.cuda
+def test_train_steps_are_run_to_run_identical(cuda):
+    """Two runs of three train steps of reduced OneRec-V2 (``remat`` on)
+    from one seed on the card: bit-identical losses and params."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    cfg = registry.get_arch("onerec-v2").reduced_config()
+    cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
+        cfg.transformer, remat=True))
+    shape = steps.SMOKE_SHAPES["onerec"]["train"]
+    runs = []
+    for _ in range(2):
+        b = steps.onerec_bundle("onerec-v2", cfg, shape, fp8=False,
+                                device=cuda)
+        params, opt, batch = b.args
+        losses = []
+        for _ in range(3):
+            loss, params, opt = b.fn(params, opt, batch)
+            losses.append(loss.item())
+        runs.append((losses, params))
+    assert runs[0][0] == runs[1][0]
+    for (path, a), (_, c) in zip(tree.leaves_with_path(runs[0][1]),
+                                 tree.leaves_with_path(runs[1][1])):
+        assert torch.equal(a, c), path

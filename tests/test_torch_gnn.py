@@ -4,7 +4,7 @@ CPU: the config field for field, ``random_geometric_graph``,
 the forward (node embeddings and coordinates), both logits and both loss
 levels at ``reduced_config()`` and at the published width (4 layers, d 64),
 the forward's E(3) equivariance as a property of the port, and the graph
-bundles' refusal (a training step: ROADMAP.md queue N, item N9).  The JAX
+bundles' training step (N9b; ``ogb_products`` names N9d).  The JAX
 side runs op by op; the bodies are in ``_torch_parity.py``.
 
 Tolerances (max |port - JAX| over max |JAX|): 1e-2 -- the raw bf16
@@ -23,7 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import GNN_CLASSES, egnn_batches, egnn_outputs, rel_dev
+from _torch_parity import (GNN_CLASSES, assert_takes_a_step, egnn_batches,
+                           egnn_outputs, rel_dev)
 from repro.configs import base as jax_base
 from repro.configs import registry as jax_registry
 from repro.data import graph as jax_graph
@@ -121,8 +122,20 @@ def test_egnn_forward_is_equivariant(level):
 @pytest.mark.parametrize("shape", ["full_graph_sm", "minibatch_lg",
                                    "ogb_products", "molecule"])
 def test_graph_bundles_name_n9(shape):
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N9"):
-        steps.build_bundle("egnn", shape, reduced=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="N9"):
-        steps.smoke_bundles("egnn", device="cpu")
+    """Each graph cell takes a training step on the CPU at its own graph
+    size (N9b), but ``ogb_products``, whose 61.86 M edges wait for chunked
+    or sharded segment sums (N9d); the smoke bundles take one each."""
+    if shape == "ogb_products":
+        with pytest.raises(NotImplementedError,
+                           match=r"ROADMAP\.md queue N, item N9d"):
+            steps.build_bundle("egnn", shape, reduced=True, device="cpu")
+        for b in steps.smoke_bundles("egnn", device="cpu"):
+            assert_takes_a_step(b)
+        return
+    b = steps.build_bundle("egnn", shape, reduced=True, device="cpu")
+    spec = registry.get_arch("egnn").SHAPES[shape]
+    n = b.args[2]["feat"].shape[0]
+    assert b.args[2]["feat"].shape[1] == spec.d_feat
+    assert b.note == ("graph" if spec.global_batch else "node")
+    assert b.args[2]["labels"].shape[0] == (spec.global_batch or n)
+    assert_takes_a_step(b)

@@ -26,7 +26,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (RECSYS_ARCHS, recsys_batch, recsys_cfg,
+from _torch_parity import (RECSYS_ARCHS, assert_takes_a_step, recsys_batch, recsys_cfg,
                            recsys_outputs, recsys_params, rel_dev)
 from repro.configs import base as jax_base
 from repro.configs import registry as jax_registry
@@ -230,7 +230,7 @@ def test_synthetic_interactions_equal_jax(fields):
 @pytest.mark.parametrize("arch", RECSYS_ARCHS)
 def test_bundles_build_and_train_names_n9(arch, fp8):
     """The three serving cells build at reduced size on the CPU with the
-    cell's shapes; the smoke bundles run; the train cell names N9."""
+    cell's shapes; the smoke bundles run; the train cell takes a step."""
     cfg = registry.get_arch(arch).reduced_config()
     for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
         b = steps.build_bundle(arch, shape, reduced=True, fp8=fp8,
@@ -245,10 +245,17 @@ def test_bundles_build_and_train_names_n9(arch, fp8):
                   for _, leaf in leaves_with_path(b.args[0]))
         assert n_q == (len(QUANTIZED[arch]) if fp8 else 0)
     for b in steps.smoke_bundles(arch, fp8=fp8, device="cpu"):
+        if b.kind == "train":                 # its step: below
+            continue
         out = b.fn(*b.args)
         n = b.args[1]["candidate_ids"].shape[0] if b.kind == "retrieval" \
             else b.args[1]["target_ids"].shape[0]
         assert out.shape == (n,) and bool(torch.isfinite(out).all())
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N9"):
-        steps.build_bundle(arch, "train_batch", reduced=True, device="cpu")
+    # the train cell takes a step (N9b) at the smoke batch: two-tower's and
+    # MIND's in-batch softmax is B x B at the cell's 65536 users
+    b = steps.build_bundle(arch, "train_batch", reduced=True, fp8=fp8,
+                           device="cpu",
+                           shape_override=steps.SMOKE_SHAPES["recsys"]
+                           ["train"])
+    assert b.kind == "train" and b.args[2]["labels"].dtype == torch.float32
+    assert_takes_a_step(b)

@@ -1,8 +1,8 @@
 """The LM zoo's configs and pieces, the port against the JAX package on
 the CPU: every config field, the layer plan and both parameter counts of
 the five LMs (``CONFIG`` and ``reduced_config()``), their shape cells, the
-registry (all eleven JAX names; the recsys and GNN families' training
-cells wait for N9), ``SyntheticLMStream``,
+registry (all eleven JAX names; the training cells take a step, the
+abstract bundles name N9d), ``SyntheticLMStream``,
 chunked and windowed attention, and ``batch_attention``'s plain version
 above one 512-key block.  The per-arch model parity is in
 ``test_torch_zoo_dense.py`` and ``test_torch_zoo_moe.py``.
@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import ZOO_ARCHS
+from _torch_parity import ZOO_ARCHS, assert_takes_a_step
 from repro.configs import registry as jax_registry
 from repro.data.lm import LMStreamConfig as JaxLMStreamConfig
 from repro.data.lm import SyntheticLMStream as JaxSyntheticLMStream
@@ -87,22 +87,32 @@ def test_registry_lists_the_ported_archs():
 @pytest.mark.parametrize("arch", RECSYS_GNN)
 def test_recsys_and_gnn_archs_name_their_roadmap_item(arch):
     """Each name resolves to the JAX config's values; its training cell
-    (recsys ``train_batch``, every GNN ``graph`` cell) names N9."""
+    (recsys ``train_batch`` at the smoke batch: two-tower's and MIND's
+    in-batch softmax is B x B at the cell's 65536 users; the GNN's
+    ``full_graph_sm``) takes a step on the CPU (N9b)."""
     mod, jmod = registry.get_arch(arch), jax_registry.get_arch(arch)
     assert dataclasses.asdict(mod.CONFIG) == dataclasses.asdict(jmod.CONFIG)
     assert mod.FAMILY == jmod.FAMILY
-    train = "train_batch" if mod.FAMILY == "recsys" else "full_graph_sm"
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N9"):
-        steps.build_bundle(arch, train, reduced=True, device="cpu")
+    if mod.FAMILY == "recsys":
+        b = steps.build_bundle(arch, "train_batch", reduced=True,
+                               device="cpu", shape_override=steps.
+                               SMOKE_SHAPES["recsys"]["train"])
+    else:
+        b = steps.build_bundle(arch, "full_graph_sm", reduced=True,
+                               device="cpu")
+    assert_takes_a_step(b)
 
 
 def test_bundles_refuse_what_waits_for_n9():
+    """The LM train cell takes a step (at the smoke shape: train_4k is 256
+    x 4096 tokens); the abstract bundles still name N9d."""
+    b = steps.build_bundle("llama3-8b", "train_4k", reduced=True,
+                           device="cpu",
+                           shape_override=steps.SMOKE_SHAPES["lm"]["train"])
+    assert b.args[2]["tokens"].shape == (2, 16)
+    assert_takes_a_step(b)
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N9"):
-        steps.build_bundle("llama3-8b", "train_4k", reduced=True,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="N9"):
+                       match=r"ROADMAP\.md queue N, item N9d"):
         steps.build_bundle("llama3-8b", "prefill_32k", abstract=True,
                            device="cpu")
     with pytest.raises(ValueError, match="N/A"):

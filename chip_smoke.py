@@ -148,6 +148,25 @@ from the root of a checkout.  Phases, each of which fails the run:
    the initial params; (n) one gradient of reduced OneRec-V2 and of a
    reduced MoE LM with the load-balance loss on the card against the CPU,
    and one AdamW step on equal gradients.
+7. The training runner and its checkpoints (N9c), every kernel's launch
+   count zeroed before each case and read after:
+   (o) OneRec-V2 at full width and ``CKPT_LAYERS`` layer through
+   ``launch.train``'s ``training_for``, ``FaultTolerantRunner`` and
+   ``AsyncCheckpointer`` (checkpoints in the JAX format under
+   ``build/phase7``): a run with injected faults and a clean run, bitwise
+   equal at the end with exactly the injected restarts, every checkpoint
+   verified, no second state in device memory (peak within
+   ``CKPT_PEAK_SLACK``); checkpoint bytes, the time ``save`` holds the
+   training thread, the writer's GB/s, restore and step times, and what a
+   6- and a 12-layer checkpoint would cost at those rates; launches 0;
+   (p) the FP8 deployment checkpoint: (a)'s params PTQ'd with the paper's
+   policy, saved, loaded into a fresh tree (K-major payloads laid out
+   again, bytes and hash equal) and served as (a) serves: (a)'s items and
+   launch counts exactly;
+   (q) ``launch.train``'s ``main`` on reduced OneRec-V2 (compressed
+   gradients) and DIN: the loss falls, a second run resumes the last
+   step and takes none; ``ef_compress`` on the card against the CPU,
+   0 ulps.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -161,6 +180,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2048,7 +2068,8 @@ def guarded_decode_steps(dev, path: str):
 
 def full_width(dev):
     """Phase 4: the paged path through the launcher, then the contiguous
-    path through ``ServingEngine``.  Returns each path's launch counts."""
+    path through ``ServingEngine``.  Returns each path's launch counts and
+    (a)'s items."""
     import dataclasses
     import numpy as np
     from repro_torch.configs.onerec_v2 import CONFIG
@@ -2109,7 +2130,7 @@ def full_width(dev):
             "tree": tree_path(dev, per_forward, paged_stats, paged_peak),
             "fixed": fixed_path(dev, per_forward, contig_stats),
             **generation_path(dev), **lm_zoo_path(dev),
-            **recsys_path(dev), **egnn_path(dev)}
+            **recsys_path(dev), **egnn_path(dev)}, paged_outs
 
 
 def _latency_line(name, stats, ref_name, ref):
@@ -3574,6 +3595,342 @@ def training_phase(dev):
     print(f"[train] phase 6 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the training runner and its checkpoints (N9c)
+# ---------------------------------------------------------------------------
+
+# (o): OneRec-V2 at full width, CKPT_LAYERS of its 12 layers: params, mu
+# and nu hold 12 bytes a parameter, ~5.37 GB a checkpoint at one layer
+CKPT_LAYERS = 1
+CKPT_ROWS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 32, 8, 3, 2
+CKPT_FAULTS = {4: 1, 7: 1}
+CKPT_PEAK_SLACK = 2 ** 30        # run A's peak at most run B's plus this
+CKPT_DIR = os.path.join(ROOT, "build", "phase7")
+# (q): the launcher's runs, each held to a falling loss (last 10 steps'
+# mean below the first 10's)
+LAUNCH_RUNS = (("onerec-v2", ["--batch", "32", "--lr", "3e-3",
+                              "--compress-grads"]),
+               ("din", ["--batch", "64", "--lr", "3e-3"]))
+LAUNCH_STEPS, LAUNCH_EVERY = 40, 10
+
+
+def _state_bytes(state) -> int:
+    from repro_torch.checkpoint import store
+    return sum(t.numel() * t.element_size()
+               for t in store._flatten(state)[1])
+
+
+def _check_disk(directory: str, need: int, tag: str) -> None:
+    """Fail before writing unless the disk holds twice ``need`` bytes."""
+    os.makedirs(directory, exist_ok=True)
+    free = shutil.disk_usage(directory).free
+    print(f"[ckpt] {tag}: {free / 1e9:.2f} GB free for {need / 1e9:.2f} GB "
+          f"of checkpoints")
+    if free < 2 * need:
+        fail(f"{tag}: {free / 1e9:.2f} GB free under {directory}, twice "
+             f"{need / 1e9:.2f} GB needed")
+
+
+def _zero(wrappers) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _launched(wrappers, tag: str) -> dict:
+    launches = {n: w.launches for n, w in wrappers.items()}
+    if any(launches.values()):
+        fail(f"{tag}: training launched a kernel {launches}")
+    return launches
+
+
+def restart_path(dev, cfg=None, rows=CKPT_ROWS):
+    """(o): run A with ``CKPT_FAULTS`` injected, run B clean, each through
+    ``FaultTolerantRunner`` from seed 0 with a fresh checkpoint directory.
+    Returns the measured rates for the extrapolation."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.distributed import FaultTolerantRunner, RunnerConfig
+    from repro_torch.launch import steps, train
+    cfg = cfg or dataclasses.replace(CONFIG, transformer=dataclasses.replace(
+        CONFIG.transformer, n_layers=CKPT_LAYERS))
+    wrappers = _wrappers()
+    runs = {}
+    for name, faults in (("A", CKPT_FAULTS), ("B", None)):
+        d = os.path.join(CKPT_DIR, name)
+        shutil.rmtree(d, ignore_errors=True)
+        init, step_fn, batch_fn, _ = train.training_for(
+            "onerec", cfg, batch=rows, seq=0, compress_grads=False,
+            opt_cfg=steps.OPT_CFG, seed=0, device=dev)
+        seen = []
+
+        def batch_at(i, batch_fn=batch_fn, seen=seen):
+            seen.append(i)
+            return batch_fn(i)
+
+        def init_checked(init=init, d=d, name=name):
+            state = init()
+            _check_disk(d, _state_bytes(state) * (CKPT_KEEP + 1),
+                        f"(o) run {name}")
+            return state
+
+        runner = FaultTolerantRunner(
+            step_fn, batch_at, init_checked,
+            RunnerConfig(total_steps=CKPT_STEPS, ckpt_every=CKPT_EVERY,
+                         ckpt_dir=d, keep=CKPT_KEEP), fail_at=faults)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _zero(wrappers)
+        t0 = time.perf_counter()
+        state, summary = runner.run()
+        wall = time.perf_counter() - t0
+        launches = _launched(wrappers, f"(o) run {name}")
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        losses = [(i, m["loss"].item()) for i, m in zip(seen,
+                                                        summary["metrics"])]
+        ckpts = sorted(x for x in os.listdir(d) if x.startswith("step_"))
+        verified = [store.verify_checkpoint(os.path.join(d, x))
+                    for x in ckpts]
+        sizes = {p: t.numel()
+                 for p, t in tree.leaves_with_path(state["params"])}
+        n_params = sum(sizes.values())
+        in_layers = sum(n for p, n in sizes.items() if "/stacks/" in p)
+        runs[name] = dict(
+            host=store.host_copy(state), summary=summary, losses=losses,
+            timings=list(runner.checkpointer.timings), peak=peak,
+            wall=wall, n_params=n_params, in_layers=in_layers,
+            bytes=_state_bytes(state),
+            restores=[e for e in summary["events"]
+                      if e["kind"] == "restore"],
+            step_times=list(runner.step_times))
+        r = runs[name]
+        print(f"[ckpt] (o) run {name}: {cfg.name} x"
+              f"{cfg.transformer.n_layers}, {n_params / 1e9:.4f} B params, "
+              f"{rows} x {cfg.history_len * cfg.n_codebooks + cfg.n_codebooks}"
+              f" tokens, {CKPT_STEPS} steps, faults {faults}: "
+              f"{summary['restarts']} restarts, {len(r['restores'])} "
+              f"restores, {len(summary['metrics'])} steps taken in "
+              f"{wall:.1f} s; checkpoints {ckpts} verified {verified}; "
+              f"peak device memory {peak / 2**30:.2f} GiB; launches "
+              f"{launches}")
+        print(f"[ckpt] (o) run {name}: step times (s) "
+              f"{[round(t, 4) for t in r['step_times']]}; losses {losses}")
+        if not all(verified) or len(ckpts) != CKPT_KEEP:
+            fail(f"(o) run {name}: checkpoints {ckpts} verified {verified}")
+        del state, runner, summary
+        torch.cuda.empty_cache()
+    a, b = runs["A"], runs["B"]
+    want = sum(CKPT_FAULTS.values())
+    if a["summary"]["restarts"] != want or b["summary"]["restarts"] != 0:
+        fail(f"(o): restarts {a['summary']['restarts']} / "
+             f"{b['summary']['restarts']}, want {want} / 0")
+    clean = dict(b["losses"])
+    if sorted(clean) != list(range(CKPT_STEPS)) or any(
+            clean[i] != loss for i, loss in a["losses"]):
+        fail(f"(o): losses differ: {a['losses']} / {b['losses']}")
+    same = [(p, np.array_equal(store._bytes(x), store._bytes(y)))
+            for (p, x), (_, y) in zip(tree.leaves_with_path(a["host"]),
+                                      tree.leaves_with_path(b["host"]))]
+    bad = [p for p, ok in same if not ok]
+    print(f"[ckpt] (o) final params, mu, nu and step of runs A and B "
+          f"bit-identical: {not bad} ({len(same)} leaves); peak A / B "
+          f"{a['peak'] / 2**30:.2f} / {b['peak'] / 2**30:.2f} GiB")
+    if bad:
+        fail(f"(o): runs A and B differ in {bad[:5]}")
+    if a["peak"] > b["peak"] + CKPT_PEAK_SLACK:
+        fail(f"(o): run A's peak {a['peak'] / 2**30:.2f} GiB exceeds run "
+             f"B's {b['peak'] / 2**30:.2f} GiB by more than "
+             f"{CKPT_PEAK_SLACK / 2**30:.0f} GiB (a second state?)")
+    timings = a["timings"] + b["timings"]
+    nbytes = timings[0]["bytes"]
+    d2h = sorted(t["d2h_s"] for t in timings)
+    block = sorted(t["block_s"] for t in timings)
+    write = sorted(t["write_s"] for t in timings)
+    hsh = sorted(t["hash_s"] for t in timings)
+    restore = sorted(e["seconds"] for e in a["restores"])
+    steady = sorted(a["step_times"][1:] + b["step_times"][1:])
+    med = lambda xs: xs[len(xs) // 2]                   # noqa: E731
+    print(f"[ckpt] (o) a checkpoint: {nbytes} bytes ({nbytes / 1e9:.3f} "
+          f"GB, {len(timings)} written); save holds the training thread "
+          f"{d2h[0]:.3f}-{d2h[-1]:.3f} s for the copy to host memory "
+          f"({nbytes / med(d2h) / 1e9:.2f} GB/s), {block[0]:.3f}-"
+          f"{block[-1]:.3f} s in all (queue back-pressure included); the "
+          f"writer's npz write {write[0]:.3f}-{write[-1]:.3f} s "
+          f"({nbytes / med(write) / 1e9:.2f} GB/s), hash {hsh[0]:.3f}-"
+          f"{hsh[-1]:.3f} s ({nbytes / med(hsh) / 1e9:.2f} GB/s); restore "
+          f"(verify, read, hash, copy to the card) {restore} s; steps "
+          f"after the first {steady[0] * 1e3:.1f}-{steady[-1] * 1e3:.1f} ms"
+          f" (median {med(steady) * 1e3:.1f})")
+    # the state's bytes at L layers: 12 B a parameter (params, mu, nu);
+    # a layer's parameters are the stacks' over CKPT_LAYERS
+    per_layer = a["in_layers"] / cfg.transformer.n_layers
+    rest = a["n_params"] - a["in_layers"]
+    for layers in (6, 12):
+        n = per_layer * layers + rest
+        gb = 12 * n / 1e9
+        print(f"[ckpt] (o) extrapolated at {layers} layers: {n / 1e9:.3f} "
+              f"B params, {gb:.2f} GB a checkpoint; save holds the thread "
+              f"~{gb / (nbytes / med(d2h) / 1e9):.1f} s, write + hash "
+              f"~{gb / (nbytes / med(write) / 1e9) + gb / (nbytes / med(hsh) / 1e9):.1f}"
+              f" s, restore ~{gb / nbytes * 1e9 * med(restore):.1f} s")
+    return runs
+
+
+def deployment_path(dev, paged_outs, paged_launches, cfg=None,
+                    requests=64, batch=32):
+    """(p): (a)'s params (``init_onerec(0)``), PTQ'd with the paper's
+    policy, saved as a checkpoint and loaded into a fresh tree; the loaded
+    tree serves (a)'s requests as (a) serves them."""
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.models.onerec import init_onerec
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.serving.requests import build_requests
+    import numpy as np
+    cfg = cfg or CONFIG
+    d = os.path.join(CKPT_DIR, "deploy")
+    shutil.rmtree(d, ignore_errors=True)
+    params = quantize_params(init_onerec(0, cfg, device=dev), PAPER_POLICY)
+    torch.cuda.empty_cache()
+    nbytes = _state_bytes(params)
+    _check_disk(d, nbytes, "(p)")
+    timing = {}
+    t0 = time.perf_counter()
+    path = store.save_checkpoint(d, 0, params, timing=timing)
+    save_s = time.perf_counter() - t0
+    with open(os.path.join(path, store.MANIFEST)) as f:
+        saved_hash = json.load(f)["hash"]
+    t0 = time.perf_counter()
+    loaded, manifest = store.load_checkpoint(path, params)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    paths, ours = store._flatten(params)
+    theirs = store._flatten(loaded)[1]
+    raw = lambda t: t.view(torch.uint8) if t.element_size() == 1 \
+        else t                                           # noqa: E731
+    k_major = sum(t.ndim >= 2 and t.stride(-2) == 1 for t in theirs)
+    differ = [p for p, x, y in zip(paths, ours, theirs)
+              if x.stride() != y.stride() or not torch.equal(raw(x), raw(y))]
+    again = store._content_hash([store._host(t, copy=False)
+                                 for t in theirs])
+    fp8 = sum(t.numel() for t in theirs if t.dtype == torch.float8_e4m3fn)
+    print(f"[ckpt] (p) FP8 deployment checkpoint of {cfg.name}: {nbytes} "
+          f"bytes ({nbytes / 1e9:.3f} GB: {fp8 / 1e9:.3f} GB of e4m3 "
+          f"payloads), {len(paths)} leaves; save {save_s:.2f} s (copy "
+          f"{timing['host_s']:.2f}, write {timing['write_s']:.2f}, hash "
+          f"{timing['hash_s']:.2f}), load {load_s:.2f} s; {k_major} "
+          f"K-major payloads laid out again; leaves with other bytes or "
+          f"layout: {differ[:5]}; hash saved / manifest / loaded tree "
+          f"equal: {saved_hash == manifest['hash'] == again}")
+    if differ or not saved_hash == manifest["hash"] == again:
+        fail("(p): the loaded deployment tree differs from the saved one")
+    del params, ours
+    torch.cuda.empty_cache()
+    n_layers = cfg.transformer.n_layers
+
+    def serve():
+        engine = ServingEngine(loaded, cfg, EngineConfig(
+            batch_size=batch, kv_dtype="float8_e4m3fn"), device=dev)
+        return engine.serve_requests(build_requests(cfg, requests, batch, 0,
+                                                    True))
+
+    def expect(st):
+        forwards = int(st["prefill_calls"] + st["decode_steps"])
+        return {"fp8_gemm": forwards * 4 * n_layers,
+                "fp8_grouped_gemm": forwards * 3 * n_layers,
+                "int8_matmul": 0, "radix_topk": 0, "batch_attention": 0,
+                "paged_decode": int(st["decode_steps"]) * n_layers}
+
+    outs, launches, _, _ = _drive(dev, "deployment", serve, expect)
+    same = [bool(np.array_equal(x, y)) for x, y in zip(outs, paged_outs)]
+    print(f"[ckpt] (p) served from the loaded checkpoint: items identical "
+          f"to (a)'s on {sum(same)} of {len(same)} requests; launches "
+          f"{launches} against (a)'s {paged_launches}")
+    if not all(same) or len(same) != len(paged_outs):
+        fail("(p): the deployment checkpoint's items differ from (a)'s")
+    if launches != paged_launches:
+        fail(f"(p): launches {launches} != (a)'s {paged_launches}")
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def launcher_path(dev, steps_n=LAUNCH_STEPS, every=LAUNCH_EVERY):
+    """(q): ``launch.train``'s ``main`` twice per run of ``LAUNCH_RUNS``,
+    the second resuming the first's last step; then ``ef_compress`` on
+    the card against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.distributed import ef_compress, ef_init
+    from repro_torch.launch import train
+    wrappers = _wrappers()
+    for arch, extra in LAUNCH_RUNS:
+        d = os.path.join(CKPT_DIR, arch)
+        shutil.rmtree(d, ignore_errors=True)
+        argv = ["--arch", arch, "--reduced", "--steps", str(steps_n),
+                "--ckpt-every", str(every), "--ckpt-dir", d, "--device",
+                str(dev), *extra]
+        _zero(wrappers)
+        t0 = time.perf_counter()
+        _, summary = train.main(argv)
+        wall = time.perf_counter() - t0
+        _, again = train.main(argv)
+        _launched(wrappers, f"(q) {arch}")
+        losses = [float(m["loss"]) for m in summary["metrics"]]
+        first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+        resumed = [e["step"] for e in again["events"]
+                   if e["kind"] == "restore"]
+        print(f"[ckpt] (q) {' '.join(argv)}: {len(losses)} steps in "
+              f"{wall:.1f} s, loss first 10 {first:.4f} -> last 10 "
+              f"{last:.4f}; the second run restored step {resumed} and took "
+              f"{len(again['metrics'])} steps")
+        if len(losses) != steps_n or not last < first:
+            fail(f"(q) {arch}: the loss did not fall ({first} -> {last})")
+        if again["metrics"] or resumed != [steps_n]:
+            fail(f"(q) {arch}: the second run did not resume step {steps_n}")
+        shutil.rmtree(d, ignore_errors=True)
+    rng = np.random.default_rng(0)
+    grads = [{"w": torch.from_numpy((rng.normal(size=(2048, 512)) * 1e-3)
+                                    .astype(np.float32)),
+              "b": torch.from_numpy(rng.normal(size=(4096,))
+                                    .astype(np.float32)),
+              "z": torch.zeros(64, 64)} for _ in range(3)]
+    res = {"cpu": ef_init(grads[0]), "card": ef_init(
+        {k: v.to(dev) for k, v in grads[0].items()})}
+    worst = 0
+    for g in grads:
+        ghat_c, res["cpu"] = ef_compress(g, res["cpu"])
+        ghat_g, res["card"] = ef_compress({k: v.to(dev) for k, v in
+                                           g.items()}, res["card"])
+        for k in g:
+            for x, y in ((ghat_c[k], ghat_g[k]), (res["cpu"][k],
+                                                  res["card"][k])):
+                ulps = (x.view(torch.int32).to(torch.int64)
+                        - y.cpu().view(torch.int32).to(torch.int64)).abs()
+                worst = max(worst, int(ulps.max()))
+    print(f"[ckpt] (q) ef_compress card vs CPU over 3 steps of equal f32 "
+          f"gradients (a zero leaf among them): ghat and residuals {worst} "
+          f"ulps apart")
+    if worst:
+        fail(f"(q): ef_compress on the card is {worst} ulps off the CPU")
+
+
+def checkpoint_phase(dev, paged_outs, paged_launches):
+    """Phase 7 (N9c): (o), (p), (q)."""
+    t0 = time.perf_counter()
+    restart_path(dev)
+    deployment_path(dev, paged_outs, paged_launches)
+    launcher_path(dev)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"[ckpt] phase 7 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3617,9 +3974,10 @@ def main() -> int:
         card_vs_cpu_lm(dev, case)
     for arch in RECSYS:
         card_vs_cpu_recsys(dev, arch)
-    by_path = full_width(dev)
+    by_path, paged_outs = full_width(dev)
     distribution_phase(dev)
     training_phase(dev)
+    checkpoint_phase(dev, paged_outs, by_path["paged"])
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
     replaces = {

@@ -482,10 +482,10 @@ class KernelFallback(Rule):
 
 class HostScalarDivision(Rule):
     name = "host-scalar-division"
-    description = ("`/` by a Python number in core/quant.py: CUDA multiplies "
-                   "by the reciprocal (one ulp off); divide by a device "
-                   "tensor")
-    paths = ("core/quant.py",)
+    description = ("`/` by a Python number in core/quant.py or "
+                   "distributed/compression.py: CUDA multiplies by the "
+                   "reciprocal (one ulp off); divide by a device tensor")
+    paths = ("core/quant.py", "distributed/compression.py")
 
     def check(self, ctx: ModuleContext) -> Iterable[Finding]:
         for fn in ctx.functions():

@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import tree
 from repro_torch.kernels.fp8_gemm import ops as fp8_gemm_ops
 from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
 
@@ -83,6 +84,22 @@ class QuantizedTensor:
         return dataclasses.replace(
             self, data=self.data[i], scale=self.scale[i],
             act_scale=None if self.act_scale is None else self.act_scale[i])
+
+    def to(self, device) -> "QuantizedTensor":
+        """The same tensor on ``device``, each part keeping its memory
+        layout (``Tensor.to`` would lay a K-major payload out row-major,
+        which the kernels refuse): a quantized tree made or loaded on one
+        device serves on another."""
+        device = torch.device(device)
+
+        def move(t):
+            if t is None or (t.device.type == device.type and device.index
+                             in (None, t.device.index)):
+                return t
+            return tree.empty_like(t, device=device).copy_(t)
+        return dataclasses.replace(self, data=move(self.data),
+                                   scale=move(self.scale),
+                                   act_scale=move(self.act_scale))
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         if self.granularity in ("block", "block_act"):

@@ -1,0 +1,1 @@
+from repro_torch.data.prefetch import ThreadedPrefetcher  # noqa: F401

@@ -77,13 +77,19 @@ def _generator(seed: int, device: torch.device) -> torch.Generator:
 
 
 def train_step(loss_fn: Callable[[dict, dict], torch.Tensor],
-               opt_cfg: OptimizerConfig = OPT_CFG) -> Callable:
+               opt_cfg: OptimizerConfig = OPT_CFG,
+               grad_transform: Optional[Callable[[dict], dict]] = None
+               ) -> Callable:
     """step(params, opt_state, batch) -> (loss, params, opt_state): the
     value and gradient of ``loss_fn(params, batch)``, then one AdamW
-    update in place.  ``step.metrics`` holds the last update's
-    ``grad_norm`` and ``lr`` (device tensors)."""
+    update in place; ``grad_transform(grads) -> grads``, when given, runs
+    between the two (gradient compression, ``launch/train.py``).
+    ``step.metrics`` holds the last update's ``grad_norm`` and ``lr``
+    (device tensors)."""
     def step(params, opt_state, batch):
         loss, grads = tree.value_and_grad(loss_fn, params, batch)
+        if grad_transform is not None:
+            grads = grad_transform(grads)
         params, opt_state, step.metrics = adamw_update(
             params, grads, opt_state, opt_cfg)
         return loss, params, opt_state

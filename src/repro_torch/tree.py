@@ -80,27 +80,31 @@ def unbind(tree: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     return [map_with_path(lambda _, p, i=i: p[i], parts) for i in range(n)]
 
 
-def _stacked_like(t: torch.Tensor, n: int) -> torch.Tensor:
-    """Empty (n, *t.shape) storage whose slices have t's memory layout: a
-    K-major payload (``stride(-2) == 1``, the transpose view of an (.., out,
-    in) array, rows padded as ``quant.k_major`` pads them) stays K-major."""
+def empty_like(t: torch.Tensor, lead: Tuple[int, ...] = (),
+               device=None) -> torch.Tensor:
+    """Empty ``(*lead, *t.shape)`` storage on ``device`` (``t``'s by
+    default) whose slices have t's memory layout: a K-major payload
+    (``stride(-2) == 1``, the transpose view of an (.., out, in) array,
+    rows padded as ``quant.k_major`` pads them, the padding zeroed) stays
+    K-major; any other leaf is contiguous."""
+    device = t.device if device is None else device
     if t.ndim >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1:
         k, ld = t.shape[-2], t.stride(-1)      # rows padded past K, if so
         alloc = torch.empty if ld == k else torch.zeros
-        base = alloc((n, *t.shape[:-2], t.shape[-1], ld), dtype=t.dtype,
-                     device=t.device)
+        base = alloc((*lead, *t.shape[:-2], t.shape[-1], ld), dtype=t.dtype,
+                     device=device)
         return base[..., :k].transpose(-1, -2)
-    return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+    return torch.empty((*lead, *t.shape), dtype=t.dtype, device=device)
 
 
 def _alloc(leaf, n: int):
     if torch.is_tensor(leaf):
-        return _stacked_like(leaf, n)
+        return empty_like(leaf, (n,))
     return dataclasses.replace(            # a QuantizedTensor
-        leaf, data=_stacked_like(leaf.data, n),
-        scale=_stacked_like(leaf.scale, n),
+        leaf, data=empty_like(leaf.data, (n,)),
+        scale=empty_like(leaf.scale, (n,)),
         act_scale=None if leaf.act_scale is None
-        else _stacked_like(leaf.act_scale, n))
+        else empty_like(leaf.act_scale, (n,)))
 
 
 def _put(stacked, i: int, leaf) -> None:

@@ -1,7 +1,9 @@
-"""Weight bridge: the JAX package's raw params, handed over as a nested dict
-of numpy arrays, become the port's param tree with the same paths, dtypes
-and values.  Quantization then runs in the port (``core.ptq``), so the
-parity tests check PTQ itself bit for bit."""
+"""Weight bridge: the JAX package's raw params (or its whole train state),
+handed over as a nested dict of numpy arrays, become the port's tree with
+the same paths, dtypes and values.  Quantization then runs in the port
+(``core.ptq``), so the parity tests check PTQ itself bit for bit.  A
+checkpoint (``checkpoint/store.py``, the JAX format) is the other bridge,
+in both directions."""
 
 from __future__ import annotations
 
@@ -29,3 +31,19 @@ def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     """Nested dict of numpy arrays -> nested dict of tensors on ``device``."""
     return {k: params_from_numpy(v, device) if isinstance(v, dict)
             else tensor_from_numpy(v, device) for k, v in tree.items()}
+
+
+def train_state_from_numpy(state: Dict[str, Any], device=None
+                           ) -> Dict[str, Any]:
+    """The JAX package's train state (``repro/launch/train.py``: ``{"params",
+    "opt": {"mu", "nu", "step"}, ["ef"]}`` as nested numpy arrays) -> the
+    port's (``launch/train.py``): the same paths, dtypes and values, the
+    step a 0-d int32 tensor."""
+    if not {"params", "opt"} <= set(state) <= {"params", "opt", "ef"} \
+            or set(state["opt"]) != {"mu", "nu", "step"}:
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    step = np.asarray(state["opt"]["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt/step is {step.dtype}{step.shape}, not a 0-d "
+                         f"int32")
+    return params_from_numpy(state, device)

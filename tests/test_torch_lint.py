@@ -242,6 +242,34 @@ CASES = {
 }
 
 
+# host-scalar-division also holds FP8 gradient compression's scale
+COMPRESSION = (
+    """
+    import torch
+    FP8_MAX = {"e4m3": 448.0}
+
+    def leaf_scale(gt):
+        amax = torch.amax(torch.abs(gt))
+        return torch.clamp(amax, min=1e-30) / FP8_MAX["e4m3"]
+    """,
+    """
+    import torch
+    FP8_MAX = {"e4m3": 448.0}
+
+    def leaf_scale(gt):
+        amax = torch.amax(torch.abs(gt))
+        fmax = torch.full((), FP8_MAX["e4m3"], device=gt.device)
+        return torch.clamp(amax, min=1e-30) / fmax
+    """)
+
+
+@pytest.mark.parametrize("case", ["positive", "negative"])
+def test_host_scalar_division_holds_compression(case):
+    src = COMPRESSION[case == "negative"]
+    found = _lint(src, "distributed/compression.py", "host-scalar-division")
+    assert len(found) == (case == "positive"), found
+
+
 def test_every_rule_has_a_case():
     assert set(CASES) == set(RULES_BY_NAME)
 

@@ -254,7 +254,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro", "flax"), \
+            assert top not in ("jax", "jaxlib", "repro", "flax",
+                               "ml_dtypes"), \
                 f"{path} imports {mod}"
 
 

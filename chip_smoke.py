@@ -167,6 +167,25 @@ from the root of a checkout.  Phases, each of which fails the run:
    gradients) and DIN: the loss falls, a second run resumes the last
    step and takes none; ``ef_compress`` on the card against the CPU,
    0 ulps.
+8. Distribution (N9d): ``fp8_grouped_gemm`` on each 4-expert slice of 16
+   against the E = 16 call's rows, bit for bit; then ``EP_WORLD`` ranks
+   spawned after the kernels are built (gloo over a ``FileStore``, every
+   rank on card 0, none running ``nvcc``), against the parent's world-1
+   runs:
+   (r) full-width 12-layer OneRec-V2 served expert-parallel on (1, 4) and
+   (2, 2) meshes (each rank makes the params from seed 0 layer by layer,
+   PTQ'd and cut to its experts): the ``prefill_b32`` step's logits and
+   ``generate_items`` bit-identical to world 1 (per data shard on (2,
+   2)), launch counts a forward, prefill ms, ``all_reduce`` bytes and ms,
+   peak memory a rank;
+   (s) ``compressed_psum`` of ~27 M f32 a rank over ``model`` and over
+   ``data``, against the float64 sum of the ranks' ``ef_compress``
+   outputs; residuals and a rerun bit for bit;
+   (t) a 2-layer FP8 checkpoint restored onto (1, 4) under
+   ``INFER_RULES`` and (2, 2) under ``TRAIN_RULES`` from ``meta``
+   templates: local shards bit-equal to global slices, placements
+   ``param_sharding``'s, K-major payloads, ``fp8_gemm`` on q_proj shards
+   within 1 bf16 ulp of the full product's slice.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -319,13 +338,18 @@ GEMM_SHAPES = (
     ("deepseek-moe-16b dense down", (16384, 10944, 2048)),
     ("gemma3-1b k/v", (4, 1152, 256)), ("gemma3-1b k/v", (16384, 1152, 256)))
 # (model, (E, C, K, N)): OneRec-V2's decode (C = 8 rows per expert) and
-# 32-request prefill (C = 3080) gate/up and down; the zoo's 64 experts
+# 32-request prefill (C = 3080) gate/up and down, at 16 experts and at the
+# 4 a rank of phase 8's (1, 4) mesh holds; the zoo's 64 experts
 # (qwen2-moe's 60 padded by ep_degree 16, deepseek-moe's 64) at decode
 # (C = 8) and at the 16384-token prefill (C = 1368 qwen2, 1920 deepseek)
 GROUPED_SHAPES = (
     ("onerec-v2", (16, 8, 2048, 4096)), ("onerec-v2", (16, 8, 4096, 2048)),
     ("onerec-v2", (16, 3080, 2048, 4096)),
     ("onerec-v2", (16, 3080, 4096, 2048)),
+    ("onerec-v2 EP rank of (1, 4)", (4, 8, 2048, 4096)),
+    ("onerec-v2 EP rank of (1, 4)", (4, 8, 4096, 2048)),
+    ("onerec-v2 EP rank of (1, 4)", (4, 3080, 2048, 4096)),
+    ("onerec-v2 EP rank of (1, 4)", (4, 3080, 4096, 2048)),
     ("qwen2 / deepseek-moe", (64, 8, 2048, 1408)),
     ("qwen2 / deepseek-moe", (64, 8, 1408, 2048)),
     ("qwen2-moe-a2.7b", (64, 1368, 2048, 1408)),
@@ -3931,6 +3955,547 @@ def checkpoint_phase(dev, paged_outs, paged_launches):
     print(f"[ckpt] phase 7 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: expert parallelism, compressed_psum and elastic restore (N9d)
+# ---------------------------------------------------------------------------
+
+EP_WORLD = 4
+EP_MESHES = ((1, 4), (2, 2))     # (data, model)
+EP_TIMEOUT_S = 120               # a rank waiting longer in a collective fails
+ELASTIC_LAYERS = 2               # (t): full width, depth cut to fit the phase
+ELASTIC_ROWS = 32                # (t): fp8_gemm rows on a q_proj shard
+EP_DIR = os.path.join(ROOT, "build", "phase8")
+# (s): full-width OneRec-V2's embedding table and one layer's attention
+PSUM_SHAPES = {"embed": (8256, 2048), "q_proj": (2048, 2048),
+               "k_proj": (2048, 512), "v_proj": (2048, 512),
+               "o_proj": (2048, 2048)}
+PSUM_CASES = (((1, 4), "model"), ((2, 2), "data"))
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _bf16_ulps(a, b):
+    """Largest |a - b| in bf16 ulps of the larger magnitude."""
+    import torch
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag)[1] - 8)
+    return ((a - b).abs() / ulp).max().item()
+
+
+def _psum_tree(rank: int, dev):
+    """(grads, residuals) of rank ``rank``, from its own seed."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1000 + rank)
+    grads = {k: torch.randn(s, generator=g, device=dev) * 1e-2
+             for k, s in PSUM_SHAPES.items()}
+    res = {k: torch.randn(s, generator=g, device=dev) * 1e-5
+           for k, s in PSUM_SHAPES.items()}
+    return grads, res
+
+
+def _shard_of(t, placements, mesh):
+    """The slice of the global ``t`` that a rank at ``mesh``'s coordinate
+    holds under ``placements`` (tensor dims split in mesh order)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    for dim in range(t.ndim):
+        idx, count = 0, 1
+        for i, pl in enumerate(placements):
+            if isinstance(pl, Shard) and pl.dim == dim:
+                idx, count = idx * mesh.size(i) + coord[i], \
+                    count * mesh.size(i)
+        n = t.shape[dim] // count
+        t = t.narrow(dim, idx * n, n)
+    return t
+
+
+def _u8(t):
+    import torch
+    return t.view(torch.uint8) if t.element_size() == 1 else t
+
+
+def ep_serving(dev, rank, cfg, batch, out):
+    """(r) in one rank: for each mesh, params from seed 0 made layer by
+    layer, PTQ'd and cut to the rank's experts as they are made; the
+    rank's rows prefilled (checked, then timed), once more with every
+    ``all_reduce`` timed apart, then ``generate_items``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.layers import moe
+    from repro_torch.models import onerec
+    from repro_torch.models import transformer as tfm
+    wrappers = _wrappers()
+    e_pad = tfm.moe_spec_for(cfg.transformer).n_experts_padded
+    for n_data, n_model in EP_MESHES:
+        tag = f"({n_data}, {n_model})"
+        mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                        device_type=dev.type)
+        d, m = mesh.get_coordinate()
+        e_local = e_pad // n_model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = onerec.init_onerec(0, cfg, device=dev, transform=(
+            lambda path, t: moe.keep_experts(quantize_params(
+                t, PAPER_POLICY, prefix=path), m * e_local, e_local)))
+        _sync(dev)
+        init_s = time.perf_counter() - t0
+        n = batch["tokens"].shape[0] // n_data
+        rows = {k: v[d * n:(d + 1) * n].to(dev) for k, v in batch.items()}
+
+        def prefill():
+            cache = onerec.init_cache(cfg, n, device=dev)
+            return onerec.prefill(params, rows, cfg, cache)[0]
+
+        with sh.use_mesh(mesh, sh.INFER_RULES):
+            _zero(wrappers)
+            logits = prefill()
+            _sync(dev)
+            fwd_launches = {k: w.launches for k, w in wrappers.items()}
+            times = []
+            for _ in range(2):
+                dist.barrier()
+                t0 = time.perf_counter()
+                prefill()
+                _sync(dev)
+                times.append((time.perf_counter() - t0) * 1e3)
+            reduce = dict(calls=0, bytes=0, s=0.0)
+            all_reduce = dist.all_reduce
+
+            def timed(t, *args, **kwargs):
+                _sync(dev)
+                t1 = time.perf_counter()
+                all_reduce(t, *args, **kwargs)
+                _sync(dev)
+                reduce["s"] += time.perf_counter() - t1
+                reduce["calls"] += 1
+                reduce["bytes"] += t.numel() * t.element_size()
+
+            dist.all_reduce = timed
+            try:
+                prefill()
+            finally:
+                dist.all_reduce = all_reduce
+            _zero(wrappers)
+            items = onerec.generate_items(params, rows, cfg)
+            _sync(dev)
+            gen_launches = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        held = sum(t.numel() * t.element_size() for t in
+                   _tensors(params))
+        out[tag] = dict(
+            coord=[d, m], e_local=e_local, init_s=init_s,
+            prefill_ms=times, reduce=reduce, peak=peak, held_bytes=held,
+            forward_launches=fwd_launches, generate_launches=gen_launches,
+            logits=logits.cpu(), items=items.cpu())
+        del params, logits
+    return out
+
+
+def _keystr_to_path(key: str) -> str:
+    """A checkpoint's JAX ``keystr`` path -> the ``/``-joined path the
+    sharding rules read (``[<flat index 0>]`` -> ``0``)."""
+    import re
+    return "/".join(a or b for a, b in re.findall(
+        r"\[(?:'([^']*)'|<flat index (\d+)>)\]", key))
+
+
+def _tensors(tree):
+    from repro_torch.checkpoint import store
+    return store._flatten(tree)[1]
+
+
+def psum_case(dev, rank, out):
+    """(s) in one rank: ``compressed_psum`` of the rank's tree over each
+    case's axis; residuals against ``ef_compress`` and a rerun, bitwise."""
+    import torch
+    from repro_torch.distributed import compression
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    for (n_data, n_model), axis in PSUM_CASES:
+        mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                        device_type=dev.type)
+        grads, res = _psum_tree(rank, dev)
+        with sh.use_mesh(mesh):
+            _sync(dev)
+            t0 = time.perf_counter()
+            red, new_res = compression.compressed_psum(grads, axis, res)
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            red2, _ = compression.compressed_psum(grads, axis, res)
+        _, want = compression.ef_compress(grads, res)
+        for k in PSUM_SHAPES:
+            if not torch.equal(new_res[k], want[k]):
+                raise AssertionError(f"(s) rank {rank}: residual {k} is not "
+                                     f"ef_compress's")
+            if not torch.equal(red2[k], red[k]):
+                raise AssertionError(f"(s) rank {rank}: a rerun of {k} "
+                                     f"differs")
+        out[f"({n_data}, {n_model}) {axis}"] = dict(
+            s=secs, coord=list(mesh.get_coordinate()),
+            bytes=sum(t.numel() * 4 for t in red.values()),
+            reduced={k: v.cpu() for k, v in red.items()})
+    return out
+
+
+def elastic_case(dev, rank, cfg, ckpt, out):
+    """(t) in one rank: restore onto (1, 4) under INFER_RULES and (2, 2)
+    under TRAIN_RULES from a ``meta`` template; every local shard against
+    the global leaf's slice, bit for bit, its placements against
+    ``param_sharding``'s, fp8 payloads K-major; ``fp8_gemm`` on the rank's
+    shard of q_proj against the slice of the full product."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.checkpoint import store
+    from repro_torch.core import quant
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import onerec
+    template = quantize_params(onerec.init_onerec(0, cfg, device="meta"),
+                               PAPER_POLICY)
+    cpu_tpl = store._unflatten(template, iter(
+        tree_util.empty_like(t, device="cpu")
+        for t in store._flatten(template)[1]))
+    full, _ = store.load_checkpoint(ckpt, cpu_tpl)
+    g = torch.Generator(device=dev).manual_seed(7)
+    d_model = cfg.transformer.d_model
+    x = torch.randn(ELASTIC_ROWS, d_model, generator=g,
+                    device=dev).to(torch.bfloat16)
+    q_full = full["backbone"]["stacks"]["0"]["p0"]["attn"]["q_proj"][
+        "kernel"]
+    for (n_data, n_model), rules_name in (((1, 4), "infer"),
+                                          ((2, 2), "train")):
+        rules = sh.RULE_SETS[rules_name]
+        mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                        device_type=dev.type)
+        _sync(dev)
+        t0 = time.perf_counter()
+        restored, _ = elastic.restore_elastic(ckpt, template, mesh, rules)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        n_leaves = k_major = sharded = 0
+        glob = dict(zip(*store._flatten(full)))
+        for path, leaf in zip(*store._flatten(restored)):
+            want = glob[path]
+            jpath = _keystr_to_path(path)
+            expect = sh.param_sharding(
+                sh.infer_param_axes(jpath, want.ndim), tuple(want.shape),
+                mesh=mesh, rules=rules).placements
+            if list(leaf.placements) != list(expect):
+                raise AssertionError(f"(t) {path}: placements "
+                                     f"{leaf.placements} != {expect}")
+            local = leaf.to_local()
+            part = _shard_of(want, leaf.placements, mesh)
+            if not torch.equal(_u8(local.cpu()), _u8(part)):
+                raise AssertionError(f"(t) rank {rank} {path}: the local "
+                                     f"shard is not the global slice")
+            if quant.is_fp8_dtype(local.dtype) and local.ndim >= 2:
+                k = local.shape[-2]
+                if local.stride(-2) != 1 or \
+                        local.stride(-1) != -(-k // 16) * 16:
+                    raise AssertionError(f"(t) {path}: payload strides "
+                                         f"{local.stride()} not K-major")
+                k_major += 1
+            sharded += tuple(local.shape) != tuple(want.shape)
+            n_leaves += 1
+        q = restored["backbone"]["stacks"]["0"]["p0"]["attn"]["q_proj"][
+            "kernel"]
+        w_loc = quant.QuantizedTensor(q.data.to_local()[0],
+                                      q.scale.to_local()[0], "per_channel")
+        coord = mesh.get_coordinate()
+        kk, nn = w_loc.data.shape
+        ki = coord[0] if rules_name == "train" else 0
+        ni = coord[-1]
+        xs = x[:, ki * kk:(ki + 1) * kk].contiguous()
+        rows_k = q_full.data[0][ki * kk:(ki + 1) * kk]
+        w_ref = quant.QuantizedTensor(quant.k_major(rows_k.to(dev)),
+                                      q_full.scale[0].to(dev), "per_channel")
+        ref = quant.fp8_linear(xs, w_ref)[:, ni * nn:(ni + 1) * nn]
+        got = quant.fp8_linear(xs, w_loc)
+        ulps = _bf16_ulps(got, ref)
+        if not ulps <= 1.0:
+            raise AssertionError(f"(t) rank {rank} {rules_name}: fp8_gemm on "
+                                 f"the local q_proj shard {ulps} bf16 ulps "
+                                 f"off the full product's slice")
+        out[f"({n_data}, {n_model}) {rules_name}"] = dict(
+            s=secs, leaves=n_leaves, sharded=sharded, k_major=k_major,
+            bytes_read=sum(t.numel() * t.element_size()
+                           for t in glob.values()),
+            local_bytes=sum(t.to_local().numel() * t.to_local().element_size()
+                            for t in store._flatten(restored)[1]),
+            gemm_ulps=ulps, q_local=tuple(w_loc.data.shape))
+        del restored
+    return out
+
+
+def _phase8_rank(rank, world, tmpdir, device, cfg, batch, ckpt,
+                 elastic_cfg):
+    """One spawned rank of phase 8: gloo over a ``FileStore``, every rank
+    on card 0, the kernels loaded from the libraries the parent built."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    torch.set_num_threads(2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dev = resolve_device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmpdir, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    try:
+        out = {"rank": rank}
+        ep_serving(dev, rank, cfg, batch, out.setdefault("r", {}))
+        psum_case(dev, rank, out.setdefault("s", {}))
+        elastic_case(dev, rank, elastic_cfg, ckpt, out.setdefault("t", {}))
+        if build.BUILDS:
+            raise AssertionError(f"rank {rank} ran nvcc {build.BUILDS} "
+                                 f"times: it must load the parent's builds")
+        out["builds"] = build.BUILDS
+        torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def grouped_e4_slices(dev):
+    """``fp8_grouped_gemm`` on each 4-expert slice of 16 (a cloned slice,
+    as a rank of (1, 4) holds it) gives the bits of the E = 16 call's
+    rows, at decode and prefill rows."""
+    import torch
+    from repro_torch import tree as tree_util
+    from repro_torch.core import quant
+    from repro_torch.kernels.fp8_grouped_gemm import ops
+    g = torch.Generator(device=dev).manual_seed(24)
+    for c, k, n in ((8, 2048, 4096), (3080, 2048, 4096), (8, 4096, 2048),
+                    (3080, 4096, 2048)):
+        x = torch.randn(16, c, k, generator=g, device=dev).to(torch.bfloat16)
+        w = quant.quantize_blockwise(
+            torch.randn(16, k, n, generator=g, device=dev) / math.sqrt(k))
+        full = ops.fp8_grouped_gemm(x, w.data, w.scale)
+        for r in range(4):
+            part = w.data[4 * r:4 * r + 4]
+            part = tree_util.empty_like(part).copy_(part)
+            out = ops.fp8_grouped_gemm(x[4 * r:4 * r + 4].contiguous(), part,
+                                       w.scale[4 * r:4 * r + 4].contiguous())
+            if not torch.equal(out, full[4 * r:4 * r + 4]):
+                fail(f"fp8_grouped_gemm E=4 C={c} K={k} N={n}: experts "
+                     f"{4 * r}-{4 * r + 3} differ from the E=16 call's")
+        del x, w, full
+    print("[ep] fp8_grouped_gemm at E=4 on each 4-expert slice of 16 (C = "
+          "8 and 3080, gate/up and down shapes): bit-identical to the E=16 "
+          "call's rows")
+
+
+def _world1(dev, cfg, rows):
+    """The prefill_b32 bundle's step at world 1 on ``rows`` rows: its
+    params (seed 0, PTQ'd layer by layer) and batch; the last logits and
+    ``generate_items`` of all rows and of each half alone."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.onerec_v2 import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import onerec
+    shape = dataclasses.replace(SHAPES["prefill_b32"], global_batch=rows)
+    b = steps.onerec_bundle("onerec-v2", cfg, shape, fp8=True, device=dev)
+    params, batch = b.args
+    wrappers = _wrappers()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _zero(wrappers)
+    logits = b.fn(params, batch)[0]
+    _sync(dev)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        b.fn(params, batch)
+        _sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    ref = {"all": dict(logits=logits.cpu(), items=onerec.generate_items(
+        params, batch, cfg).cpu())}
+    half = rows // 2
+    for d in range(2):
+        part = {k: v[d * half:(d + 1) * half] for k, v in batch.items()}
+        cache = onerec.init_cache(cfg, half, device=dev)
+        ref[d] = dict(
+            logits=onerec.prefill(params, part, cfg, cache)[0].cpu(),
+            items=onerec.generate_items(params, part, cfg).cpu())
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    held = sum(t.numel() * t.element_size() for t in _tensors(params))
+    return ref, {k: v.cpu() for k, v in batch.items()}, dict(
+        prefill_ms=times, peak=peak, held_bytes=held, launches=launches)
+
+
+def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32):
+    """Phase 8 (N9d): (r) EP serving, (s) ``compressed_psum``, (t) elastic
+    restore, in ``EP_WORLD`` gloo ranks sharing the card.  Returns the EP
+    path's launch counts (rank 0 of (1, 4): one prefill and a
+    generation)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import store
+    from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.core.policy import PAPER_POLICY
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.distributed import compression
+    from repro_torch.models import onerec
+    t_phase = time.perf_counter()
+    cfg = cfg or CONFIG
+    elastic_cfg = elastic_cfg or dataclasses.replace(
+        CONFIG, transformer=dataclasses.replace(CONFIG.transformer,
+                                                n_layers=ELASTIC_LAYERS))
+    n_layers = cfg.transformer.n_layers
+    if dev.type == "cuda":
+        grouped_e4_slices(dev)
+    ref, batch, w1 = _world1(dev, cfg, rows)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"[ep] world 1: prefill {rows} x {batch['tokens'].shape[1]} "
+          f"tokens {w1['prefill_ms'][0]:.1f} / {w1['prefill_ms'][1]:.1f} "
+          f"ms, params {w1['held_bytes'] / 1e9:.3f} GB, peak "
+          f"{w1['peak'] / 2**30:.2f} GiB; launches a forward "
+          f"{w1['launches']}")
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    os.makedirs(EP_DIR)
+    t0 = time.perf_counter()
+    ck = store.save_checkpoint(EP_DIR, 1, onerec.init_onerec(
+        0, elastic_cfg, device=dev, transform=lambda path, t: quantize_params(
+            t, PAPER_POLICY, prefix=path)))
+    print(f"[ep] (t) saved {elastic_cfg.transformer.n_layers}-layer "
+          f"full-width OneRec-V2, FP8 PTQ, in {time.perf_counter() - t0:.1f}"
+          f" s")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # gloo finds the loopback interface by name on a host without a network
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    tmp = tempfile.mkdtemp(dir=EP_DIR)
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_phase8_rank, args=(
+        EP_WORLD, tmp, dev.type, cfg, batch, ck, elastic_cfg),
+        nprocs=EP_WORLD)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(EP_WORLD)]
+    per_forward = {"fp8_gemm": 4 * n_layers, "fp8_grouped_gemm": 3 * n_layers}
+    # (r)
+    for n_data, n_model in EP_MESHES:
+        tag = f"({n_data}, {n_model})"
+        for o in outs:
+            r = o["r"][tag]
+            d, m = r["coord"]
+            want = ref["all"] if n_data == 1 else ref[d]
+            if not torch.equal(r["logits"], want["logits"]):
+                diff = (r["logits"] - want["logits"]).abs().max().item()
+                fail(f"(r) {tag} rank {o['rank']}: prefill logits differ "
+                     f"from world 1's (max |diff| {diff})")
+            if not torch.equal(r["items"], want["items"]):
+                fail(f"(r) {tag} rank {o['rank']}: items differ from world "
+                     f"1's")
+            for k, v in (per_forward.items() if dev.type == "cuda" else ()):
+                if r["forward_launches"][k] != v:
+                    fail(f"(r) {tag} rank {o['rank']}: {k} launched "
+                         f"{r['forward_launches'][k]} times a forward, not "
+                         f"{v}")
+                if r["generate_launches"][k] != v * (1 + cfg.decode_len):
+                    fail(f"(r) {tag} rank {o['rank']}: {k} launched "
+                         f"{r['generate_launches'][k]} times a generation")
+            red = r["reduce"]
+            print(f"[ep] (r) {tag} rank {o['rank']} (data {d}, model {m}):"
+                  f" {r['e_local']} experts a layer, params "
+                  f"{r['held_bytes'] / 1e9:.3f} GB (made in "
+                  f"{r['init_s']:.1f} s), prefill of "
+                  f"{batch['tokens'].shape[0] // n_data} rows "
+                  f"{r['prefill_ms'][0]:.1f} / {r['prefill_ms'][1]:.1f} ms "
+                  f"(ranks time-sliced on one card), all_reduce "
+                  f"{red['calls']} calls {red['bytes'] / 1e6:.1f} MB "
+                  f"{red['s'] * 1e3:.1f} ms a forward (gloo through host "
+                  f"memory), peak {r['peak'] / 2**30:.2f} GiB, launches a "
+                  f"forward {r['forward_launches']}")
+        print(f"[ep] (r) {tag}: every rank's prefill logits and items "
+              f"bit-identical to world 1's"
+              + (" (each data shard's rows alone)" if n_data > 1 else ""))
+    # (s)
+    comp = {q: compression.ef_compress(*_psum_tree(q, dev))[0]
+            for q in range(EP_WORLD)}
+    for (n_data, n_model), axis in PSUM_CASES:
+        tag = f"({n_data}, {n_model}) {axis}"
+        groups = {}         # ranks that share the other axis's coordinate
+        for o in outs:
+            d, m = o["s"][tag]["coord"]
+            groups.setdefault(d if axis == "model" else m, []).append(
+                o["rank"])
+        worst_sum = worst_mag = 0.0
+        for members in groups.values():
+            for name in PSUM_SHAPES:
+                terms = [comp[q][name].double() for q in members]
+                total = sum(terms)
+                mag = sum(t.abs() for t in terms).float()
+                ulp_mag = torch.ldexp(torch.ones_like(mag),
+                                      torch.frexp(mag)[1] - 24)
+                tot32 = total.float().abs().clamp(min=2.0 ** -126)
+                ulp_sum = torch.ldexp(torch.ones_like(tot32),
+                                      torch.frexp(tot32)[1] - 24)
+                first = outs[members[0]]["s"][tag]["reduced"][name]
+                for q in members:
+                    got = outs[q]["s"][tag]["reduced"][name]
+                    if not torch.equal(got, first):
+                        fail(f"(s) {tag}: ranks {members[0]} and {q} hold "
+                             f"different sums of {name}")
+                err = (first.to(dev).double() - total).abs()
+                worst_mag = max(worst_mag, (err / ulp_mag.double()).max()
+                                .item())
+                worst_sum = max(worst_sum, (err / ulp_sum.double()).max()
+                                .item())
+        if not worst_mag <= 2.0:
+            fail(f"(s) {tag}: {worst_mag} f32 ulps off the float64 sum, in "
+                 f"ulps of the sum of the terms' magnitudes (bound 2)")
+        secs = [o["s"][tag]["s"] for o in outs]
+        print(f"[ep] (s) compressed_psum {tag}, groups {list(groups.values())}"
+              f": {outs[0]['s'][tag]['bytes'] / 1e6:.1f} MB a rank, "
+              f"{min(secs):.3f}-{max(secs):.3f} s (gloo through host "
+              f"memory); every rank of a group equal; within {worst_mag:.3f}"
+              f" f32 ulps of the float64 sum of the ranks' ef_compress "
+              f"outputs, in ulps of the sum of their magnitudes (bound 2; "
+              f"{worst_sum:.3f} ulps of the sum itself, where terms "
+              f"cancel); residuals and a rerun bit for bit")
+    # (t)
+    for o in outs:
+        for tag, t in o["t"].items():
+            print(f"[ep] (t) {tag} rank {o['rank']}: restored {t['leaves']} "
+                  f"leaves ({t['sharded']} sharded, {t['k_major']} K-major "
+                  f"fp8 payloads), read {t['bytes_read'] / 1e9:.3f} GB, kept "
+                  f"{t['local_bytes'] / 1e9:.3f} GB, {t['s']:.2f} s; "
+                  f"fp8_gemm on the local q_proj shard {t['q_local']} "
+                  f"{t['gemm_ulps']:.2f} bf16 ulps off the full product's "
+                  f"slice (bound 1)")
+    print("[ep] (t) every local shard bit-equal to its global slice, "
+          "placements param_sharding's, no nvcc in any rank")
+    shutil.rmtree(EP_DIR, ignore_errors=True)
+    r0 = outs[0]["r"]["(1, 4)"]
+    ep = {k: r0["forward_launches"][k] + r0["generate_launches"][k]
+          for k in r0["forward_launches"]}
+    print(f"[ep] ranks {ranks_s:.1f} s; phase 8 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"ep": ep}
+
+
 def main() -> int:
     try:
         import torch
@@ -3978,6 +4543,7 @@ def main() -> int:
     distribution_phase(dev)
     training_phase(dev)
     checkpoint_phase(dev, paged_outs, by_path["paged"])
+    by_path.update(ep_phase(dev))
 
     # (TPU kernel it replaces, the main path whose run it is counted in)
     replaces = {

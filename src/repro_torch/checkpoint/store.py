@@ -18,6 +18,19 @@ The format, leaf by leaf:
     weight (``quant.k_major``) is saved unpadded, as the JAX package holds
     it, and laid out K-major again on load (``tree.empty_like``).
 
+Sharded trees (the JAX elastic re-shard path, ``distributed/elastic.py``):
+  * ``load_checkpoint(..., shardings=tree)`` reads and checks every leaf
+    whole on every rank (each rank reads the shared file; nothing is
+    broadcast), keeps the rank's own slice of each and returns a tree of
+    ``DTensor``s; the template may hold ``meta`` tensors (shapes, dtypes
+    and layouts only), so no rank allocates the global tree.  A K-major
+    payload's slice is laid out K-major again (``quant.k_major``);
+  * ``save_checkpoint`` of a tree holding ``DTensor``s gathers each leaf
+    on every rank (``full_tensor``), rank 0 writes, and every rank returns
+    the path after a barrier: the same files and hash as one rank's save
+    of the same values.  ``AsyncCheckpointer`` of DTensors waits for
+    ROADMAP.md queue N, item N9e.
+
 Durability contract (fault tolerance):
   * writes go to ``<dir>/tmp.<step>.<pid>`` and are atomically renamed,
   * the manifest hash is verified on load: torn or corrupt checkpoints are
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_util
+from repro_torch.core import quant
 from repro_torch.core.quant import QuantizedTensor
 
 MANIFEST = "manifest.json"
@@ -69,24 +83,28 @@ def _torch_dtype(name: str) -> torch.dtype:
 _QT_CHILDREN = ("data", "scale", "act_scale")     # the JAX pytree children
 
 
-def _leaves(tree, prefix: str = "") -> Iterator[Tuple[str, torch.Tensor]]:
+def _leaves(tree, prefix: str = "", any_leaf: bool = False
+            ) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(keystr path, leaf) in the JAX flatten order; ``any_leaf`` takes
+    any object as a leaf (a tree of shardings), else only tensors."""
     if isinstance(tree, dict):
         for key in sorted(tree):
-            yield from _leaves(tree[key], f"{prefix}[{key!r}]")
+            yield from _leaves(tree[key], f"{prefix}[{key!r}]", any_leaf)
     elif isinstance(tree, QuantizedTensor):
         for i, name in enumerate(_QT_CHILDREN):
             part = getattr(tree, name)
             if part is not None:
                 yield f"{prefix}[<flat index {i}>]", part
-    elif torch.is_tensor(tree):
+    elif torch.is_tensor(tree) or (any_leaf and tree is not None):
         yield prefix, tree
     elif tree is not None:
         raise TypeError(f"checkpoint leaf {prefix} is a {type(tree)}, "
                         f"not a tensor")
 
 
-def _flatten(tree) -> Tuple[List[str], List[torch.Tensor]]:
-    flat = list(_leaves(tree))
+def _flatten(tree, any_leaf: bool = False
+             ) -> Tuple[List[str], List[torch.Tensor]]:
+    flat = list(_leaves(tree, any_leaf=any_leaf))
     return [p for p, _ in flat], [t for _, t in flat]
 
 
@@ -98,6 +116,10 @@ def _unflatten(template, leaves: Iterator[torch.Tensor]):
                  else next(leaves) for name in _QT_CHILDREN}
         return dataclasses.replace(template, **parts)
     return None if template is None else next(leaves)
+
+
+def _dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
 
 
 def _host(t: torch.Tensor, copy: bool) -> torch.Tensor:
@@ -129,9 +151,11 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     """Atomic checkpoint write; returns the final checkpoint path.
     ``timing``, when given, receives the bytes written and the seconds of
     the copy to host memory, the npz write and the hash."""
-    os.makedirs(directory, exist_ok=True)
     t0 = time.perf_counter()
     paths, leaves = _flatten(tree)
+    if any(_dtensor(t) for t in leaves):
+        return _save_sharded(directory, step, tree, extra_meta, timing)
+    os.makedirs(directory, exist_ok=True)
     leaves = [_host(t, copy=False) for t in leaves]
     t1 = time.perf_counter()
     tmp = os.path.join(directory, f"tmp.{step}.{os.getpid()}")
@@ -164,6 +188,22 @@ def save_checkpoint(directory: str, step: int, tree: Any,
         timing.update(bytes=sum(t.numel() * t.element_size()
                                 for t in leaves),
                       host_s=t1 - t0, write_s=t2 - t1, hash_s=t3 - t2)
+    return final
+
+
+def _save_sharded(directory: str, step: int, tree: Any,
+                  extra_meta: Optional[Dict], timing: Optional[Dict]) -> str:
+    """Every rank gathers each ``DTensor`` leaf whole (a collective, leaf
+    by leaf); rank 0 writes the gathered tree; all meet at a barrier."""
+    import torch.distributed as dist
+    gathered = _unflatten(tree, iter(
+        _host(t.full_tensor() if _dtensor(t) else t, copy=False)
+        for t in _flatten(tree)[1]))
+    final = os.path.join(directory, f"step_{step:010d}")
+    if dist.get_rank() == 0:
+        final = save_checkpoint(directory, step, gathered, extra_meta,
+                                timing)
+    dist.barrier()
     return final
 
 
@@ -203,12 +243,10 @@ def load_checkpoint(path: str, template: Any, *, shardings: Any = None,
     ``in_place`` it is copied into the template's own tensors, which are
     returned.
 
-    ``shardings`` (the JAX elastic re-shard path) waits for ROADMAP.md
-    queue N, item N9d."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "load_checkpoint(shardings=...) (elastic re-sharding) is not "
-            "ported yet (ROADMAP.md queue N, item N9d)")
+    ``shardings``, a tree of ``distributed.sharding.NamedSharding`` of the
+    template's structure (``distributed.elastic.shardings_for_tree``),
+    makes each leaf a ``DTensor`` on its mesh holding the rank's slice
+    (module docstring); the template's leaves may be ``meta`` tensors."""
     manifest, leaves = _load_arrays(path)
     if verify and _content_hash(leaves) != manifest["hash"]:
         raise IOError(f"checkpoint {path} failed integrity verification")
@@ -217,17 +255,59 @@ def load_checkpoint(path: str, template: Any, *, shardings: Any = None,
         raise ValueError(
             f"checkpoint has {len(leaves)} leaves, template expects "
             f"{len(targets)}")
-    out = []
     for p, want, t, src in zip(paths, manifest["paths"], targets, leaves):
         if p != want or t.shape != src.shape or t.dtype != src.dtype:
             raise ValueError(
                 f"checkpoint leaf {want} {_dtype_name(src.dtype)}"
                 f"{tuple(src.shape)} does not match the template's {p} "
                 f"{_dtype_name(t.dtype)}{tuple(t.shape)}")
-        out.append((t if in_place else tree_util.empty_like(t)).copy_(src))
+    if shardings is not None:
+        if in_place:
+            raise ValueError("a sharded restore makes new tensors: "
+                             "in_place does not apply")
+        spec_paths, specs = _flatten(shardings, any_leaf=True)
+        if spec_paths != paths:
+            raise ValueError("shardings do not match the template's tree")
+        out = [_shard(src, t, sh)
+               for src, t, sh in zip(leaves, targets, specs)]
+        return _unflatten(template, iter(out)), manifest
+    out = [(t if in_place else tree_util.empty_like(t)).copy_(src)
+           for t, src in zip(targets, leaves)]
     if in_place:
         return template, manifest
     return _unflatten(template, iter(out)), manifest
+
+
+def _k_major(t: torch.Tensor) -> bool:
+    return t.ndim >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1
+
+
+def _shard(src: torch.Tensor, template: torch.Tensor, sharding):
+    """The rank's slice of the global leaf ``src`` as a ``DTensor`` on
+    ``sharding.mesh`` (on its device, in the template's layout)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    places = sharding.placements
+    coord = mesh.get_coordinate()
+    local = src
+    for dim in range(src.ndim):
+        idx, count = 0, 1
+        for i, pl in enumerate(places):      # mesh order: the first major
+            if isinstance(pl, Shard) and pl.dim == dim:
+                idx = idx * mesh.size(i) + coord[i]
+                count *= mesh.size(i)
+        if count > 1:
+            n = src.shape[dim] // count
+            local = local.narrow(dim, idx * n, n)
+    dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
+        if mesh.device_type == "cuda" else torch.device(mesh.device_type)
+    if _k_major(template):
+        local = quant.k_major(local.to(dev))
+    else:
+        local = torch.empty(local.shape, dtype=local.dtype,
+                            device=dev).copy_(local)
+    return DTensor.from_local(local, mesh, places, run_check=False,
+                              shape=src.shape, stride=template.stride())
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

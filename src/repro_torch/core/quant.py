@@ -85,6 +85,12 @@ class QuantizedTensor:
             self, data=self.data[i], scale=self.scale[i],
             act_scale=None if self.act_scale is None else self.act_scale[i])
 
+    def map_parts(self, fn) -> "QuantizedTensor":
+        """``fn`` applied to data, scale and act_scale (when set)."""
+        return dataclasses.replace(
+            self, data=fn(self.data), scale=fn(self.scale),
+            act_scale=None if self.act_scale is None else fn(self.act_scale))
+
     def to(self, device) -> "QuantizedTensor":
         """The same tensor on ``device``, each part keeping its memory
         layout (``Tensor.to`` would lay a K-major payload out row-major,
@@ -93,13 +99,11 @@ class QuantizedTensor:
         device = torch.device(device)
 
         def move(t):
-            if t is None or (t.device.type == device.type and device.index
-                             in (None, t.device.index)):
+            if t.device.type == device.type and device.index in (
+                    None, t.device.index):
                 return t
             return tree.empty_like(t, device=device).copy_(t)
-        return dataclasses.replace(self, data=move(self.data),
-                                   scale=move(self.scale),
-                                   act_scale=move(self.act_scale))
+        return self.map_parts(move)
 
     def dequantize(self, dtype=torch.float32) -> torch.Tensor:
         if self.granularity in ("block", "block_act"):

@@ -13,7 +13,9 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  Raises when CUDA is asked for and absent."""
+    """``None`` means the card.  Raises when CUDA is asked for and absent.
+    ``"meta"`` is a template device: shapes, dtypes and layouts, no values
+    (the torch form of ``jax.eval_shape``)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -24,7 +26,7 @@ def resolve_device(device=None) -> torch.device:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
         torch.backends.cudnn.allow_tf32 = False
-    elif dev.type != "cpu":
+    elif dev.type not in ("cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 

@@ -8,8 +8,8 @@ error does not bias convergence.  ``ef_compress`` is the pure tree
 transform the train loop calls, op for op the JAX one: equal f32 inputs
 give bit-identical outputs on the CPU, and on the card (the scale's
 divisor is a device tensor: CUDA divides by a host scalar through its
-reciprocal).  ``compressed_psum`` (the reduction itself) waits for
-ROADMAP.md queue N, item N9d.
+reciprocal).  ``compressed_psum`` is the reduction itself: compress, then
+sum each leaf over one axis of the active mesh.
 """
 
 from __future__ import annotations
@@ -17,9 +17,11 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.core.quant import E4M3, FP8_MAX, cast_to_fp8
+from repro_torch.distributed.sharding import current_mesh, mesh_axes
 
 F32 = torch.float32
 _SCALE_FLOOR = 1e-30      # the JAX floor, not ``quant._EPS``
@@ -49,3 +51,24 @@ def ef_compress(grads: Dict[str, Any], residuals: Dict[str, Any]
                              grads)
     return (tree.map_with_path(lambda _, o: o[0], out),
             tree.map_with_path(lambda _, o: o[1], out))
+
+
+def compressed_psum(grads: Dict[str, Any], axis_name: str,
+                    residuals: Dict[str, Any]
+                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Error-feedback compress, then a SUM all-reduce of every leaf over
+    the active mesh's ``axis_name`` group (``sharding.use_mesh``).
+    Returns (reduced grads, new residuals); the grads passed in are not
+    changed."""
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("compressed_psum needs an active mesh "
+                         "(distributed.sharding.use_mesh)")
+    if axis_name not in mesh_axes(mesh):
+        raise ValueError(f"mesh has no axis {axis_name!r}: "
+                         f"{tuple(mesh_axes(mesh))}")
+    group = mesh.get_group(axis_name)
+    ghat, new_res = ef_compress(grads, residuals)
+    for _, g in tree.leaves_with_path(ghat):
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+    return ghat, new_res

@@ -8,7 +8,7 @@ caller passes ``device="cpu"``), the JAX package's
 ``score``, ``retrieval``) and the EGNN (``graph``, a training step).
 Abstract bundles (the JAX dry-run's shapes, no allocation) and the
 ``ogb_products`` graph cell (61.86 M edges: chunked or sharded segment
-sums) wait for ROADMAP.md queue N, item N9d.  The step functions run on
+sums) wait for ROADMAP.md queue N, item N9e.  The step functions run on
 the device of their inputs.
 
 Step signatures (uniform per kind):
@@ -230,8 +230,8 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
     if shape.kind not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown OneRec shape kind {shape.kind}")
     b, t = shape.global_batch, shape.seq_len
-    params = onerec_model.init_onerec(seed, cfg, device=dev)
     if shape.kind == "train":
+        params = onerec_model.init_onerec(seed, cfg, device=dev)
         gen = _generator(seed + 1, dev)
 
         def ids(n):
@@ -245,8 +245,11 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
             lambda p, bt: onerec_model.train_loss(p, bt, cfg))
         return StepBundle(arch, shape.name, "train", step,
                           (params, adamw_init(params), batch), cfg=cfg)
-    if fp8:
-        params = quantize_params(params, PAPER_POLICY)
+    # PTQ'd layer by layer as the layers are made: the same bits as the
+    # whole tree's PTQ, and at most one raw layer on the device
+    params = onerec_model.init_onerec(seed, cfg, device=dev, transform=(
+        lambda path, t: quantize_params(t, PAPER_POLICY, prefix=path))
+        if fp8 else None)
     serve_cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
         cfg.transformer, remat=False))
     gen = _generator(seed + 1, dev)
@@ -318,7 +321,7 @@ def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
     if shape.name == "ogb_products":
         raise _not_ported(f"the graph step of {arch} on ogb_products "
                           f"(61.86 M edges: chunked or sharded segment "
-                          f"sums)", "N9d")
+                          f"sums)", "N9e")
     dev = resolve_device(device)
     n, e, d_feat, level, n_graphs = _gnn_cell_dims(shape)
     gen = _generator(seed + 1, dev)
@@ -360,7 +363,7 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     (``reduced``: the arch's ``reduced_config()``; ``fp8`` None: PTQ'd, as
     the JAX package decides for the LM and OneRec families)."""
     if abstract:
-        raise _not_ported("abstract bundles (the dry-run's)", "N9d")
+        raise _not_ported("abstract bundles (the dry-run's)", "N9e")
     mod = registry.get_arch(arch)
     cfg = mod.reduced_config() if reduced else mod.CONFIG
     shape = shape_override or mod.SHAPES[shape_name]

@@ -77,6 +77,7 @@ import torch
 
 from repro_torch.core.quant import (dequantize_kv, is_fp8_dtype, matmul_any,
                                     quantize_kv, raw_matmul)
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.batch_attention.ops import batch_attention
 from repro_torch.kernels.paged_decode.ops import paged_decode_attention
 from repro_torch.layers.common import dense_init
@@ -398,6 +399,9 @@ def apply_attention(
         k = rmsnorm_apply(params["k_norm"], k, eps=norm_eps)
     q = apply_rope(q, positions, theta=spec.rope_theta)
     k = apply_rope(k, positions, theta=spec.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
+    v = constrain(v, ("batch", "seq", "kv_heads", None))
 
     if shared:
         out = _shared_decode(q, k, v, cache, int(cache_index), spec)
@@ -448,8 +452,9 @@ def apply_attention(
                 cache["k_scale"][:, :t] = k_sc
                 cache["v_scale"][:, :t] = v_sc
 
+    out = constrain(out, ("batch", "seq", "qkv_out"))
     proj = matmul_any(out, params["o_proj"]["kernel"])
-    return proj, cache
+    return constrain(proj, ("batch", "seq", "embed")), cache
 
 
 def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
@@ -477,8 +482,8 @@ def _view_attention(q: torch.Tensor, rows: Dict[str, torch.Tensor],
     """Attention of q (B, T, H, hd) at absolute positions ``q_pos`` (B, T)
     over per-row cache views (k/v (B, S, Kv, hd), pos (B, S), fp8 scales):
     keys valid where ``0 <= pos <= q_pos``.  Returns (B, T, H * hd)."""
-    ck, cv = _read_kv(rows["k"], rows["v"], rows.get("k_scale"),
-                      rows.get("v_scale"), q.dtype)
+    ck, cv = _read_kv(_kv_view(rows["k"]), _kv_view(rows["v"]),
+                      rows.get("k_scale"), rows.get("v_scale"), q.dtype)
     cpos = rows["pos"]
     b, t = q.shape[:2]
     qh = q.reshape(b, t, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
@@ -498,8 +503,8 @@ def _tree_attention(q: torch.Tensor, rows: Dict[str, torch.Tensor],
     (k/v (B, S, Kv, hd), pos (B, S), fp8 scales): branch b sees the keys
     with ``0 <= pos <= idx`` that lie below ``starts`` or in its own span
     ``[starts + b * R, + R)``.  Returns (B, C, H * hd)."""
-    ck, cv = _read_kv(rows["k"], rows["v"], rows.get("k_scale"),
-                      rows.get("v_scale"), q.dtype)
+    ck, cv = _read_kv(_kv_view(rows["k"]), _kv_view(rows["v"]),
+                      rows.get("k_scale"), rows.get("v_scale"), q.dtype)
     cpos = rows["pos"]
     b, c = q.shape[:2]
     s_len = cpos.shape[1]
@@ -554,8 +559,8 @@ def _shared_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k_sc is not None:
         cache["k_scale"][:, slot] = k_sc[:, 0]
         cache["v_scale"][:, slot] = v_sc[:, 0]
-    ck, cv = _read_kv(cache["k"], cache["v"], cache.get("k_scale"),
-                      cache.get("v_scale"), q.dtype)
+    ck, cv = _read_kv(_kv_view(cache["k"]), _kv_view(cache["v"]),
+                      cache.get("k_scale"), cache.get("v_scale"), q.dtype)
     cpos = cache["pos"]
     b, t = q.shape[:2]
     if spec.use_kernel:
@@ -580,11 +585,18 @@ def _slot_decode(q: torch.Tensor, cache: Dict[str, torch.Tensor],
     under ``use_kernel``, else the plain masked softmax.  Returns
     (B, 1, H * hd)."""
     if spec.use_kernel:
-        ck, cv = _read_kv(cache["k"], cache["v"], cache.get("k_scale"),
-                          cache.get("v_scale"), q.dtype)
+        ck, cv = _read_kv(_kv_view(cache["k"]), _kv_view(cache["v"]),
+                          cache.get("k_scale"), cache.get("v_scale"),
+                          q.dtype)
         return batch_attention(q, ck, cv, idx[:, None], cache["pos"],
                                scale=spec.scale)
     return _view_attention(q, cache, idx[:, None], spec)
+
+
+def _kv_view(t: torch.Tensor) -> torch.Tensor:
+    """A per-row K or V view (B, S, Kv, hd) as the cached modes read it:
+    the long-context cache is laid out over ``kv_seq``."""
+    return constrain(t, ("batch", "kv_seq", "kv_heads", None))
 
 
 def _u8(t: torch.Tensor) -> torch.Tensor:

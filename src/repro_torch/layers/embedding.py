@@ -16,7 +16,7 @@ gives ``-inf`` there and the JAX code maps it to 0, so the max starts from
 results become 0.  Row gathers go through ``gather_rows``, whose gradient
 is that ``segment_sum`` (the JAX gather's transpose, a scatter-add), so a
 backward adds each row's contributions in a fixed order on the card too.
-Row sharding of the tables waits for ROADMAP.md queue N, item N9d.
+Row sharding of the tables waits for ROADMAP.md queue N, item N9e.
 """
 
 from __future__ import annotations

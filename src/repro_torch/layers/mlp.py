@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quant import matmul_any
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.common import dense_init
 
 ACTIVATIONS = {
@@ -40,4 +41,6 @@ def apply_mlp(params: dict, x: torch.Tensor, *,
     g = matmul_any(x, params["gate"]["kernel"])
     u = matmul_any(x, params["up"]["kernel"])
     h = fn(g.to(torch.float32)).to(x.dtype) * u
-    return matmul_any(h, params["down"]["kernel"])
+    h = constrain(h, ("batch", "seq", "mlp"))
+    out = matmul_any(h, params["down"]["kernel"])
+    return constrain(out, ("batch", "seq", "embed"))

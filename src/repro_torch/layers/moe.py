@@ -1,6 +1,4 @@
-"""Sparse MoE with capacity-bounded dispatch and a grouped GEMM expert path
-(single device; the JAX package's expert-parallel ``shard_map`` path is a
-later slice).
+"""Sparse MoE with capacity-bounded dispatch and a grouped GEMM expert path.
 
 Route in f32 with top-k by a STABLE descending sort (ties to the lowest
 expert index, as ``lax.top_k``), dispatch each assignment to a cumsum slot
@@ -11,6 +9,19 @@ token.  The same arithmetic as ``repro/layers/moe.py`` ``_moe_local``.
 Shared experts (``n_shared_experts``) are one dense gated MLP of width
 ``n_shared_experts * d_expert`` (``params["shared"]``) added to the routed
 sum.
+
+Expert parallelism (the JAX package's ``shard_map`` body): under a mesh
+(``distributed.sharding.use_mesh``) whose ``model`` axis is larger than 1,
+each rank holds ``n_experts_padded / ep`` experts (``model`` rank r the
+experts ``r * e_local ..``: a DTensor sharded over ``model`` on its expert
+axis, or a plain tree cut once by ``keep_experts``), routes its own token
+slab (the rank's ``data`` shard, replicated over ``model``) with the
+replicated router, runs only the assignments to its experts (the others
+go to the trash slot), and the partial outputs are summed over the
+``model`` group.  A local expert's slot positions count over its own
+column, so every rank keeps and drops the tokens one rank would; with
+top-2 each token's sum over ranks is its two contributions plus exact
+zeros, rounded once, as one rank's combine rounds it: the same bits.
 """
 
 from __future__ import annotations
@@ -19,10 +30,14 @@ import math
 from typing import NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import tree
 from repro_torch.core.quant import (QuantizedTensor, fp8_grouped_linear,
                                     fp8_grouped_matmul, matmul_any,
                                     raw_matmul)
+from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              mesh_axes)
 from repro_torch.layers.common import truncated_normal
 from repro_torch.layers.embedding import gather_rows
 from repro_torch.layers.mlp import ACTIVATIONS, apply_mlp, init_mlp
@@ -93,9 +108,11 @@ def _grouped_ffn(buf: torch.Tensor, experts: dict, act: str) -> torch.Tensor:
     return _grouped_matmul(h, experts["down"])
 
 
-def _capacity(n_tokens: int, spec: MoESpec) -> int:
-    """Static per-expert capacity for the token slab."""
-    c = int(math.ceil(n_tokens * spec.top_k * spec.capacity_factor
+def _capacity(n_tokens: int, spec: MoESpec, n_shards: int) -> int:
+    """Static per-expert capacity for the local token slab of ``n_tokens //
+    n_shards`` tokens (``n_shards`` the data shards)."""
+    t_loc = max(n_tokens // n_shards, 1)
+    c = int(math.ceil(t_loc * spec.top_k * spec.capacity_factor
                       / spec.n_experts))
     return max(8, int(math.ceil(c / 8) * 8))
 
@@ -116,44 +133,119 @@ def _route(router_kernel, xt: torch.Tensor, spec: MoESpec):
     return topv, topi
 
 
-def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
-    """MoE FFN over x (B, S, D): route -> dispatch -> grouped GEMM ->
-    combine, all experts on this device."""
-    b, s, d = x.shape
-    xt = x.reshape(b * s, d)
-    t, k, e = b * s, spec.top_k, spec.n_experts_padded
-    cap = _capacity(t, spec)
+def _moe_local(params: dict, xt: torch.Tensor, spec: MoESpec, *,
+               e_start: int, e_local: int, capacity: int) -> torch.Tensor:
+    """Route -> dispatch -> grouped GEMM -> combine over the token slab
+    ``xt`` (T, D), for the experts ``e_start .. e_start + e_local`` that
+    ``params["experts"]`` holds; assignments to other experts go to the
+    trash slot and add zero.  Under expert parallelism the caller sums
+    the result over the ``model`` group."""
+    t, d = xt.shape
+    k = spec.top_k
     topv, topi = _route(params["router"]["kernel"], xt, spec)
 
     flat_e = topi.reshape(-1)                                # (T*k,)
     flat_w = topv.reshape(-1)
-    token_id = torch.arange(t, device=x.device).repeat_interleave(k)
+    token_id = torch.arange(t, device=xt.device).repeat_interleave(k)
+    local = (flat_e >= e_start) & (flat_e < e_start + e_local)
+    le = torch.where(local, flat_e - e_start, e_local)       # e_local: trash
     # position of each assignment within its expert, in flat order
-    oh = torch.nn.functional.one_hot(flat_e, e)             # (T*k, E)
+    oh = torch.nn.functional.one_hot(le, e_local + 1)       # (T*k, E_loc+1)
     pos = ((torch.cumsum(oh, dim=0) - 1) * oh).sum(dim=1)
-    keep = pos < cap
-    slot = torch.where(keep, flat_e * cap + pos, e * cap)   # e*cap = trash
+    keep = local & (pos < capacity)
+    trash = e_local * capacity
+    slot = torch.where(keep, le * capacity + pos, trash)
 
-    # dispatch into the fixed (E*C [+1 trash], D) buffer
-    buf = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=x.device)
+    # dispatch into the fixed (E_loc*C [+1 trash], D) buffer
+    buf = torch.zeros((trash + 1, d), dtype=xt.dtype, device=xt.device)
     buf[slot] = gather_rows(xt, token_id)
-    h = _grouped_ffn(buf[:-1].reshape(e, cap, d), params["experts"], spec.act)
+    h = _grouped_ffn(buf[:-1].reshape(e_local, capacity, d),
+                     params["experts"], spec.act)
 
     # combine: gather each kept assignment's output, weight, and add a
     # token's k contributions in order, each sum rounded to the activation
     # dtype: the JAX scatter-add's order on the CPU (top-k > 2 makes the
     # order matter), deterministic on the card (no atomics)
-    contrib = gather_rows(h.reshape(e * cap, d),
-                          torch.clamp(slot, max=e * cap - 1))
+    contrib = gather_rows(h.reshape(trash, d),
+                          torch.clamp(slot, max=trash - 1))
     contrib = contrib * (flat_w * keep).to(contrib.dtype)[:, None]
     contrib = contrib.reshape(t, k, d)
     y = contrib[:, 0]
     for j in range(1, k):
         y = y + contrib[:, j]
+    return y
+
+
+def _local(t):
+    """A rank's own part of an expert leaf: a DTensor's local shard."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _rank_experts(experts: dict, e_local: int) -> dict:
+    """The rank's expert tree, each leaf's expert axis exactly ``e_local``
+    long (a rank never cuts a full tree per call)."""
+    def leaf(path, w):
+        w = w.map_parts(_local) if isinstance(w, QuantizedTensor) \
+            else _local(w)
+        n = (w.data if isinstance(w, QuantizedTensor) else w).shape[0]
+        if n != e_local:
+            raise ValueError(
+                f"experts/{path} holds {n} experts, a rank of this mesh "
+                f"{e_local}: shard the expert tree once (a DTensor over "
+                f"'model', or layers.moe.keep_experts)")
+        return w
+    return tree.map_with_path(leaf, experts)
+
+
+def keep_experts(params: dict, e_start: int, e_local: int) -> dict:
+    """``params`` with every MoE expert leaf (path ``.../experts/...``,
+    stacked or not) cut to the experts ``e_start .. e_start + e_local``:
+    fresh tensors in the source's layout (a K-major payload stays K-major,
+    rows padded), so the rest can be freed.  Other leaves are shared."""
+    def cut(t):
+        part = t.narrow(t.ndim - 3, e_start, e_local)
+        return tree.empty_like(part).copy_(part)
+
+    def leaf(path, w):
+        if "/experts/" not in f"/{path}":
+            return w
+        return w.map_parts(cut) if isinstance(w, QuantizedTensor) \
+            else cut(w)
+    return tree.map_with_path(leaf, params)
+
+
+def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """MoE FFN over x (B, S, D): all experts on this device, or expert
+    parallel over the active mesh's ``model`` axis (module docstring)."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    mesh = current_mesh()
+    sizes = mesh_axes(mesh) if mesh is not None else {}
+    ep = sizes.get("model", 1)
+    if ep == 1:
+        y = _moe_local(params, xt, spec, e_start=0,
+                       e_local=spec.n_experts_padded,
+                       capacity=_capacity(b * s, spec, 1))
+    else:
+        if spec.n_experts_padded % ep:
+            raise ValueError(f"{spec.n_experts_padded} experts do not split "
+                             f"over {ep} model ranks")
+        e_local = spec.n_experts_padded // ep
+        n_dp = sizes.get("pod", 1) * sizes.get("data", 1)
+        local = {"router": params["router"],
+                 "experts": _rank_experts(params["experts"], e_local)}
+        y = _moe_local(local, xt, spec,
+                       e_start=mesh.get_local_rank("model") * e_local,
+                       e_local=e_local,
+                       capacity=_capacity(b * s * n_dp, spec, n_dp))
+        # gloo sums bf16 as c10 does (f32 add, one rounding), so the bf16
+        # partials are reduced as they are
+        dist.all_reduce(y, op=dist.ReduceOp.SUM,
+                        group=mesh.get_group("model"))
     out = y.reshape(b, s, d)
     if spec.n_shared_experts:
         out = out + apply_mlp(params["shared"], x, act=spec.act)
-    return out
+    return constrain(out, ("batch", "seq", "embed"))
 
 
 def load_balance_loss(params: dict, x: torch.Tensor,

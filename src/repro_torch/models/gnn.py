@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import GNNConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.common import mlp_stack_apply, mlp_stack_init, split
 from repro_torch.layers.embedding import gather_rows, segment_sum
 
@@ -113,6 +114,7 @@ def _egnn_layer(lp: dict, h: torch.Tensor, x: torch.Tensor,
         / torch.clamp(deg, min=1.0)[:, None]
 
     agg = segment_sum(m, dst, n_nodes).to(h.dtype)
+    agg = constrain(agg, ("nodes", None))
     h = h + mlp_stack_apply(lp["node_mlp"]["tower"],
                             torch.cat([h, agg], dim=-1), act=silu)
     return h, x
@@ -146,6 +148,7 @@ def egnn_forward(params: dict, batch: Dict[str, torch.Tensor],
     n_nodes = batch["feat"].shape[0]
     h = mlp_stack_apply(params["encoder"]["tower"],
                         batch["feat"].to(compute_dtype))
+    h = constrain(h, ("nodes", None))
     x = batch["coord"].to(torch.float32)
     edges = batch["edges"].long()
     src, dst = edges[:, 0], edges[:, 1]

@@ -25,16 +25,28 @@ from repro_torch.models import transformer as tfm
 PROFILE_DIM = 64  # stub modality frontend: precomputed profile features
 
 
-def init_onerec(seed: int, cfg: OneRecConfig, *, device=None) -> dict:
-    """Random f32 params made on ``device`` (the card unless ``"cpu"``) from
-    a ``torch.Generator`` seeded with ``seed``."""
+def init_onerec(seed: int, cfg: OneRecConfig, *, device=None,
+                transform: Optional[Callable[[str, dict], dict]] = None
+                ) -> dict:
+    """Random f32 params made on ``device`` (the card unless ``"cpu"``; a
+    template without values on ``"meta"``) from a ``torch.Generator``
+    seeded with ``seed``.  ``transform(path, subtree)`` (PTQ: ``lambda p,
+    t: ptq.quantize_params(t, policy, prefix=p)``) is applied to each
+    backbone layer as it is made and to the other leaves, with their
+    paths in the whole tree, so a full-width model never holds more than
+    one raw layer."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
+    transform = transform or (lambda _, t: t)
+    backbone = tfm.init_transformer(
+        gen, cfg.transformer, device=dev,
+        transform=lambda p, t: transform(f"backbone/{p}" if p
+                                         else "backbone", t))
     return {
-        "backbone": tfm.init_transformer(gen, cfg.transformer, device=dev),
-        "profile_proj": dense_init(gen, PROFILE_DIM, cfg.transformer.d_model,
-                                   device=dev),
+        "backbone": backbone,
+        "profile_proj": transform("profile_proj", dense_init(
+            gen, PROFILE_DIM, cfg.transformer.d_model, device=dev)),
     }
 
 

@@ -26,7 +26,8 @@ Scoring entry points:
 
 Activations are tapped at the JAX module's points (``core.stats.tap``:
 ``hist_embed``, ``din_pooled``, ``din_logit``).  Differences from the JAX
-module: no ``constrain`` (sharding waits for N9d); ``lax.scan`` is a
+module: ``constrain`` lays out only DTensors, which no caller passes
+until N9e (row-sharded tables); ``lax.scan`` is a
 Python loop over the history; ``dien_retrieval`` skips the one-user
 interest pass whose result the JAX function never reads (XLA drops it
 under ``jit``).  Tables are drawn with ``randn`` in f32 on the device.
@@ -42,6 +43,7 @@ import torch
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.core.stats import tap
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.common import (dense_init, mlp_stack_apply,
                                        mlp_stack_init, split,
                                        truncated_normal)
@@ -150,6 +152,7 @@ def two_tower_train_loss(params, batch, cfg,
     u = _two_tower_user(params, batch, cfg)
     v = _two_tower_item(params, batch["target_ids"])
     logits = (u.to(torch.float32) @ v.to(torch.float32).T) / temperature
+    logits = constrain(logits, ("batch", "candidates"))
     return _in_batch_softmax_loss(logits)
 
 
@@ -157,6 +160,7 @@ def two_tower_retrieval(params, batch, cfg) -> torch.Tensor:
     """One user against candidate_ids (N,): one batched product."""
     u = _two_tower_user(params, batch, cfg)                    # (1, d_out)
     cands = _two_tower_item(params, batch["candidate_ids"])    # (N, d_out)
+    cands = constrain(cands, ("candidates", None))
     return (u.to(torch.float32) @ cands.to(torch.float32).T)[0]
 
 
@@ -209,6 +213,7 @@ def din_retrieval(params, batch, cfg) -> torch.Tensor:
     broadcast to every candidate (no loop)."""
     hist, mask = _hist_vecs(params, batch["hist_ids"])          # (1, L, d)
     cands = _target_vecs(params, batch["candidate_ids"])        # (N, d)
+    cands = constrain(cands, ("candidates", None))
     n = cands.shape[0]
     pooled = _din_attention(params, hist.expand(n, *hist.shape[1:]),
                             mask.expand(n, mask.shape[1]), cands)
@@ -309,7 +314,7 @@ def dien_retrieval(params, batch, cfg) -> torch.Tensor:
     n = batch["candidate_ids"].shape[0]
     batch_n = {
         "hist_ids": batch["hist_ids"].expand(n, batch["hist_ids"].shape[1]),
-        "target_ids": batch["candidate_ids"],
+        "target_ids": constrain(batch["candidate_ids"], ("candidates",)),
         "field_ids": batch["field_ids"].expand(n,
                                                batch["field_ids"].shape[1]),
     }
@@ -377,12 +382,14 @@ def mind_train_loss(params, batch, cfg) -> torch.Tensor:
     caps, _ = mind_interests(params, batch, cfg)
     targets = _target_vecs(params, batch["target_ids"]).to(torch.float32)
     best = torch.einsum("bkd,nd->bkn", caps, targets).amax(1)     # (B, B)
+    best = constrain(best, ("batch", "candidates"))
     return _in_batch_softmax_loss(best)
 
 
 def mind_retrieval(params, batch, cfg) -> torch.Tensor:
     caps, _ = mind_interests(params, batch, cfg)           # (1, K, d)
     cands = _target_vecs(params, batch["candidate_ids"]).to(torch.float32)
+    cands = constrain(cands, ("candidates", None))
     return torch.einsum("kd,nd->kn", caps[0], cands).amax(0)
 
 

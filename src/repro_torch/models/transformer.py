@@ -27,6 +27,7 @@ from repro_torch import tree
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.core.stats import tap
+from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.attention import (AttnSpec, KVWrite,
                                           apply_attention, cache_len_for,
                                           init_attention, init_cache,
@@ -207,7 +208,7 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     x = gather_rows(params["embed"]["table"], tokens).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
-    return x
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def logits_from_hidden(params: dict, x: torch.Tensor,
@@ -216,7 +217,8 @@ def logits_from_hidden(params: dict, x: torch.Tensor,
     the embeddings are tied."""
     w = params["embed"]["table"].T if cfg.tie_embeddings \
         else params["lm_head"]["kernel"]
-    return matmul_any(x, w, out_dtype=torch.float32)
+    return constrain(matmul_any(x, w, out_dtype=torch.float32),
+                     ("batch", "seq", "vocab"))
 
 
 def forward(
@@ -259,7 +261,8 @@ def forward(
     same).
     """
     if inputs_embeds is not None:
-        x = inputs_embeds.to(compute_dtype)
+        x = constrain(inputs_embeds.to(compute_dtype),
+                      ("batch", "seq", "embed"))
     else:
         x = embed_tokens(params, tokens, cfg, compute_dtype)
     tap("embed_out", x)
@@ -287,6 +290,9 @@ def forward(
                 else:
                     x = _apply_layer(layers[key][i], x, cfg, kind, c_lp,
                                      attn_kw)
+                # layer-boundary residual sharding: the identity under the
+                # base rules; TRAIN_RULES_SP seq-shards saved activations
+                x = constrain(x, ("batch", "act_seq", "embed"))
                 tap(f"layer_out/{key}", x)
     if last_index is not None:
         x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]

@@ -284,7 +284,7 @@ def test_torn_checkpoints_and_foreign_dtypes(tmp_path):
     """A checkpoint without its manifest, one whose hash does not match and
     one holding a dtype torch lacks (``float8_e4m3``, IEEE) are skipped by
     ``latest_checkpoint``; loading the last names its dtype.  A template
-    that does not match and ``shardings`` (N9d) raise."""
+    that does not match raises."""
     d = str(tmp_path)
     good = store.save_checkpoint(d, 1, {"x": torch.ones(4)})
     foreign = jax_store.save_checkpoint(
@@ -306,8 +306,6 @@ def test_torn_checkpoints_and_foreign_dtypes(tmp_path):
         store.load_checkpoint(good, {"x": torch.ones(4), "y": torch.ones(1)})
     with pytest.raises(ValueError, match="does not match"):
         store.load_checkpoint(good, {"x": torch.ones(5)})
-    with pytest.raises(NotImplementedError, match="N9d"):
-        store.load_checkpoint(good, {"x": torch.ones(4)}, shardings={})
 
 
 NO_ML_DTYPES = """

@@ -1012,3 +1012,61 @@ def test_train_steps_are_run_to_run_identical(cuda):
     for (path, a), (_, c) in zip(tree.leaves_with_path(runs[0][1]),
                                  tree.leaves_with_path(runs[1][1])):
         assert torch.equal(a, c), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,K,N", [(8, 2048, 4096), (3080, 2048, 4096),
+                                   (8, 4096, 2048), (3080, 4096, 2048)])
+def test_grouped_gemm_on_four_experts_gives_the_rows_of_sixteen(cuda, C, K,
+                                                                 N):
+    """A rank of a (1, 4) expert-parallel mesh runs kernel
+    ``fp8_grouped_gemm`` on its cloned 4-expert slice of OneRec-V2's 16:
+    the same bits as those experts' rows of the E = 16 call."""
+    from repro_torch import tree
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn(16, C, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = quant.quantize_blockwise(
+        torch.randn(16, K, N, device=cuda, generator=g) / math.sqrt(K))
+    full = grouped_ops.fp8_grouped_gemm(x, w.data, w.scale)
+    for r in range(4):
+        part = w.data[4 * r:4 * r + 4]
+        part = tree.empty_like(part).copy_(part)
+        out = grouped_ops.fp8_grouped_gemm(
+            x[4 * r:4 * r + 4].contiguous(), part,
+            w.scale[4 * r:4 * r + 4].contiguous())
+        assert torch.equal(out, full[4 * r:4 * r + 4]), r
+
+
+@pytest.mark.cuda
+def test_expert_parallel_two_ranks_on_the_card(cuda, tmp_path):
+    """Reduced OneRec-V2 over two gloo ranks on card 0 (a (1, 2) mesh),
+    raw and FP8: layer 0's ``apply_moe``, the prefill's logits and
+    ``generate_items`` bit-identical to one rank on the card."""
+    import numpy as np
+    import _torch_dist as td
+    from repro_torch.configs import onerec_v2
+    from repro_torch.core.ptq import quantize_params
+    from repro_torch.models import onerec
+    from repro_torch.models import transformer as tfm
+    cfg = onerec_v2.reduced_config()
+    spec = tfm.moe_spec_for(cfg.transformer)
+    rng = np.random.default_rng(0)
+    s = cfg.history_len * cfg.n_codebooks + 1
+    x = torch.from_numpy(rng.normal(size=(4, s, cfg.transformer.d_model))
+                         .astype(np.float32)).to(torch.bfloat16)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+                 0, cfg.vocab_size, size=(4, s - 1)).astype(np.int32)),
+             "profile": torch.from_numpy(rng.normal(
+                 size=(4, onerec.PROFILE_DIM)).astype(np.float32))}
+    outs = td.run(2, td.ep_job, (((1, 2),), x, batch, "cuda"),
+                  str(tmp_path), device="cuda")
+    for fp8 in (False, True):
+        params = onerec.init_onerec(0, cfg, device=cuda)
+        if fp8:
+            params = quantize_params(params)
+        ref = td.ep_outputs(params, cfg, x.to(cuda),
+                            {k: v.to(cuda) for k, v in batch.items()}, spec)
+        for rank, out in enumerate(outs):
+            for key, want in ref.items():
+                assert torch.equal(out[(1, 2, fp8)][key], want.cpu()), \
+                    (fp8, rank, key)

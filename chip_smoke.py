@@ -186,6 +186,31 @@ from the root of a checkout.  Phases, each of which fails the run:
    templates: local shards bit-equal to global slices, placements
    ``param_sharding``'s, K-major payloads, ``fp8_gemm`` on q_proj shards
    within 1 bf16 ulp of the full product's slice.
+   Phase 2 also holds (u) ``fp8_gemm``'s given-scale mode (the row scales
+   of whole rows, read, not reduced: the row-parallel products of tensor
+   parallelism) on each of 4 K-slices of o_proj at the prefill and decode
+   rows, f32 out: against its plain version and ``OFF_EXACT_MAX``, each
+   slice's quantized payload the K-slice of one rank's bit for bit; timed
+   beside the dynamic mode and ``torch._scaled_mm``.
+9. Tensor parallelism (N9e.1): ``EP_WORLD`` ranks spawned as in phase 8,
+   against the same world-1 runs (phase 8's, which also keep the first
+   layer's output and the logits with the GEMMs' plain versions):
+   (v) full-width 12-layer OneRec-V2 served tensor and expert parallel on
+   (1, 4) and (2, 2): each rank makes the params from seed 0 (the
+   prefill_b32 bundle's, PTQ'd layer by layer) and lays them out by the
+   JAX rules (``steps.shard_args``); layer 0's q/k/v and o_proj products
+   within ``TP_GAP_ULPS`` of world 1's, its output on the prefill's input
+   within relative L2 ``TP_REL_L2``; the prefill step's logits and the
+   serve_b32 step's (``use_attention_kernel`` off and on) and a decode
+   step over the cache the prefill filled (off and on) within
+   ``TP_LOGITS_REL_L2`` / ``TP_DECODE_REL_L2`` of world 1's (a change of
+   f32 summation order alone, world 1's GEMM kernels against their plain
+   versions, puts 3.5e-2 / 1.9e-2 between its own), top-8 overlap at
+   least ``CPU_TOP8_OVERLAP``; reruns bit-identical; ``generate_items``
+   with ``radix_topk``, its items equal to world 1's on at least
+   ``TP_ITEMS_EQUAL`` of the rows; launch counts a prefill, a decode step
+   and a generation; params and peak memory a rank, prefill and decode
+   ms, each collective's bytes and ms.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -1474,8 +1499,10 @@ def plain_gemms():
     from repro_torch.kernels.fp8_grouped_gemm import ops as grouped_ops
     kept = gemm_ops.fp8_gemm, grouped_ops.fp8_grouped_gemm
 
-    def gemm(x, wq, sw, *, out_dtype=torch.bfloat16, act_scale=None):
-        return gemm_ops.fp8_gemm_plain(x, wq, sw, out_dtype, act_scale)
+    def gemm(x, wq, sw, *, out_dtype=torch.bfloat16, act_scale=None,
+             row_scale=None):
+        return gemm_ops.fp8_gemm_plain(x, wq, sw, out_dtype, act_scale,
+                                       row_scale)
 
     def grouped(x, wq, sw, *, out_dtype=torch.bfloat16):
         return grouped_ops.fp8_grouped_gemm_plain(x, wq, sw, out_dtype)
@@ -4302,10 +4329,46 @@ def grouped_e4_slices(dev):
           "call's rows")
 
 
+def _decode_tokens(dev, cfg, rows):
+    """The serve_b32 step's input: one token a row, from seed 1."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(1)
+    return torch.randint(0, cfg.vocab_size, (rows, 1), generator=g,
+                         device=dev, dtype=torch.int32)
+
+
+def _with_kernel(cfg, on: bool):
+    """``cfg`` with ``use_attention_kernel`` set to ``on``."""
+    import dataclasses
+    return dataclasses.replace(cfg, transformer=dataclasses.replace(
+        cfg.transformer, use_attention_kernel=on))
+
+
+def _filled_decode(params, tokens, cfg, cache, on: bool, index: int):
+    """A decode step of ``tokens`` (B, 1) at ``index`` over a copy of
+    ``cache``, as a prefill left it, with ``use_attention_kernel`` set to
+    ``on``: ``generate_items``' first step, its token given.  Returns the
+    logits."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models import onerec
+    copy = tree_util.map_with_path(lambda _, t: t.clone(), cache)
+    return onerec.decode_step(params, tokens, _with_kernel(cfg, on), copy,
+                              index)[0]
+
+
 def _world1(dev, cfg, rows):
     """The prefill_b32 bundle's step at world 1 on ``rows`` rows: its
     params (seed 0, PTQ'd layer by layer) and batch; the last logits and
-    ``generate_items`` of all rows and of each half alone."""
+    ``generate_items`` of all rows and of each half alone; and the
+    serve_b32 step (one token a row at index ``seq_len - 1`` of an empty
+    shared cache) on all rows and on each half, with
+    ``use_attention_kernel`` off and on (``"decode"``).  For phase 9:
+    the first layer's output of each prefill (``"layer0"``); a decode step
+    over the cache each prefill filled, its token the first of the item
+    (``"filled"``, kernel off and on); and the logits of the prefill, of
+    the decode steps and of the generation on all rows with the GEMM
+    kernels' plain versions (``"plain"``: how far a change of f32
+    summation order alone moves them)."""
     import dataclasses
     import torch
     from repro_torch.configs.onerec_v2 import SHAPES
@@ -4318,7 +4381,7 @@ def _world1(dev, cfg, rows):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     _zero(wrappers)
-    logits = b.fn(params, batch)[0]
+    logits, filled = b.fn(params, batch)
     _sync(dev)
     launches = {k: w.launches for k, w in wrappers.items()}
     times = []
@@ -4327,24 +4390,66 @@ def _world1(dev, cfg, rows):
         b.fn(params, batch)
         _sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
+    from repro_torch.core.stats import capture_taps
+    with capture_taps() as taps:
+        b.fn(params, batch)
     ref = {"all": dict(logits=logits.cpu(), items=onerec.generate_items(
-        params, batch, cfg).cpu())}
+        params, batch, cfg).cpu(), layer0=taps["layer_out/p0"].cpu())}
+    del taps
+    caches = {"all": filled}
     half = rows // 2
     for d in range(2):
         part = {k: v[d * half:(d + 1) * half] for k, v in batch.items()}
         cache = onerec.init_cache(cfg, half, device=dev)
+        with capture_taps() as taps:
+            part_logits, caches[d] = onerec.prefill(params, part, cfg, cache)
         ref[d] = dict(
-            logits=onerec.prefill(params, part, cfg, cache)[0].cpu(),
+            logits=part_logits.cpu(), layer0=taps["layer_out/p0"].cpu(),
             items=onerec.generate_items(params, part, cfg).cpu())
+        del taps
+    after = batch["tokens"].shape[1] + 1          # + the profile position
+    ref["filled"] = {}
+    for key, cache in caches.items():
+        first = ref[key]["items"][:, :1].to(dev)
+        for on in (False, True):
+            ref["filled"][key, on] = _filled_decode(
+                params, first, cfg, cache, on, after).cpu()
+    del caches, filled
+    tok = _decode_tokens(dev, cfg, rows)
+    index = SHAPES["serve_b32"].seq_len - 1
+    ref["decode"] = {}
+    for on in (False, True):
+        kcfg = _with_kernel(cfg, on)
+        for key, sl in (("all", slice(0, rows)), (0, slice(0, half)),
+                        (1, slice(half, rows))):
+            cache = onerec.init_cache(kcfg, sl.stop - sl.start, device=dev)
+            ref["decode"][key, on] = onerec.decode_step(
+                params, tok[sl], kcfg, cache, index)[0].cpu()
+    with plain_gemms():
+        plain_logits, filled = b.fn(params, batch)
+        ref["plain"] = {"prefill": plain_logits.cpu(),
+                        "items": onerec.generate_items(params, batch,
+                                                       cfg).cpu()}
+        first = ref["all"]["items"][:, :1].to(dev)
+        for on in (False, True):
+            ref["plain"]["filled", on] = _filled_decode(
+                params, first, cfg, filled, on, after).cpu()
+        del filled
+        for on in (False, True):
+            kcfg = _with_kernel(cfg, on)
+            cache = onerec.init_cache(kcfg, rows, device=dev)
+            ref["plain"][on] = onerec.decode_step(params, tok, kcfg, cache,
+                                                  index)[0].cpu()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     held = sum(t.numel() * t.element_size() for t in _tensors(params))
     return ref, {k: v.cpu() for k, v in batch.items()}, dict(
         prefill_ms=times, peak=peak, held_bytes=held, launches=launches)
 
 
-def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32):
+def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32, world1=None):
     """Phase 8 (N9d): (r) EP serving, (s) ``compressed_psum``, (t) elastic
-    restore, in ``EP_WORLD`` gloo ranks sharing the card.  Returns the EP
+    restore, in ``EP_WORLD`` gloo ranks sharing the card, against
+    ``world1`` (``_world1``'s, made here when not given).  Returns the EP
     path's launch counts (rank 0 of (1, 4): one prefill and a
     generation)."""
     import dataclasses
@@ -4364,7 +4469,7 @@ def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32):
     n_layers = cfg.transformer.n_layers
     if dev.type == "cuda":
         grouped_e4_slices(dev)
-    ref, batch, w1 = _world1(dev, cfg, rows)
+    ref, batch, w1 = world1 or _world1(dev, cfg, rows)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     print(f"[ep] world 1: prefill {rows} x {batch['tokens'].shape[1]} "
@@ -4496,6 +4601,597 @@ def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32):
     return {"ep": ep}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: tensor parallelism (N9e.1)
+# ---------------------------------------------------------------------------
+
+TP_MESHES = ((1, 4), (2, 2))     # (data, model)
+TP_DIR = os.path.join(ROOT, "build", "phase9")
+# (v): the first layer's output against world 1's on the same input,
+# relative L2.  The logits after 12 layers cannot be held so close: world
+# 1's own GEMMs against their plain versions (the same e4m3 payloads, f32
+# sums in another order) move the prefill's by 3.54e-2 and an empty-cache
+# decode step's by 1.93e-2 (measured on one NVIDIA H100 80GB HBM3 at
+# 700.00 W), a random-weight MoE stack amplifying a last-bit difference
+# through attention and flipped top-2 choices.  So the logits after a
+# prefill, and of a decode step over the cache it filled, are held to
+# TP_LOGITS_REL_L2; an empty-cache decode step's to TP_DECODE_REL_L2; all
+# of them to the top-8 overlap of phase 3; and the generated items to
+# TP_ITEMS_EQUAL, the share of rows whose item equals world 1's (a flipped
+# greedy step changes the rest of its row)
+TP_REL_L2 = 1e-2
+TP_LOGITS_REL_L2 = 5e-2
+TP_DECODE_REL_L2 = 2.5e-2
+TP_ITEMS_EQUAL = 0.75
+# (v): layer 0's products against world 1's, in bf16 ulps of the largest
+# output (``TOL``, phase 2's GEMM bound): an output near zero, where the
+# ranks' f32 partials cancel, may sit many of its own ulps off
+TP_GAP_ULPS = 1.0
+GAP_ROWS = 1024                  # (v): rows of the per-layer gap's input
+# (u): o_proj's row-parallel K-slice on a rank of (1, 4), (M, K, N) with
+# f32 out: the prefill_b32 step's 32 x 385 rows and a decode step's 32
+GIVEN_SHAPES = ((12320, 512, 2048), (32, 512, 2048))
+GIVEN_RANKS = 4
+
+
+def check_fp8_gemm_given(dev, records):
+    """(u) ``fp8_gemm``'s given-scale mode on each rank's K-slice of
+    o_proj at ``GIVEN_SHAPES``, the row scales those of the whole rows (the
+    max all-reduce's result): against its plain version (1 bf16 ulp of the
+    largest output) and the float64-summed function (``OFF_EXACT_MAX``
+    of the outputs rounded to bf16); each slice's quantized payload (the
+    kernel's f16 copies of the e4m3 values, and its row scales) equal to
+    the K-slice of one rank's dynamic-mode payload, bit for bit; rank 0's
+    slice timed beside the dynamic mode at the same shape and
+    ``torch._scaled_mm`` on operands quantized beforehand (bf16 out)."""
+    import torch
+    from repro_torch.core import quant
+    from repro_torch.kernels.fp8_gemm import ops
+    g = torch.Generator(device=dev).manual_seed(9)
+    worst, shapes = 0.0, []
+    for m, k, n in GIVEN_SHAPES:
+        kk = GIVEN_RANKS * k
+        x = torch.randn(1, m, kk, device=dev, generator=g).to(torch.bfloat16)
+        w = quant.quantize_per_channel(
+            torch.randn(kk, n, device=dev, generator=g) / math.sqrt(kk))
+        sw = w.scale.reshape(1, n).contiguous()
+        row = quant.amax_to_scale(x.float().abs().amax(-1))      # (1, M)
+        _, _, xh_full, sx_full, _, _ = ops.scratch(x, w.data.unsqueeze(0))
+        ops.quantize_pass(x, xh_full, sx_full)
+        errs, offs = [], []
+        for r in range(GIVEN_RANKS):
+            xs = x[..., r * k:(r + 1) * k].contiguous()
+            ws = quant.k_major(w.data[r * k:(r + 1) * k]).unsqueeze(0)
+            _, _, xh, sx, _, _ = ops.scratch(xs, ws)
+            ops.quantize_pass(xs, xh, sx, row_scale=row)
+            torch.cuda.synchronize()
+            if not (torch.equal(sx, sx_full) and torch.equal(
+                    xh, xh_full[..., r * k:(r + 1) * k])):
+                fail(f"fp8_gemm given M={m} K={k} N={n}: rank {r}'s payload "
+                     f"is not the K-slice of one rank's")
+            out = ops.fp8_gemm(xs, ws, sw, out_dtype=torch.float32,
+                               row_scale=row)
+            ref = ops.fp8_gemm_plain(xs, ws, sw, torch.float32,
+                                     row_scale=row)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = TOL * ref.abs().max().item()
+            if not err <= tol:
+                fail(f"fp8_gemm given M={m} K={k} N={n} rank {r}: max "
+                     f"|diff| {err} > {tol}")
+            exact = (quant.cast_to_fp8(xs, row[..., None]).double()
+                     @ ws.double()) * row.double()[..., None] \
+                * sw.double()[:, None, :]
+            offs.append(off_exact("fp8_gemm given", f"M={m} K={k} N={n} "
+                                  f"rank {r}", out.to(torch.bfloat16),
+                                  ref.to(torch.bfloat16), exact))
+            errs.append(err)
+            del exact
+        worst = max(worst, max(errs))
+        xs = x[..., :k].contiguous()
+        ws = quant.k_major(w.data[:k]).unsqueeze(0)
+        lq = quant.cast_to_fp8(xs[0], row[0][:, None])
+        scale_a = row[0][:, None].contiguous()
+
+        def given():
+            ops.fp8_gemm(xs, ws, sw, out_dtype=torch.float32, row_scale=row)
+
+        def dynamic():
+            ops.fp8_gemm(xs, ws, sw, out_dtype=torch.float32)
+
+        def library():
+            torch._scaled_mm(lq, ws[0], scale_a=scale_a, scale_b=sw,
+                             out_dtype=torch.bfloat16)
+
+        iters = 5 if m > 1024 else 50
+        t = time_turns(dict(given=given, dynamic=dynamic, library=library),
+                       iters)
+        eager = time_ms(given, iters)
+        plain_ms = time_ms(lambda: ops.fp8_gemm_plain(
+            xs, ws, sw, torch.float32, row_scale=row), iters)
+        b_ms, b_by = bound(m * k * 2 + k * n + n * 4 + m * 4 + m * n * 4,
+                           2.0 * m * n * k, FP8_OPS_PER_S)
+        off = max(o["off_exact_kernel"] for o in offs)
+        print(f"[kernel] fp8_gemm given scale M={m} K={k} N={n} (f32 out): "
+              f"max|diff| {max(errs):.3g} over {GIVEN_RANKS} rank slices, "
+              f"payloads the K-slices of one rank's bit for bit, off "
+              f"{off:.4%}; given {t['given']:.4f} ms, dynamic mode "
+              f"{t['dynamic']:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch._scaled_mm (bf16 out) {t['library']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) (device times, CUDA graphs); eager "
+              f"{eager:.4f} ms")
+        shapes.append(dict(
+            shape=f"M={m} K={k} N={n}", path="row-parallel o_proj shard",
+            timer="cuda_graph", ms=t["given"], dynamic_ms=t["dynamic"],
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=t["library"], eager_ms=eager, max_abs_err=max(errs),
+            off_exact_kernel=off,
+            off_exact_plain=max(o["off_exact_plain"] for o in offs)))
+        del x, w, xh_full
+    records["fp8_gemm_given"] = dict(shapes[0], max_abs_err=worst,
+                                     shapes=shapes)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _top8_overlap(a, b) -> float:
+    """Mean share of each row's 8 largest ids that the two agree on."""
+    import torch
+    ta = torch.topk(a.float(), 8, dim=-1).indices
+    tb = torch.topk(b.float(), 8, dim=-1).indices
+    hits = (ta[:, :, None] == tb[:, None, :]).any(-1).float()
+    return hits.mean().item()
+
+
+def _layer_gap(dev, full, laid, mesh):
+    """Layer 0's q/k/v products (column-parallel) and o_proj
+    (row-parallel) on one random bf16 input, the laid-out params' output
+    against world 1's on this rank's part: max |diff| in bf16 ulps of the
+    largest output (``TOL``)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch import tree as tree_util
+    from repro_torch.core import quant
+    from repro_torch.distributed import sharding as sh
+    g = torch.Generator(device=dev).manual_seed(11)
+    w1 = tree_util.index(full["backbone"]["stacks"]["0"]["p0"]["attn"], 0)
+    tp = tree_util.index(laid["backbone"]["stacks"]["0"]["p0"]["attn"], 0)
+    d = w1["q_proj"]["kernel"].data.shape[0]
+    rep = [Replicate()] * mesh.ndim
+    x = torch.randn(GAP_ROWS, d, generator=g, device=dev).to(torch.bfloat16)
+    gaps = {}
+    for name in ("q_proj", "k_proj", "v_proj"):
+        ref = quant.matmul_any(x, w1[name]["kernel"])
+        got = quant.matmul_any(DTensor.from_local(x, mesh, rep),
+                               tp[name]["kernel"])
+        off, n = sh.shard_range(mesh, got.placements, 1, got.shape[1])
+        gaps[name] = _max_ulps(got.to_local(), ref[:, off:off + n])
+    hd = w1["o_proj"]["kernel"].data.shape[0]
+    h = torch.randn(GAP_ROWS, hd, generator=g, device=dev).to(torch.bfloat16)
+    ref = quant.matmul_any(h, w1["o_proj"]["kernel"])
+    places = [Shard(1) if a == "model" else Replicate()
+              for a in mesh.mesh_dim_names]
+    off, n = sh.shard_range(mesh, places, 1, hd)
+    got = quant.matmul_any(DTensor.from_local(
+        h[:, off:off + n].contiguous(), mesh, places), tp["o_proj"]["kernel"])
+    gaps["o_proj"] = _max_ulps(got.to_local(), ref)
+    return gaps, _own_ulps(got.to_local(), ref)
+
+
+def _own_ulps(got, ref) -> float:
+    """max |got - ref| over the nonzero outputs, each in bf16 ulps of its
+    own |ref|."""
+    import torch
+    ref = ref.float()
+    nz = ref != 0
+    ulp = torch.exp2(torch.floor(torch.log2(ref[nz].abs())) - 7)
+    return ((got.float()[nz] - ref[nz]).abs() / ulp).max().item()
+
+
+def _max_ulps(got, ref) -> float:
+    """max |got - ref| in bf16 ulps of the largest |ref|."""
+    ref = ref.float()
+    return ((got.float() - ref).abs().max() / (TOL * ref.abs().max())
+            ).item()
+
+
+@contextlib.contextmanager
+def _timed_collectives(dev, stats):
+    """Each ``all_reduce`` and ``all_gather_into_tensor`` in the block
+    synchronized and timed apart, by the first caller outside the
+    collective helpers: ``stats[(op, caller)] = [calls, bytes, s]``."""
+    import torch.distributed as dist
+    helpers = ("sharding.py", "distributed_c10d.py", "c10d_logger.py")
+    names = ("all_reduce", "all_gather_into_tensor")
+    orig = {n: getattr(dist, n) for n in names}
+
+    def wrap(name):
+        def timed(*args, **kwargs):
+            f = sys._getframe(1)
+            while f.f_code.co_filename.endswith(helpers):
+                f = f.f_back
+            held = args[0]
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = orig[name](*args, **kwargs)
+            _sync(dev)
+            s = stats.setdefault((name, f.f_code.co_name), [0, 0, 0.0])
+            s[0] += 1
+            s[1] += held.numel() * held.element_size()
+            s[2] += time.perf_counter() - t0
+            return out
+        return timed
+
+    for n in names:
+        setattr(dist, n, wrap(n))
+    try:
+        yield stats
+    finally:
+        for n in names:
+            setattr(dist, n, orig[n])
+
+
+def tp_serving(dev, rank, cfg, rows, layer0, first, out):
+    """(v) in one rank: params from seed 0 (the prefill_b32 bundle's,
+    PTQ'd layer by layer) laid out on each mesh by ``steps.shard_args``,
+    layer 0's products against world 1's; then on each mesh the prefill
+    step (checked, rerun, timed, once more with each collective timed),
+    the serve_b32 step with ``use_attention_kernel`` off and on (and
+    rerun), a decode step over the cache the prefill filled, its tokens
+    ``first[mesh]`` (world 1's first item tokens), with the kernel off and
+    on, and ``generate_items`` with ``radix_topk`` (world 1's config: its
+    items compare with world 1's); launch counts of each; the first
+    layer's output against world 1's ``layer0`` (all rows, or each half
+    alone for a data shard of (2, 2))."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.onerec_v2 import SHAPES
+    from repro_torch.core.stats import capture_taps
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels.radix_topk.ops import radix_topk
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps
+    from repro_torch.models import onerec
+    wrappers = _wrappers()
+    gemm = wrappers["fp8_gemm"]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pre = steps.onerec_bundle("onerec-v2", cfg, dataclasses.replace(
+        SHAPES["prefill_b32"], global_batch=rows), fp8=True, device=dev)
+    dec = steps.onerec_bundle("onerec-v2", cfg, dataclasses.replace(
+        SHAPES["serve_b32"], global_batch=rows), fp8=True, device="meta")
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    meshes, laid = {}, {}
+    for n_data, n_model in TP_MESHES:
+        mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                        device_type=dev.type)
+        meshes[n_data, n_model] = mesh
+        laid[n_data, n_model] = steps.shard_args(pre, mesh, sh.INFER_RULES)
+    gaps = {key: _layer_gap(dev, pre.args[0], laid[key][0], mesh)
+            for key, mesh in meshes.items()}
+    held_full = sum(t.numel() * t.element_size() for t in
+                    _tensors(pre.args[0]))
+    pre.args = (None, None)              # the full params go
+    tok = _decode_tokens(dev, cfg, rows)
+    index = dec.args[3]
+
+    def launches():
+        got = {k: w.launches for k, w in wrappers.items()}
+        got["fp8_gemm_given"] = gemm.given_launches
+        return got
+
+    def zero():
+        _zero(wrappers)
+        gemm.given_launches = 0
+
+    for (n_data, n_model), mesh in meshes.items():
+        tag = f"({n_data}, {n_model})"
+        params, batch = laid[n_data, n_model]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        res = dict(coord=list(mesh.get_coordinate()), gaps=gaps[
+            n_data, n_model][0], own=gaps[n_data, n_model][1],
+            init_s=init_s, held_full=held_full,
+            held_bytes=sum(t.to_local().numel() * t.to_local().element_size()
+                           for t in _tensors(params)))
+        with sh.use_mesh(mesh, sh.INFER_RULES):
+            zero()
+            with capture_taps() as taps:
+                logits, filled = pre.fn(params, batch)
+            _sync(dev)
+            res["prefill_launches"] = launches()
+            lo, n = sh.shard_range(mesh, logits.placements, 0, rows)
+            want = layer0["all"][lo:lo + n] if n_data == 1 else \
+                layer0[mesh.get_coordinate()[0]]
+            res["layer0"] = _rel_l2(taps["layer_out/p0"].to_local().cpu(),
+                                    want)
+            del taps
+            times = []
+            for _ in range(2):
+                dist.barrier()
+                t1 = time.perf_counter()
+                again = pre.fn(params, batch)[0]
+                _sync(dev)
+                times.append((time.perf_counter() - t1) * 1e3)
+            res["prefill_ms"] = times
+            res["prefill_rerun_equal"] = torch.equal(again.to_local(),
+                                                     logits.to_local())
+            stats = {}
+            dist.barrier()
+            with _timed_collectives(dev, stats):
+                pre.fn(params, batch)
+            res["collectives"] = stats
+            res["logits"] = logits.to_local().cpu()
+            res["rows"] = lo, n
+            res["decode"] = {}
+            for on in (False, True):
+                kcfg = _with_kernel(cfg, on)
+                outs, ms = [], []
+                for _ in range(2):
+                    cache = onerec.init_cache(kcfg, rows, device=dev)
+                    args = (sh.lay_out_tree(cache, dec.arg_axes[1]),
+                            sh.lay_out_tree({"tokens": tok},
+                                            dec.arg_axes[2]))
+                    zero()
+                    dist.barrier()
+                    t1 = time.perf_counter()
+                    dl = onerec.decode_step(params, args[1]["tokens"], kcfg,
+                                            args[0], index)[0]
+                    _sync(dev)
+                    ms.append((time.perf_counter() - t1) * 1e3)
+                    outs.append(dl)
+                full = sh.constrain(outs[0], ("batch", None)).to_local()
+                res["decode"][on] = dict(
+                    ms=ms, launches=launches(), local=outs[0].to_local().cpu(),
+                    full=full.cpu(), cols=sh.shard_range(
+                        mesh, outs[0].placements, 1, outs[0].shape[1]),
+                    rerun_equal=torch.equal(outs[1].to_local(),
+                                            outs[0].to_local()))
+            res["filled"] = {}
+            tok1 = sh.lay_out_tree({"tokens": first[n_data, n_model].to(dev)},
+                                   dec.arg_axes[2])["tokens"]
+            for on in (False, True):
+                zero()
+                fl = _filled_decode(params, tok1, cfg, filled, on,
+                                    batch["tokens"].shape[1] + 1)
+                _sync(dev)
+                res["filled"][on] = dict(
+                    launches=launches(), local=fl.to_local().cpu(),
+                    full=sh.constrain(fl, ("batch", None)).to_local().cpu(),
+                    cols=sh.shard_range(mesh, fl.placements, 1,
+                                        fl.shape[1]))
+            del filled
+            zero()
+            items = onerec.generate_items(params, batch, cfg,
+                                          topk_fn=radix_topk)
+            _sync(dev)
+            res["generate_launches"] = launches()
+            res["items"] = items.to_local().cpu()
+        res["peak"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        out[tag] = res
+        del logits, again
+    return out
+
+
+def _phase9_rank(rank, world, tmpdir, device, cfg, rows, layer0, first):
+    """One spawned rank of phase 9 (as ``_phase8_rank``)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import build
+    torch.set_num_threads(2)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    dev = resolve_device(device)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(tmpdir, "store"), world),
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    try:
+        out = {"rank": rank,
+               "v": tp_serving(dev, rank, cfg, rows, layer0, first, {})}
+        if build.BUILDS:
+            raise AssertionError(f"rank {rank} ran nvcc {build.BUILDS} "
+                                 f"times: it must load the parent's builds")
+        torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(dev, world1, cfg=None, rows=32):
+    """Phase 9 (N9e.1): (v) full-width OneRec-V2 served tensor and expert
+    parallel in ``EP_WORLD`` gloo ranks sharing the card, against
+    ``world1`` (``_world1``'s).  Returns the path's launch counts (rank 0
+    of (1, 4): a prefill, two decode steps and a generation)."""
+    import tempfile
+    import torch
+    from repro_torch.configs.onerec_v2 import CONFIG
+    t_phase = time.perf_counter()
+    cfg = cfg or CONFIG
+    n_layers = cfg.transformer.n_layers
+    ref = world1[0]
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    tmp = tempfile.mkdtemp(dir=TP_DIR)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    layer0 = {k: ref[k]["layer0"] for k in ("all", 0, 1)}
+    # the first item token of each row, as world 1 generated it for the
+    # rows a mesh's data shard holds
+    first = {(1, 4): ref["all"]["items"][:, :1],
+             (2, 2): torch.cat([ref[0]["items"][:, :1],
+                                ref[1]["items"][:, :1]])}
+    torch.multiprocessing.spawn(_phase9_rank, args=(
+        EP_WORLD, tmp, dev.type, cfg, rows, layer0, first),
+        nprocs=EP_WORLD)
+    ranks_s = time.perf_counter() - t0
+    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(EP_WORLD)]
+    per_prefill = {"fp8_gemm": 4 * n_layers, "fp8_gemm_given": n_layers,
+                   "fp8_grouped_gemm": 3 * n_layers, "batch_attention": 0,
+                   "radix_topk": 0}
+    per_decode = {True: dict(per_prefill, batch_attention=n_layers),
+                  False: per_prefill}
+    steps_n = 1 + cfg.decode_len
+    per_generate = {k: v * steps_n for k, v in per_prefill.items()}
+    per_generate.update(radix_topk=cfg.decode_len)
+    worst = dict(prefill=0.0, decode=0.0, filled=0.0, gap=0.0, layer0=0.0,
+                 own=0.0)
+    items_equal = 1.0
+    plain = ref["plain"]
+    floor = {"prefill": _rel_l2(plain["prefill"], ref["all"]["logits"])}
+    for on in (False, True):
+        floor[on] = _rel_l2(plain[on], ref["decode"]["all", on])
+        floor["filled", on] = _rel_l2(plain["filled", on],
+                                      ref["filled"]["all", on])
+    plain_items = (plain["items"] == ref["all"]["items"]).all(-1)
+    print(f"[tp] (v) world 1's GEMM kernels against their plain versions "
+          f"(the same payloads, f32 sums in another order): prefill logits "
+          f"rel L2 {floor['prefill']:.3e}, top-8 overlap "
+          f"{_top8_overlap(plain['prefill'], ref['all']['logits']):.3f}; "
+          f"decode {floor[False]:.3e} (kernel on {floor[True]:.3e}); "
+          f"decode over the filled cache {floor['filled', False]:.3e} "
+          f"(kernel on {floor['filled', True]:.3e}), top-8 overlap "
+          f"{_top8_overlap(plain['filled', False], ref['filled']['all', False]):.3f}"
+          f"; items equal {plain_items.float().mean().item():.3f}.  "
+          f"Bounds: prefill and filled-cache logits rel L2 "
+          f"{TP_LOGITS_REL_L2}, empty-cache decode {TP_DECODE_REL_L2}, "
+          f"top-8 overlap {CPU_TOP8_OVERLAP}, items equal {TP_ITEMS_EQUAL}")
+    failures = []
+    for n_data, n_model in TP_MESHES:
+        tag = f"({n_data}, {n_model})"
+        for o in outs:
+            r = o["v"][tag]
+            d, m = r["coord"]
+            key = "all" if n_data == 1 else d
+            lo, n = r["rows"]
+            want = ref[key]["logits"] if n_data > 1 else \
+                ref["all"]["logits"][lo:lo + n]
+            rel = _rel_l2(r["logits"], want)
+            over = _top8_overlap(r["logits"], want)
+            who = f"(v) {tag} rank {o['rank']}"
+            if not r["layer0"] <= TP_REL_L2:
+                failures.append(f"{who}: layer 0's output rel L2 "
+                                f"{r['layer0']:.3e} > {TP_REL_L2}")
+            if not rel <= TP_LOGITS_REL_L2:
+                failures.append(f"{who}: prefill logits rel L2 {rel:.3e} > "
+                                f"{TP_LOGITS_REL_L2}")
+            if not over >= CPU_TOP8_OVERLAP:
+                failures.append(f"{who}: prefill top-8 overlap {over:.3f} "
+                                f"< {CPU_TOP8_OVERLAP}")
+            if not r["prefill_rerun_equal"]:
+                failures.append(f"{who}: a rerun of the prefill differs")
+            worst["prefill"] = max(worst["prefill"], rel)
+            worst["layer0"] = max(worst["layer0"], r["layer0"])
+            dec_line = []
+            for what, want_all, bound in (
+                    ("decode", ref["decode"], TP_DECODE_REL_L2),
+                    ("filled", ref["filled"], TP_LOGITS_REL_L2)):
+                for on, dres in r[what].items():
+                    want_d = want_all[key, on]
+                    if n_data == 1:
+                        want_d = want_d[lo:lo + n]
+                    c0, cn = dres["cols"]
+                    rel_d = _rel_l2(dres["local"], want_d[:, c0:c0 + cn])
+                    over_d = _top8_overlap(dres["full"], want_d)
+                    if not (rel_d <= bound and over_d >= CPU_TOP8_OVERLAP):
+                        failures.append(
+                            f"{who}: {what} decode (kernel {on}) rel L2 "
+                            f"{rel_d:.3e} (bound {bound}), top-8 overlap "
+                            f"{over_d:.3f}")
+                    if "rerun_equal" in dres and not dres["rerun_equal"]:
+                        failures.append(f"{who}: a rerun of the decode "
+                                        f"step (kernel {on}) differs")
+                    worst[what] = max(worst[what], rel_d)
+                    dec_line.append(
+                        f"{'empty' if what == 'decode' else 'filled'} cache"
+                        f", kernel {'on' if on else 'off'}: rel L2 "
+                        f"{rel_d:.2e} top-8 {over_d:.3f}" + (
+                            f" {dres['ms'][0]:.1f} / {dres['ms'][1]:.1f} ms"
+                            if "ms" in dres else ""))
+                    if dev.type == "cuda" and dres["launches"] != dict(
+                            dres["launches"], **per_decode[on]):
+                        failures.append(f"{who}: {what} decode launches "
+                                        f"{dres['launches']}, not "
+                                        f"{per_decode[on]}")
+            for name, ulps in r["gaps"].items():
+                if not ulps <= TP_GAP_ULPS:
+                    failures.append(f"{who}: layer 0 {name} {ulps} bf16 ulps"
+                                    f" off world 1 (bound {TP_GAP_ULPS})")
+                worst["gap"] = max(worst["gap"], ulps)
+            worst["own"] = max(worst["own"], r["own"])
+            for launched, expect, what in (
+                    (r["prefill_launches"], per_prefill, "a prefill"),
+                    (r["generate_launches"], per_generate,
+                     "a generation")):
+                if dev.type == "cuda" and launched != dict(launched,
+                                                           **expect):
+                    failures.append(f"{who}: {what} launched {launched}, "
+                                    f"not {expect}")
+            items = ref[key]["items"] if n_data > 1 else \
+                ref["all"]["items"][lo:lo + n]
+            same = (r["items"] == items).all(-1).float().mean().item()
+            if not same >= TP_ITEMS_EQUAL:
+                failures.append(f"{who}: items equal to world 1's on "
+                                f"{same:.3f} of the rows < {TP_ITEMS_EQUAL}")
+            items_equal = min(items_equal, same)
+            coll = "; ".join(
+                f"{op} in {site} {c} x, {b / 1e6:.1f} MB, {s * 1e3:.1f} ms"
+                for (op, site), (c, b, s) in sorted(r["collectives"].items()))
+            print(f"[tp] (v) {tag} rank {o['rank']} (data {d}, model {m}): "
+                  f"params {r['held_bytes'] / 1e9:.3f} GB laid out (full "
+                  f"{r['held_full'] / 1e9:.3f} GB, made in {r['init_s']:.1f}"
+                  f" s), peak {r['peak'] / 2**30:.2f} GiB; prefill of "
+                  f"{rows} x 385 tokens (rows {lo}-{lo + n - 1}) "
+                  f"{r['prefill_ms'][0]:.1f} / {r['prefill_ms'][1]:.1f} ms, "
+                  f"layer 0's output rel L2 {r['layer0']:.2e}, logits rel "
+                  f"L2 {rel:.2e}, top-8 overlap {over:.3f}, rerun "
+                  f"bit-identical {r['prefill_rerun_equal']}; decode: "
+                  f"{'; '.join(dec_line)}; items "
+                  f"equal to world 1's {same:.3f}; layer 0's products off "
+                  f"world 1's in bf16 ulps of the largest output "
+                  f"{ {k: round(v, 2) for k, v in r['gaps'].items()} } "
+                  f"(o_proj in an output's own ulps {r['own']:.2f}); "
+                  f"launches a prefill {r['prefill_launches']}, a "
+                  f"generation {r['generate_launches']}; collectives of a "
+                  f"prefill (gloo through host memory, ranks time-sliced "
+                  f"on one card): {coll}")
+    if failures:
+        fail("; ".join(failures))
+    print(f"[tp] (v) every rank: layer 0's output within rel L2 "
+          f"{worst['layer0']:.2e} of world 1's (bound {TP_REL_L2}), its "
+          f"products within {worst['gap']:.2f} bf16 ulps of the largest "
+          f"output (o_proj's largest gap in an output's own ulps "
+          f"{worst['own']:.2f}, not held); logits within rel L2 "
+          f"{worst['prefill']:.2e} (prefill), {worst['filled']:.2e} "
+          f"(decode over the filled cache; bound {TP_LOGITS_REL_L2}) and "
+          f"{worst['decode']:.2e} (empty-cache decode; bound "
+          f"{TP_DECODE_REL_L2}) of world 1, top-8 overlap >= "
+          f"{CPU_TOP8_OVERLAP}; items equal on >= {items_equal:.3f} of "
+          f"the rows (bound {TP_ITEMS_EQUAL}); reruns bit-identical, no "
+          f"nvcc in any rank")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    r0 = outs[0]["v"]["(1, 4)"]
+    tp = {k: r0["prefill_launches"][k] + r0["generate_launches"][k]
+          + sum(dres["launches"][k] for what in ("decode", "filled")
+                for dres in r0[what].values())
+          for k in r0["prefill_launches"]}
+    print(f"[tp] ranks {ranks_s:.1f} s; phase 9 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {"tp": tp}
+
+
 def main() -> int:
     try:
         import torch
@@ -4522,6 +5218,7 @@ def main() -> int:
 
     records = {}
     check_fp8_gemm(dev, records)
+    check_fp8_gemm_given(dev, records)
     check_fp8_gemm_recsys(dev, records)
     check_fp8_grouped_gemm(dev, records)
     check_int8_product(dev, records)
@@ -4543,11 +5240,17 @@ def main() -> int:
     distribution_phase(dev)
     training_phase(dev)
     checkpoint_phase(dev, paged_outs, by_path["paged"])
-    by_path.update(ep_phase(dev))
+    from repro_torch.configs.onerec_v2 import CONFIG
+    world1 = _world1(dev, CONFIG, 32)        # phases 8 and 9 hold to it
+    by_path.update(ep_phase(dev, world1=world1))
+    by_path.update(tp_phase(dev, world1))
 
-    # (TPU kernel it replaces, the main path whose run it is counted in)
+    # (TPU kernel it replaces, the main path whose run it is counted in);
+    # the given-scale mode of fp8_gemm is counted in phase 9's run
     replaces = {
         "fp8_gemm": ("src/repro/kernels/fp8_gemm/kernel.py:27", "paged"),
+        "fp8_gemm_given": ("src/repro/kernels/fp8_gemm/kernel.py:27 (the "
+                           "row-parallel products XLA partitions)", "tp"),
         "fp8_grouped_gemm":
             ("src/repro/kernels/fp8_grouped_gemm/kernel.py:27", "paged"),
         "paged_decode":
@@ -4560,9 +5263,14 @@ def main() -> int:
     kernels = []
     for name, (tpu, path) in replaces.items():
         r = records[name]
+        source = build.SOURCES["fp8_gemm" if name == "fp8_gemm_given"
+                               else name]
+        # the given-scale mode is counted in phase 9's run alone
+        counted = [(path, by_path[path])] if name == "fp8_gemm_given" \
+            else by_path.items()
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{build.SOURCES[name]}",
+            "source": f"src/repro_torch/csrc/{source}",
             "replaces": tpu, "launches": by_path[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -4574,7 +5282,7 @@ def main() -> int:
                                        "cases_ms", "beam", "zoo",
                                        "recsys")
                if key in r},
-            "launches_by_path": {p: c[name] for p, c in by_path.items()}})
+            "launches_by_path": {p: c[name] for p, c in counted}})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ Sharded trees (the JAX elastic re-shard path, ``distributed/elastic.py``):
     on every rank (``full_tensor``), rank 0 writes, and every rank returns
     the path after a barrier: the same files and hash as one rank's save
     of the same values.  ``AsyncCheckpointer`` of DTensors waits for
-    ROADMAP.md queue N, item N9e.
+    ROADMAP.md queue N, item N9e.4.
 
 Durability contract (fault tolerance):
   * writes go to ``<dir>/tmp.<step>.<pid>`` and are atomically renamed,
@@ -278,36 +278,14 @@ def load_checkpoint(path: str, template: Any, *, shardings: Any = None,
     return _unflatten(template, iter(out)), manifest
 
 
-def _k_major(t: torch.Tensor) -> bool:
-    return t.ndim >= 2 and t.stride(-2) == 1 and t.stride(-1) != 1
-
-
 def _shard(src: torch.Tensor, template: torch.Tensor, sharding):
     """The rank's slice of the global leaf ``src`` as a ``DTensor`` on
     ``sharding.mesh`` (on its device, in the template's layout)."""
-    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch.distributed.sharding import lay_out
     mesh = sharding.mesh
-    places = sharding.placements
-    coord = mesh.get_coordinate()
-    local = src
-    for dim in range(src.ndim):
-        idx, count = 0, 1
-        for i, pl in enumerate(places):      # mesh order: the first major
-            if isinstance(pl, Shard) and pl.dim == dim:
-                idx = idx * mesh.size(i) + coord[i]
-                count *= mesh.size(i)
-        if count > 1:
-            n = src.shape[dim] // count
-            local = local.narrow(dim, idx * n, n)
     dev = torch.device(mesh.device_type, torch.cuda.current_device()) \
         if mesh.device_type == "cuda" else torch.device(mesh.device_type)
-    if _k_major(template):
-        local = quant.k_major(local.to(dev))
-    else:
-        local = torch.empty(local.shape, dtype=local.dtype,
-                            device=dev).copy_(local)
-    return DTensor.from_local(local, mesh, places, run_check=False,
-                              shape=src.shape, stride=template.stride())
+    return lay_out(src, sharding, layout=template, device=dev)
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

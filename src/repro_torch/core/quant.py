@@ -294,7 +294,13 @@ def fp8_linear(x: torch.Tensor, wq: QuantizedTensor, *, out_dtype=None,
     the cast with it: no runtime amax reduction), fp8 x fp8 dot with f32
     accumulation, rescale by (act scale x channel scale), cast.  ``wq`` is
     one ``(in, out)`` kernel (a layer slice), per-channel over the output
-    axis.  Runs as kernel ``fp8_gemm`` (its static mode with a scale)."""
+    axis.  Runs as kernel ``fp8_gemm`` (its static mode with a scale).
+    ``DTensor`` operands run tensor parallel (``tp_matmul``)."""
+    # imported here: the distributed package imports this module
+    import repro_torch.distributed.sharding as sh
+    if sh.is_dtensor(x) or sh.is_dtensor(wq.data):
+        return tp_matmul(x, wq, out_dtype=out_dtype or x.dtype,
+                         act_scale=act_scale)
     if wq.granularity not in ("per_channel", "per_tensor"):
         raise ValueError(f"fp8_linear needs per_channel/per_tensor weights, "
                          f"got {wq.granularity}")
@@ -526,8 +532,10 @@ def raw_matmul(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     the tensor cores (cuBLAS with f32 accumulation, ``device.py``) with no
     f32 copies (``_card_product``), through ``_CardProduct`` whose backward
     sums the same way.  ``b`` is 2-D, or 3-D with ``a`` 3-D (a batch of
-    products)."""
-    if a.device.type == "cpu" or a.dtype == torch.float32:
+    products).  On ``meta`` (the dry run's shapes) the CPU's form: the same
+    result shape and operation count (``baddbmm`` with an ``out_dtype`` has
+    no meta kernel)."""
+    if a.device.type in ("cpu", "meta") or a.dtype == torch.float32:
         return torch.matmul(a.to(torch.float32),
                             b.to(torch.float32)).to(out_dtype)
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
@@ -540,8 +548,12 @@ def matmul_any(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
     weights through ``fp8_block_matmul``, int8 through ``int8_linear``,
     the rest through ``fp8_linear``.  A raw weight is cast to the
     activation dtype and multiplied by ``raw_matmul`` (f32 sums, so an f32
-    ``out_dtype`` gets the unrounded sum)."""
+    ``out_dtype`` gets the unrounded sum).  ``DTensor`` operands run tensor
+    parallel (``tp_matmul``)."""
+    import repro_torch.distributed.sharding as sh
     out_dtype = out_dtype or x.dtype
+    if sh.is_dtensor(x) or sh.is_dtensor(_payload(w)):
+        return tp_matmul(x, w, out_dtype=out_dtype)
     if isinstance(w, QuantizedTensor):
         if w.granularity == "block":
             return fp8_block_matmul(x, w, out_dtype=out_dtype)
@@ -549,6 +561,113 @@ def matmul_any(x: torch.Tensor, w, *, out_dtype=None) -> torch.Tensor:
             return int8_linear(x, w, out_dtype=out_dtype)
         return fp8_linear(x, w, out_dtype=out_dtype)
     return raw_matmul(x, w.to(x.dtype), out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the products on DTensors
+# ---------------------------------------------------------------------------
+
+
+def _payload(w):
+    return w.data if isinstance(w, QuantizedTensor) else w
+
+
+def tp_matmul(x, w, *, out_dtype, act_scale=None):
+    """``x @ w`` (``matmul_any``'s function) with ``x`` and the weight's
+    parts ``DTensor``s on one mesh (a plain weight is a rank's full copy:
+    replicated), by the weight's layout on each mesh dim:
+
+      * replicated (the router, small dense nets): the local product;
+      * column-parallel (weight ``Shard`` on its output axis, x
+        replicated): the local product, output ``Shard`` on its last dim;
+        fp8 per-token scales reduce over the full, replicated K, so the
+        rank's e4m3 payload is one rank's, bit for bit;
+      * row-parallel (weight ``Shard`` on its contraction axis, x
+        ``Shard`` on its last): fp8 weights take the per-row amax of the
+        local slab, a max all-reduce over the mesh dim (exact),
+        ``amax_to_scale``, kernel ``fp8_gemm`` in its given-scale mode
+        with f32 output (or its static mode, given a static scale), a sum
+        all-reduce of the f32 partials, one rounding to ``out_dtype``; raw
+        weights the f32 partial product, summed, rounded once.  The local
+        payload is the slice of one rank's, bit for bit: only the f32 sum
+        over ranks is associated otherwise.
+
+    x's rows may be sharded where the weight is replicated (the ``data``
+    axis).  Any other layout raises: nothing is gathered silently."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    import repro_torch.distributed.sharding as sh
+    wdata = _payload(w)
+    mesh = (x if sh.is_dtensor(x) else wdata).device_mesh
+    w_nd, x_nd = wdata.ndim, x.ndim
+    x_pl = x.placements if sh.is_dtensor(x) \
+        else [Replicate()] * mesh.ndim
+    w_pl = wdata.placements if sh.is_dtensor(wdata) \
+        else [Replicate()] * mesh.ndim
+    if sh.is_dtensor(wdata) and wdata.device_mesh != mesh:
+        raise ValueError("tp_matmul: operands on two meshes")
+    out_pl, rows = [], []
+    for i, (xp, wp) in enumerate(zip(x_pl, w_pl)):
+        if wp == Replicate() and (xp == Replicate() or (
+                isinstance(xp, Shard) and xp.dim < x_nd - 1)):
+            out_pl.append(xp)
+        elif wp == Shard(w_nd - 1) and xp == Replicate():
+            out_pl.append(Shard(x_nd - 1))
+        elif wp == Shard(w_nd - 2) and xp == Shard(x_nd - 1):
+            out_pl.append(Replicate())
+            rows.append(mesh.get_group(i))
+        else:
+            raise ValueError(
+                f"tp_matmul: no tensor-parallel product takes x {xp} "
+                f"against a weight {wp} on mesh dim "
+                f"{mesh.mesh_dim_names[i]} (x {tuple(x.shape)}, weight "
+                f"{tuple(wdata.shape)})")
+    xl = sh.local_shard(x)
+    wl = w.map_parts(sh.local_shard) if isinstance(w, QuantizedTensor) \
+        else sh.local_shard(w)
+    if not rows:
+        if act_scale is not None:
+            out = fp8_linear(xl, wl, out_dtype=out_dtype,
+                             act_scale=sh.local_shard(act_scale))
+        else:
+            out = matmul_any(xl, wl, out_dtype=out_dtype)
+    else:
+        out = _row_parallel(xl, wl, rows, out_dtype,
+                            None if act_scale is None
+                            else sh.local_shard(act_scale))
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def _row_parallel(x, w, groups, out_dtype, act_scale):
+    """The rank's K-slice product summed over ``groups`` (``tp_matmul``'s
+    row-parallel case) on local tensors."""
+    import repro_torch.distributed.sharding as sh
+    f32 = torch.float32
+    if not isinstance(w, QuantizedTensor):
+        part = raw_matmul(x, w.to(x.dtype), f32)
+    else:
+        if w.granularity not in ("per_channel", "per_tensor") \
+                or w.data.dtype == torch.int8:
+            raise ValueError(f"tp_matmul: a row-parallel {w.granularity} "
+                             f"{w.data.dtype} weight is not supported")
+        k, n = w.data.shape
+        lead = x.shape[:-1]
+        xs = x.reshape(1, -1, k)
+        sw = w.scale.reshape(1, -1).expand(1, n).contiguous()
+        act_scale = act_scale if act_scale is not None else w.act_scale
+        if act_scale is not None:
+            part = fp8_gemm_ops.fp8_gemm(xs, w.data.unsqueeze(0), sw,
+                                         out_dtype=f32, act_scale=act_scale)
+        else:
+            amax = _amax(xs, -1)
+            for g in groups:
+                sh.all_reduce(amax, g, "max")
+            part = fp8_gemm_ops.fp8_gemm(xs, w.data.unsqueeze(0), sw,
+                                         out_dtype=f32,
+                                         row_scale=amax_to_scale(amax))
+        part = part.reshape(*lead, n)
+    for g in groups:
+        sh.all_reduce(part, g, "sum")
+    return part.to(out_dtype)
 
 
 def quant_error(x: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:

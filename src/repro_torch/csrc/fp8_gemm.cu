@@ -1,17 +1,23 @@
-// Kernel fp8_gemm: per-row fp8 quantization (a dynamic scale per row, or
-// one static calibrated scale), then an fp8 GEMM.
+// Kernel fp8_gemm: per-row fp8 quantization (a dynamic scale per row, one
+// static calibrated scale, or a given scale per row), then an fp8 GEMM.
 //
 // Replaces the Pallas kernel repro/kernels/fp8_gemm/kernel.py
 // (_gemm_kernel / fp8_gemm_pallas).  For each of E independent products:
 //   x (M, K) bf16, wq (K, N) e4m3, sw (N) f32  ->  out (M, N) bf16
 //   sx[m]   = max(amax_k |x[m, k]|, 1e-12) / 448           (dynamic), or
-//   sx[m]   = s, the calibrated scale, for every row      (static)
+//   sx[m]   = s, the calibrated scale, for every row      (static), or
+//   sx[m]   = s[m], a scale given per row                 (given)
 //   xq[m,k] = e4m3(clip(x[m, k] / sx[m], -448, 448))      (round to nearest)
 //   out     = bf16((sum_k xq[m, k] * wq[k, n]) * sx[m] * sw[n])   f32 sum
 // The quantization is bit-identical to repro.core.quant.cast_to_fp8: a true
 // IEEE division (never a reciprocal multiply), the clip, then the
-// saturating round-to-nearest conversion.  The static mode reads its scale
-// from device memory and skips the amax reduction; the GEMM is the same.
+// saturating round-to-nearest conversion.  The static and given modes read
+// their scales from device memory and skip the amax reduction; the GEMM is
+// the same.  The given mode serves a row-parallel product under tensor
+// parallelism: a rank holds a K-slice of each row, the per-row amax is
+// reduced over the ranks outside the kernel (a max all-reduce), and each
+// rank casts its slice with the global row's scale, so its e4m3 payload is
+// the slice of the one-rank payload bit for bit.
 //
 // What bounds it on the H100: at a decode step (M = 32 rows) it must read
 // the whole fp8 weight once, so it is bound by bytes (K*N bytes over
@@ -92,7 +98,8 @@ __device__ __forceinline__ uint4 load8(const __nv_bfloat16* __restrict__ src,
 // x (R, K) bf16 -> xh (R, Kp) f16 in the chunks' k order (Kp = K rounded
 // up to 128, zeros past K) and sx (R) f32, one warp per row; any K >= 1
 // and rows at any 2-byte boundary (load8<false>).  `fixed` null: the dynamic
-// scale of each row; else *fixed for every row.  A row of up to 2048
+// scale of each row; else fixed[row] when `per_row` (the given mode), or
+// *fixed for every row (the static mode).  A row of up to 2048
 // elements is read once and held in registers; a longer one is read twice
 // (the second time from cache).  Also zeroes `counters` (n_counters ints)
 // for the split-K reduction of the GEMM launched after it on the same
@@ -102,7 +109,8 @@ __global__ void __launch_bounds__(256)
 quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
                      uint32_t* __restrict__ xh, float* __restrict__ sx,
                      long R, int K, int Kp, const float* __restrict__ fixed,
-                     int* __restrict__ counters, int n_counters) {
+                     int per_row, int* __restrict__ counters,
+                     int n_counters) {
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n_counters;
        i += (long)gridDim.x * blockDim.x)
     counters[i] = 0;
@@ -113,7 +121,7 @@ quantize_rows_kernel(const __nv_bfloat16* __restrict__ x,
   uint32_t* dst = xh + row * (Kp / 2);
   const int vecs = (K + 7) / 8;
   const bool held = vecs <= 32 * HELD;
-  float s = fixed != nullptr ? *fixed : 0.0f;
+  float s = fixed != nullptr ? fixed[per_row ? row : 0] : 0.0f;
   uint4 v[HELD];
   float a = 0.0f;
   if (held) {
@@ -507,14 +515,15 @@ void allow_smem() {
 
 int padded(int K) { return (K + CHUNK - 1) / CHUNK * CHUNK; }
 
-int quantize(const void* x, void* xh, void* sx, const void* fixed, long rows,
-             int K, void* counters, int n_counters, cudaStream_t st) {
+int quantize(const void* x, void* xh, void* sx, const void* fixed,
+             int per_row, long rows, int K, void* counters, int n_counters,
+             cudaStream_t st) {
   const bool vec = K % 8 == 0 && ((uintptr_t)x & 15) == 0;
   auto kernel =
       vec ? quantize_rows_kernel<true> : quantize_rows_kernel<false>;
   kernel<<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
       (const __nv_bfloat16*)x, (uint32_t*)xh, (float*)sx, rows, K, padded(K),
-      (const float*)fixed, (int*)counters, n_counters);
+      (const float*)fixed, per_row, (int*)counters, n_counters);
   return (int)cudaGetLastError();
 }
 
@@ -568,10 +577,11 @@ int gemm(const void* xh, const void* w, const void* sx, const void* sw,
 // when out_f32;
 // scratch xh (E, M, Kp) f16, Kp = K rounded up to 128, and sx (E, M) f32;
 // `fixed` null for the dynamic scales, else a device pointer to the one
-// static scale.  splits == 0 runs the prefill path; splits >= 1 the decode
-// path with `splits` splits of `cps` chunks each, with part (splits * tiles
-// * 2048) f32 and counters (E * ceil(M / 32) * ceil(N / 64) ints, zeroed
-// here by the quantization pass) as its scratch.  Any K, N >= 1; ldw
+// static scale, or with `per_row` to E * M given scales, one a row.
+// splits == 0 runs the prefill path; splits >= 1 the decode path with
+// `splits` splits of `cps` chunks each, with part (splits * tiles * 2048)
+// f32 and counters (E * ceil(M / 32) * ceil(N / 64) ints, zeroed here by
+// the quantization pass) as its scratch.  Any K, N >= 1; ldw
 // (>= K) and sew multiples of 16; w and the scratch 16-byte aligned, x
 // 2-byte aligned.  Returns cudaGetLastError()
 // after the launches, or minus the CUresult of a refused tensor-map
@@ -581,13 +591,13 @@ extern "C" int fp8_gemm_launch(const void* x, const void* w, const void* sw,
                                void* counters, const void* fixed, int E,
                                int M, int N, int K, long long ldw,
                                long long sew, int splits, int cps,
-                               int out_f32, void* stream) {
+                               int out_f32, int per_row, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int n_counters = splits > 0 ? E * ((M + dc::BM - 1) / dc::BM) *
                                           ((N + dc::BN - 1) / dc::BN)
                                     : 0;
-  const int code = quantize(x, xh, sx, fixed, (long)E * M, K, counters,
-                            n_counters, st);
+  const int code = quantize(x, xh, sx, fixed, per_row, (long)E * M, K,
+                            counters, n_counters, st);
   if (code != 0) return code;
   return gemm(xh, w, sx, sw, out, out_f32, part, counters, E, M, N, K, ldw,
               sew, splits, cps, st);
@@ -598,8 +608,8 @@ extern "C" int fp8_gemm_launch(const void* x, const void* w, const void* sw,
 // (the last block of each tile leaves its counter at zero again).
 extern "C" int fp8_gemm_quantize_launch(const void* x, void* xh, void* sx,
                                         const void* fixed, long long rows,
-                                        int K, void* stream) {
-  return quantize(x, xh, sx, fixed, (long)rows, K, nullptr, 0,
+                                        int K, int per_row, void* stream) {
+  return quantize(x, xh, sx, fixed, per_row, (long)rows, K, nullptr, 0,
                   (cudaStream_t)stream);
 }
 

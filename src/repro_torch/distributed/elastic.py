@@ -23,27 +23,41 @@ from repro_torch.distributed.sharding import (AxisRules, NamedSharding,
                                               logical_to_spec)
 
 
-def _sharding(path: str, leaf, mesh, rules: AxisRules) -> NamedSharding:
-    axes = infer_param_axes(path, leaf.ndim)
+def _sharding(axes, leaf, mesh, rules: AxisRules) -> NamedSharding:
     spec = logical_to_spec(axes, rules=rules, mesh=mesh)
     return NamedSharding(mesh, _divides(mesh, spec, tuple(leaf.shape)))
 
 
-def shardings_for_tree(tree: Any, mesh,
-                       rules: Optional[AxisRules] = None) -> Any:
-    """A ``NamedSharding`` for every leaf via the param-axis rules, in the
-    tree's structure.  Paths are the JAX package's: keys joined with
-    ``/``, a ``QuantizedTensor``'s children ``/0`` (data), ``/1`` (scale)
-    and ``/2`` (act_scale), their flat indices."""
+def _part(axes, name: str):
+    return getattr(axes, name) if isinstance(axes, QuantizedTensor) \
+        else axes
+
+
+def shardings_for_tree(tree: Any, mesh, rules: Optional[AxisRules] = None,
+                       axes: Any = None) -> Any:
+    """A ``NamedSharding`` for every leaf, in the tree's structure (the
+    dry run's ``shardings_for``): its logical axes from ``axes``, a tree
+    of the same structure (``launch.steps.params_axes`` / ``cache_axes``
+    / ``batch_axes``; one tuple for a ``QuantizedTensor`` is every part's,
+    the scale inheriting the kernel's axes), or by default the param-axis
+    rules of its path.
+    Paths are the JAX package's: keys joined with ``/``, a
+    ``QuantizedTensor``'s children ``/0`` (data), ``/1`` (scale) and
+    ``/2`` (act_scale), their flat indices."""
     rules = rules or TRAIN_RULES
+    given = None if axes is None else dict(tree_util.leaves_with_path(axes))
 
     def leaf(path, w):
         if isinstance(w, QuantizedTensor):
             return dataclasses.replace(w, **{
                 name: None if getattr(w, name) is None
-                else _sharding(f"{path}/{i}", getattr(w, name), mesh, rules)
+                else _sharding(
+                    infer_param_axes(f"{path}/{i}", getattr(w, name).ndim)
+                    if given is None else _part(given[path], name),
+                    getattr(w, name), mesh, rules)
                 for i, name in enumerate(_QT_CHILDREN)})
-        return _sharding(path, w, mesh, rules)
+        return _sharding(infer_param_axes(path, w.ndim) if given is None
+                         else given[path], w, mesh, rules)
 
     return tree_util.map_with_path(leaf, tree)
 

@@ -7,7 +7,8 @@ Replaces ``repro/kernels/batch_attention/kernel.py``
 (``repro/kernels/batch_attention/ops.py``); the CUDA source is
 ``src/repro_torch/csrc/batch_attention.cu``.  ``batch_attention``
 dispatches on the tensor's device: a CPU tensor runs the plain version, a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises, a ``meta`` tensor gets the
+output's shape and dtype (``analysis.tally``).
 
 The plain version computes the Pallas kernel's function block by block as
 the JAX wrapper runs it: S in blocks of 512 keys, halved until the block
@@ -32,6 +33,7 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.analysis import tally
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
@@ -100,6 +102,12 @@ def batch_attention(q, k, v, q_pos, k_pos, *, scale: float,
     if q.device.type == "cpu":
         return batch_attention_plain(q, k, v, q_pos, k_pos, scale=scale,
                                      window=window)
+    if q.device.type == "meta":
+        b, t, h, hd = q.shape
+        out = q.new_empty((b, t, h * hd), dtype=torch.bfloat16)
+        tally.add("batch_attention", 4 * q.numel() * k.shape[1],
+                  tally.nbytes(q, k, v, q_pos, k_pos, out))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"batch_attention: unsupported device {q.device}")
     b, t, h, hd = q.shape

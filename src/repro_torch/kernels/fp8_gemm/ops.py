@@ -1,6 +1,7 @@
 """Kernel ``fp8_gemm``: per-row fp8 quantization of x (a dynamic scale per
-row, or one static calibrated scale), then an fp8 GEMM with f32
-accumulation and the ``sx * sw`` epilogue, with a leading batch dim.
+row, one static calibrated scale, or a scale given per row), then an fp8
+GEMM with f32 accumulation and the ``sx * sw`` epilogue, with a leading
+batch dim.
 
 Replaces ``repro/kernels/fp8_gemm/kernel.py`` (``fp8_gemm_pallas``); the
 CUDA source is ``src/repro_torch/csrc/fp8_gemm.cu`` (one call launches the
@@ -8,7 +9,12 @@ quantization pass and the TMA + wgmma GEMM, see ``csrc/sm90_fp8.cuh``).
 The wrapper dispatches on the tensor's device: a CPU tensor runs the plain
 version (the port of ``repro/kernels/fp8_gemm/ref.py``, i.e.
 ``fp8_linear``'s per-token path, or its static path given ``act_scale``), a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises, and a ``meta`` tensor gets the
+output's shape and dtype and nothing else (shape inference for the dry
+run: there is no data to compute on).  The given mode (``row_scale``)
+serves the row-parallel products of tensor parallelism
+(``core.quant.fp8_linear``): a rank holds a K-slice of each row and casts
+it with the whole row's scale, reduced over the ranks beforehand.
 
 The kernel reads the weight K-major: ``wq`` (E, K, N) must be the transpose
 view of an (E, N, K16) array (``wq.stride(-2) == 1``, rows padded to a
@@ -26,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core import quant
+from repro_torch.analysis import tally
 from repro_torch.kernels import build
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -37,16 +44,21 @@ DECODE_TILE_M, DECODE_TILE_N = 32, 64
 
 def fp8_gemm_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                    out_dtype=torch.bfloat16,
-                   act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   act_scale: Optional[torch.Tensor] = None,
+                   row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, M, K) @ (wq (E, K, N) e4m3, sw (E, N) f32) -> (E, M, N):
     per-token quant of x (or its cast with the static ``act_scale``, one
-    value), fp8 products summed in f32, ``acc * sx * sw``."""
-    if act_scale is None:
-        xq = quant.quantize_per_token(x)
-        xd, sx = xq.data, xq.scale
-    else:
+    value, or with ``row_scale`` (E, M), one value a row), fp8 products
+    summed in f32, ``acc * sx * sw``."""
+    if act_scale is not None:
         sx = act_scale.reshape(1, 1, 1)
         xd = quant.cast_to_fp8(x, sx)
+    elif row_scale is not None:
+        sx = row_scale[..., None]
+        xd = quant.cast_to_fp8(x, sx)
+    else:
+        xq = quant.quantize_per_token(x)
+        xd, sx = xq.data, xq.scale
     acc = torch.matmul(xd.to(torch.float32), wq.to(torch.float32))
     return (acc * sx * sw[:, None, :]).to(out_dtype)
 
@@ -67,8 +79,21 @@ def plan(e: int, m: int, n: int, k: int, sms: int) -> Tuple[int, int]:
 
 
 def check_layout(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                 out_dtype, act_scale: Optional[torch.Tensor] = None) -> None:
+                 out_dtype, act_scale: Optional[torch.Tensor] = None,
+                 row_scale: Optional[torch.Tensor] = None) -> None:
     """Raise on what the kernel does not take (types, shapes, layout)."""
+    if act_scale is not None and row_scale is not None:
+        raise ValueError("fp8_gemm takes a static scale or given row "
+                         "scales, not both")
+    if row_scale is not None and (
+            row_scale.dtype != torch.float32
+            or tuple(row_scale.shape) != tuple(x.shape[:2])
+            or not row_scale.is_contiguous()
+            or row_scale.device != x.device):
+        raise ValueError(f"fp8_gemm takes given row scales as a contiguous "
+                         f"(E, M) = {tuple(x.shape[:2])} f32 tensor on the "
+                         f"activations' device; got {row_scale.dtype} "
+                         f"{tuple(row_scale.shape)} on {row_scale.device}")
     if act_scale is not None and (
             act_scale.dtype != torch.float32 or act_scale.numel() != 1
             or act_scale.device != x.device):
@@ -111,14 +136,16 @@ def _fns() -> Dict[str, Any]:
     """The library's entry points, typed once."""
     if not _FNS:
         lib = build.load("fp8_gemm")
-        for name, args in (("fp8_gemm_launch", 9), ("fp8_gemm_mma_launch", 7)):
+        # the full call ends with its per_row flag, the GEMM alone without
+        for name, args, flags in (("fp8_gemm_launch", 9, 4),
+                                  ("fp8_gemm_mma_launch", 7, 3)):
             fn = getattr(lib, name)
-            fn.argtypes = [_VP] * args + [_I] * 4 + [_LL] * 2 + [_I] * 3 \
-                + [_VP]
+            fn.argtypes = [_VP] * args + [_I] * 4 + [_LL] * 2 \
+                + [_I] * flags + [_VP]
             fn.restype = _I
             _FNS[name] = fn
         fn = lib.fp8_gemm_quantize_launch
-        fn.argtypes = [_VP] * 4 + [_LL, _I, _VP]
+        fn.argtypes = [_VP] * 4 + [_LL, _I, _I, _VP]
         fn.restype = _I
         _FNS["quantize"] = fn
     return _FNS
@@ -175,16 +202,25 @@ def scratch(x: torch.Tensor, wq: torch.Tensor):
 
 def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
              out_dtype=torch.bfloat16,
-             act_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+             act_scale: Optional[torch.Tensor] = None,
+             row_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (E, M, K) bf16 @ (wq (E, K, N) e4m3 K-major, sw (E, N) f32)
     -> (E, M, N), bf16 or f32 (``out_dtype``); ``act_scale`` (one f32
-    value on x's device): the static mode, every row cast with it (no
-    amax reduction, no host read)."""
+    value on x's device): the static mode, every row cast with it;
+    ``row_scale`` ((E, M) f32 on x's device): the given mode, row m cast
+    with ``row_scale[e, m]`` (neither runs an amax reduction or a host
+    read)."""
     if x.device.type == "cpu":
-        return fp8_gemm_plain(x, wq, sw, out_dtype, act_scale)
+        return fp8_gemm_plain(x, wq, sw, out_dtype, act_scale, row_scale)
+    if x.device.type == "meta":
+        out = x.new_empty((x.shape[0], x.shape[1], wq.shape[-1]),
+                          dtype=out_dtype)
+        tally.add("fp8_gemm", 2 * x.numel() * wq.shape[-1], tally.nbytes(
+            x, wq, sw, out, act_scale, row_scale))
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"fp8_gemm: unsupported device {x.device}")
-    check_layout(x, wq, sw, out_dtype, act_scale)
+    check_layout(x, wq, sw, out_dtype, act_scale, row_scale)
     e, m, k = x.shape
     n = wq.shape[-1]
     out = torch.empty((e, m, n), dtype=out_dtype, device=x.device)
@@ -195,18 +231,22 @@ def fp8_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, *,
     # one allocation (its counters are zeroed by the quantization pass)
     buf = torch.empty(total, dtype=torch.uint8, device=x.device)
     xq, sx, part, counters = (buf.data_ptr() + off for off in offs)
-    fixed = None if act_scale is None else act_scale.data_ptr()
+    given = act_scale if row_scale is None else row_scale
     code = _fns()["fp8_gemm_launch"](
         x.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(), xq, sx,
-        part, counters, fixed, e, m, n, k, wq.stride(-1), expert_stride(wq),
-        splits, cps, int(out_dtype == torch.float32),
+        part, counters, None if given is None else given.data_ptr(), e, m,
+        n, k, wq.stride(-1), expert_stride(wq), splits, cps,
+        int(out_dtype == torch.float32), int(row_scale is not None),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(code, "fp8_gemm")
     fp8_gemm.launches += 1
+    if row_scale is not None:
+        fp8_gemm.given_launches += 1
     return out
 
 
 fp8_gemm.launches = 0
+fp8_gemm.given_launches = 0     # of them, in the given-scale mode
 
 
 def expert_stride(wq: torch.Tensor) -> int:
@@ -216,13 +256,16 @@ def expert_stride(wq: torch.Tensor) -> int:
 
 
 def quantize_pass(x: torch.Tensor, xh: torch.Tensor, sx: torch.Tensor,
-                  act_scale: Optional[torch.Tensor] = None) -> None:
+                  act_scale: Optional[torch.Tensor] = None,
+                  row_scale: Optional[torch.Tensor] = None) -> None:
     """The quantization pass of ``fp8_gemm`` alone, into ``xh``, ``sx``
     (for timing it apart from the GEMM; not a path of the port)."""
     e, m, k = x.shape
-    fixed = None if act_scale is None else act_scale.data_ptr()
+    given = act_scale if row_scale is None else row_scale
     build.check(_fns()["quantize"](
-        x.data_ptr(), xh.data_ptr(), sx.data_ptr(), fixed, e * m, k,
+        x.data_ptr(), xh.data_ptr(), sx.data_ptr(),
+        None if given is None else given.data_ptr(), e * m, k,
+        int(row_scale is not None),
         torch.cuda.current_stream(x.device).cuda_stream), "fp8_gemm")
 
 

@@ -8,7 +8,8 @@ Replaces ``repro/kernels/fp8_grouped_gemm/kernel.py``
 quantization pass and the TMA + wgmma GEMM, see ``csrc/sm90_fp8.cuh``).
 The wrapper dispatches on the tensor's device: a CPU tensor runs the plain
 version (the port of ``repro/kernels/fp8_grouped_gemm/ref.py``), a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises, a ``meta`` tensor gets the output's
+shape and dtype (``analysis.tally``).
 
 The kernel reads the weight K-major: ``wq`` (E, K, N) must be the transpose
 view of an (E, N, K) array (``wq.stride(-2) == 1``), the layout
@@ -24,6 +25,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.core import quant
+from repro_torch.analysis import tally
 from repro_torch.kernels import build
 from repro_torch.kernels.fp8_gemm.ops import expert_stride, sm_count
 
@@ -176,6 +178,11 @@ def fp8_grouped_gemm(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                          f"got K={k} N={n}")
     if x.device.type == "cpu":
         return fp8_grouped_gemm_plain(x, wq, sw, out_dtype)
+    if x.device.type == "meta":
+        out = x.new_empty((*x.shape[:2], n), dtype=out_dtype)
+        tally.add("fp8_grouped_gemm", 2 * x.numel() * n,
+                  tally.nbytes(x, wq, sw, out))
+        return out
     if x.device.type != "cuda":
         raise ValueError(f"fp8_grouped_gemm: unsupported device {x.device}")
     check_layout(x, wq, sw, out_dtype)

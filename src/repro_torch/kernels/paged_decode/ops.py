@@ -7,7 +7,8 @@ the CUDA source is ``src/repro_torch/csrc/paged_decode.cu``.  ``paged_decode``
 dispatches on the tensor's device: a CPU tensor runs the plain version (a
 dense gather through the page table plus a masked f32 softmax, the same
 arithmetic as the JAX package's unfused paged path), a CUDA tensor launches
-the kernel or raises.  ``paged_decode_attention`` is the layout wrapper of
+the kernel or raises, a ``meta`` tensor gets the output's shape and dtype
+(``analysis.tally``).  ``paged_decode_attention`` is the layout wrapper of
 ``repro/kernels/paged_decode/ops.py``: single-token decode, or tree decode
 (``starts`` and a branch stride).
 
@@ -24,6 +25,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import quant
+from repro_torch.analysis import tally
 from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
@@ -96,6 +98,12 @@ def paged_decode(q, k, v, pos, k_scale, v_scale, tables, lengths, starts,
                                   lengths, starts, page_size=page_size,
                                   group=group, branch_stride=branch_stride,
                                   scale=scale)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        tally.add("paged_decode", 4 * q.numel() * tables.shape[1]
+                  * page_size, tally.nbytes(q, k, v, pos, k_scale, v_scale,
+                                            tables, out))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode: unsupported device {q.device}")
     bb, kv, cg, hd = q.shape

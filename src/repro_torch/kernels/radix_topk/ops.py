@@ -7,7 +7,8 @@ Replaces ``repro/kernels/radix_topk/kernel.py`` (``hist_round_pallas``,
 ops.py`` (``_threshold_scan``, ``_radix_topk``); the CUDA source is
 ``src/repro_torch/csrc/radix_topk.cu``, where both Pallas kernels are one
 kernel.  ``radix_topk`` dispatches on the tensor's device: a CPU tensor
-runs the plain version, a CUDA tensor launches the kernel or raises.
+runs the plain version, a CUDA tensor launches the kernel or raises, a
+``meta`` tensor gets the output's shape and dtype (``analysis.tally``).
 ``plan`` is the launch's host-side plan (keys a thread, threads a block,
 tiles, vector loads), a plain function of the shape, dtype and
 alignment.
@@ -35,6 +36,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.analysis import tally
 from repro_torch.kernels import build
 
 BLOCK_V = 2048      # the JAX wrapper's column block: rows pad to a multiple
@@ -130,6 +132,11 @@ def radix_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"radix_topk takes 1 <= k <= V, got k={k}, V={v}")
     if x.device.type == "cpu":
         return radix_topk_plain(x, k)
+    if x.device.type == "meta":
+        vals = x.new_empty((b, k), dtype=torch.float32)
+        idx = x.new_empty((b, k), dtype=torch.int32)
+        tally.add("radix_topk", 0, tally.nbytes(x, vals, idx))
+        return vals, idx
     if x.device.type != "cuda":
         raise ValueError(f"radix_topk: unsupported device {x.device}")
     if k > MAX_K:

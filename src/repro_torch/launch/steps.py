@@ -6,10 +6,16 @@ caller passes ``device="cpu"``), the JAX package's
 ``repro/launch/steps.py``: the five LMs and OneRec-V2 (``train``,
 ``prefill``, ``decode``), the four recsys architectures (``train``,
 ``score``, ``retrieval``) and the EGNN (``graph``, a training step).
-Abstract bundles (the JAX dry-run's shapes, no allocation) and the
-``ogb_products`` graph cell (61.86 M edges: chunked or sharded segment
-sums) wait for ROADMAP.md queue N, item N9e.  The step functions run on
-the device of their inputs.
+Every bundle carries the logical axes of its arguments (``arg_axes``:
+``params_axes``, ``batch_axes``, ``cache_axes``, the JAX package's
+strings) and ``shard_args`` lays the arguments out on a mesh by them, as
+``DTensor``s holding each rank's slice.  ``abstract=True`` builds the LM
+and OneRec prefill and decode bundles on ``meta`` (the dry run's: shapes
+and dtypes, no values); the other kinds wait for ROADMAP.md queue N
+(train and graph N9e.3, recsys scoring N9e.5, ``ogb_products`` N9e.7).
+The step functions run on the device of their inputs; under a mesh
+(``distributed.sharding.use_mesh``) on the laid-out arguments they run
+tensor and expert parallel.
 
 Step signatures (uniform per kind):
   train:      step(params, opt_state, batch)          -> (loss, params, opt)
@@ -44,7 +50,9 @@ from repro_torch.configs.base import (GNNConfig, OneRecConfig, RecsysConfig,
                                       ShapeSpec, TransformerConfig)
 from repro_torch.core.policy import PAPER_POLICY
 from repro_torch.core.ptq import quantize_params
+from repro_torch.core.quant import QuantizedTensor
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import gnn as gnn_model
 from repro_torch.models import onerec as onerec_model
 from repro_torch.models import recsys as recsys_model
@@ -61,6 +69,8 @@ class StepBundle:
     kind: str
     fn: Callable
     args: Tuple[Any, ...]
+    arg_axes: Tuple[Any, ...] = ()     # logical-axes tree matching args
+    donate: Tuple[int, ...] = ()       # args the step updates in place
     cfg: Any = None
     note: str = ""
 
@@ -71,9 +81,66 @@ def _not_ported(what: str, item: str):
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
-    gen = torch.Generator(device=device)
+    """A generator on ``device`` (on the CPU for ``meta``, whose random
+    ops only make shapes)."""
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     return gen
+
+
+# ---------------------------------------------------------------------------
+# Axes of the arguments, and their layout on a mesh
+# ---------------------------------------------------------------------------
+
+
+def params_axes(params: dict) -> dict:
+    """Logical axes of every leaf of a param or optimizer tree, by its
+    path (``sharding.infer_param_axes``); a ``QuantizedTensor``'s parts
+    get those of their paths ``/0`` (data), ``/1`` (scale), ``/2``
+    (act_scale), as the JAX pytree's children."""
+    def leaf(path, w):
+        if isinstance(w, QuantizedTensor):
+            return dataclasses.replace(w, **{
+                name: None if getattr(w, name) is None
+                else sh.infer_param_axes(f"{path}/{i}",
+                                         getattr(w, name).ndim)
+                for i, name in enumerate(("data", "scale", "act_scale"))})
+        return sh.infer_param_axes(path, w.ndim)
+    return tree.map_with_path(leaf, params)
+
+
+def batch_axes(batch: dict, mapping: dict) -> dict:
+    """Axes of a flat batch dict by key name (unnamed keys replicated)."""
+    return {k: mapping.get(k, (None,) * v.ndim) for k, v in batch.items()}
+
+
+cache_axes = sh.cache_axes
+
+# the JAX bundles' batch axes
+_TOKEN_AXES = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+_ONEREC_BATCH_AXES = dict(_TOKEN_AXES, profile=("batch", None))
+_RECSYS_BATCH_AXES = {
+    "hist_ids": ("batch", None),
+    "target_ids": ("batch",),
+    "field_ids": ("batch", None),
+    "labels": ("batch",),
+    "candidate_ids": ("candidates",),
+}
+
+
+def shard_args(bundle: StepBundle, mesh, rules: sh.AxisRules
+               ) -> Tuple[Any, ...]:
+    """The bundle's arguments laid out on ``mesh`` by ``arg_axes`` under
+    ``rules`` (``shardings_for_tree``, then each rank's slice as a
+    ``DTensor``, fp8 payloads K-major: ``sharding.lay_out``); arguments
+    without axes (the decode index) pass as they are.  The dry run's
+    ``shardings_for``, applied."""
+    if len(bundle.arg_axes) != len(bundle.args):
+        raise ValueError(f"{bundle.arch}/{bundle.shape}: no axes for its "
+                         f"arguments")
+    return tuple(sh.lay_out_tree(arg, axes, mesh, rules)
+                 if isinstance(arg, dict) else arg
+                 for arg, axes in zip(bundle.args, bundle.arg_axes))
 
 
 def train_step(loss_fn: Callable[[dict, dict], torch.Tensor],
@@ -124,9 +191,11 @@ def lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
                             generator=_generator(seed + 1, dev), device=dev,
                             dtype=torch.int32)
         step = train_step(lambda p, batch: tfm.train_loss(p, batch, cfg))
+        opt, batch = adamw_init(params), {"tokens": tok, "labels": tok}
         return StepBundle(arch, shape.name, "train", step,
-                          (params, adamw_init(params),
-                           {"tokens": tok, "labels": tok}), cfg=cfg)
+                          (params, opt, batch),
+                          (params_axes(params), params_axes(opt),
+                           batch_axes(batch, _TOKEN_AXES)), cfg=cfg)
     serve_cfg = dataclasses.replace(cfg, remat=False)
     transform = (lambda path, t: quantize_params(t, PAPER_POLICY,
                                                  prefix=path)) if fp8 else None
@@ -137,14 +206,18 @@ def lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
 
     if shape.kind == "prefill":
         def step(params, batch):
-            cache = tfm.init_kv_cache(serve_cfg, b, s, per_slot=False,
-                                      device=batch["tokens"].device)
+            cache = sh.lay_out_cache(tfm.init_kv_cache(
+                serve_cfg, b, s, per_slot=False,
+                device=batch["tokens"].device), batch["tokens"])
             return tfm.prefill(params, batch["tokens"], serve_cfg, cache)
 
         tok = torch.randint(0, cfg.vocab_size, (b, s), generator=tok_gen,
                             device=dev, dtype=torch.int32)
+        batch = {"tokens": tok}
         return StepBundle(arch, shape.name, "prefill", step,
-                          (params, {"tokens": tok}), cfg=cfg, note=note)
+                          (params, batch), (params_axes(params),
+                                            batch_axes(batch, _TOKEN_AXES)),
+                          cfg=cfg, note=note)
 
     def step(params, cache, batch, index):
         return tfm.decode_step(params, batch["tokens"], serve_cfg, cache,
@@ -153,9 +226,12 @@ def lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
     cache = tfm.init_kv_cache(serve_cfg, b, s, per_slot=False, device=dev)
     tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=tok_gen,
                         device=dev, dtype=torch.int32)
+    batch = {"tokens": tok}
     return StepBundle(arch, shape.name, "decode", step,
-                      (params, cache, {"tokens": tok}, s - 1), cfg=cfg,
-                      note=note)
+                      (params, cache, batch, s - 1),
+                      (params_axes(params), cache_axes(cache),
+                       batch_axes(batch, _TOKEN_AXES), ()), donate=(1,),
+                      cfg=cfg, note=note)
 
 
 # ---------------------------------------------------------------------------
@@ -197,8 +273,11 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
                                       device=dev) < 0.3).to(torch.float32)
         step = train_step(
             lambda p, b: recsys_model.train_loss(p, b, cfg))
+        opt = adamw_init(params)
         return StepBundle(arch, shape.name, "train", step,
-                          (params, adamw_init(params), batch), cfg=cfg)
+                          (params, opt, batch),
+                          (params_axes(params), params_axes(opt),
+                           batch_axes(batch, _RECSYS_BATCH_AXES)), cfg=cfg)
     if fp8:
         params = quantize_params(params, PAPER_POLICY)
     if shape.kind == "score":
@@ -211,6 +290,8 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
         batch = _recsys_inputs(cfg, shape.global_batch, gen,
                                n_candidates=shape.n_candidates)
     return StepBundle(arch, shape.name, shape.kind, step, (params, batch),
+                      (params_axes(params),
+                       batch_axes(batch, _RECSYS_BATCH_AXES)),
                       cfg=cfg, note="fp8" if fp8 else "bf16")
 
 
@@ -243,8 +324,11 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
                  "labels": ids(t + 1)}
         step = train_step(
             lambda p, bt: onerec_model.train_loss(p, bt, cfg))
+        opt = adamw_init(params)
         return StepBundle(arch, shape.name, "train", step,
-                          (params, adamw_init(params), batch), cfg=cfg)
+                          (params, opt, batch),
+                          (params_axes(params), params_axes(opt),
+                           batch_axes(batch, _ONEREC_BATCH_AXES)), cfg=cfg)
     # PTQ'd layer by layer as the layers are made: the same bits as the
     # whole tree's PTQ, and at most one raw layer on the device
     params = onerec_model.init_onerec(seed, cfg, device=dev, transform=(
@@ -261,14 +345,17 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
 
     if shape.kind == "prefill":
         def step(params, batch):
-            cache = onerec_model.init_cache(serve_cfg, b,
-                                            device=batch["tokens"].device)
+            cache = sh.lay_out_cache(onerec_model.init_cache(
+                serve_cfg, b, device=batch["tokens"].device),
+                batch["tokens"])
             return onerec_model.prefill(params, batch, serve_cfg, cache)
 
         batch = {"tokens": tokens(t),
                  "profile": torch.randn((b, onerec_model.PROFILE_DIM),
                                         generator=gen, device=dev)}
         return StepBundle(arch, shape.name, "prefill", step, (params, batch),
+                          (params_axes(params),
+                           batch_axes(batch, _ONEREC_BATCH_AXES)),
                           cfg=cfg, note=note)
 
     def step(params, cache, batch, index):
@@ -276,9 +363,12 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
                                         cache, index)
 
     cache = onerec_model.init_cache(serve_cfg, b, device=dev)
+    batch = {"tokens": tokens(1)}
     return StepBundle(arch, shape.name, "decode", step,
-                      (params, cache, {"tokens": tokens(1)}, t - 1),
-                      cfg=cfg, note=note)
+                      (params, cache, batch, t - 1),
+                      (params_axes(params), cache_axes(cache),
+                       batch_axes(batch, _ONEREC_BATCH_AXES), ()),
+                      donate=(1,), cfg=cfg, note=note)
 
 
 # ---------------------------------------------------------------------------
@@ -321,7 +411,7 @@ def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
     if shape.name == "ogb_products":
         raise _not_ported(f"the graph step of {arch} on ogb_products "
                           f"(61.86 M edges: chunked or sharded segment "
-                          f"sums)", "N9e")
+                          f"sums)", "N9e.7")
     dev = resolve_device(device)
     n, e, d_feat, level, n_graphs = _gnn_cell_dims(shape)
     gen = _generator(seed + 1, dev)
@@ -345,9 +435,17 @@ def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
                                  n_classes, device=dev)
     step = train_step(lambda p, b: gnn_model.train_loss(
         p, b, cfg, level=level, n_graphs=n_graphs))
+    opt = adamw_init(params)
+    baxes = batch_axes(batch, {
+        "feat": ("nodes", None), "coord": ("nodes", None),
+        "edges": ("edges", None), "edge_mask": ("edges",),
+        "node_mask": ("nodes",),
+        "labels": (None,) if level == "graph" else ("nodes",),
+        "graph_ids": ("nodes",)})
     return StepBundle(arch, shape.name, "graph", step,
-                      (params, adamw_init(params), batch), cfg=cfg,
-                      note=level)
+                      (params, opt, batch),
+                      (params_axes(params), params_axes(opt), baxes),
+                      cfg=cfg, note=level)
 
 
 # ---------------------------------------------------------------------------
@@ -361,14 +459,21 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
                  device=None) -> StepBundle:
     """The concrete bundle of cell ``arch`` x ``shape_name`` on ``device``
     (``reduced``: the arch's ``reduced_config()``; ``fp8`` None: PTQ'd, as
-    the JAX package decides for the LM and OneRec families)."""
-    if abstract:
-        raise _not_ported("abstract bundles (the dry-run's)", "N9e")
+    the JAX package decides for the LM and OneRec families).  With
+    ``abstract`` the bundle of an LM or OneRec prefill or decode cell on
+    ``meta`` (shapes and dtypes, no values: the dry run's); the other
+    kinds raise, naming the ROADMAP.md item they wait for."""
     mod = registry.get_arch(arch)
     cfg = mod.reduced_config() if reduced else mod.CONFIG
     shape = shape_override or mod.SHAPES[shape_name]
     if shape.skip:
         raise ValueError(f"cell {arch}/{shape_name} is N/A: {shape.skip}")
+    if abstract:
+        waits = abstract_waits(mod.FAMILY, shape)
+        if waits:
+            raise _not_ported(f"the abstract {shape.kind} bundle of "
+                              f"{arch}/{shape.name}", waits)
+        device = "meta"
     if mod.FAMILY == "gnn":
         return gnn_bundle(arch, cfg, shape,
                           n_classes=getattr(mod, "N_CLASSES", 16),
@@ -378,6 +483,20 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     build = {"lm": lm_bundle, "onerec": onerec_bundle,
              "recsys": recsys_bundle}[mod.FAMILY]
     return build(arch, cfg, shape, fp8=fp8, seed=seed, device=device)
+
+
+def abstract_waits(family: str, shape: ShapeSpec) -> Optional[str]:
+    """The ROADMAP.md queue N item an abstract bundle of this cell waits
+    for, or None where it is ported: training and the graph steps need
+    FSDP (N9e.3), the recsys scoring steps row-sharded tables (N9e.5),
+    ``ogb_products`` its sharded segment sums (N9e.7)."""
+    if shape.name == "ogb_products":
+        return "N9e.7"
+    if shape.kind in ("train", "graph"):
+        return "N9e.3"
+    if family == "recsys":
+        return "N9e.5"
+    return None
 
 
 # Reduced-shape cells for CPU smoke testing (the JAX package's, tiny dims)

@@ -60,6 +60,20 @@ JAX package).  Plain torch matmul and softmax stand where the JAX code is
 plain ``jnp``; scores and softmax are f32, the PV product takes bf16
 probabilities, as there.
 
+Tensor parallelism (``DTensor`` activations, params laid out by
+``launch.steps.shard_args`` under ``INFER_RULES``): q/k/v come out of
+column-parallel products, whole heads to a rank (a rank whose column
+slice splits a head gathers first); ``constrain`` at the JAX package's
+sites lays q out by ``heads`` and gathers k/v (``kv_heads`` is
+replicated); each rank attends with its own query heads, grouped by the
+model's G (local head j is global head ``h_off + j`` and reads KV head
+``(h_off + j) // G``), and the output goes row-parallel into ``o_proj``.
+The shared cache is laid out over ``kv_seq`` (sequence-sharded over
+``model``): a write lands on the rank that holds its slot, and the layer's
+K/V (payload, scales, positions) are gathered whole before the read.
+Only the shared-cache modes and the uncached forward run so; the paged
+pool, the per-slot cache and the resume prefill stay single-rank.
+
 The port updates cache tensors IN PLACE (the JAX code returns new arrays):
 a layer's cache dict holds views into the stacked cache, so a write lands
 in the pool without a copy.  A JAX ``.at[...].set(..., mode="drop")``
@@ -77,6 +91,7 @@ import torch
 
 from repro_torch.core.quant import (dequantize_kv, is_fp8_dtype, matmul_any,
                                     quantize_kv, raw_matmul)
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.batch_attention.ops import batch_attention
 from repro_torch.kernels.paged_decode.ops import paged_decode_attention
@@ -391,19 +406,28 @@ def apply_attention(
     else:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
 
-    q = matmul_any(x, params["q_proj"]["kernel"]).reshape(b, t, h, hd)
-    k = matmul_any(x, params["k_proj"]["kernel"]).reshape(b, t, kvh, hd)
-    v = matmul_any(x, params["v_proj"]["kernel"]).reshape(b, t, kvh, hd)
+    q = _heads(matmul_any(x, params["q_proj"]["kernel"]), h, hd)
+    k = _heads(matmul_any(x, params["k_proj"]["kernel"]), kvh, hd)
+    v = _heads(matmul_any(x, params["v_proj"]["kernel"]), kvh, hd)
     if spec.use_qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, eps=norm_eps)
         k = rmsnorm_apply(params["k_norm"], k, eps=norm_eps)
-    q = apply_rope(q, positions, theta=spec.rope_theta)
-    k = apply_rope(k, positions, theta=spec.rope_theta)
+    q = sh.local_call(apply_rope, q, positions, theta=spec.rope_theta)
+    k = sh.local_call(apply_rope, k, positions, theta=spec.rope_theta)
     q = constrain(q, ("batch", "seq", "heads", None))
     k = constrain(k, ("batch", "seq", "kv_heads", None))
     v = constrain(v, ("batch", "seq", "kv_heads", None))
 
-    if shared:
+    if sh.is_dtensor(q):
+        if cache is not None and not shared_cache:
+            raise NotImplementedError(
+                "tensor-parallel attention runs the uncached forward and "
+                "the shared cache; the paged pool, the per-slot cache and "
+                "the resume prefill stay single-rank")
+        out = _tp_attention(q, k, v, cache, positions, spec,
+                            None if not shared else int(cache_index))
+        out = out.to(x.dtype)
+    elif shared:
         out = _shared_decode(q, k, v, cache, int(cache_index), spec)
         out = out.to(x.dtype)
     elif decode or resume:
@@ -455,6 +479,107 @@ def apply_attention(
     out = constrain(out, ("batch", "seq", "qkv_out"))
     proj = matmul_any(out, params["o_proj"]["kernel"])
     return constrain(proj, ("batch", "seq", "embed")), cache
+
+
+def _heads(t, n: int, hd: int):
+    """(B, T, n * hd) -> (B, T, n, hd).  A DTensor sharded on its last dim
+    whose rank slices split a head (fewer heads than ranks, or a count the
+    ranks do not divide) is gathered along it first."""
+    if sh.is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        for i in reversed(range(t.device_mesh.ndim)):
+            if t.placements[i] == Shard(2):
+                _, cols = sh.shard_range(t.device_mesh, t.placements, 2,
+                                         t.shape[2])
+                if cols % hd:
+                    t = sh.redistribute(t, [
+                        pl if pl != Shard(2) else Replicate()
+                        for pl in t.placements])
+                break
+    return t.reshape(*t.shape[:2], n, hd)
+
+
+def _local_group(q, spec: AttnSpec) -> Tuple[int, AttnSpec]:
+    """The first KV head of this rank's query heads and the layer's spec
+    for them: q holds global heads ``h_off ..`` of a DTensor sharded on
+    dim 2 (all of them, replicated); grouped by the model's G, either a
+    whole number of groups or a part of one group."""
+    h_off, h_loc = sh.shard_range(q.device_mesh, q.placements, 2,
+                                  spec.n_heads)
+    g = spec.n_heads // spec.n_kv_heads
+    if h_loc % g == 0:
+        kv_loc = h_loc // g
+    elif g % h_loc == 0:
+        kv_loc = 1
+    else:
+        raise ValueError(f"{h_loc} query heads a rank do not group by G = "
+                         f"{g}")
+    return h_off // g, spec._replace(n_heads=h_loc, n_kv_heads=kv_loc)
+
+
+def _tp_attention(q, k, v, cache, positions, spec: AttnSpec,
+                  idx: Optional[int]):
+    """Attention of the rank's query heads (``q`` a DTensor, k/v gathered
+    over ``model``): the uncached or shared-fill forward (``idx`` None),
+    or the shared-index decode at ``idx``; a shared ``cache`` is written
+    on the rank that holds each slot and read whole.  Returns the
+    (B, T, H * hd) output with q's placements."""
+    from torch.distributed.tensor import DTensor, Shard
+    for pl in (*k.placements, *v.placements):
+        if isinstance(pl, Shard) and pl.dim != 0:
+            raise ValueError(f"tensor-parallel attention takes k/v split "
+                             f"on the batch alone, got {k.placements}")
+    kv0, lspec = _local_group(q, spec)
+    ql = q.to_local()
+    kl = k.to_local()[:, :, kv0:kv0 + lspec.n_kv_heads]
+    vl = v.to_local()[:, :, kv0:kv0 + lspec.n_kv_heads]
+    if idx is None:
+        t = ql.shape[1]
+        if t > 2 * spec.chunk_size and t % spec.chunk_size == 0:
+            out = _chunked_attention(ql, kl, vl, positions, lspec)
+        else:
+            out = _full_attention(ql, kl, vl, positions, lspec)
+        if cache is not None:
+            _shared_fill(cache, k.to_local(), v.to_local(), positions)
+    else:
+        rows = _gather_slots(cache, _shared_write(cache, k.to_local(),
+                                                  v.to_local(), idx))
+        rows = {n: (r[:, :, kv0:kv0 + lspec.n_kv_heads].contiguous()
+                    if n != "pos" else r) for n, r in rows.items()}
+        out = _shared_read(ql, rows, idx, lspec)
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
+
+
+def _cache_slab(cache) -> Tuple[dict, int, int]:
+    """A shared cache's local leaves and this rank's slot range
+    ``(offset, length)`` of its S positions (all of them, unless laid out
+    over ``kv_seq``)."""
+    pos = cache["pos"]
+    if not sh.is_dtensor(pos):
+        return cache, 0, pos.shape[0]
+    off, n = sh.shard_range(pos.device_mesh, pos.placements, 0,
+                            pos.shape[0])
+    return {name: leaf.to_local() for name, leaf in cache.items()}, off, n
+
+
+def _gather_slots(cache, slab) -> Dict[str, torch.Tensor]:
+    """A shared cache's leaves gathered whole along S from each rank's
+    ``slab`` (exact: bytes moved), for the read; ``slab`` itself where
+    the cache is not laid out over ``kv_seq``."""
+    from torch.distributed.tensor import Shard
+    if not sh.is_dtensor(cache["pos"]):
+        return dict(slab)
+    out = {}
+    for name, leaf in cache.items():
+        dim = 0 if name == "pos" else 1
+        local = slab[name]
+        mesh = leaf.device_mesh
+        for i in reversed(range(mesh.ndim)):
+            if leaf.placements[i] == Shard(dim):
+                local = sh.all_gather(local, dim, mesh.get_group(i))
+        out[name] = local
+    return out
 
 
 def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,
@@ -527,38 +652,63 @@ def _shared_fill(cache: Dict[str, torch.Tensor], k: torch.Tensor,
                  v: torch.Tensor, positions: torch.Tensor) -> None:
     """Prefill into a shared cache: the last ``min(S, T)`` positions of
     k/v (B, T, Kv, hd) at slots ``pos % S``, their positions in the shared
-    ``pos`` row."""
-    s_len, t = cache["k"].shape[1], k.shape[1]
-    keep = min(s_len, t)
-    ks, vs, k_sc, v_sc = _store_kv(cache, k[:, t - keep:], v[:, t - keep:])
-    pos_tail = positions[t - keep:]
-    slots = (pos_tail % s_len).long()
-    _u8(cache["k"])[:, slots] = _u8(ks)
-    _u8(cache["v"])[:, slots] = _u8(vs)
-    cache["pos"][slots] = pos_tail
-    if k_sc is not None:
-        cache["k_scale"][:, slots] = k_sc
-        cache["v_scale"][:, slots] = v_sc
+    ``pos`` row; on a cache laid out over ``kv_seq`` each rank writes the
+    slots it holds (``_cache_slab``).  The positions are ``0 .. T - 1``,
+    so the slots form at most two runs, each found by arithmetic on
+    shapes and written as a slice."""
+    slab, off, n = _cache_slab(cache)
+    s_len, t = cache["pos"].shape[0], k.shape[1]
+    first = t - min(s_len, t)
+    ks, vs, k_sc, v_sc = _store_kv(slab, k[:, first:], v[:, first:])
+    for base in range(first // s_len * s_len, t, s_len):
+        lo, hi = max(first, base + off), min(t, base + off + n)
+        if lo >= hi:
+            continue
+        dst = slice(lo - base - off, hi - base - off)
+        src = slice(lo - first, hi - first)
+        _u8(slab["k"])[:, dst] = _u8(ks)[:, src]
+        _u8(slab["v"])[:, dst] = _u8(vs)[:, src]
+        slab["pos"][dst] = positions[lo:hi]
+        if k_sc is not None:
+            slab["k_scale"][:, dst] = k_sc[:, src]
+            slab["v_scale"][:, dst] = v_sc[:, src]
+
+
+def _shared_write(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                  v: torch.Tensor, idx: int) -> Dict[str, torch.Tensor]:
+    """The new k/v (B, 1, Kv, hd) at ring slot ``idx % S`` of every row,
+    ``pos[idx % S] = idx``; on a cache laid out over ``kv_seq`` only the
+    rank holding the slot writes.  Returns the local leaves."""
+    slab, off, n = _cache_slab(cache)
+    slot = idx % cache["pos"].shape[0] - off
+    if 0 <= slot < n:
+        ks, vs, k_sc, v_sc = _store_kv(slab, k, v)
+        _u8(slab["k"])[:, slot] = _u8(ks)[:, 0]
+        _u8(slab["v"])[:, slot] = _u8(vs)[:, 0]
+        slab["pos"][slot] = idx
+        if k_sc is not None:
+            slab["k_scale"][:, slot] = k_sc[:, 0]
+            slab["v_scale"][:, slot] = v_sc[:, 0]
+    return slab
 
 
 def _shared_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    cache: Dict[str, torch.Tensor], idx: int,
                    spec: AttnSpec) -> torch.Tensor:
-    """Shared-index decode: the new k/v (B, 1, Kv, hd) land at ring slot
-    ``idx % S`` of every row, ``pos[idx % S] = idx``; then q (B, 1, H, hd)
+    """Shared-index decode: ``_shared_write``, then q (B, 1, H, hd)
     attends over the post-write rows, keys valid where ``0 <= pos <=
     idx`` and, in a window layer, ``idx - pos < window``: kernel
     ``batch_attention`` under ``use_kernel`` (positions broadcast to (B, 1)
     and (B, S)), else the plain masked softmax.  Returns (B, 1, H * hd)."""
+    _shared_write(cache, k, v, idx)
+    return _shared_read(q, cache, idx, spec)
+
+
+def _shared_read(q: torch.Tensor, cache: Dict[str, torch.Tensor], idx: int,
+                 spec: AttnSpec) -> torch.Tensor:
+    """``_shared_decode``'s read of the post-write leaves (k/v (B, S, Kv,
+    hd), pos (S,), fp8 scales)."""
     s_len = cache["k"].shape[1]
-    slot = idx % s_len
-    ks, vs, k_sc, v_sc = _store_kv(cache, k, v)
-    _u8(cache["k"])[:, slot] = _u8(ks)[:, 0]
-    _u8(cache["v"])[:, slot] = _u8(vs)[:, 0]
-    cache["pos"][slot] = idx
-    if k_sc is not None:
-        cache["k_scale"][:, slot] = k_sc[:, 0]
-        cache["v_scale"][:, slot] = v_sc[:, 0]
     ck, cv = _read_kv(_kv_view(cache["k"]), _kv_view(cache["v"]),
                       cache.get("k_scale"), cache.get("v_scale"), q.dtype)
     cpos = cache["pos"]

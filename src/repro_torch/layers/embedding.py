@@ -16,7 +16,12 @@ gives ``-inf`` there and the JAX code maps it to 0, so the max starts from
 results become 0.  Row gathers go through ``gather_rows``, whose gradient
 is that ``segment_sum`` (the JAX gather's transpose, a scatter-add), so a
 backward adds each row's contributions in a fixed order on the card too.
-Row sharding of the tables waits for ROADMAP.md queue N, item N9e.
+Under tensor parallelism ``gather_rows`` takes a ``DTensor`` table sharded
+on its rows (the LMs' vocabulary, ``embed/table`` under ``INFER_RULES``):
+each rank gathers the rows it holds, zeroes the others and the ranks sum,
+which gives one rank's bits (one nonzero row and zeros).  Row sharding of
+the recsys tables (``table_rows``) waits for ROADMAP.md queue N, item
+N9e.5.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.layers.common import truncated_normal
 
 
@@ -72,11 +78,49 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Rows ``idx`` (any shape, any integer dtype) of ``table``: (*idx.shape,
     *table.shape[1:]).  Its backward sums the rows' gradients in f32 in
     ``idx`` order (``segment_sum``) and rounds once to the gradient's
-    dtype, the same bits on either device."""
+    dtype, the same bits on either device.  ``DTensor`` operands: the
+    vocabulary-parallel lookup (module docstring)."""
+    if sh.is_dtensor(table) or sh.is_dtensor(idx):
+        return _sharded_rows(table, idx)
     flat = idx.reshape(-1).long()
     rows = _GatherRows.apply(table, flat) if torch.is_grad_enabled() \
         and table.requires_grad else table.index_select(0, flat)
     return rows.reshape(*idx.shape, *table.shape[1:])
+
+
+def _sharded_rows(table, idx):
+    """``gather_rows`` over a mesh: ``table`` replicated or sharded on its
+    rows, ``idx`` replicated or sharded on any dim where the table is
+    replicated.  Each rank gathers the ids in its row range, zeroes the
+    rest and the ranks of each row-sharding mesh dim sum (exact)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = (table if sh.is_dtensor(table) else idx).device_mesh
+    t_pl = table.placements if sh.is_dtensor(table) \
+        else [Replicate()] * mesh.ndim
+    i_pl = idx.placements if sh.is_dtensor(idx) \
+        else [Replicate()] * mesh.ndim
+    out_pl, groups = [], []
+    for i, (tp, ip) in enumerate(zip(t_pl, i_pl)):
+        if tp == Replicate():
+            out_pl.append(ip)
+        elif tp == Shard(0) and ip == Replicate():
+            out_pl.append(Replicate())
+            groups.append(mesh.get_group(i))
+        else:
+            raise ValueError(f"gather_rows: a table {tp} with ids {ip} on "
+                             f"mesh dim {mesh.mesh_dim_names[i]}")
+    local = sh.local_shard(table)
+    ids = sh.local_shard(idx).long()
+    off, n = sh.shard_range(mesh, t_pl, 0, table.shape[0])
+    mine = (ids >= off) & (ids < off + n)
+    rows = gather_rows(local, torch.clamp(ids - off, 0, n - 1))
+    rows = torch.where(mine.reshape(*ids.shape, *(1,) * (rows.ndim
+                                                         - ids.ndim)),
+                       rows, torch.zeros((), dtype=rows.dtype,
+                                         device=rows.device))
+    for g in groups:
+        sh.all_reduce(rows, g, "sum")
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False)
 
 
 def embed_lookup(params: dict, ids: torch.Tensor, *,

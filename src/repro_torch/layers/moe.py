@@ -22,6 +22,11 @@ go to the trash slot), and the partial outputs are summed over the
 column, so every rank keeps and drops the tokens one rank would; with
 top-2 each token's sum over ranks is its two contributions plus exact
 zeros, rounded once, as one rank's combine rounds it: the same bits.
+Under tensor parallelism the input is a ``DTensor`` replicated over
+``model`` (after ``o_proj``'s all-reduce): its local slab goes through the
+same body, and the summed result goes back as a ``DTensor`` of the
+input's placements; the shared experts run as a tensor-parallel dense
+MLP (``layers.mlp``).
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from repro_torch.core.quant import (QuantizedTensor, fp8_grouped_linear,
                                     fp8_grouped_matmul, matmul_any,
                                     raw_matmul)
 from repro_torch.distributed.sharding import (constrain, current_mesh,
+                                              is_dtensor, local_shard,
                                               mesh_axes)
 from repro_torch.layers.common import truncated_normal
 from repro_torch.layers.embedding import gather_rows
@@ -176,17 +182,17 @@ def _moe_local(params: dict, xt: torch.Tensor, spec: MoESpec, *,
     return y
 
 
-def _local(t):
-    """A rank's own part of an expert leaf: a DTensor's local shard."""
-    return t.to_local() if hasattr(t, "to_local") else t
+def _local(w):
+    """A rank's own part of a leaf: a DTensor's local shard."""
+    return w.map_parts(local_shard) if isinstance(w, QuantizedTensor) \
+        else local_shard(w)
 
 
 def _rank_experts(experts: dict, e_local: int) -> dict:
     """The rank's expert tree, each leaf's expert axis exactly ``e_local``
     long (a rank never cuts a full tree per call)."""
     def leaf(path, w):
-        w = w.map_parts(_local) if isinstance(w, QuantizedTensor) \
-            else _local(w)
+        w = _local(w)
         n = (w.data if isinstance(w, QuantizedTensor) else w).shape[0]
         if n != e_local:
             raise ValueError(
@@ -216,7 +222,28 @@ def keep_experts(params: dict, e_start: int, e_local: int) -> dict:
 
 def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     """MoE FFN over x (B, S, D): all experts on this device, or expert
-    parallel over the active mesh's ``model`` axis (module docstring)."""
+    parallel over the active mesh's ``model`` axis (module docstring);
+    x a plain tensor (a rank's slab) or a ``DTensor``."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        if x.device_mesh != current_mesh():
+            raise ValueError("apply_moe: a DTensor input off the active "
+                             "mesh")
+        slab_params = {name: tree.map_with_path(lambda _, w: _local(w),
+                                                params[name])
+                       for name in ("router", "experts")}
+        out = DTensor.from_local(_moe_slab(slab_params, x.to_local(), spec),
+                                 x.device_mesh, x.placements,
+                                 run_check=False)
+    else:
+        out = _moe_slab(params, x, spec)
+    if spec.n_shared_experts:
+        out = out + apply_mlp(params["shared"], x, act=spec.act)
+    return constrain(out, ("batch", "seq", "embed"))
+
+
+def _moe_slab(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    """The routed experts over a plain slab x (B, S, D) (``apply_moe``)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     mesh = current_mesh()
@@ -242,10 +269,7 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
         # partials are reduced as they are
         dist.all_reduce(y, op=dist.ReduceOp.SUM,
                         group=mesh.get_group("model"))
-    out = y.reshape(b, s, d)
-    if spec.n_shared_experts:
-        out = out + apply_mlp(params["shared"], x, act=spec.act)
-    return constrain(out, ("batch", "seq", "embed"))
+    return y.reshape(b, s, d)
 
 
 def load_balance_loss(params: dict, x: torch.Tensor,

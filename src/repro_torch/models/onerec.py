@@ -6,6 +6,13 @@ prefix, and single-token and tree decode over the paged pool or the
 contiguous slot pool; and its generation entry points over the
 batch-shared cache (``init_cache``, ``prefill``, ``decode_step``,
 ``generate_items``, ``beam_generate``).
+
+Under a mesh, with params laid out on it (``launch.steps.shard_args``) and
+a batch of ``DTensor``s, ``prefill``, ``decode_step`` and
+``generate_items`` run tensor and expert parallel (``models.transformer``);
+``generate_items`` lays its cache out over ``kv_seq`` and picks each
+token from the vocabulary-sharded logits gathered whole on every rank.
+The slot and paged entry points and ``beam_generate`` stay single-rank.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from repro_torch import tree
 from repro_torch.configs.base import OneRecConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.layers.attention import KVWrite
 from repro_torch.layers.common import dense_init
 from repro_torch.models import transformer as tfm
@@ -271,13 +279,16 @@ def generate_items(params, batch: Dict[str, torch.Tensor], cfg: OneRecConfig,
     shared cache; ``topk_fn`` as in ``beam_generate``.  Returns (B,
     decode_len) int32."""
     topk_fn = topk_fn or stable_top_k
-    cache = init_cache(cfg, batch["tokens"].shape[0],
-                       device=batch["tokens"].device)
+    tokens = batch["tokens"]
+    cache = sh.lay_out_cache(init_cache(cfg, tokens.shape[0],
+                                        device=tokens.device), tokens)
     logits, cache = prefill(params, batch, cfg, cache)
-    index = batch["tokens"].shape[1] + 1                    # + the profile
+    index = tokens.shape[1] + 1                             # + the profile
     out = []
     for _ in range(cfg.decode_len):
-        _, top_ids = topk_fn(logits, 1)
+        # the vocabulary gathered whole, the batch as the tokens' layout
+        logits = sh.constrain(logits, ("batch", None))
+        _, top_ids = sh.local_call(topk_fn, logits, 1)
         nxt = top_ids[:, :1].to(torch.int32)
         out.append(nxt)
         logits, cache = decode_step(params, nxt, cfg, cache, index)

@@ -27,7 +27,7 @@ Scoring entry points:
 Activations are tapped at the JAX module's points (``core.stats.tap``:
 ``hist_embed``, ``din_pooled``, ``din_logit``).  Differences from the JAX
 module: ``constrain`` lays out only DTensors, which no caller passes
-until N9e (row-sharded tables); ``lax.scan`` is a
+until N9e.5 (row-sharded tables); ``lax.scan`` is a
 Python loop over the history; ``dien_retrieval`` skips the one-user
 interest pass whose result the JAX function never reads (XLA drops it
 under ``jit``).  Tables are drawn with ``randn`` in f32 on the device.

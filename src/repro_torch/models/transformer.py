@@ -13,6 +13,13 @@ cached modes: prefill into a per-slot or shared cache, resume prefill,
 single-token and tree decode over the paged pool or the per-slot cache,
 and the shared-index decode of generation (``prefill``, ``decode_step``,
 ``decode_fused``).
+
+Tensor parallelism: params laid out on a mesh (``launch.steps.shard_args``)
+make every activation a ``DTensor`` from the vocabulary-parallel embedding
+on (``layers.embedding.gather_rows``); the layers follow
+(``layers.attention``, ``layers.mlp``, ``layers.moe``), norms and residual
+adds run shard by shard, and the logits come out of a column-parallel head,
+sharded over the vocabulary, as in the JAX package under ``INFER_RULES``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from repro_torch import tree
 from repro_torch.configs.base import TransformerConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.core.stats import tap
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.attention import (AttnSpec, KVWrite,
                                           apply_attention, cache_len_for,
@@ -294,14 +302,22 @@ def forward(
                 # base rules; TRAIN_RULES_SP seq-shards saved activations
                 x = constrain(x, ("batch", "act_seq", "embed"))
                 tap(f"layer_out/{key}", x)
-    if last_index is not None:
-        x = x[torch.arange(x.shape[0], device=x.device), last_index.long()]
+    if sh.is_dtensor(x) and last_index is not None:
+        off, n = sh.shard_range(x.device_mesh, x.placements, 0, x.shape[0])
+        x = sh.local_call(_rows_at, x, last_index[off:off + n])
+    elif last_index is not None:
+        x = _rows_at(x, last_index)
     x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
                       zero_centered=cfg.zero_centered_norm)
     tap("final_hidden", x)
     logits = logits_from_hidden(params, x, cfg)
     tap("logits", logits)
     return logits, cache
+
+
+def _rows_at(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """Position ``index[i]`` of each row i of x (B, T, D): (B, D)."""
+    return x[torch.arange(x.shape[0], device=x.device), index.long()]
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ import os
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import tree as tree_util
 from repro_torch.checkpoint import store
@@ -229,3 +230,162 @@ def elastic_job(rank, world, ckpt_dir):
             "coord": list(mesh_b.get_coordinate()),
             "placements": str(list(leaf.placements)),
             "local": leaf.to_local(), "full": leaf.full_tensor()}
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism (N9e.1)
+# ---------------------------------------------------------------------------
+
+
+class NoFunctionalCollectives(TorchDispatchMode):
+    """Records every functional collective dispatched in the block: the
+    tensor-parallel path must run none (gloo runs none on CUDA tensors)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if str(func).startswith("_c10d_functional"):
+            self.seen.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _lay_out(tree, mesh):
+    from repro_torch.launch import steps
+    return sh.lay_out_tree(tree, steps.params_axes(tree), mesh,
+                           sh.INFER_RULES)
+
+
+def _local_part(t):
+    """(local shard, row range, last-dim range) of a DTensor output."""
+    mesh = t.device_mesh
+    rows = sh.shard_range(mesh, t.placements, 0, t.shape[0])
+    cols = sh.shard_range(mesh, t.placements, t.ndim - 1, t.shape[-1])
+    return t.to_local(), rows, cols
+
+
+def tp_serve(params, batch, cfg, mesh, decode_tok, index):
+    """OneRec ``prefill`` into a cache laid out over ``kv_seq``, then one
+    ``decode_step`` and ``generate_items``, on laid-out params and batch."""
+    from repro_torch.launch import steps
+    p = _lay_out(params, mesh)
+    with sh.use_mesh(mesh, sh.INFER_RULES):
+        b = sh.lay_out_tree(batch, steps.batch_axes(batch, {
+            "tokens": ("batch", "seq"), "profile": ("batch", None)}))
+        cache = sh.lay_out_cache(onerec.init_cache(
+            cfg, batch["tokens"].shape[0]), b["tokens"])
+        logits, cache = onerec.prefill(p, b, cfg, cache)
+        tok = sh.lay_out_tree({"tokens": decode_tok},
+                              {"tokens": ("batch", "seq")})["tokens"]
+        dec, _ = onerec.decode_step(p, tok, cfg, cache, index)
+        items = onerec.generate_items(p, b, cfg)
+    return {"prefill": _local_part(logits), "decode": _local_part(dec),
+            "items": _local_part(items)}
+
+
+def tp_lm(params, cfg, mesh, tokens, decode_tok):
+    """A dense LM's prefill and one decode step on laid-out params."""
+    p = _lay_out(params, mesh)
+    with sh.use_mesh(mesh, sh.INFER_RULES):
+        tok = sh.lay_out_tree({"tokens": tokens},
+                              {"tokens": ("batch", "seq")})["tokens"]
+        cache = sh.lay_out_cache(tfm.init_kv_cache(
+            cfg, tokens.shape[0], tokens.shape[1] + 1, per_slot=False), tok)
+        logits, cache = tfm.prefill(p, tok, cfg, cache)
+        nxt = sh.lay_out_tree({"tokens": decode_tok},
+                              {"tokens": ("batch", "seq")})["tokens"]
+        dec, _ = tfm.decode_step(p, nxt, cfg, cache, tokens.shape[1])
+    return {"prefill": _local_part(logits), "decode": _local_part(dec)}
+
+
+def tp_layouts(mesh, x, wq, w_raw, table, ids):
+    """``matmul_any`` in the three layouts (fp8 and raw weights), an
+    uncovered layout's error, and the vocabulary-parallel lookup."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.core import quant
+    from repro_torch.layers.embedding import gather_rows
+    rep = [Replicate()] * mesh.ndim
+    on_model = [Shard(1) if a == "model" else Replicate()
+                for a in mesh.mesh_dim_names]
+    on_rows = [Shard(0) if a == "model" else Replicate()
+               for a in mesh.mesh_dim_names]
+    out = {}
+    xd = DTensor.from_local(x, mesh, rep)
+    for name, w in (("fp8", wq), ("raw", w_raw)):
+        col = sh.lay_out_tree({"k": w}, {"k": (None, "mlp")}, mesh,
+                              sh.INFER_RULES)["k"]
+        out[f"column_{name}"] = _local_part(quant.matmul_any(xd, col))
+        row = sh.lay_out_tree({"k": w}, {"k": ("mlp", None)}, mesh,
+                              sh.INFER_RULES)["k"]
+        off, n = sh.shard_range(mesh, on_model, 1, x.shape[1])
+        xs = DTensor.from_local(x[:, off:off + n].contiguous(), mesh,
+                                on_model)
+        out[f"row_{name}"] = _local_part(quant.matmul_any(xs, row))
+        try:
+            quant.matmul_any(xs, col)
+            out[f"uncovered_{name}"] = None
+        except ValueError as e:
+            out[f"uncovered_{name}"] = str(e)
+        out[f"k_major_{name}"] = [
+            t.data.to_local().stride(-2) == 1 for t in (col, row)
+            if isinstance(t, QuantizedTensor)]
+    tab = sh.lay_out_tree({"t": table}, {"t": ("vocab", None)}, mesh,
+                          sh.INFER_RULES)["t"]
+    assert list(tab.placements) == on_rows
+    out["rows"] = _local_part(gather_rows(tab, DTensor.from_local(
+        ids, mesh, rep)))
+    return out
+
+
+def tp_attention(mesh, lp, spec, x_pre, x_dec):
+    """Layer 0's ``apply_attention``: a shared fill of the prompt, then one
+    shared-index decode, on a cache laid out over ``kv_seq``; the outputs
+    and the whole cache gathered after."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.layers import attention
+    p = _lay_out(lp, mesh)
+    rep = [Replicate()] * mesh.ndim
+    t = x_pre.shape[1]
+    with sh.use_mesh(mesh, sh.INFER_RULES):
+        cache = attention.init_cache(x_pre.shape[0], t + 4, spec,
+                                     per_slot=False)
+        cache = sh.lay_out_cache(cache, DTensor.from_local(
+            x_pre, mesh, rep))
+        pre, _ = attention.apply_attention(
+            p, DTensor.from_local(x_pre, mesh, rep), spec, cache=cache,
+            fill_cache=True)
+        dec, _ = attention.apply_attention(
+            p, DTensor.from_local(x_dec, mesh, rep), spec, cache=cache,
+            cache_index=t)
+        whole = {n: sh.redistribute(c, rep).to_local()
+                 for n, c in cache.items()}
+    return {"prefill": pre.to_local(), "decode": dec.to_local(),
+            "cache": whole, "kv_cache_placements": str(
+                list(cache["k"].placements))}
+
+
+def tp_job(rank, world, onerec_params, batch, decode_tok, index, lm_params,
+           lm_tokens, lm_decode, layouts, attn):
+    """(1, 4) and (2, 2): OneRec-V2 and a dense LM tensor and expert
+    parallel, the product layouts, the lookup and the attention layer,
+    with the functional collectives the path ran."""
+    from repro_torch.configs import llama3_8b
+    cfg = onerec_v2.reduced_config()
+    out = {}
+    for n_data, n_model in ((1, 4), (2, 2)):
+        mesh = mesh_mod.make_debug_mesh(n_data, n_model, device_type="cpu")
+        guard = NoFunctionalCollectives()
+        with guard:
+            res = {"onerec": tp_serve(onerec_params, batch, cfg, mesh,
+                                      decode_tok, index),
+                   "lm": tp_lm(lm_params, llama3_8b.reduced_config(), mesh,
+                               lm_tokens, lm_decode),
+                   "layouts": tp_layouts(mesh, *layouts)}
+            if (n_data, n_model) == (1, 4):
+                res["attention"] = tp_attention(mesh, *attn)
+            res["rerun"] = tp_serve(onerec_params, batch, cfg, mesh,
+                                    decode_tok, index)
+        res["functional"] = guard.seen
+        out[n_data, n_model] = res
+    return out

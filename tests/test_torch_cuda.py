@@ -550,6 +550,39 @@ def test_fp8_gemm_static_mode_matches_plain(cuda, E, M, K, N):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (32, 512, 2048),         # o_proj's row-parallel K-slice at decode
+    (12320, 512, 2048),      # ... and at the prefill_b32 step
+    (300, 180, 200),         # an unaligned K (rows off a 16-byte boundary)
+])
+def test_fp8_gemm_given_scale_mode_matches_plain(cuda, M, K, N):
+    """The given-scale mode (row scales read, not reduced: tensor
+    parallelism's row-parallel products) on a K-slice with the whole rows'
+    scales, f32 and bf16 out, against the plain version; its quantized
+    payload is the K-slice of the whole rows' dynamic-mode payload."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    x = torch.randn(1, M, 4 * K, device=cuda, generator=g).to(torch.bfloat16)
+    rows = quant.amax_to_scale(x.float().abs().amax(-1))
+    xs = x[..., K:2 * K].contiguous()
+    wq = quant.quantize_per_channel(
+        torch.randn(1, K, N, device=cuda, generator=g) / math.sqrt(K))
+    sw = wq.scale.reshape(1, N).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        out = gemm_ops.fp8_gemm(xs, wq.data, sw, out_dtype=dtype,
+                                row_scale=rows)
+        _close(out, gemm_ops.fp8_gemm_plain(xs, wq.data, sw, dtype,
+                                            row_scale=rows))
+    if K % 128 == 0:
+        _, _, xh, sx, _, _ = gemm_ops.scratch(xs, wq.data)
+        gemm_ops.quantize_pass(xs, xh, sx, row_scale=rows)
+        _, _, xh_all, sx_all, _, _ = gemm_ops.scratch(x, torch.empty(
+            (1, 4 * K, N), dtype=torch.float8_e4m3fn, device=cuda))
+        gemm_ops.quantize_pass(x, xh_all, sx_all)
+        assert torch.equal(sx, sx_all)
+        assert torch.equal(xh, xh_all[..., K:2 * K])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(32, 2048, 8256), (300, 256, 200)])
 def test_fp8_gemm_f32_output_matches_plain(cuda, M, K, N):
     """An fp8 logits head (f32 output, OneRec-V2's vocabulary at decode):

@@ -4,7 +4,7 @@ CPU: the config field for field, ``random_geometric_graph``,
 the forward (node embeddings and coordinates), both logits and both loss
 levels at ``reduced_config()`` and at the published width (4 layers, d 64),
 the forward's E(3) equivariance as a property of the port, and the graph
-bundles' training step (N9b; ``ogb_products`` names N9e).  The JAX
+bundles' training step (N9b; ``ogb_products`` names N9e.7).  The JAX
 side runs op by op; the bodies are in ``_torch_parity.py``.
 
 Tolerances (max |port - JAX| over max |JAX|): 1e-2 -- the raw bf16
@@ -124,10 +124,10 @@ def test_egnn_forward_is_equivariant(level):
 def test_graph_bundles_name_n9(shape):
     """Each graph cell takes a training step on the CPU at its own graph
     size (N9b), but ``ogb_products``, whose 61.86 M edges wait for chunked
-    or sharded segment sums (N9e); the smoke bundles take one each."""
+    or sharded segment sums (N9e.7); the smoke bundles take one each."""
     if shape == "ogb_products":
         with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue N, item N9e"):
+                           match=r"ROADMAP\.md queue N, item N9e\.7"):
             steps.build_bundle("egnn", shape, reduced=True, device="cpu")
         for b in steps.smoke_bundles("egnn", device="cpu"):
             assert_takes_a_step(b)

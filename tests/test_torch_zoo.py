@@ -2,7 +2,7 @@
 the CPU: every config field, the layer plan and both parameter counts of
 the five LMs (``CONFIG`` and ``reduced_config()``), their shape cells, the
 registry (all eleven JAX names; the training cells take a step, the
-abstract bundles name N9e), ``SyntheticLMStream``,
+abstract train bundle names N9e.3), ``SyntheticLMStream``,
 chunked and windowed attention, and ``batch_attention``'s plain version
 above one 512-key block.  The per-arch model parity is in
 ``test_torch_zoo_dense.py`` and ``test_torch_zoo_moe.py``.
@@ -105,16 +105,19 @@ def test_recsys_and_gnn_archs_name_their_roadmap_item(arch):
 
 def test_bundles_refuse_what_waits_for_n9():
     """The LM train cell takes a step (at the smoke shape: train_4k is 256
-    x 4096 tokens); the abstract bundles still name N9e."""
+    x 4096 tokens); its abstract bundle names N9e.3 (the abstract prefill
+    bundle is built, on ``meta``)."""
     b = steps.build_bundle("llama3-8b", "train_4k", reduced=True,
                            device="cpu",
                            shape_override=steps.SMOKE_SHAPES["lm"]["train"])
     assert b.args[2]["tokens"].shape == (2, 16)
     assert_takes_a_step(b)
     with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N9e"):
-        steps.build_bundle("llama3-8b", "prefill_32k", abstract=True,
+                       match=r"ROADMAP\.md queue N, item N9e\.3"):
+        steps.build_bundle("llama3-8b", "train_4k", abstract=True,
                            device="cpu")
+    abstract = steps.build_bundle("llama3-8b", "prefill_32k", abstract=True)
+    assert abstract.args[1]["tokens"].device.type == "meta"
     with pytest.raises(ValueError, match="N/A"):
         steps.build_bundle("llama3-8b", "long_500k", device="cpu")
 

@@ -4,7 +4,8 @@ Hopper card.
 
     python3 chip_smoke.py
 
-from the root of a checkout.  Phases, each of which fails the run:
+from the root of a checkout (``--only train-mesh``: the setup and phase 10
+alone, no result line).  Phases, each of which fails the run:
 
 1. Setup: the card's name and power limit; build every CUDA kernel from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
@@ -211,6 +212,24 @@ from the root of a checkout.  Phases, each of which fails the run:
    ``TP_ITEMS_EQUAL`` of the rows; launch counts a prefill, a decode step
    and a generation; params and peak memory a rank, prefill and decode
    ms, each collective's bytes and ms.
+
+10. The sharded train step (N9e.3): ``EP_WORLD`` ranks spawned as in
+   phases 8-9 (``_spawn_ranks``): full-width OneRec-V2 cut to
+   ``TRAIN_MESH_LAYERS`` layers, f32 params, phase 6's 32 rows of
+   train_b512's 384 tokens, ``TRAIN_MESH_STEPS`` steps on (1, 4) under
+   ``TRAIN_RULES`` and on (2, 2) under ``TRAIN_RULES`` and
+   ``TRAIN_RULES_FSDP`` (weights stored sharded over ``data``, and
+   ``model`` under the FSDP rules, gathered layer by layer where they are
+   used), each against world 1's step on the same weights and rows (at
+   (2, 2) the mean of its gradients over each data shard's rows alone),
+   passed to the ranks on the card: the loss, every gradient leaf's
+   relative L2, and the params, mu and nu after each step within the
+   fixed bounds ``TM_*``; no gradient shard zero where world 1's is not;
+   the first step again from seed 0, bit-identical; no kernel launched; a
+   rank's bytes of params, gradients and AdamW state, its peak, each
+   collective's MB and seconds (the first step, each synchronized and
+   timed apart) and the step times; world 1's floor (its products summed
+   in other chunks) printed for information.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -4269,10 +4288,10 @@ def elastic_case(dev, rank, cfg, ckpt, out):
     return out
 
 
-def _phase8_rank(rank, world, tmpdir, device, cfg, batch, ckpt,
-                 elastic_cfg):
-    """One spawned rank of phase 8: gloo over a ``FileStore``, every rank
-    on card 0, the kernels loaded from the libraries the parent built."""
+def _ranked(rank, world, tmpdir, device, body, args):
+    """One spawned rank (phases 8-10): gloo over a ``FileStore``, every
+    rank on card 0, the kernels loaded from the libraries the parent
+    built; ``body(dev, rank, *args)``'s dict saved for the parent."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -4287,17 +4306,39 @@ def _phase8_rank(rank, world, tmpdir, device, cfg, batch, ckpt,
         rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
     try:
-        out = {"rank": rank}
-        ep_serving(dev, rank, cfg, batch, out.setdefault("r", {}))
-        psum_case(dev, rank, out.setdefault("s", {}))
-        elastic_case(dev, rank, elastic_cfg, ckpt, out.setdefault("t", {}))
+        out = dict(body(dev, rank, *args), rank=rank)
         if build.BUILDS:
             raise AssertionError(f"rank {rank} ran nvcc {build.BUILDS} "
                                  f"times: it must load the parent's builds")
-        out["builds"] = build.BUILDS
         torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _spawn_ranks(dev, directory, body, args):
+    """``EP_WORLD`` ranks running ``body`` (``_ranked``); their dicts in
+    rank order and the seconds the spawn took."""
+    import tempfile
+    import torch
+    # gloo finds the loopback interface by name on a host without a network
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.makedirs(directory, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=directory)
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_ranked, args=(
+        EP_WORLD, tmp, dev.type, body, args), nprocs=EP_WORLD)
+    secs = time.perf_counter() - t0
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(EP_WORLD)], secs
+
+
+def ep_rank(dev, rank, cfg, batch, ckpt, elastic_cfg):
+    """Phase 8 in one spawned rank (``_ranked``): (r), (s), (t)."""
+    out = {}
+    ep_serving(dev, rank, cfg, batch, out.setdefault("r", {}))
+    psum_case(dev, rank, out.setdefault("s", {}))
+    elastic_case(dev, rank, elastic_cfg, ckpt, out.setdefault("t", {}))
+    return out
 
 
 def grouped_e4_slices(dev):
@@ -4453,7 +4494,6 @@ def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32, world1=None):
     path's launch counts (rank 0 of (1, 4): one prefill and a
     generation)."""
     import dataclasses
-    import tempfile
     import torch
     from repro_torch.checkpoint import store
     from repro_torch.configs.onerec_v2 import CONFIG
@@ -4488,16 +4528,8 @@ def ep_phase(dev, cfg=None, elastic_cfg=None, rows=32, world1=None):
           f" s")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    # gloo finds the loopback interface by name on a host without a network
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    tmp = tempfile.mkdtemp(dir=EP_DIR)
-    t0 = time.perf_counter()
-    torch.multiprocessing.spawn(_phase8_rank, args=(
-        EP_WORLD, tmp, dev.type, cfg, batch, ck, elastic_cfg),
-        nprocs=EP_WORLD)
-    ranks_s = time.perf_counter() - t0
-    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(EP_WORLD)]
+    outs, ranks_s = _spawn_ranks(dev, EP_DIR, ep_rank,
+                                 (cfg, batch, ck, elastic_cfg))
     per_forward = {"fp8_gemm": 4 * n_layers, "fp8_grouped_gemm": 3 * n_layers}
     # (r)
     for n_data, n_model in EP_MESHES:
@@ -4981,30 +5013,9 @@ def tp_serving(dev, rank, cfg, rows, layer0, first, out):
     return out
 
 
-def _phase9_rank(rank, world, tmpdir, device, cfg, rows, layer0, first):
-    """One spawned rank of phase 9 (as ``_phase8_rank``)."""
-    import datetime
-    import torch
-    import torch.distributed as dist
-    from repro_torch.device import resolve_device
-    from repro_torch.kernels import build
-    torch.set_num_threads(2)
-    if device == "cuda":
-        torch.cuda.set_device(0)
-    dev = resolve_device(device)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(tmpdir, "store"), world),
-        rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
-    try:
-        out = {"rank": rank,
-               "v": tp_serving(dev, rank, cfg, rows, layer0, first, {})}
-        if build.BUILDS:
-            raise AssertionError(f"rank {rank} ran nvcc {build.BUILDS} "
-                                 f"times: it must load the parent's builds")
-        torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
+def tp_rank(dev, rank, cfg, rows, layer0, first):
+    """Phase 9 in one spawned rank (``_ranked``): (v)."""
+    return {"v": tp_serving(dev, rank, cfg, rows, layer0, first, {})}
 
 
 def tp_phase(dev, world1, cfg=None, rows=32):
@@ -5012,7 +5023,6 @@ def tp_phase(dev, world1, cfg=None, rows=32):
     parallel in ``EP_WORLD`` gloo ranks sharing the card, against
     ``world1`` (``_world1``'s).  Returns the path's launch counts (rank 0
     of (1, 4): a prefill, two decode steps and a generation)."""
-    import tempfile
     import torch
     from repro_torch.configs.onerec_v2 import CONFIG
     t_phase = time.perf_counter()
@@ -5020,24 +5030,16 @@ def tp_phase(dev, world1, cfg=None, rows=32):
     n_layers = cfg.transformer.n_layers
     ref = world1[0]
     shutil.rmtree(TP_DIR, ignore_errors=True)
-    os.makedirs(TP_DIR)
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    tmp = tempfile.mkdtemp(dir=TP_DIR)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    t0 = time.perf_counter()
     layer0 = {k: ref[k]["layer0"] for k in ("all", 0, 1)}
     # the first item token of each row, as world 1 generated it for the
     # rows a mesh's data shard holds
     first = {(1, 4): ref["all"]["items"][:, :1],
              (2, 2): torch.cat([ref[0]["items"][:, :1],
                                 ref[1]["items"][:, :1]])}
-    torch.multiprocessing.spawn(_phase9_rank, args=(
-        EP_WORLD, tmp, dev.type, cfg, rows, layer0, first),
-        nprocs=EP_WORLD)
-    ranks_s = time.perf_counter() - t0
-    outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
-            for r in range(EP_WORLD)]
+    outs, ranks_s = _spawn_ranks(dev, TP_DIR, tp_rank,
+                                 (cfg, rows, layer0, first))
     per_prefill = {"fp8_gemm": 4 * n_layers, "fp8_gemm_given": n_layers,
                    "fp8_grouped_gemm": 3 * n_layers, "batch_attention": 0,
                    "radix_topk": 0}
@@ -5192,7 +5194,448 @@ def tp_phase(dev, world1, cfg=None, rows=32):
     return {"tp": tp}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 10: the sharded train step (N9e.3)
+# ---------------------------------------------------------------------------
+
+# full-width OneRec-V2, depth cut: f32 params, gradients, mu and nu take 16
+# bytes a parameter (79.9 GB at 12 layers; four ranks sharing one card hold
+# that total between them), so 2 layers, ~0.86 B params, ~13.8 GB of state
+TRAIN_MESH_LAYERS = 2
+TRAIN_MESH_STEPS = 2
+TRAIN_MESH_CASES = ((((1, 4), "train"),),
+                    (((2, 2), "train"), ((2, 2), "train_fsdp")))
+TRAIN_MESH_DIR = os.path.join(ROOT, "build", "phase10")
+# Fixed bounds against world 1 (the same step unsharded on the same
+# weights and rows; at (2, 2) the mean of its gradients over each data
+# shard's rows alone), set before the held run from world 1's own floor:
+# world 1 with its raw products summed in 256-deep chunks instead of 512
+# (``quant.RAW_K_CHUNK``: the same two steps, f32 sums in another order)
+# moved its loss by up to 3.70e-5, its worst leaf's gradient by 5.63e-2 /
+# 8.51e-2 relative L2 (steps 0 / 1), mu by 5.63e-2, nu by 5.90e-2, and
+# params by 1.998 learning rates summed over the steps (an NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md, the sharded train step): each bound is
+# about 1.5x that floor (2.7x for the loss).  A param moves by lr * g / (|g| + eps) in the
+# first steps, so an element whose gradient sign differs near zero moves
+# by two learning rates, and nothing may move more.
+TM_LOSS_REL = 1e-4
+TM_GRAD_REL_L2 = 1.25e-1
+TM_MU_REL_L2 = 8.5e-2
+TM_NU_REL_L2 = 9e-2
+TM_PARAM_STEPS = 2.2
+
+
+def _train_shape(rows, seq=None):
+    import dataclasses
+    from repro_torch.configs.onerec_v2 import SHAPES
+    return dataclasses.replace(SHAPES["train_b512"], global_batch=rows,
+                               seq_len=seq or SHAPES["train_b512"].seq_len)
+
+
+def _train_mesh_cfg():
+    import dataclasses
+    from repro_torch.configs.onerec_v2 import CONFIG
+    return dataclasses.replace(CONFIG, transformer=dataclasses.replace(
+        CONFIG.transformer, n_layers=TRAIN_MESH_LAYERS))
+
+
+def _clone_tree(t):
+    from repro_torch import tree
+    return tree.map_with_path(lambda _, x: x.detach().clone(), t)
+
+
+def train_reference(dev, cfg, batch, shards: int):
+    """World 1's ``TRAIN_MESH_STEPS`` steps from seed 0 (the train_b512
+    bundle's params, ``OPT_CFG``): each step's gradient of the batch, or
+    the mean of the gradients of its ``shards`` row blocks alone (a
+    (2, 2) mesh's data shards: MoE capacity counts a shard's tokens), then
+    AdamW.  Per step the loss, the gradients and the params, mu and nu
+    after the update, on ``dev``; and the step times."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.models import onerec
+    from repro_torch.optim import adamw_init, adamw_update
+    params = onerec.init_onerec(0, cfg, device=dev)
+    opt = adamw_init(params)
+    n = batch["tokens"].shape[0] // shards
+    out, times = [], []
+    for s in range(TRAIN_MESH_STEPS):
+        _sync(dev)
+        t0 = time.perf_counter()
+        grads, losses = None, []
+        for i in range(shards):
+            part = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+            loss, g = tree.value_and_grad(
+                lambda p, b: onerec.train_loss(p, b, cfg), params, part)
+            losses.append(loss)
+            if grads is None:
+                grads = g
+            else:
+                for (_, a), (_, b) in zip(tree.leaves_with_path(grads),
+                                          tree.leaves_with_path(g)):
+                    a.add_(b)
+            del g
+        if shards > 1:
+            for _, a in tree.leaves_with_path(grads):
+                a.div_(shards)
+        kept = _clone_tree(grads)
+        params, opt, _ = adamw_update(params, grads, opt, steps.OPT_CFG)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        last = s == TRAIN_MESH_STEPS - 1
+        keep = (lambda t: t) if last else _clone_tree
+        out.append({"loss": sum(losses) / shards, "grads": kept,
+                    "params": keep(params), "mu": keep(opt["mu"]),
+                    "nu": keep(opt["nu"])})
+        del grads
+    return out, times
+
+
+def _tree_gaps(local, ref, mesh, what):
+    """Per leaf of a ``DTensor`` tree against the global reference: the
+    relative L2 of the difference (each rank's sums over its shard, added
+    over the mesh dims the leaf is split on), the largest |difference|
+    beside the reference's largest |value|, and the leaves whose shard is
+    all zero where the reference's slice is not."""
+    import torch
+    from torch.distributed.tensor import Shard
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as sh
+    refs = dict(tree.leaves_with_path(ref))
+    rel, worst, zero = {}, {}, []
+    for path, t in tree.leaves_with_path(local):
+        loc = t.to_local()
+        r = _shard_of(refs[path], t.placements, mesh)
+        diff = loc - r
+        f64 = torch.float64
+        sums = torch.stack([diff.square().sum(dtype=f64),
+                            r.square().sum(dtype=f64),
+                            diff.abs().max().to(f64), r.abs().max().to(f64)])
+        del diff
+        for d, pl in enumerate(t.placements):
+            if isinstance(pl, Shard):
+                sh.all_reduce(sums[:2], mesh.get_group(d))
+                sh.all_reduce(sums[2:], mesh.get_group(d), "max")
+        rel[path] = (sums[0] / sums[1].clamp(min=1e-300)).sqrt().item()
+        worst[path] = (sums[2].item(), sums[3].item())
+        if what == "grads" and bool(r.ne(0).any()) and not bool(
+                loc.ne(0).any()):
+            zero.append(path)
+    return rel, worst, zero
+
+
+def _local_bytes(t) -> int:
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as sh
+    return sum(sh.local_shard(x).numel() * sh.local_shard(x).element_size()
+               for _, x in tree.leaves_with_path(t))
+
+
+def _collective_table(stats):
+    """``{tag: [calls, MB, s]}`` of ``sharding.STATS``."""
+    out = {}
+    for (tag, kind), (calls, nbytes, secs) in sorted(stats.items()):
+        out[f"{tag} {kind}"] = [calls, round(nbytes / 1e6, 1),
+                                round(secs, 3)]
+    return out
+
+
+def train_mesh_rank(dev, rank, cfg, batch, cases, params0, refs):
+    """Phase 10 in one rank: for each (mesh, rules) of ``cases``, the
+    params from seed 0 (``params0``, the parent's) laid out by
+    ``steps.params_axes``, their AdamW state and the batch; ``TRAIN_MESH_STEPS`` steps, each against ``refs[s]``
+    (world 1's): the loss, each gradient leaf, and the params, mu and nu
+    after the update; the first step's collectives timed apart
+    (``sharding.STATS``), the second's time clean; then the first step
+    again from seed 0, its gradients bit-identical."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import onerec
+    from repro_torch.optim import adamw_init, adamw_update
+    wrappers = _wrappers()
+    out = {}
+    for (n_data, n_model), rules_name in cases:
+        mesh = make_debug_mesh(n_data, n_model, device_type=dev.type)
+        rules = sh.RULE_SETS[rules_name]
+        tag = f"({n_data}, {n_model}) {rules_name}"
+
+        def laid_out():
+            p = sh.lay_out_tree(params0, steps.params_axes(params0), mesh,
+                                rules)
+            b = sh.lay_out_tree(batch, steps.batch_axes(
+                batch, steps._ONEREC_BATCH_AXES), mesh, rules)
+            return p, adamw_init(p), b
+
+        def grad_step(p, b):
+            with sh.use_mesh(mesh, rules):
+                return tree.value_and_grad(
+                    lambda q, x: onerec.train_loss(q, x, cfg), p, b)
+
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p, opt, b = laid_out()
+        init_s = time.perf_counter() - t0
+        res = {"coord": list(mesh.get_coordinate()), "init_s": init_s,
+               "params_bytes": _local_bytes(p),
+               "moments_bytes": _local_bytes(opt["mu"]) + _local_bytes(
+                   opt["nu"]), "steps": []}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _zero(wrappers)
+        first = None
+        for s in range(TRAIN_MESH_STEPS):
+            sh.STATS = {} if s == 0 else None
+            sh.STATS_SYNC = (lambda: _sync(dev)) if s == 0 else None
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss, grads = grad_step(p, b)
+            _sync(dev)
+            t_grad = time.perf_counter() - t0
+            stats, sh.STATS, sh.STATS_SYNC = sh.STATS, None, None
+            step = {"loss": loss.item(), "grad_s": t_grad,
+                    "grads_bytes": _local_bytes(grads)}
+            step["grads"] = _tree_gaps(grads, refs[s]["grads"], mesh,
+                                       "grads")
+            if s == 0:
+                first = _clone_tree(tree.map_with_path(
+                    lambda _, t: t.to_local(), grads))
+                step["collectives"] = _collective_table(stats)
+            _sync(dev)
+            t0 = time.perf_counter()
+            with sh.use_mesh(mesh, rules):
+                p, opt, metrics = adamw_update(p, grads, opt, steps.OPT_CFG)
+            _sync(dev)
+            step["update_s"] = time.perf_counter() - t0
+            step["lr"] = metrics["lr"].item()
+            for name, tr in (("params", p), ("mu", opt["mu"]),
+                             ("nu", opt["nu"])):
+                step[name] = _tree_gaps(tr, refs[s][name], mesh, name)
+            del grads
+            res["steps"].append(step)
+        res["peak"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        res["launches"] = _launched(wrappers, f"phase 10 {tag}")
+        del p, opt
+        p, opt, b = laid_out()
+        loss, grads = grad_step(p, b)
+        res["rerun_equal"] = loss.item() == res["steps"][0]["loss"] and all(
+            torch.equal(t.to_local(), dict(tree.leaves_with_path(first))[
+                path]) for path, t in tree.leaves_with_path(grads))
+        del p, opt, b, grads, first
+        out[tag] = res
+    # the references are the parent's memory (CUDA IPC): drop them before
+    # the rank exits, so the parent can free them
+    refs.clear()
+    params0.clear()
+    return out
+
+
+def train_mesh_phase(dev, rows=TRAIN_ROWS, cfg=None, seq=None):
+    """Phase 10 (N9e.3): full-width OneRec-V2 (``TRAIN_MESH_LAYERS``
+    layers), f32 params, ``rows`` rows of train_b512's 384 tokens, trained
+    ``TRAIN_MESH_STEPS`` steps in ``EP_WORLD`` gloo ranks sharing the card
+    on (1, 4) under ``TRAIN_RULES`` and on (2, 2) under ``TRAIN_RULES``
+    and ``TRAIN_RULES_FSDP``, each against world 1 on the same weights and
+    rows (at (2, 2) the mean of its gradients over each data shard's rows
+    alone) within the fixed bounds ``TM_*``; no gradient shard zero where
+    world 1's is not; the first step's gradients bit-identical on a rerun;
+    no kernel launched (training runs raw products)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import onerec
+    from repro_torch import tree
+    t_phase = time.perf_counter()
+    cfg = cfg or _train_mesh_cfg()
+    shape = _train_shape(rows, seq)
+    n_params = sum(t.numel() for _, t in tree.leaves_with_path(
+        onerec.init_onerec(0, cfg, device="meta")))
+    batch = steps.onerec_train_batch(cfg, shape, seed=0, device=dev)
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    print(f"[train-mesh] OneRec-V2 x{cfg.transformer.n_layers} at full "
+          f"width: {n_params / 1e9:.4f} B params, {n_params * 16 / 1e9:.2f} "
+          f"GB of params, gradients, mu and nu; {rows} x {shape.seq_len} "
+          f"tokens; {TRAIN_MESH_STEPS} steps a mesh")
+    worst, bad = collections.defaultdict(float), []
+    for shards, cases in zip((1, 2), TRAIN_MESH_CASES):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        refs, times = train_reference(dev, cfg, batch, shards)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 \
+            if dev.type == "cuda" else 0.0
+        losses = [r["loss"].item() for r in refs]
+        print(f"[train-mesh] world 1"
+              + (" (mean over 2 row blocks)" if shards > 1 else "")
+              + f": steps {[round(t * 1e3, 1) for t in times]} ms, losses "
+              f"{losses}, peak {peak:.2f} GiB (references held)")
+        if shards == 1:
+            _floor(dev, cfg, batch, refs)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # the params and references reach the ranks on the card (CUDA IPC)
+        ranks, secs = _spawn_ranks(
+            dev, TRAIN_MESH_DIR, train_mesh_rank,
+            (cfg, batch, cases, onerec.init_onerec(0, cfg, device=dev),
+             refs))
+        del refs
+        if dev.type == "cuda":
+            torch.cuda.ipc_collect()
+            torch.cuda.empty_cache()
+            print(f"[train-mesh] after the ranks: "
+                  f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+                  f"still allocated in this process")
+        for (n_data, n_model), rules_name in cases:
+            tag = f"({n_data}, {n_model}) {rules_name}"
+            bad += _train_mesh_report(tag, ranks, losses, worst)
+        print(f"[train-mesh] ranks of "
+              + ", ".join(f"({c[0][0]}, {c[0][1]}) {c[1]}" for c in cases)
+              + f": {secs:.1f} s")
+    print(f"[train-mesh] worst over meshes, ranks and steps: loss rel "
+          f"{worst['loss']:.3e} (bound {TM_LOSS_REL}), gradient rel L2 "
+          f"{worst['grads']:.3e} (bound {TM_GRAD_REL_L2}), mu "
+          f"{worst['mu']:.3e} (bound {TM_MU_REL_L2}), nu {worst['nu']:.3e} "
+          f"(bound {TM_NU_REL_L2}), params max |diff| "
+          f"{worst['params']:.3f} summed lrs past 4 f32 ulps (bound "
+          f"{TM_PARAM_STEPS}); no "
+          f"gradient shard zero where world 1's is not; reruns "
+          f"bit-identical; no kernel launched, no nvcc in any rank")
+    shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
+    print(f"[train-mesh] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        fail("; ".join(bad))
+
+
+def _train_mesh_report(tag, ranks, losses, worst):
+    """Print mesh ``tag``'s numbers (rank 0's bytes, steps and
+    collectives; every rank's worst leaf) and return the bounds its ranks
+    miss (``_train_mesh_checks``)."""
+    r0 = ranks[0][tag]
+    peaks = [o[tag]["peak"] / 2**30 for o in ranks]
+    print(f"[train-mesh] {tag}: a rank holds params "
+          f"{r0['params_bytes'] / 1e9:.3f} GB, gradients "
+          f"{r0['steps'][0]['grads_bytes'] / 1e9:.3f} GB, AdamW mu + nu "
+          f"{r0['moments_bytes'] / 1e9:.3f} GB (rank 0); peak "
+          f"{min(peaks):.2f}-{max(peaks):.2f} GiB a rank; init "
+          f"{r0['init_s']:.1f} s")
+    for s, st in enumerate(r0["steps"]):
+        print(f"[train-mesh] {tag} step {s}: loss {st['loss']:.6f} (world "
+              f"1 {losses[s]:.6f}), gradients {st['grad_s']:.2f} s"
+              + (" with every collective synchronized and timed"
+                 if s == 0 else " (clean)")
+              + f", AdamW {st['update_s'] * 1e3:.1f} ms, lr {st['lr']:.3e}")
+    print(f"[train-mesh] {tag} collectives of step 0, rank 0 (calls, MB, "
+          f"s): {json.dumps(r0['steps'][0]['collectives'])}")
+    bad = []
+    for o in ranks:
+        st = o[tag]["steps"]
+        print(f"[train-mesh] {tag} rank {o['rank']}: worst leaf "
+              + "; ".join(f"step {q}: grads {max(x['grads'][0].values()):.3e}"
+                          f", mu {max(x['mu'][0].values()):.3e}, nu "
+                          f"{max(x['nu'][0].values()):.3e}"
+                          for q, x in enumerate(st)))
+        bad += _train_mesh_checks(tag, o["rank"], o[tag], losses, worst)
+    return bad
+
+
+def _train_mesh_checks(tag, rank, r, losses, worst):
+    """The fixed bounds that rank ``rank``'s steps on mesh ``tag`` miss
+    (messages); its worst gaps folded into ``worst``."""
+    import numpy as np
+    at = f"train-mesh {tag} rank {rank}"
+    bad = [] if r["rerun_equal"] else [f"{at}: a rerun of the first step "
+                                       f"differs"]
+    for s, st in enumerate(r["steps"]):
+        rel = abs(st["loss"] - losses[s]) / abs(losses[s])
+        worst["loss"] = max(worst["loss"], rel)
+        if not rel <= TM_LOSS_REL:
+            bad.append(f"{at} step {s}: loss {st['loss']} against world "
+                       f"1's {losses[s]} ({rel:.3e} > {TM_LOSS_REL})")
+        for name, bound in (("grads", TM_GRAD_REL_L2),
+                            ("mu", TM_MU_REL_L2), ("nu", TM_NU_REL_L2)):
+            rel_l2, _, zero = st[name]
+            path = max(rel_l2, key=rel_l2.get)
+            worst[name] = max(worst[name], rel_l2[path])
+            if not rel_l2[path] <= bound:
+                bad.append(f"{at} step {s}: {name} of {path} "
+                           f"{rel_l2[path]:.3e} rel L2 off world 1's "
+                           f"(bound {bound})")
+            if zero:
+                bad.append(f"{at} step {s}: gradient shards all zero where "
+                           f"world 1's are not: {zero}")
+        # in learning rates summed over the steps so far, past 4 f32 ulps
+        # of the leaf's largest |value|
+        _, diff, _ = st["params"]
+        lr_sum = sum(r["steps"][q]["lr"] for q in range(s + 1))
+        steps_off = max(max(d - 4 * float(np.spacing(np.float32(m))), 0.0)
+                        for d, m in diff.values()) / lr_sum
+        worst["params"] = max(worst["params"], steps_off)
+        if not steps_off <= TM_PARAM_STEPS:
+            bad.append(f"{at} step {s}: params {steps_off:.3f} summed lrs "
+                       f"off world 1's (bound {TM_PARAM_STEPS})")
+    return bad
+
+
+def _floor(dev, cfg, batch, refs):
+    """World 1's floor, for information (the bounds are fixed): its
+    ``TRAIN_MESH_STEPS`` steps with the raw products summed in 256-deep
+    chunks, each against the 512-deep reference ``refs[s]``: the loss,
+    the worst leaf's relative L2 of the gradients, mu and nu, and the
+    params' largest gap in summed learning rates."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import quant
+    from repro_torch.launch import steps
+    from repro_torch.models import onerec
+    from repro_torch.optim import adamw_init, adamw_update
+
+    def worst_rel(got, ref):
+        r = dict(tree.leaves_with_path(ref))
+        return max(((g - r[p]).norm() / r[p].norm()).item()
+                   for p, g in tree.leaves_with_path(got))
+
+    params = onerec.init_onerec(0, cfg, device=dev)
+    opt = adamw_init(params)
+    chunk, lr_sum, lines = quant.RAW_K_CHUNK, 0.0, []
+    quant.RAW_K_CHUNK = 256
+    try:
+        for s, ref in enumerate(refs):
+            loss, grads = tree.value_and_grad(
+                lambda p, b: onerec.train_loss(p, b, cfg), params, batch)
+            g_rel = worst_rel(grads, ref["grads"])
+            params, opt, metrics = adamw_update(params, grads, opt,
+                                                steps.OPT_CFG)
+            del grads
+            lr_sum += metrics["lr"].item()
+            r = dict(tree.leaves_with_path(ref["params"]))
+            p_off = max(max((q - r[path]).abs().max().item()
+                            - 4 * float(np.spacing(np.float32(
+                                r[path].abs().max().item()))), 0.0)
+                        for path, q in tree.leaves_with_path(params))
+            lines.append(
+                f"step {s}: loss {abs(loss.item() - ref['loss'].item()) / abs(ref['loss'].item()):.3e} rel, "
+                f"gradients {g_rel:.3e}, mu {worst_rel(opt['mu'], ref['mu']):.3e}, "
+                f"nu {worst_rel(opt['nu'], ref['nu']):.3e} (worst leaf's rel "
+                f"L2), params {p_off / lr_sum:.3f} summed lrs")
+    finally:
+        quant.RAW_K_CHUNK = chunk
+    del params, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print("[train-mesh] world 1's floor (its raw products in 256-deep f32 "
+          "chunks against 512, for information): " + "; ".join(lines))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = argv[argv.index("--only") + 1] if "--only" in argv else None
+    if only not in (None, "train-mesh"):
+        fail(f"--only takes train-mesh, not {only}")
     try:
         import torch
     except ImportError:
@@ -5215,6 +5658,10 @@ def main() -> int:
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "C7517" in ln]
         print(f"[setup] ptxas {name}: " + " | ".join(regs))
+    if only == "train-mesh":
+        train_mesh_phase(dev)
+        print("[setup] --only train-mesh: phase 10 alone, no result line")
+        return 0
 
     records = {}
     check_fp8_gemm(dev, records)
@@ -5244,6 +5691,8 @@ def main() -> int:
     world1 = _world1(dev, CONFIG, 32)        # phases 8 and 9 hold to it
     by_path.update(ep_phase(dev, world1=world1))
     by_path.update(tp_phase(dev, world1))
+    del world1
+    train_mesh_phase(dev)
 
     # (TPU kernel it replaces, the main path whose run it is counted in);
     # the given-scale mode of fp8_gemm is counted in phase 9's run

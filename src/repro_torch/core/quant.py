@@ -593,7 +593,16 @@ def tp_matmul(x, w, *, out_dtype, act_scale=None):
         over ranks is associated otherwise.
 
     x's rows may be sharded where the weight is replicated (the ``data``
-    axis).  Any other layout raises: nothing is gathered silently."""
+    axis).  Any other layout raises: nothing is gathered silently (a
+    weight stored sharded over ``data`` arrives here gathered, from
+    ``sharding.at_use``).
+
+    Under autograd (training, raw weights) the same products run on the
+    local shards with collectives that carry cotangents: x entering a
+    column-parallel product sums its cotangent over those mesh dims
+    (``sharding.fan``), the row-parallel sum passes it through
+    (``sharding.psum``), and the weight's cotangent is labelled by
+    ``sharding.param_local``."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     import repro_torch.distributed.sharding as sh
     wdata = _payload(w)
@@ -605,13 +614,14 @@ def tp_matmul(x, w, *, out_dtype, act_scale=None):
         else [Replicate()] * mesh.ndim
     if sh.is_dtensor(wdata) and wdata.device_mesh != mesh:
         raise ValueError("tp_matmul: operands on two meshes")
-    out_pl, rows = [], []
+    out_pl, rows, cols = [], [], []
     for i, (xp, wp) in enumerate(zip(x_pl, w_pl)):
         if wp == Replicate() and (xp == Replicate() or (
                 isinstance(xp, Shard) and xp.dim < x_nd - 1)):
             out_pl.append(xp)
         elif wp == Shard(w_nd - 1) and xp == Replicate():
             out_pl.append(Shard(x_nd - 1))
+            cols.append(mesh.get_group(i))
         elif wp == Shard(w_nd - 2) and xp == Shard(x_nd - 1):
             out_pl.append(Replicate())
             rows.append(mesh.get_group(i))
@@ -621,9 +631,8 @@ def tp_matmul(x, w, *, out_dtype, act_scale=None):
                 f"against a weight {wp} on mesh dim "
                 f"{mesh.mesh_dim_names[i]} (x {tuple(x.shape)}, weight "
                 f"{tuple(wdata.shape)})")
-    xl = sh.local_shard(x)
-    wl = w.map_parts(sh.local_shard) if isinstance(w, QuantizedTensor) \
-        else sh.local_shard(w)
+    xl = sh.fan(sh.local_shard(x), cols, tag="tp-fan")
+    wl = sh.param_local(w, x)
     if not rows:
         if act_scale is not None:
             out = fp8_linear(xl, wl, out_dtype=out_dtype,
@@ -660,14 +669,12 @@ def _row_parallel(x, w, groups, out_dtype, act_scale):
         else:
             amax = _amax(xs, -1)
             for g in groups:
-                sh.all_reduce(amax, g, "max")
+                sh.all_reduce(amax, g, "max", tag="tp-amax")
             part = fp8_gemm_ops.fp8_gemm(xs, w.data.unsqueeze(0), sw,
                                          out_dtype=f32,
                                          row_scale=amax_to_scale(amax))
         part = part.reshape(*lead, n)
-    for g in groups:
-        sh.all_reduce(part, g, "sum")
-    return part.to(out_dtype)
+    return sh.psum(part, groups, tag="tp-sum").to(out_dtype)
 
 
 def quant_error(x: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:

@@ -5,12 +5,15 @@ the half of distribution that XLA's SPMD partitioner does for the JAX
 package, as far as ported: laying trees out as ``DTensor``s
 (``lay_out_tree``, ``cache_axes``), moving their data with the c10d
 collectives alone (``redistribute``, which ``constrain`` runs), and
-running plain code on a rank's shards (``local_call``).  Tensor
-parallelism of the transformer stack and the dry run are ROADMAP.md
-queue N, items N9e.1-2; FSDP training, sharded checkpoints, row-sharded
-recsys tables, sequence parallelism, ``ogb_products``, a flash-decoding
-combine over a sequence-sharded cache and the paged pool under tensor
-parallelism are N9e.3-9."""
+running plain code on a rank's shards (``local_call``), and, for
+training, collectives with a backward (``psum``, ``fan``, ``gather``,
+``sum_scatter``) and weights stored sharded over ``data`` and gathered
+where they are used (``at_use``).  Tensor parallelism of the transformer
+stack, the dry run and the sharded train step are ROADMAP.md queue N,
+items N9e.1-3; sharded checkpoints, row-sharded recsys tables, sequence
+parallelism, ``ogb_products``, the paged pool under tensor parallelism
+and the EGNN's sharded graph steps are N9e.4-10 (the flash-decoding
+combine is queue B's B-P12)."""
 
 from repro_torch.distributed.compression import (  # noqa: F401
     compressed_psum,

@@ -27,6 +27,8 @@ import sys
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
+import torch
+
 MeshAxes = Union[None, str, Tuple[str, ...]]
 
 
@@ -291,25 +293,192 @@ def _byte_view(t):
         torch.float8_e4m3fn, torch.float8_e5m2) else t
 
 
-def all_gather(t, dim: int, group):
+# The collectives' observers: ``STATS`` (when a dict) gets ``[calls,
+# bytes, seconds]`` by ``(tag, kind)`` (each call synchronized by
+# ``STATS_SYNC`` before and after, so its seconds are its own); ``AS_KIND``
+# names the collective an all-reduce stands in for (a reduce-scatter run
+# as an all-reduce and a slice: ``(kind, bytes of its output)``), for the
+# dry run's counter.  Module globals, not thread-local: a backward on the
+# card runs on autograd's device thread.
+STATS: Optional[Dict[Tuple[str, str], list]] = None
+STATS_SYNC = None
+AS_KIND: Optional[Tuple[str, int]] = None
+
+
+def _observed(kind: str, tag: str, held, run):
+    if STATS is None:
+        return run()
+    import time
+    STATS_SYNC and STATS_SYNC()
+    t0 = time.perf_counter()
+    out = run()
+    STATS_SYNC and STATS_SYNC()
+    s = STATS.setdefault((tag, kind), [0, 0, 0.0])
+    s[0] += 1
+    s[1] += held.numel() * held.element_size()
+    s[2] += time.perf_counter() - t0
+    return out
+
+
+def all_gather(t, dim: int, group, tag: str = "gather"):
     """The pieces ``t`` of the ranks of ``group`` concatenated along
-    ``dim`` in rank order (``all_gather_into_tensor``)."""
-    import torch
+    ``dim`` in rank order (``all_gather_into_tensor``; a group of one rank
+    gives ``t`` itself)."""
     import torch.distributed as dist
     n = dist.get_world_size(group)
+    if n == 1:
+        return t
     src = _byte_view(t).movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0], *src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
+    _observed("all-gather", tag, out, lambda: dist.all_gather_into_tensor(
+        out, src, group=group))
     out = out.movedim(0, dim)
     return out.view(t.dtype) if out.dtype != t.dtype else out
 
 
-def all_reduce(t, group, op: str = "sum"):
-    """``t`` summed (or maxed) over ``group``, in place; returns ``t``."""
+def all_reduce(t, group, op: str = "sum", tag: str = "sum"):
+    """``t`` summed (or maxed) over ``group``, in place; returns ``t``
+    (a group of one rank moves nothing)."""
     import torch.distributed as dist
-    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
-                           "max": dist.ReduceOp.MAX}[op], group=group)
+    if dist.get_world_size(group) == 1:
+        return t
+    _observed("all-reduce", tag, t, lambda: dist.all_reduce(
+        t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+        group=group))
     return t
+
+
+def reduce_scatter(t, dim: int, group, tag: str = "reduce-scatter"):
+    """``t`` summed over ``group`` and this rank's slice of ``dim`` kept
+    (a reduce-scatter), run as an all-reduce of a copy and a slice: the
+    all-reduce is the collective gloo is known to run on CUDA tensors.
+    It moves the whole of ``t``, where a reduce-scatter would move a
+    ``1 / size`` slice of it."""
+    import torch.distributed as dist
+    global AS_KIND
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if n == 1:
+        return t
+    part = t.shape[dim] // n
+    full = t.contiguous().clone()
+    AS_KIND = ("reduce-scatter", full.numel() // n * full.element_size())
+    try:
+        all_reduce(full, group, tag=tag)
+    finally:
+        AS_KIND = None
+    return full.narrow(dim, r * part, part).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Collectives with a backward (training on local shards)
+#
+# Every rank holds the same replicated loss and seeds its backward with 1,
+# so the backward of each data movement is its JAX transpose under that
+# convention: a sum whose result every rank uses alike passes its
+# cotangent through (Megatron's g); a replicated value that enters work
+# that differs by rank gets its cotangents summed (Megatron's f); an
+# all-gather whose result feeds such work sums and keeps the rank's slice
+# (a reduce-scatter), and a reduce-scatter gathers.  The c10d calls above
+# are the only ones: no functional collective, forward or backward.
+# ---------------------------------------------------------------------------
+
+
+def _grad_path(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups, tag):
+        out = t.clone()
+        for g in groups:
+            all_reduce(out, g, tag=tag)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Fan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, groups, tag):
+        ctx.groups, ctx.tag = groups, tag
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.clone()
+        for g in ctx.groups:
+            all_reduce(out, g, tag=ctx.tag)
+        return out, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, tag):
+        ctx.dim, ctx.group, ctx.tag = dim, group, tag
+        return all_gather(t, dim, group, tag=tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (reduce_scatter(grad, ctx.dim, ctx.group,
+                               tag=ctx.tag + "-bwd"), None, None, None)
+
+
+class _SumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, group, tag):
+        ctx.dim, ctx.group, ctx.tag = dim, group, tag
+        return reduce_scatter(t, dim, group, tag=tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_gather(grad.contiguous(), ctx.dim, ctx.group,
+                           tag=ctx.tag + "-bwd"), None, None, None)
+
+
+def _moving(groups) -> list:
+    """The groups of more than one rank (a group of one moves nothing)."""
+    import torch.distributed as dist
+    return [g for g in groups if dist.get_world_size(g) > 1]
+
+
+def psum(t, groups, tag: str = "sum"):
+    """``t`` summed over each group of ``groups``, the result used alike on
+    every rank: backward the identity.  Without a graph, in place."""
+    groups = _moving(groups)
+    if not groups:
+        return t
+    if _grad_path(t):
+        return _Psum.apply(t, groups, tag)
+    for g in groups:
+        all_reduce(t, g, tag=tag)
+    return t
+
+
+def fan(t, groups, tag: str = "fan"):
+    """``t`` as it is, entering work that differs by rank over ``groups``:
+    backward sums its cotangents over them."""
+    groups = _moving(groups)
+    if not groups or not _grad_path(t):
+        return t
+    return _Fan.apply(t, groups, tag)
+
+
+def gather(t, dim: int, group, tag: str = "gather"):
+    """``all_gather`` whose backward is a reduce-scatter (its result feeds
+    work that differs by rank)."""
+    if _grad_path(t) and _moving([group]):
+        return _Gather.apply(t, dim, group, tag)
+    return all_gather(t, dim, group, tag=tag)
+
+
+def sum_scatter(t, dim: int, group, tag: str = "sum-scatter"):
+    """``reduce_scatter`` whose backward is an all-gather."""
+    if _grad_path(t) and _moving([group]):
+        return _SumScatter.apply(t, dim, group, tag)
+    return reduce_scatter(t, dim, group, tag=tag)
 
 
 def shard_range(mesh, places, dim: int, size: int) -> Tuple[int, int]:
@@ -357,9 +526,9 @@ def redistribute(x, target):
             if inner:
                 raise ValueError(f"redistribute: dim {src.dim} stays split "
                                  f"over an inner mesh dim")
-            local = all_gather(local, src.dim, group)
+            local = gather(local, src.dim, group, tag="redistribute")
         elif isinstance(src, Partial):
-            local = all_reduce(local.clone(), group)
+            local = psum(local.clone(), [group], tag="redistribute")
         cur[i] = dst
     for i in range(len(cur)):                    # slices
         src, dst = cur[i], target[i]
@@ -374,10 +543,196 @@ def redistribute(x, target):
                              f"{local.shape[dst.dim]} does not split over "
                              f"{n} ranks")
         part = local.shape[dst.dim] // n
-        local = local.narrow(dst.dim, mesh.get_local_rank(i) * part, part)
+        if _grad_path(local):
+            local = _Keep.apply(local, dst.dim, mesh.get_group(i))
+        else:
+            local = local.narrow(dst.dim, mesh.get_local_rank(i) * part,
+                                 part)
         cur[i] = dst
     return DTensor.from_local(local, mesh, target, run_check=False,
                               shape=x.shape, stride=x.stride())
+
+
+class _Keep(torch.autograd.Function):
+    """The rank's slice of a replicated tensor; backward gathers the
+    slices' cotangents (every rank used the whole alike)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        import torch.distributed as dist
+        ctx.dim, ctx.group = dim, group
+        part = t.shape[dim] // dist.get_world_size(group)
+        return t.narrow(dim, dist.get_rank(group) * part, part).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (all_gather(grad.contiguous(), ctx.dim, ctx.group,
+                           tag="keep-bwd"), None, None)
+
+
+# ---------------------------------------------------------------------------
+# Weights at use (training): storage sharded over ``data`` (ZeRO-3)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Stored:
+    """One layer's part of a stored parameter leaf: this rank's local
+    tensor (in the graph of the leaf's ``to_local``) and its layout."""
+    local: Any
+    mesh: Any
+    placements: tuple
+    shape: tuple
+    stride: tuple
+
+
+def _use_placements(mesh, places) -> tuple:
+    """The placements a weight is used in: a ``Shard`` on each mesh axis
+    the active rules give ``embed_fsdp`` (storage-only sharding) made
+    ``Replicate``; tensor-parallel shards stay."""
+    from torch.distributed.tensor import Replicate, Shard
+    phys = (_CTX.rules or TRAIN_RULES).physical("embed_fsdp")
+    fsdp = {phys} if isinstance(phys, str) else set(phys or ())
+    names = list(mesh.mesh_dim_names)
+    return tuple(Replicate() if isinstance(p, Shard) and names[i] in fsdp
+                 else p for i, p in enumerate(places))
+
+
+class _AtUse(torch.autograd.Function):
+    """A stored local shard -> the ``DTensor`` in its use layout, its
+    storage shards gathered over their mesh axes (innermost first).  The
+    cotangent arrives in the use layout, ``Partial`` on each mesh axis
+    whose ranks computed on other rows (``param_local``'s labels); each
+    such axis is summed: a reduce-scatter where the weight was gathered,
+    an all-reduce where it is replicated.  On a gathered axis with a
+    ``Replicate`` cotangent (every rank's the same) the rank's slice is
+    kept."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, stored, use, shape, stride):
+        from torch.distributed.tensor import DTensor
+        ctx.mesh, ctx.stored, ctx.use = mesh, stored, use
+        full = local
+        for i in reversed(range(mesh.ndim)):
+            if stored[i] != use[i]:
+                full = all_gather(full, stored[i].dim, mesh.get_group(i),
+                                  tag="weight-gather")
+        if full is local:
+            full = local.view_as(local)
+        return DTensor.from_local(full, mesh, use, run_check=False,
+                                  shape=shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        none = (None,) * 5
+        if grad is None:
+            return (None, *none)
+        mesh = ctx.mesh
+        places = grad.placements if is_dtensor(grad) else ctx.use
+        g = grad.to_local() if is_dtensor(grad) else grad
+        for i in range(mesh.ndim):                    # outermost first
+            gp, sp, up = places[i], ctx.stored[i], ctx.use[i]
+            group = mesh.get_group(i)
+            if sp != up:
+                if gp.is_partial():
+                    g = reduce_scatter(g, sp.dim, group, tag="grad-reduce")
+                else:
+                    part = g.shape[sp.dim] // mesh.size(i)
+                    g = g.narrow(sp.dim, mesh.get_local_rank(i) * part,
+                                 part)
+            elif gp.is_partial():
+                g = all_reduce(g.contiguous().clone(), group,
+                               tag="grad-reduce")
+            elif gp != sp:
+                raise ValueError(f"a weight's cotangent {gp} against its "
+                                 f"layout {sp} on mesh dim {i}")
+        return (g.contiguous(), *none)
+
+
+def _takes_stored(w) -> bool:
+    """Whether a leaf goes through ``at_use``: a ``DTensor`` under autograd,
+    or one whose storage is sharded for storage alone."""
+    return is_dtensor(w) and (torch.is_grad_enabled() or _use_placements(
+        w.device_mesh, w.placements) != tuple(w.placements))
+
+
+def at_use(w):
+    """A weight as the layers use it (``_AtUse``): a ``Stored`` part or a
+    ``DTensor`` leaf gathered over its storage shards, in the graph; any
+    other leaf as it is."""
+    if isinstance(w, Stored):
+        local, mesh, places = w.local, w.mesh, w.placements
+        shape, stride = w.shape, w.stride
+    elif _takes_stored(w):
+        local, mesh, places = w.to_local(), w.device_mesh, tuple(
+            w.placements)
+        shape, stride = tuple(w.shape), tuple(w.stride())
+    else:
+        return w
+    use = _use_placements(mesh, places)
+    return _AtUse.apply(local, mesh, places, use, shape, stride)
+
+
+def at_use_tree(tree):
+    """``at_use`` on every leaf of a param tree."""
+    from repro_torch import tree as tree_util
+    return tree_util.map_with_path(lambda _, w: at_use(w), tree)
+
+
+def unbind_layers(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked param tree (``tree.unbind``);
+    a leaf that ``at_use`` takes becomes ``n`` ``Stored`` parts of its
+    local shard, so a layer's weight is gathered where the layer runs
+    (inside its remat region) and released after."""
+    from torch.distributed.tensor import Shard
+    from repro_torch import tree as tree_util
+
+    def parts(_, w):
+        if not _takes_stored(w):
+            return w.unbind(0) if torch.is_tensor(w) \
+                else [w[i] for i in range(n)]
+        places = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                       for p in w.placements)
+        return [Stored(loc, w.device_mesh, places, tuple(w.shape[1:]),
+                       tuple(w.stride()[1:]))
+                for loc in w.to_local().unbind(0)]
+    if not any(_takes_stored(w) for _, w in tree_util.leaves_with_path(
+            tree)):
+        return tree_util.unbind(tree, n)
+    split = tree_util.map_with_path(parts, tree)
+    return [tree_util.map_with_path(lambda _, p, i=i: p[i], split)
+            for i in range(n)]
+
+
+def param_local(w, x, *, feature_last: bool = True):
+    """Weight ``w``'s local shard for work on ``x``'s local shard.  Under
+    autograd its cotangent is labelled ``Partial`` on each mesh dim where
+    ``w`` is replicated and ``x`` is split on a row dim (any dim but its
+    last, the feature dim, when ``feature_last``): each rank's cotangent
+    is its own rows' share, summed in ``at_use``'s backward.  A plain or
+    quantized weight, or one without a graph, is its local shard."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not is_dtensor(w):
+        return w.map_parts(local_shard) if hasattr(w, "map_parts") else w
+    if not _grad_path(w) or not is_dtensor(x):
+        return w.to_local()
+    last = x.ndim - 1 if feature_last else x.ndim
+    labels = [Partial() if isinstance(p, Replicate) and isinstance(
+        xp, Shard) and xp.dim < last else p
+        for p, xp in zip(w.placements, x.placements)]
+    return w.to_local(grad_placements=labels)
+
+
+def mesh_groups(x, which: str) -> list:
+    """The process groups of DTensor ``x``'s mesh dims on which it is split
+    on its last dim (``which="last"``) or on another (``"rows"``)."""
+    from torch.distributed.tensor import Shard
+    out = []
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and (p.dim == x.ndim - 1) == (
+                which == "last"):
+            out.append(x.device_mesh.get_group(i))
+    return out
 
 
 def mesh_index(x, axis: str) -> Tuple[int, int]:

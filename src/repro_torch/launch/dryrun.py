@@ -8,8 +8,11 @@ one runs the step eagerly, in one process, as rank 0 of the ``"fake"``
 process group (collectives that move nothing) on ``meta`` tensors (shapes
 and dtypes, no values): the bundle is built abstract
 (``steps.build_bundle(abstract=True)``), laid out by its ``arg_axes``
-(``steps.shard_args``) and called under ``use_mesh``.  A dispatch mode
-counts what the rank does:
+(``steps.shard_args``) and called under ``use_mesh``, with the rules the
+JAX dry run picks by the cell's kind (``TRAIN_RULES`` for ``train`` and
+``graph``, else ``INFER_RULES``); a train step runs with autograd on, its
+backward and AdamW update included.  A dispatch mode counts what the rank
+does:
 
   * ``flops_per_chip``: the operations of the ops on the rank's local
     tensors (``torch.utils.flop_counter``'s formulas at local shapes; an
@@ -20,8 +23,10 @@ counts what the rank does:
     (views excluded), and the kernels' own, on local tensors;
   * ``collectives``: the JAX record's schema (``collective_bytes``), per
     rank and by each collective's output: an all-gather counts the
-    gathered bytes, an all-reduce the reduced tensor.  Eager code has no
-    loops for XLA to roll, so ``while_trip_counts`` is ``[]``;
+    gathered bytes, an all-reduce the reduced tensor, a reduce-scatter
+    (the backward of a weight gather, run as an all-reduce and a slice:
+    ``sharding.reduce_scatter``) its slice.  Eager code has no loops for
+    XLA to roll, so ``while_trip_counts`` is ``[]``;
   * ``memory_analysis``: the local bytes of the laid-out arguments and of
     the outputs (XLA's temp, alias and code sizes have no counterpart:
     null).
@@ -29,7 +34,7 @@ counts what the rank does:
 ``lower_s`` is the time to build and lay out the bundle, ``compile_s``
 the time of the run.  A cell its shape marks N/A is ``"skipped"``; a
 cell whose abstract bundle waits for a later item of ROADMAP.md queue N
-(training, the recsys scoring steps, the graph steps) is
+(the recsys steps, the EGNN's graph steps, ``ogb_products``) is
 ``"not_ported"``, naming it.  The exit code is 1 only when a cell is
 ``"error"``.
 
@@ -109,7 +114,10 @@ class RankCounter(TorchDispatchMode):
         if name in _COLLECTIVE_OPS:
             kind, where = _COLLECTIVE_OPS[name]
             held = out if where == "out" else args[where]
-            self.bytes_by[kind] += _nbytes(held)
+            nbytes = _nbytes(held)
+            if sh.AS_KIND is not None and kind == "all-reduce":
+                kind, nbytes = sh.AS_KIND
+            self.bytes_by[kind] += nbytes
             self.count_by[kind] += 1
             return out
         local_args, spec = tree_flatten((args, kwargs))
@@ -191,12 +199,13 @@ def _run(arch: str, shape_name: str, multi_pod: bool, fp8) -> dict:
     try:
         bundle = steps.build_bundle(arch, shape_name, abstract=True, fp8=fp8)
         mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
-        rules = sh.INFER_RULES
+        train = bundle.kind in ("train", "graph")
+        rules = sh.TRAIN_RULES if train else sh.INFER_RULES
         args = steps.shard_args(bundle, mesh, rules)
         t_build = time.time() - t0
         counter = RankCounter()
         with sh.use_mesh(mesh, rules), tally.counting() as kern, \
-                torch.no_grad(), counter:
+                torch.set_grad_enabled(train), counter:
             out = bundle.fn(*args)
         t_run = time.time() - t0 - t_build
     except Exception as e:  # noqa: BLE001 -- the record says what failed
@@ -206,6 +215,7 @@ def _run(arch: str, shape_name: str, multi_pod: bool, fp8) -> dict:
     nbytes = counter.bytes + kern["bytes"]
     return dict(
         n_devices=mesh.size(), note=bundle.note,
+        rules="train" if train else "infer",
         lower_s=round(t_build, 2), compile_s=round(t_run, 2),
         flops_per_chip=float(flops), bytes_per_chip=float(nbytes),
         cost_analysis={"flops": float(flops),

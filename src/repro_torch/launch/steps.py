@@ -10,12 +10,15 @@ Every bundle carries the logical axes of its arguments (``arg_axes``:
 ``params_axes``, ``batch_axes``, ``cache_axes``, the JAX package's
 strings) and ``shard_args`` lays the arguments out on a mesh by them, as
 ``DTensor``s holding each rank's slice.  ``abstract=True`` builds the LM
-and OneRec prefill and decode bundles on ``meta`` (the dry run's: shapes
-and dtypes, no values); the other kinds wait for ROADMAP.md queue N
-(train and graph N9e.3, recsys scoring N9e.5, ``ogb_products`` N9e.7).
-The step functions run on the device of their inputs; under a mesh
+and OneRec bundles on ``meta`` (the dry run's: shapes and dtypes, no
+values); the other families wait for ROADMAP.md queue N (recsys N9e.5,
+the EGNN's graph steps N9e.10, ``ogb_products`` N9e.7).  The step
+functions run on the device of their inputs; under a mesh
 (``distributed.sharding.use_mesh``) on the laid-out arguments they run
-tensor and expert parallel.
+tensor and expert parallel, and a train step of an LM or OneRec-V2 under
+``TRAIN_RULES`` or ``TRAIN_RULES_FSDP`` with its weights stored sharded
+over ``data`` and gathered where they are used (``sharding.at_use``),
+its gradients summed over the ranks that computed them.
 
 Step signatures (uniform per kind):
   train:      step(params, opt_state, batch)          -> (loss, params, opt)
@@ -300,6 +303,24 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
 # ---------------------------------------------------------------------------
 
 
+def onerec_train_batch(cfg: OneRecConfig, shape: ShapeSpec, *,
+                       seed: int = 0, device=None) -> dict:
+    """The train bundle's batch: ``global_batch`` rows of ``seq_len``
+    random tokens, a profile and ``seq_len + 1`` labels over [profile] +
+    tokens, from a generator seeded with ``seed + 1`` on ``device``."""
+    dev = resolve_device(device)
+    b, t = shape.global_batch, shape.seq_len
+    gen = _generator(seed + 1, dev)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+    return {"tokens": ids(t),
+            "profile": torch.randn((b, onerec_model.PROFILE_DIM),
+                                   generator=gen, device=dev),
+            "labels": ids(t + 1)}
+
+
 def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
                   fp8: bool, seed: int = 0, device=None) -> StepBundle:
     """A train (``seq_len`` tokens, a profile and ``seq_len + 1`` labels a
@@ -313,15 +334,7 @@ def onerec_bundle(arch: str, cfg: OneRecConfig, shape: ShapeSpec, *,
     b, t = shape.global_batch, shape.seq_len
     if shape.kind == "train":
         params = onerec_model.init_onerec(seed, cfg, device=dev)
-        gen = _generator(seed + 1, dev)
-
-        def ids(n):
-            return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
-                                 device=dev, dtype=torch.int32)
-        batch = {"tokens": ids(t),
-                 "profile": torch.randn((b, onerec_model.PROFILE_DIM),
-                                        generator=gen, device=dev),
-                 "labels": ids(t + 1)}
+        batch = onerec_train_batch(cfg, shape, seed=seed, device=dev)
         step = train_step(
             lambda p, bt: onerec_model.train_loss(p, bt, cfg))
         opt = adamw_init(params)
@@ -460,9 +473,9 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     """The concrete bundle of cell ``arch`` x ``shape_name`` on ``device``
     (``reduced``: the arch's ``reduced_config()``; ``fp8`` None: PTQ'd, as
     the JAX package decides for the LM and OneRec families).  With
-    ``abstract`` the bundle of an LM or OneRec prefill or decode cell on
-    ``meta`` (shapes and dtypes, no values: the dry run's); the other
-    kinds raise, naming the ROADMAP.md item they wait for."""
+    ``abstract`` the bundle of an LM or OneRec cell on ``meta`` (shapes
+    and dtypes, no values: the dry run's); the other families raise,
+    naming the ROADMAP.md item they wait for."""
     mod = registry.get_arch(arch)
     cfg = mod.reduced_config() if reduced else mod.CONFIG
     shape = shape_override or mod.SHAPES[shape_name]
@@ -487,13 +500,14 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
 
 def abstract_waits(family: str, shape: ShapeSpec) -> Optional[str]:
     """The ROADMAP.md queue N item an abstract bundle of this cell waits
-    for, or None where it is ported: training and the graph steps need
-    FSDP (N9e.3), the recsys scoring steps row-sharded tables (N9e.5),
-    ``ogb_products`` its sharded segment sums (N9e.7)."""
+    for, or None where it is ported: the recsys steps need row-sharded
+    tables (N9e.5), the EGNN's graph steps nodes and edges sharded over
+    ``(data, model)`` (N9e.10), ``ogb_products`` its sharded segment sums
+    (N9e.7)."""
     if shape.name == "ogb_products":
         return "N9e.7"
-    if shape.kind in ("train", "graph"):
-        return "N9e.3"
+    if family == "gnn":
+        return "N9e.10"
     if family == "recsys":
         return "N9e.5"
     return None

@@ -109,7 +109,10 @@ def _sharded_rows(table, idx):
         else:
             raise ValueError(f"gather_rows: a table {tp} with ids {ip} on "
                              f"mesh dim {mesh.mesh_dim_names[i]}")
-    local = sh.local_shard(table)
+    # training: the table's cotangent is the rank's rows' scatter-add
+    # (``segment_sum``), summed over the id-split mesh dims in ``at_use``
+    local = sh.param_local(table, idx, feature_last=False) \
+        if sh.is_dtensor(idx) else sh.local_shard(table)
     ids = sh.local_shard(idx).long()
     off, n = sh.shard_range(mesh, t_pl, 0, table.shape[0])
     mine = (ids >= off) & (ids < off + n)
@@ -118,8 +121,7 @@ def _sharded_rows(table, idx):
                                                          - ids.ndim)),
                        rows, torch.zeros((), dtype=rows.dtype,
                                          device=rows.device))
-    for g in groups:
-        sh.all_reduce(rows, g, "sum")
+    rows = sh.psum(rows, groups, tag="embed-sum")
     return DTensor.from_local(rows, mesh, out_pl, run_check=False)
 
 

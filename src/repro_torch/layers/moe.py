@@ -27,20 +27,30 @@ Under tensor parallelism the input is a ``DTensor`` replicated over
 same body, and the summed result goes back as a ``DTensor`` of the
 input's placements; the shared experts run as a tensor-parallel dense
 MLP (``layers.mlp``).
+
+Training (autograd on the local shards, the JAX ``shard_map``'s
+transposes): tokens replicated over ``model`` enter the rank's experts
+through ``sharding.fan`` (their cotangents, and the router's, summed over
+``model``) and the partial outputs are summed by ``sharding.psum``.  Under
+``TRAIN_RULES_FSDP`` the tokens are split over ``model`` too: the rank's
+``data`` slab is gathered over ``model`` (a reduce-scatter backward), the
+expert leaves (replicated there) are cut to the rank's experts, and the
+partial outputs are reduce-scattered back to the rank's rows.  Capacity
+counts a ``(pod, data)`` shard's tokens, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.core.quant import (QuantizedTensor, fp8_grouped_linear,
                                     fp8_grouped_matmul, matmul_any,
                                     raw_matmul)
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import (constrain, current_mesh,
                                               is_dtensor, local_shard,
                                               mesh_axes)
@@ -188,12 +198,17 @@ def _local(w):
         else local_shard(w)
 
 
-def _rank_experts(experts: dict, e_local: int) -> dict:
+def _rank_experts(experts: dict, e_local: int,
+                  first: Optional[int] = None) -> dict:
     """The rank's expert tree, each leaf's expert axis exactly ``e_local``
-    long (a rank never cuts a full tree per call)."""
+    long (a rank never cuts a full tree per call; with ``first``, the
+    training step's gathered leaves, replicated over ``model``, are cut
+    to the experts ``first ..`` here, a view)."""
     def leaf(path, w):
         w = _local(w)
         n = (w.data if isinstance(w, QuantizedTensor) else w).shape[0]
+        if first is not None and torch.is_tensor(w) and n > e_local:
+            return w.narrow(0, first, e_local)
         if n != e_local:
             raise ValueError(
                 f"experts/{path} holds {n} experts, a rank of this mesh "
@@ -225,16 +240,25 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     parallel over the active mesh's ``model`` axis (module docstring);
     x a plain tensor (a rank's slab) or a ``DTensor``."""
     if is_dtensor(x):
-        from torch.distributed.tensor import DTensor
-        if x.device_mesh != current_mesh():
+        from torch.distributed.tensor import DTensor, Shard
+        mesh = x.device_mesh
+        if mesh != current_mesh():
             raise ValueError("apply_moe: a DTensor input off the active "
                              "mesh")
-        slab_params = {name: tree.map_with_path(lambda _, w: _local(w),
-                                                params[name])
-                       for name in ("router", "experts")}
-        out = DTensor.from_local(_moe_slab(slab_params, x.to_local(), spec),
-                                 x.device_mesh, x.placements,
-                                 run_check=False)
+        # expert leaves replicated over ``model`` (TRAIN_RULES_FSDP's
+        # gathered weights) are cut to the rank's experts per call
+        cut = any(is_dtensor(w) and sh.placement_on(w, "model") != Shard(0)
+                  for _, w in tree.leaves_with_path(params["experts"]))
+        slab_params = {name: tree.map_with_path(
+            lambda _, w: sh.param_local(w, x), params[name])
+            for name in ("router", "experts")}
+        xl = x.to_local()
+        split = sh.placement_on(x, "model") == Shard(0)
+        if split:               # TRAIN_RULES_FSDP: the data slab, gathered
+            xl = sh.gather(xl, 0, mesh.get_group("model"), tag="ep-gather")
+        out = DTensor.from_local(_moe_slab(slab_params, xl, spec,
+                                           scatter=split, cut=cut),
+                                 mesh, x.placements, run_check=False)
     else:
         out = _moe_slab(params, x, spec)
     if spec.n_shared_experts:
@@ -242,8 +266,12 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
     return constrain(out, ("batch", "seq", "embed"))
 
 
-def _moe_slab(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
-    """The routed experts over a plain slab x (B, S, D) (``apply_moe``)."""
+def _moe_slab(params: dict, x: torch.Tensor, spec: MoESpec, *,
+              scatter: bool = False, cut: bool = False) -> torch.Tensor:
+    """The routed experts over a plain slab x (B, S, D) (``apply_moe``);
+    ``scatter``: x is the ``model`` group's rows gathered, and each rank
+    keeps its own rows of the sum; ``cut``: the expert leaves hold every
+    expert, and the rank takes its own (``_rank_experts``)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     mesh = current_mesh()
@@ -258,17 +286,26 @@ def _moe_slab(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
             raise ValueError(f"{spec.n_experts_padded} experts do not split "
                              f"over {ep} model ranks")
         e_local = spec.n_experts_padded // ep
+        first = mesh.get_local_rank("model") * e_local if cut else None
+        experts = _rank_experts(params["experts"], e_local, first)
+        e_start = mesh.get_local_rank("model") * e_local
         n_dp = sizes.get("pod", 1) * sizes.get("data", 1)
-        local = {"router": params["router"],
-                 "experts": _rank_experts(params["experts"], e_local)}
-        y = _moe_local(local, xt, spec,
-                       e_start=mesh.get_local_rank("model") * e_local,
-                       e_local=e_local,
+        group = mesh.get_group("model")
+        # tokens and router alike on every model rank unless the tokens
+        # were gathered here (``scatter``): their cotangents sum over it
+        fan = [] if scatter else [group]
+        local = {"router": {"kernel": sh.fan(params["router"]["kernel"],
+                                             fan, tag="ep-fan")},
+                 "experts": experts}
+        y = _moe_local(local, sh.fan(xt, fan, tag="ep-fan"), spec,
+                       e_start=e_start, e_local=e_local,
                        capacity=_capacity(b * s * n_dp, spec, n_dp))
         # gloo sums bf16 as c10 does (f32 add, one rounding), so the bf16
         # partials are reduced as they are
-        dist.all_reduce(y, op=dist.ReduceOp.SUM,
-                        group=mesh.get_group("model"))
+        if scatter:
+            return sh.sum_scatter(y.reshape(b, s, d), 0, group,
+                                  tag="ep-sum")
+        y = sh.psum(y, [group], tag="ep-sum")
     return y.reshape(b, s, d)
 
 
@@ -276,13 +313,29 @@ def load_balance_loss(params: dict, x: torch.Tensor,
                       spec: MoESpec) -> torch.Tensor:
     """Auxiliary load-balancing loss (Switch-style f_i * P_i) of the
     router ``params["router"]`` over x (B, S, D), as the JAX package's:
-    the padded experts unmasked, top-k by a stable descending sort."""
+    the padded experts unmasked, top-k by a stable descending sort.  On a
+    ``DTensor`` x split by rows the per-expert assignment counts and
+    probability sums are summed over those mesh dims before the product
+    (the JAX package computes this loss on global shapes)."""
+    router = params["router"]["kernel"]
+    groups = []
+    if is_dtensor(x):
+        router = sh.param_local(router, x)
+        groups = sh.mesh_groups(x, "rows")
+        n_tok = x.shape[0] * x.shape[1]
+        x = x.to_local()
     xt = x.reshape(-1, spec.d_model)
-    logits = matmul_any(xt, params["router"]["kernel"],
-                        out_dtype=torch.float32)
+    logits = matmul_any(xt, router, out_dtype=torch.float32)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     topi = torch.sort(probs, dim=-1, descending=True,
                       stable=True)[1][:, :spec.top_k]
-    frac = torch.mean(torch.nn.functional.one_hot(
-        topi, spec.n_experts_padded).to(torch.float32), dim=(0, 1))
-    return spec.n_experts_padded * torch.sum(frac * torch.mean(probs, dim=0))
+    onehot = torch.nn.functional.one_hot(
+        topi, spec.n_experts_padded).to(torch.float32)
+    if not groups:
+        frac = torch.mean(onehot, dim=(0, 1))
+        return spec.n_experts_padded * torch.sum(
+            frac * torch.mean(probs, dim=0))
+    count = sh.psum(onehot.sum(dim=(0, 1)), groups, tag="aux-sum")
+    mass = sh.psum(probs.sum(dim=0), groups, tag="aux-sum")
+    frac = count / (n_tok * spec.top_k)
+    return spec.n_experts_padded * torch.sum(frac * (mass / n_tok))

@@ -64,7 +64,7 @@ def _embed_with_profile(params, tokens, profile, cfg: OneRecConfig,
     tok_emb = tfm.embed_tokens(params["backbone"], tokens, cfg.transformer,
                                compute_dtype)
     prof = matmul_any(profile.to(compute_dtype),
-                      params["profile_proj"]["kernel"])
+                      sh.at_use(params["profile_proj"]["kernel"]))
     return torch.cat([prof[:, None, :], tok_emb], dim=1)
 
 

@@ -20,10 +20,20 @@ on (``layers.embedding.gather_rows``); the layers follow
 (``layers.attention``, ``layers.mlp``, ``layers.moe``), norms and residual
 adds run shard by shard, and the logits come out of a column-parallel head,
 sharded over the vocabulary, as in the JAX package under ``INFER_RULES``.
+
+Training on a mesh (``TRAIN_RULES``, ``TRAIN_RULES_FSDP``): every weight
+is taken where it is used through ``sharding.at_use``, its storage shards
+over ``data`` (and ``model`` under the FSDP rules) gathered, a stacked
+layer's inside the layer's remat region, so the backward's recompute
+gathers it again and no layer's gathered weights outlive it; the
+collectives on the path carry cotangents (``distributed.sharding``), and
+``token_nll`` takes the vocabulary-sharded logits as XLA partitions the
+JAX ``log_softmax`` (``_sharded_nll``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -181,6 +191,8 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig, *,
 
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
                  kind: LayerKind, cache_lp, attn_kw: dict):
+    lp = sh.at_use_tree(lp)
+
     def norm(name, y):
         return rmsnorm_apply(lp[name], y, eps=cfg.norm_eps,
                              zero_centered=cfg.zero_centered_norm)
@@ -213,7 +225,8 @@ def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     """Rows of the table in ``compute_dtype``; with ``embed_scale`` times
     ``sqrt(d_model)`` rounded to ``compute_dtype`` (the JAX package's
     ``jnp.asarray(math.sqrt(d), bf16)``: 34.0 for gemma3's 1152)."""
-    x = gather_rows(params["embed"]["table"], tokens).to(compute_dtype)
+    x = gather_rows(sh.at_use(params["embed"]["table"]),
+                    tokens).to(compute_dtype)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=compute_dtype)
     return constrain(x, ("batch", "seq", "embed"))
@@ -223,8 +236,8 @@ def logits_from_hidden(params: dict, x: torch.Tensor,
                        cfg: TransformerConfig) -> torch.Tensor:
     """f32 logits through ``lm_head``, or the raw table's transpose when
     the embeddings are tied."""
-    w = params["embed"]["table"].T if cfg.tie_embeddings \
-        else params["lm_head"]["kernel"]
+    w = sh.at_use(params["embed"]["table"]).T if cfg.tie_embeddings \
+        else sh.at_use(params["lm_head"]["kernel"])
     return constrain(matmul_any(x, w, out_dtype=torch.float32),
                      ("batch", "seq", "vocab"))
 
@@ -282,10 +295,13 @@ def forward(
     # recomputed in the backward (training only; serving turns remat off)
     remat = cfg.remat and cache is None and torch.is_grad_enabled() \
         and x.requires_grad
+    mesh, rules = sh.current_mesh(), sh.current_rules()
+    remat_kw = {} if mesh is None else {"context_fn": lambda: (
+        contextlib.nullcontext(), sh.use_mesh(mesh, rules))}
     for si, spec in enumerate(layer_plan(cfg)):
         stack_params = params["stacks"][str(si)]
         stack_cache = cache["stacks"][str(si)] if cache is not None else None
-        layers = {key: tree.unbind(lp, spec.n_periods)
+        layers = {key: sh.unbind_layers(lp, spec.n_periods)
                   for key, lp in stack_params.items()}
         for i in range(spec.n_periods):
             for pi, kind in enumerate(spec.kinds):
@@ -293,8 +309,11 @@ def forward(
                 c_lp = (tree.index(stack_cache[key], i)
                         if stack_cache is not None else None)
                 if remat:
+                    # the recompute may run on autograd's device thread:
+                    # it takes the forward's mesh and rules along
                     x = checkpoint(_apply_layer, layers[key][i], x, cfg,
-                                   kind, c_lp, attn_kw, use_reentrant=False)
+                                   kind, c_lp, attn_kw, use_reentrant=False,
+                                   **remat_kw)
                 else:
                     x = _apply_layer(layers[key][i], x, cfg, kind, c_lp,
                                      attn_kw)
@@ -307,8 +326,8 @@ def forward(
         x = sh.local_call(_rows_at, x, last_index[off:off + n])
     elif last_index is not None:
         x = _rows_at(x, last_index)
-    x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps,
-                      zero_centered=cfg.zero_centered_norm)
+    x = rmsnorm_apply(sh.at_use_tree(params["final_norm"]), x,
+                      eps=cfg.norm_eps, zero_centered=cfg.zero_centered_norm)
     tap("final_hidden", x)
     logits = logits_from_hidden(params, x, cfg)
     tap("logits", logits)
@@ -415,11 +434,46 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     ``labels`` (B, T), labels < 0 masked (the JAX package's ``log_softmax``
     + ``take_along_axis``; each position's gradient lands in its own row,
     so the gather's backward adds nothing twice)."""
+    if sh.is_dtensor(logits):
+        return _sharded_nll(logits, labels)
     mask = (labels >= 0).to(torch.float32)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.take_along_dim(
         logp, torch.clamp(labels.long(), min=0)[..., None], dim=-1)[..., 0]
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _sharded_nll(logits, labels) -> torch.Tensor:
+    """``token_nll`` of a ``DTensor`` of logits split by rows and, over
+    some mesh dims, by the vocabulary, on the local shards (XLA's
+    partition of the JAX ``log_softmax``): the local max, max-reduced over
+    the vocabulary's ranks (no cotangent: JAX stops its gradient), the
+    local sum of exponentials summed there, the label's logit taken on
+    the rank that holds it; the masked sum and the count of valid labels
+    summed over the row-split dims.  The (B, T, V) logits are never
+    gathered.  Every sum's result is used alike on every rank, so its
+    cotangent passes through (``sharding.psum``)."""
+    vocab = sh.mesh_groups(logits, "last")
+    rows = sh.mesh_groups(logits, "rows")
+    v_off, v_n = sh.shard_range(logits.device_mesh, logits.placements,
+                                logits.ndim - 1, logits.shape[-1])
+    local = logits.to_local().to(torch.float32)
+    lab = sh.local_shard(labels).long()
+    top = local.detach().amax(dim=-1, keepdim=True)
+    for g in vocab:
+        sh.all_reduce(top, g, "max", tag="ce-max")
+    shifted = local - top
+    lse = torch.log(sh.psum(torch.sum(torch.exp(shifted), dim=-1),
+                            vocab, tag="ce-sum"))
+    mine = (lab >= v_off) & (lab < v_off + v_n)
+    idx = torch.clamp(torch.clamp(lab, min=0) - v_off, 0, v_n - 1)
+    picked = torch.take_along_dim(shifted, idx[..., None], dim=-1)[..., 0]
+    picked = sh.psum(torch.where(mine, picked, torch.zeros_like(picked)),
+                     vocab, tag="ce-sum")
+    mask = (lab >= 0).to(torch.float32)
+    total = sh.psum(torch.sum((lse - picked) * mask), rows, tag="ce-sum")
+    count = sh.psum(torch.sum(mask), rows, tag="ce-sum")
+    return total / torch.clamp(count, min=1.0)
 
 
 def train_loss(params: dict, batch: Dict[str, torch.Tensor],
@@ -441,7 +495,9 @@ def train_loss(params: dict, batch: Dict[str, torch.Tensor],
                 if kind.ffn != "moe":
                     continue
                 lp = params["stacks"][str(si)][f"p{pi}"]["moe"]
-                aux = aux + load_balance_loss(tree.index(lp, 0), x, spec)
+                first = sh.unbind_layers({"router": lp["router"]},
+                                         sspec.n_periods)[0]
+                aux = aux + load_balance_loss(sh.at_use_tree(first), x, spec)
                 n += 1
         loss = loss + cfg.aux_loss_weight * aux / max(n, 1)
     return loss

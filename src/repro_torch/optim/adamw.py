@@ -12,6 +12,13 @@ the schedule and bias corrections are f32 device tensors and divisions
 are by tensors), so equal gradients give bit-identical params, ``mu`` and
 ``nu`` wherever the f32 scalars agree (tested).  ``global_norm`` sums the
 leaves in the JAX flatten order (``tree.flat_leaves``).
+
+On a mesh the leaves are ``DTensor``s: params, gradients, ``mu`` and
+``nu`` share a leaf's placements (``launch.steps.params_axes`` lays the
+moments out as the JAX ``arg_axes`` do), so the update runs on the local
+shards as it is; ``global_norm`` sums each leaf's local sum of squares
+over the mesh dims it is split on (each element counted once), so every
+rank clips by the same scale.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Any, Callable, Dict, Tuple
 import torch
 
 from repro_torch import tree
+from repro_torch.distributed import sharding as sh
 
 F32 = torch.float32
 
@@ -62,15 +70,32 @@ def cosine_schedule(cfg: OptimizerConfig
 
 def global_norm(grads: Dict[str, Any]) -> torch.Tensor:
     """sqrt of the sum over leaves (JAX flatten order) of each leaf's f32
-    sum of squares."""
-    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(F32)))
-                          for leaf in tree.flat_leaves(grads)))
+    sum of squares; a ``DTensor`` leaf's summed over the mesh dims it is
+    split on (one all-reduce a set of such dims for all its leaves)."""
+    from torch.distributed.tensor import Shard
+    leaves = tree.flat_leaves(grads)
+    sums = [torch.sum(torch.square(sh.local_shard(leaf).to(F32)))
+            for leaf in leaves]
+    by_groups: Dict[tuple, list] = {}
+    for i, leaf in enumerate(leaves):
+        if sh.is_dtensor(leaf):
+            dims = tuple(d for d, p in enumerate(leaf.placements)
+                         if isinstance(p, Shard))
+            if dims:
+                by_groups.setdefault((leaf.device_mesh, dims), []).append(i)
+    for (mesh, dims), idx in by_groups.items():
+        part = torch.stack([sums[i] for i in idx])
+        for d in dims:
+            sh.all_reduce(part, mesh.get_group(d), tag="grad-norm")
+        for j, i in enumerate(idx):
+            sums[i] = part[j]
+    return torch.sqrt(sum(sums))
 
 
 def adamw_init(params: Dict[str, Any]) -> Dict[str, Any]:
     """f32 zero moments of every param leaf, and the int32 step 0."""
     zeros = lambda _, p: torch.zeros_like(p, dtype=F32)    # noqa: E731
-    leaf = next(iter(tree.flat_leaves(params)))
+    leaf = sh.local_shard(next(iter(tree.flat_leaves(params))))
     return {"mu": tree.map_with_path(zeros, params),
             "nu": tree.map_with_path(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=leaf.device)}
@@ -101,13 +126,24 @@ def _update_leaf(p: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         p.copy_(p.to(F32).sub_(t))
 
 
+def _like(old, new: torch.Tensor):
+    """``new`` laid out as ``old`` (a replicated ``DTensor`` step counter
+    stays one)."""
+    if not sh.is_dtensor(old):
+        return new
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(new, old.device_mesh, old.placements,
+                              run_check=False)
+
+
 def adamw_update(params: Dict[str, Any], grads: Dict[str, Any],
                  state: Dict[str, Any], cfg: OptimizerConfig
                  ) -> Tuple[Dict[str, Any], Dict[str, Any],
                             Dict[str, torch.Tensor]]:
     """One AdamW step, in place (params, ``state`` and the gradient
-    buffers are overwritten).  Returns (params, state, metrics)."""
-    step = state["step"] + 1
+    buffers are overwritten; ``DTensor`` leaves shard by shard).  Returns
+    (params, state, metrics)."""
+    step = sh.local_shard(state["step"]) + 1
     lr = cosine_schedule(cfg)(step)
     gnorm = global_norm(grads)
     if cfg.clip_norm > 0:
@@ -121,8 +157,10 @@ def adamw_update(params: Dict[str, Any], grads: Dict[str, Any],
     flat_g = dict(tree.leaves_with_path(grads))
     flat_mu = dict(tree.leaves_with_path(state["mu"]))
     flat_nu = dict(tree.leaves_with_path(state["nu"]))
+    loc = sh.local_shard
     for path, p in tree.leaves_with_path(params):
-        _update_leaf(p, flat_g[path], flat_mu[path], flat_nu[path],
-                     scale=scale, lr=lr, bc1=bc1, bc2=bc2, cfg=cfg)
-    state["step"] = step
+        _update_leaf(loc(p), loc(flat_g[path]), loc(flat_mu[path]),
+                     loc(flat_nu[path]), scale=scale, lr=lr, bc1=bc1,
+                     bc2=bc2, cfg=cfg)
+    state["step"] = _like(state["step"], step)
     return params, state, {"grad_norm": gnorm, "lr": lr}

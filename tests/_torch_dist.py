@@ -389,3 +389,135 @@ def tp_job(rank, world, onerec_params, batch, decode_tok, index, lm_params,
         res["functional"] = guard.seen
         out[n_data, n_model] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded train step (N9e.3)
+# ---------------------------------------------------------------------------
+
+
+TRAIN_MESHES = (((1, 4), "train"), ((2, 2), "train"), ((2, 2), "train_fsdp"))
+
+
+def full(t):
+    """A DTensor gathered whole (c10d only), as a plain tensor."""
+    from torch.distributed.tensor import Replicate
+    return sh.redistribute(t, [Replicate()] * t.device_mesh.ndim
+                           ).to_local().clone()
+
+
+def sharded_step(loss_fn, params, batch, mesh, rules, batch_axes):
+    """One train step on ``mesh`` under ``rules``: params and their AdamW
+    state laid out by ``steps.params_axes``, the batch by ``batch_axes``;
+    the loss, every gradient and the params, ``mu`` and ``nu`` after the
+    update gathered whole, each gradient's local shard beside its row
+    offsets, and the functional collectives the step ran."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init, adamw_update
+    params = tree_util.map_with_path(lambda _, t: t.clone(), params)
+    opt = adamw_init(params)
+    p = sh.lay_out_tree(params, steps.params_axes(params), mesh, rules)
+    o = sh.lay_out_tree(opt, steps.params_axes(opt), mesh, rules)
+    b = sh.lay_out_tree(batch, steps.batch_axes(batch, batch_axes), mesh,
+                        rules)
+    guard = NoFunctionalCollectives()
+    with guard, sh.use_mesh(mesh, rules):
+        loss, grads = tree_util.value_and_grad(loss_fn, p, b)
+        g_full = tree_util.map_with_path(lambda _, t: full(t), grads)
+        g_local = tree_util.map_with_path(lambda _, t: (
+            t.to_local().clone(), [sh.shard_range(mesh, t.placements, d,
+                                                  t.shape[d])
+                                   for d in range(t.ndim)]), grads)
+        p, o, _ = adamw_update(p, grads, o, steps.OPT_CFG)
+        after = {name: tree_util.map_with_path(lambda _, t: full(t), tr)
+                 for name, tr in (("params", p), ("mu", o["mu"]),
+                                  ("nu", o["nu"]))}
+    return {"loss": loss, "grads": g_full, "local": g_local, **after,
+            "functional": guard.seen}
+
+
+def train_job(rank, world, cases):
+    """Each case ``(name, family, cfg, params, batch)`` stepped on every
+    mesh of ``TRAIN_MESHES``; OneRec-V2's (1, 4) step twice (a rerun)."""
+    from repro_torch.launch import steps
+    out = {}
+    for name, family, cfg, params, batch in cases:
+        if family == "onerec":
+            fn = lambda p, b: onerec.train_loss(p, b, cfg)  # noqa: E731
+            axes = steps._ONEREC_BATCH_AXES
+        else:
+            fn = lambda p, b: tfm.train_loss(p, b, cfg)  # noqa: E731
+            axes = steps._TOKEN_AXES
+        for (n_data, n_model), rules in TRAIN_MESHES:
+            mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                            device_type="cpu")
+            res = sharded_step(fn, params, batch, mesh,
+                               sh.RULE_SETS[rules], axes)
+            if family == "onerec" and (n_data, n_model) == (1, 4):
+                res["rerun"] = sharded_step(fn, params, batch, mesh,
+                                            sh.RULE_SETS[rules], axes)
+            out[name, n_data, n_model, rules] = res
+    out["bundle"] = bundle_step()
+    out["transposes"] = transposes_job()
+    return out
+
+
+def transposes_job():
+    """Each collective's backward on (2, 2) over ``data`` against its
+    transpose worked by hand, under the step's convention (one loss,
+    replicated: a sum over the ranks of each one's share): per case the
+    gradient a rank gets and the one it should."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    g, d = mesh.get_group("data"), mesh.get_local_rank("data")
+    base = torch.arange(8.0).reshape(4, 2)
+    w = [torch.full((4, 2), 1.0) + torch.arange(8.0).reshape(4, 2) * k
+         for k in (1.0, 2.0)]                    # w[d]: data rank d's
+    w_rows = [w[k][2 * k:2 * k + 2] for k in (0, 1)]
+
+    def total(share):
+        return sh.psum(share, [g])
+
+    out = {}
+    x = (base + d).requires_grad_()
+    total((sh.psum(x, [g]) * w[0]).sum()).backward()
+    out["psum"] = (x.grad, w[0])
+    x = base.clone().requires_grad_()
+    total((sh.fan(x, [g]) * w[d]).sum()).backward()
+    out["fan"] = (x.grad, w[0] + w[1])
+    x = (base[2 * d:2 * d + 2] + d).requires_grad_()
+    total((sh.gather(x, 0, g) * w[d]).sum()).backward()
+    out["gather"] = (x.grad, (w[0] + w[1])[2 * d:2 * d + 2])
+    x = (base + d).requires_grad_()
+    total((sh.sum_scatter(x, 0, g) * w_rows[d]).sum()).backward()
+    out["sum_scatter"] = (x.grad, torch.cat(w_rows))
+    x = base.clone().requires_grad_()
+    rep = DTensor.from_local(x, mesh, [Replicate(), Replicate()],
+                             run_check=False)
+    kept = sh.redistribute(rep, [Shard(0), Replicate()]).to_local()
+    total((kept * w_rows[d]).sum()).backward()
+    out["keep"] = (x.grad, torch.cat(w_rows))
+    return out
+
+
+def bundle_step():
+    """The OneRec-V2 train bundle (reduced, smoke shape) laid out by
+    ``steps.shard_args`` under ``TRAIN_RULES_FSDP`` on (2, 2) and stepped
+    by its own ``fn``: the loss, the step counter, and whether every
+    param moved."""
+    from repro_torch.launch import steps
+    b = steps.build_bundle("onerec-v2", "train_b512", reduced=True,
+                           device="cpu",
+                           shape_override=steps.SMOKE_SHAPES["onerec"][
+                               "train"])
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    params, opt, batch = steps.shard_args(b, mesh, sh.TRAIN_RULES_FSDP)
+    before = {p: t.to_local().clone()
+              for p, t in tree_util.leaves_with_path(params)}
+    with sh.use_mesh(mesh, sh.TRAIN_RULES_FSDP):
+        loss, params, opt = b.fn(params, opt, batch)
+    moved = all(not torch.equal(t.to_local(), before[p])
+                for p, t in tree_util.leaves_with_path(params)
+                if t.ndim >= 2)
+    return {"loss": loss, "step": int(sh.local_shard(opt["step"])),
+            "moved": moved, "grad_norm": b.fn.metrics["grad_norm"]}

@@ -678,16 +678,49 @@ for s, h in enumerate(hists):
 logits = ex.prefill_insert(hists, [np.asarray(r["profile"]) for r in
                                    reqs[:8]], list(range(8)))
 lengths = np.asarray([len(h) + 1 for h in hists], np.int32)
-h = hashlib.sha256(logits.float().cpu().numpy().tobytes())
+steps = [hashlib.sha256(logits.float().cpu().numpy().tobytes()).hexdigest()]
 for _ in range(cfg.decode_len - 1):
     toks = np.argmax(logits.float().cpu().numpy(), -1).astype(np.int32)
     logits = ex.decode(toks[:, None], lengths)
     lengths = lengths + 1
-    h.update(logits.float().cpu().numpy().tobytes())
+    steps.append(hashlib.sha256(
+        logits.float().cpu().numpy().tobytes()).hexdigest())
 print(json.dumps(dict(items=[o.tolist() for o in outs],
                       seeds={{str(k): v for k, v in seeds.items()}},
-                      logits=h.hexdigest())))
+                      logits=steps)))
 """
+
+
+def paged_case_difference(a: dict, b: dict):
+    """Where two runs of ``_PAGED_CASE`` first differ: the field (items,
+    the top-2 first-token logits, the teacher-forced logits) and the
+    request or step; None where they agree."""
+    for k, (x, y) in enumerate(zip(a["items"], b["items"])):
+        if x != y:
+            return f"items of request {k}: {x} != {y}"
+    if len(a["items"]) != len(b["items"]):
+        return "the number of requests served"
+    for key in sorted(set(a["seeds"]) | set(b["seeds"])):
+        if a["seeds"].get(key) != b["seeds"].get(key):
+            return (f"top-2 first-token logits of request {key}: "
+                    f"{a['seeds'].get(key)} != {b['seeds'].get(key)}")
+    for step, (x, y) in enumerate(zip(a["logits"], b["logits"])):
+        if x != y:
+            what = "the prefill" if step == 0 else f"decode step {step}"
+            return f"teacher-forced logits of {what}"
+    return None
+
+
+def run_paged_case(root: str):
+    """One fresh process serving ``_PAGED_CASE``; returns its record."""
+    import json
+    import os
+    import subprocess
+    import sys
+    code = _PAGED_CASE.format(root=root, src=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, timeout=600)
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.cuda
@@ -695,19 +728,23 @@ def test_phase3_paged_case_is_identical_across_processes(cuda):
     """ROADMAP C3: ``chip_smoke.py`` phase 3's ``paged`` case served in
     three fresh processes of the port: the items, the top-2 first-token
     logits and the teacher-forced logits (prefill and decode steps) are
-    bit-identical across them."""
+    bit-identical across them.  Each run's record is kept under
+    ``build/c9/``; a difference is reported by field and request or step
+    (ROADMAP C9)."""
     import json
     import os
-    import subprocess
-    import sys
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    code = _PAGED_CASE.format(root=root, src=os.path.join(root, "src"))
+    keep = os.path.join(root, "build", "c9")
+    os.makedirs(keep, exist_ok=True)
     runs = []
-    for _ in range(3):
-        out = subprocess.run([sys.executable, "-c", code], check=True,
-                             capture_output=True, text=True, timeout=600)
-        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
-    assert all(r == runs[0] for r in runs[1:])
+    for i in range(3):
+        runs.append(run_paged_case(root))
+        with open(os.path.join(keep, f"run{i}.json"), "w") as f:
+            json.dump(runs[-1], f)
+    for i, r in enumerate(runs[1:], 1):
+        where = paged_case_difference(runs[0], r)
+        assert where is None, (f"run {i} differs from run 0 in {where} "
+                               f"(records under {keep})")
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ item N9e.2): one cell end to end in a subprocess (the ``"fake"`` process
 group of 256 ranks, ``meta`` tensors), its ``flops_per_chip`` against the
 rank's products reckoned by hand from the layout; the collective counter
 on a known redistribution, in JAX's ``collective_bytes`` schema; the cell
-list against the JAX dry run's; the cells that wait for later items."""
+list against the JAX dry run's; the cells that wait for later items, and
+two train cells (N9e.3) run with their backward."""
 
 import json
 import os
@@ -113,6 +114,19 @@ def test_collectives_counted_as_jax_counts_them(fake_mesh):
     assert rec["while_trip_counts"] == []
 
 
+def test_reduce_scatter_counted_by_its_slice(fake_mesh):
+    """A reduce-scatter (run as an all-reduce and a slice) counts as one
+    reduce-scatter of the slice's bytes, not as an all-reduce."""
+    counter = dryrun.RankCounter()
+    with counter:
+        out = sh.reduce_scatter(torch.empty((8, 3), device="meta"), 0,
+                                fake_mesh.get_group("model"))
+    assert tuple(out.shape) == (2, 3)
+    rec = counter.collectives()
+    assert rec["count_reduce_scatter"] == 1 and rec["count_all_reduce"] == 0
+    assert rec["bytes_reduce_scatter"] == 2 * 3 * 4
+
+
 def test_list_names_the_jax_cells():
     ours = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--list"],
@@ -126,19 +140,37 @@ def test_list_names_the_jax_cells():
 
 
 @pytest.mark.parametrize("arch,shape,status,item", [
-    ("onerec-v2", "train_b512", "not_ported", "N9e.3"),
-    ("llama3-8b", "train_4k", "not_ported", "N9e.3"),
+    ("onerec-v2", "train_b512", "ok", None),
+    ("llama3-8b", "train_4k", "ok", None),
     ("din", "serve_p99", "not_ported", "N9e.5"),
+    ("din", "train_batch", "not_ported", "N9e.5"),
     ("two-tower-retrieval", "retrieval_cand", "not_ported", "N9e.5"),
-    ("egnn", "molecule", "not_ported", "N9e.3"),
+    ("egnn", "molecule", "not_ported", "N9e.10"),
     ("egnn", "ogb_products", "not_ported", "N9e.7"),
     ("llama3-8b", "long_500k", "skipped", None)])
 def test_waiting_and_skipped_cells(tmp_path, arch, shape, status, item):
-    rec = dryrun.run_cell(arch, shape, False, str(tmp_path))
-    assert rec["status"] == status
+    """Each cell's status and the item it waits for.  A train cell runs
+    (the ``"fake"`` group of 256 ranks) under ``TRAIN_RULES`` with its
+    backward: its record counts the backward's reduce-scatters (the weight
+    gathers' transposes) beside the all-gathers and all-reduces."""
+    if status == "ok":
+        dryrun._fake_group(256)
+    try:
+        rec = dryrun.run_cell(arch, shape, False, str(tmp_path))
+    finally:
+        if status == "ok":
+            import torch.distributed as dist
+            dist.destroy_process_group()
+    assert rec["status"] == status, rec.get("error")
     assert rec.get("item") == item
     if item:
         assert f"item {item}" in rec["reason"]
+    if status == "ok":
+        coll = rec["collectives"]
+        assert rec["rules"] == "train" and set(coll) == SCHEMA
+        for kind in ("all_reduce", "all_gather", "reduce_scatter"):
+            assert coll[f"bytes_{kind}"] > 0 and coll[f"count_{kind}"] > 0
+        assert rec["flops_per_chip"] > 0
     on_disk = json.loads((tmp_path / f"{arch}__{shape}__single.json")
                          .read_text())
     assert on_disk == rec

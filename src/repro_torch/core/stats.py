@@ -157,11 +157,14 @@ def collect_activation_stats(taps: Mapping[str, torch.Tensor],
 _TAPS: Optional[Dict[str, torch.Tensor]] = None
 
 
-def tap(name: str, x: torch.Tensor) -> None:
+def tap(name: str, x) -> None:
     """Record ``x`` under ``name`` while a ``capture_taps()`` block is
-    open (no copy: the tensor itself)."""
+    open (no copy: the tensor itself).  ``x`` may be a function of no
+    arguments that makes the tensor: it runs only inside such a block."""
     if _TAPS is None:
         return
+    if callable(x):
+        x = x()
     base, i = name, 0
     while name in _TAPS:
         i += 1

@@ -294,11 +294,11 @@ def _byte_view(t):
 
 
 # The collectives' observers: ``STATS`` (when a dict) gets ``[calls,
-# bytes, seconds]`` by ``(tag, kind)`` (each call synchronized by
-# ``STATS_SYNC`` before and after, so its seconds are its own); ``AS_KIND``
-# names the collective an all-reduce stands in for (a reduce-scatter run
-# as an all-reduce and a slice: ``(kind, bytes of its output)``), for the
-# dry run's counter.  Module globals, not thread-local: a backward on the
+# bytes, seconds, largest call's bytes]`` by ``(tag, kind)`` (each call
+# synchronized by ``STATS_SYNC`` before and after, so its seconds are its
+# own); ``AS_KIND`` names the collective an all-reduce stands in for (a
+# reduce-scatter run as an all-reduce and a slice: ``(kind, bytes of its
+# output)``), for the dry run's counter.  Module globals, not thread-local: a backward on the
 # card runs on autograd's device thread.
 STATS: Optional[Dict[Tuple[str, str], list]] = None
 STATS_SYNC = None
@@ -313,10 +313,12 @@ def _observed(kind: str, tag: str, held, run):
     t0 = time.perf_counter()
     out = run()
     STATS_SYNC and STATS_SYNC()
-    s = STATS.setdefault((tag, kind), [0, 0, 0.0])
+    s = STATS.setdefault((tag, kind), [0, 0, 0.0, 0])
+    nbytes = held.numel() * held.element_size()
     s[0] += 1
-    s[1] += held.numel() * held.element_size()
+    s[1] += nbytes
     s[2] += time.perf_counter() - t0
+    s[3] = max(s[3], nbytes)
     return out
 
 
@@ -586,11 +588,21 @@ class Stored:
     stride: tuple
 
 
-def _use_placements(mesh, places) -> tuple:
+# Logical axes whose shards are where a leaf is used, not only where it is
+# stored: an embedding table's rows (its lookups run on the rank's rows,
+# ``layers.embedding.gather_rows``; the JAX ``table_rows``).
+USE_SHARDED_AXES = ("table_rows",)
+
+
+def _use_placements(mesh, places, axes=None) -> tuple:
     """The placements a weight is used in: a ``Shard`` on each mesh axis
     the active rules give ``embed_fsdp`` (storage-only sharding) made
-    ``Replicate``; tensor-parallel shards stay."""
+    ``Replicate``; tensor-parallel shards stay.  A leaf whose logical
+    ``axes`` (``infer_param_axes``) start with one of ``USE_SHARDED_AXES``
+    keeps every shard: a table's row shards are its use layout."""
     from torch.distributed.tensor import Replicate, Shard
+    if axes and axes[0] in USE_SHARDED_AXES:
+        return tuple(places)
     phys = (_CTX.rules or TRAIN_RULES).physical("embed_fsdp")
     fsdp = {phys} if isinstance(phys, str) else set(phys or ())
     names = list(mesh.mesh_dim_names)
@@ -656,27 +668,34 @@ def _takes_stored(w) -> bool:
         w.device_mesh, w.placements) != tuple(w.placements))
 
 
-def at_use(w):
+def at_use(w, axes=None):
     """A weight as the layers use it (``_AtUse``): a ``Stored`` part or a
     ``DTensor`` leaf gathered over its storage shards, in the graph; any
-    other leaf as it is."""
+    other leaf as it is.  ``axes``, the leaf's logical axes, name a table
+    (``USE_SHARDED_AXES``), whose shards stay: no byte of it moves, and its
+    cotangent (complete on the rank's rows, from the lookup's transpose)
+    is not summed again."""
     if isinstance(w, Stored):
         local, mesh, places = w.local, w.mesh, w.placements
         shape, stride = w.shape, w.stride
-    elif _takes_stored(w):
+    elif is_dtensor(w):
         local, mesh, places = w.to_local(), w.device_mesh, tuple(
             w.placements)
         shape, stride = tuple(w.shape), tuple(w.stride())
     else:
         return w
-    use = _use_placements(mesh, places)
+    use = _use_placements(mesh, places, axes)
+    if use == places and is_dtensor(w) and not torch.is_grad_enabled():
+        return w
     return _AtUse.apply(local, mesh, places, use, shape, stride)
 
 
 def at_use_tree(tree):
-    """``at_use`` on every leaf of a param tree."""
+    """``at_use`` on every leaf of a param tree, each ``DTensor`` leaf
+    named by its logical axes (``infer_param_axes`` of its path)."""
     from repro_torch import tree as tree_util
-    return tree_util.map_with_path(lambda _, w: at_use(w), tree)
+    return tree_util.map_with_path(lambda path, w: at_use(
+        w, infer_param_axes(path, w.ndim) if is_dtensor(w) else None), tree)
 
 
 def unbind_layers(tree, n: int) -> list:
@@ -733,6 +752,24 @@ def mesh_groups(x, which: str) -> list:
                 which == "last"):
             out.append(x.device_mesh.get_group(i))
     return out
+
+
+def split_groups(x) -> list:
+    """The process groups of the mesh dims on which DTensor ``x`` is split
+    (on any tensor dim); none for any other value."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(x):
+        return []
+    return [x.device_mesh.get_group(i) for i, p in enumerate(x.placements)
+            if isinstance(p, Shard)]
+
+
+def total(x, tag: str = "total"):
+    """``torch.sum(x)``: of a ``DTensor``, the local shard's sum summed
+    over the mesh dims that split it (``psum``: a plain scalar, the same on
+    every rank, its cotangent passed through); of any other tensor, its
+    sum."""
+    return psum(torch.sum(local_shard(x)), split_groups(x), tag=tag)
 
 
 def mesh_index(x, axis: str) -> Tuple[int, int]:

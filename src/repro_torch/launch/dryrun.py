@@ -34,8 +34,7 @@ does:
 ``lower_s`` is the time to build and lay out the bundle, ``compile_s``
 the time of the run.  A cell its shape marks N/A is ``"skipped"``; a
 cell whose abstract bundle waits for a later item of ROADMAP.md queue N
-(the recsys steps, the EGNN's graph steps, ``ogb_products``) is
-``"not_ported"``, naming it.  The exit code is 1 only when a cell is
+(``ogb_products``) is ``"not_ported"``, naming it.  The exit code is 1 only when a cell is
 ``"error"``.
 
 Usage:

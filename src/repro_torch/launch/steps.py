@@ -9,16 +9,19 @@ caller passes ``device="cpu"``), the JAX package's
 Every bundle carries the logical axes of its arguments (``arg_axes``:
 ``params_axes``, ``batch_axes``, ``cache_axes``, the JAX package's
 strings) and ``shard_args`` lays the arguments out on a mesh by them, as
-``DTensor``s holding each rank's slice.  ``abstract=True`` builds the LM
-and OneRec bundles on ``meta`` (the dry run's: shapes and dtypes, no
-values); the other families wait for ROADMAP.md queue N (recsys N9e.5,
-the EGNN's graph steps N9e.10, ``ogb_products`` N9e.7).  The step
+``DTensor``s holding each rank's slice.  ``abstract=True`` builds a
+bundle on ``meta`` (the dry run's: shapes and dtypes, no values); only
+``ogb_products`` waits for ROADMAP.md queue N (N9e.7).  The step
 functions run on the device of their inputs; under a mesh
 (``distributed.sharding.use_mesh``) on the laid-out arguments they run
-tensor and expert parallel, and a train step of an LM or OneRec-V2 under
+tensor and expert parallel, a train step of an LM or OneRec-V2 under
 ``TRAIN_RULES`` or ``TRAIN_RULES_FSDP`` with its weights stored sharded
 over ``data`` and gathered where they are used (``sharding.at_use``),
-its gradients summed over the ranks that computed them.
+its gradients summed over the ranks that computed them; the recsys steps
+with their tables sharded on their rows over ``(data, model)`` and read
+where they lie (the sharded lookup, ``layers.embedding.gather_rows``),
+and the EGNN's graph steps over nodes and edges split over ``(data,
+model)``.
 
 Step signatures (uniform per kind):
   train:      step(params, opt_state, batch)          -> (loss, params, opt)
@@ -243,12 +246,15 @@ def lm_bundle(arch: str, cfg: TransformerConfig, shape: ShapeSpec, *,
 
 
 def _recsys_inputs(cfg: RecsysConfig, b: int, gen: torch.Generator, *,
-                   n_candidates: int = 0) -> dict:
+                   n_candidates: int = 0, device=None) -> dict:
     """A batch of ``b`` users (uniform ids: histories, targets, fields) and
-    ``n_candidates`` candidate items, drawn from ``gen`` on its device."""
+    ``n_candidates`` candidate items, drawn from ``gen`` on ``device``
+    (``gen``'s by default)."""
+    dev = gen.device if device is None else device
+
     def ids(shape, high):
-        return torch.randint(0, high, shape, generator=gen,
-                             device=gen.device, dtype=torch.int32)
+        return torch.randint(0, high, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
 
     batch = {"hist_ids": ids((b, cfg.seq_len), cfg.n_items),
              "target_ids": ids((b,), cfg.n_items),
@@ -271,7 +277,7 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
     params = recsys_model.init_recsys(_generator(seed, dev), cfg, device=dev)
     gen = _generator(seed + 1, dev)
     if shape.kind == "train":
-        batch = _recsys_inputs(cfg, shape.global_batch, gen)
+        batch = _recsys_inputs(cfg, shape.global_batch, gen, device=dev)
         batch["labels"] = (torch.rand((shape.global_batch,), generator=gen,
                                       device=dev) < 0.3).to(torch.float32)
         step = train_step(
@@ -286,12 +292,12 @@ def recsys_bundle(arch: str, cfg: RecsysConfig, shape: ShapeSpec, *,
     if shape.kind == "score":
         def step(params, batch):
             return recsys_model.score(params, batch, cfg)
-        batch = _recsys_inputs(cfg, shape.global_batch, gen)
+        batch = _recsys_inputs(cfg, shape.global_batch, gen, device=dev)
     else:
         def step(params, batch):
             return recsys_model.retrieval_scores(params, batch, cfg)
         batch = _recsys_inputs(cfg, shape.global_batch, gen,
-                               n_candidates=shape.n_candidates)
+                               n_candidates=shape.n_candidates, device=dev)
     return StepBundle(arch, shape.name, shape.kind, step, (params, batch),
                       (params_axes(params),
                        batch_axes(batch, _RECSYS_BATCH_AXES)),
@@ -473,9 +479,9 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     """The concrete bundle of cell ``arch`` x ``shape_name`` on ``device``
     (``reduced``: the arch's ``reduced_config()``; ``fp8`` None: PTQ'd, as
     the JAX package decides for the LM and OneRec families).  With
-    ``abstract`` the bundle of an LM or OneRec cell on ``meta`` (shapes
-    and dtypes, no values: the dry run's); the other families raise,
-    naming the ROADMAP.md item they wait for."""
+    ``abstract`` the bundle on ``meta`` (shapes and dtypes, no values: the
+    dry run's); a cell that waits for a ROADMAP.md item raises, naming
+    it."""
     mod = registry.get_arch(arch)
     cfg = mod.reduced_config() if reduced else mod.CONFIG
     shape = shape_override or mod.SHAPES[shape_name]
@@ -500,16 +506,10 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
 
 def abstract_waits(family: str, shape: ShapeSpec) -> Optional[str]:
     """The ROADMAP.md queue N item an abstract bundle of this cell waits
-    for, or None where it is ported: the recsys steps need row-sharded
-    tables (N9e.5), the EGNN's graph steps nodes and edges sharded over
-    ``(data, model)`` (N9e.10), ``ogb_products`` its sharded segment sums
-    (N9e.7)."""
+    for, or None where it is ported: ``ogb_products`` waits for its
+    chunked or sharded segment sums (N9e.7)."""
     if shape.name == "ogb_products":
         return "N9e.7"
-    if family == "gnn":
-        return "N9e.10"
-    if family == "recsys":
-        return "N9e.5"
     return None
 
 

@@ -16,12 +16,38 @@ gives ``-inf`` there and the JAX code maps it to 0, so the max starts from
 results become 0.  Row gathers go through ``gather_rows``, whose gradient
 is that ``segment_sum`` (the JAX gather's transpose, a scatter-add), so a
 backward adds each row's contributions in a fixed order on the card too.
-Under tensor parallelism ``gather_rows`` takes a ``DTensor`` table sharded
-on its rows (the LMs' vocabulary, ``embed/table`` under ``INFER_RULES``):
-each rank gathers the rows it holds, zeroes the others and the ranks sum,
-which gives one rank's bits (one nonzero row and zeros).  Row sharding of
-the recsys tables (``table_rows``) waits for ROADMAP.md queue N, item
-N9e.5.
+
+Over a mesh (``DTensor`` operands) both run on each rank's shards:
+
+* ``gather_rows`` of a table sharded on its rows: ids replicated on a mesh
+  dim (the LMs' vocabulary under ``INFER_RULES``) -- each rank gathers the
+  ids in its row range, zeroes the others and the ranks sum; ids sharded
+  on the same mesh dim as the table (the recsys tables over ``(data,
+  model)`` with the batch over ``data``) -- the ids are gathered over that
+  dim first, each rank looks up the ids in its row range, zeroes the rest,
+  and the ranks sum the rows keeping each its own slice of the ids' dim
+  (``sharding.sum_scatter``, whose transpose is ``gather``).  A sum of one
+  nonzero row and zeros is exact in any dtype, so the rows are one rank's
+  bits, and they are cast to the compute dtype before the sum (half the
+  bytes at bf16).  Per split mesh dim of k ranks a rank moves the ids
+  (k x its ids x 4 B, an all-gather) and the looked-up rows (an all-reduce
+  of k x its ids x the row's bytes, kept as a reduce-scatter's slice);
+  the backward gathers the rows' cotangent (the same bytes).  The table's
+  cotangent is the rank's rows' ``segment_sum`` over every id in the ids'
+  global order: complete on the rank's rows, not summed again
+  (``sharding.at_use``).  Routing each id to the rank that owns its row
+  (an all-to-all) would move ``(k - 1) / k`` of the rank's ids and rows
+  instead: ROADMAP.md queue B.
+* ``segment_sum`` of rows sharded on dim 0 (the EGNN's edges) into
+  segments laid out like ``like`` (its nodes, sharded on dim 0) or
+  replicated: each rank sums its rows into all ``n`` segments in row order
+  (f32), and the ranks sum, keeping each its own slice of the segments
+  (``sum_scatter``; its transpose gathers) or all of them (``psum``).
+  The f32 sums run in another association than world 1's: a bound, not
+  bits.
+
+``embedding_bag`` and ``multi_hot_bag`` reduce after the lookup, on the
+rank's rows (a bag split over ranks is summed over them).
 """
 
 from __future__ import annotations
@@ -43,18 +69,51 @@ def init_embedding(gen: torch.Generator, vocab: int, dim: int, *,
                                       dtype)}
 
 
-def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
-                n: int) -> torch.Tensor:
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
+                like=None) -> torch.Tensor:
     """f32 sums of ``vals``' rows by segment id ``seg`` (int64) into ``n``
-    rows (``jax.ops.segment_sum``), each segment summed in row order."""
+    rows (``jax.ops.segment_sum``), each segment summed in row order.
+    ``DTensor`` operands: the sharded sum (module docstring), laid out as
+    ``like`` on its row dims (replicated without one)."""
+    if sh.is_dtensor(vals) or sh.is_dtensor(seg):
+        return _sharded_segment_sum(vals, seg, n, like)
     vals = vals.to(torch.float32)
-    if vals.device.type == "cpu":
+    if vals.device.type in ("cpu", "meta"):
         return vals.new_zeros((n, *vals.shape[1:])).index_add_(0, seg, vals)
     order = torch.argsort(seg, stable=True)
     lengths = torch.zeros(n, dtype=torch.int64, device=seg.device
                           ).index_add_(0, seg, torch.ones_like(order))
     return torch.segment_reduce(vals.index_select(0, order), "sum",
                                 lengths=lengths, axis=0, unsafe=True)
+
+
+def _sharded_segment_sum(vals, seg, n, like):
+    """``segment_sum`` of rows split on dim 0 over some mesh dims (``seg``
+    split alike): the rank's rows into all ``n`` segments, then a sum over
+    each such mesh dim, keeping the rank's slice where ``like`` is split on
+    its rows there (``sum_scatter``, outermost mesh dim first) or the whole
+    (``psum``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = (vals if sh.is_dtensor(vals) else seg).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    v_pl = vals.placements if sh.is_dtensor(vals) else rep
+    s_pl = seg.placements if sh.is_dtensor(seg) else rep
+    o_pl = like.placements if like is not None else rep
+    scatters, sums = [], []
+    for i, (vp, sp, op) in enumerate(zip(v_pl, s_pl, o_pl)):
+        ok = vp == sp and vp in (Replicate(), Shard(0)) \
+            and op in (Replicate(), Shard(0))
+        if not ok or (vp == Replicate() and op == Shard(0)):
+            raise ValueError(
+                f"segment_sum: values {vp} with segment ids {sp} into an "
+                f"output {op} on mesh dim {mesh.mesh_dim_names[i]}")
+        if vp == Shard(0):
+            (scatters if op == Shard(0) else sums).append(mesh.get_group(i))
+    part = segment_sum(sh.local_shard(vals), sh.local_shard(seg).long(), n)
+    for g in scatters:
+        part = sh.sum_scatter(part, 0, g, tag="segment-sum")
+    part = sh.psum(part, sums, tag="segment-sum")
+    return DTensor.from_local(part, mesh, list(o_pl), run_check=False)
 
 
 class _GatherRows(torch.autograd.Function):
@@ -74,46 +133,59 @@ class _GatherRows(torch.autograd.Function):
         return segment_sum(grad, idx, ctx.rows).to(grad.dtype), None
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor,
+                dtype=None) -> torch.Tensor:
     """Rows ``idx`` (any shape, any integer dtype) of ``table``: (*idx.shape,
-    *table.shape[1:]).  Its backward sums the rows' gradients in f32 in
-    ``idx`` order (``segment_sum``) and rounds once to the gradient's
-    dtype, the same bits on either device.  ``DTensor`` operands: the
-    vocabulary-parallel lookup (module docstring)."""
+    *table.shape[1:]), cast to ``dtype`` when given.  Its backward sums
+    the rows' gradients in f32 in ``idx`` order (``segment_sum``) and
+    rounds once to the gradient's dtype, the same bits on either device.
+    ``DTensor`` operands: the sharded lookup (module docstring)."""
     if sh.is_dtensor(table) or sh.is_dtensor(idx):
-        return _sharded_rows(table, idx)
+        return _sharded_rows(table, idx, dtype)
     flat = idx.reshape(-1).long()
     rows = _GatherRows.apply(table, flat) if torch.is_grad_enabled() \
         and table.requires_grad else table.index_select(0, flat)
-    return rows.reshape(*idx.shape, *table.shape[1:])
+    rows = rows.reshape(*idx.shape, *table.shape[1:])
+    return rows if dtype is None else rows.to(dtype)
 
 
-def _sharded_rows(table, idx):
+def _sharded_rows(table, idx, dtype):
     """``gather_rows`` over a mesh: ``table`` replicated or sharded on its
-    rows, ``idx`` replicated or sharded on any dim where the table is
-    replicated.  Each rank gathers the ids in its row range, zeroes the
-    rest and the ranks of each row-sharding mesh dim sum (exact)."""
+    rows on each mesh dim, ``idx`` replicated, or sharded on any dim where
+    the table is replicated or sharded on its rows.  Each rank looks up
+    the ids in its row range (the ids gathered over the mesh dims that
+    split both, innermost first), zeroes the rest and the ranks of each
+    row-sharding mesh dim sum (exact): over a dim that splits the ids too,
+    each keeps its slice of the ids' dim (outermost first)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
     mesh = (table if sh.is_dtensor(table) else idx).device_mesh
     t_pl = table.placements if sh.is_dtensor(table) \
         else [Replicate()] * mesh.ndim
     i_pl = idx.placements if sh.is_dtensor(idx) \
         else [Replicate()] * mesh.ndim
-    out_pl, groups = [], []
+    out_pl, sums, splits = [], [], []
     for i, (tp, ip) in enumerate(zip(t_pl, i_pl)):
         if tp == Replicate():
             out_pl.append(ip)
         elif tp == Shard(0) and ip == Replicate():
             out_pl.append(Replicate())
-            groups.append(mesh.get_group(i))
+            sums.append(mesh.get_group(i))
+        elif tp == Shard(0) and isinstance(ip, Shard):
+            out_pl.append(ip)
+            splits.append((mesh.get_group(i), ip.dim))
         else:
             raise ValueError(f"gather_rows: a table {tp} with ids {ip} on "
                              f"mesh dim {mesh.mesh_dim_names[i]}")
     # training: the table's cotangent is the rank's rows' scatter-add
-    # (``segment_sum``), summed over the id-split mesh dims in ``at_use``
+    # (``segment_sum``), complete where the table is split (the ids were
+    # gathered, or replicated), summed over the mesh dims that split only
+    # the ids in ``at_use``
     local = sh.param_local(table, idx, feature_last=False) \
         if sh.is_dtensor(idx) else sh.local_shard(table)
-    ids = sh.local_shard(idx).long()
+    ids = sh.local_shard(idx)
+    for group, dim in reversed(splits):
+        ids = sh.all_gather(ids, dim, group, tag="ids-gather")
+    ids = ids.long()
     off, n = sh.shard_range(mesh, t_pl, 0, table.shape[0])
     mine = (ids >= off) & (ids < off + n)
     rows = gather_rows(local, torch.clamp(ids - off, 0, n - 1))
@@ -121,18 +193,22 @@ def _sharded_rows(table, idx):
                                                          - ids.ndim)),
                        rows, torch.zeros((), dtype=rows.dtype,
                                          device=rows.device))
-    rows = sh.psum(rows, groups, tag="embed-sum")
+    if dtype is not None:
+        rows = rows.to(dtype)
+    for group, dim in splits:
+        rows = sh.sum_scatter(rows, dim, group, tag="rows-sum")
+    rows = sh.psum(rows, sums, tag="embed-sum")
     return DTensor.from_local(rows, mesh, out_pl, run_check=False)
 
 
 def embed_lookup(params: dict, ids: torch.Tensor, *,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain gather of ``ids``' rows, cast to ``compute_dtype``."""
-    return gather_rows(params["table"], ids).to(compute_dtype)
+    return gather_rows(params["table"], ids, compute_dtype)
 
 
 def _gather_f32(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return gather_rows(table, ids).to(torch.float32)
+    return gather_rows(table, ids, torch.float32)
 
 
 def embedding_bag(params: dict, ids: torch.Tensor,
@@ -154,14 +230,32 @@ def embedding_bag(params: dict, ids: torch.Tensor,
         out = segment_sum(vecs, seg, n_bags) \
             / torch.clamp(cnt, min=1.0)[:, None]
     elif mode == "max":
-        out = vecs.new_full((n_bags, vecs.shape[-1]), -math.inf
-                            ).scatter_reduce_(
-            0, seg[:, None].expand_as(vecs), vecs, "amax",
-            include_self=False)
-        out = torch.where(torch.isfinite(out), out, torch.zeros_like(out))
+        out = _bag_max(vecs, seg, n_bags)
     else:
         raise ValueError(f"unknown mode {mode}")
     return out.to(compute_dtype)
+
+
+def _bag_max(vecs, seg, n_bags):
+    """The bags' elementwise max (0 for an empty bag); over a mesh the
+    rank's rows' max, max-reduced over the mesh dims that split them (no
+    backward there)."""
+    local = sh.local_shard(vecs)
+    out = local.new_full((n_bags, local.shape[-1]), -math.inf
+                         ).scatter_reduce_(
+        0, sh.local_shard(seg)[:, None].expand_as(local), local, "amax",
+        include_self=False)
+    if sh.is_dtensor(vecs):
+        from torch.distributed.tensor import DTensor, Replicate
+        if torch.is_grad_enabled() and vecs.requires_grad:
+            raise ValueError("embedding_bag: mode 'max' over a mesh has no "
+                             "backward")
+        for g in sh.split_groups(vecs):
+            sh.all_reduce(out, g, "max", tag="bag-max")
+        out = DTensor.from_local(out, vecs.device_mesh,
+                                 [Replicate()] * vecs.device_mesh.ndim,
+                                 run_check=False)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
 def multi_hot_bag(params: dict, ids: torch.Tensor, *, mode: str = "sum",

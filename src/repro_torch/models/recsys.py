@@ -26,11 +26,26 @@ Scoring entry points:
 
 Activations are tapped at the JAX module's points (``core.stats.tap``:
 ``hist_embed``, ``din_pooled``, ``din_logit``).  Differences from the JAX
-module: ``constrain`` lays out only DTensors, which no caller passes
-until N9e.5 (row-sharded tables); ``lax.scan`` is a
-Python loop over the history; ``dien_retrieval`` skips the one-user
-interest pass whose result the JAX function never reads (XLA drops it
-under ``jit``).  Tables are drawn with ``randn`` in f32 on the device.
+module: ``lax.scan`` is a Python loop over the history; ``dien_retrieval``
+skips the one-user interest pass whose result the JAX function never
+reads (XLA drops it under ``jit``) and looks the user's history up once,
+then repeats its rows for each candidate (the same values as looking up
+the repeated ids).  Tables are drawn with ``randn`` in f32 on the device.
+
+Over a mesh (arguments laid out by ``launch.steps.shard_args`` under the
+JAX package's rules) every entry point takes its params through
+``sharding.at_use``: the tables stay sharded on their rows over ``(data,
+model)`` (``table_rows``) and are read by the sharded lookup
+(``layers.embedding.gather_rows``), the towers are replicated; the
+activations are ``DTensor``s split by rows (the batch over ``data``, the
+candidates over ``(data, model)``), and each constrain point is the JAX
+module's.  The in-batch softmaxes (two-tower, MIND) gather every rank's
+item vectors over the mesh dims that split the batch (``sharding.gather``,
+whose transpose sums) and take their log-softmax over a ``candidates``
+axis that may be split over ``model``; the losses' means are summed over
+the batch's shards (``sharding.total``).  DIEN's GRU loops and MIND's
+routing are per user and run on the rank's rows.  The towers' gradients
+are summed over the ranks that computed other rows (``at_use``).
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import torch
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.core.quant import matmul_any
 from repro_torch.core.stats import tap
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.sharding import constrain
 from repro_torch.layers.common import (dense_init, mlp_stack_apply,
                                        mlp_stack_init, split,
@@ -72,34 +88,146 @@ def _field_vecs(params, field_ids: torch.Tensor,
     offset per field."""
     offsets = torch.arange(cfg.n_sparse_fields, dtype=field_ids.dtype,
                            device=field_ids.device) * cfg.field_vocab
-    vecs = embed_lookup(params["field_embed"], field_ids + offsets[None])
+    vecs = embed_lookup(params["field_embed"], sh.local_call(
+        lambda f: f + offsets[None], field_ids))
     return vecs.reshape(field_ids.shape[0], -1)
 
 
 def _hist_vecs(params, hist_ids: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, L) -> embeddings (B, L, d) bf16 + mask (B, L) f32."""
-    table = params["item_embed"]["table"]
-    vecs = embed_lookup(params["item_embed"], hist_ids,
-                        compute_dtype=table.dtype)
-    tap("hist_embed", vecs)
-    return vecs.to(torch.bfloat16), (hist_ids != 0).to(torch.float32)
+    """(B, L) -> embeddings (B, L, d) bf16 + mask (B, L) f32.  The rows
+    are looked up in bf16 (over a mesh half the bytes summed); the tap
+    records them in the table's dtype, as the JAX package's does, looked
+    up again only while a ``capture_taps`` block is open."""
+    vecs = embed_lookup(params["item_embed"], hist_ids)
+    tap("hist_embed", lambda: embed_lookup(
+        params["item_embed"], hist_ids,
+        compute_dtype=params["item_embed"]["table"].dtype))
+    return vecs, (hist_ids != 0).to(torch.float32)
 
 
 def _target_vecs(params, target_ids: torch.Tensor) -> torch.Tensor:
     return embed_lookup(params["item_embed"], target_ids)
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """``torch.mean(x)``; of a ``DTensor`` split by rows, its shards' sums
+    summed (``sharding.total``) over its global count."""
+    if sh.is_dtensor(x):
+        return sh.total(x, tag="loss-sum") / x.numel()
+    return torch.mean(x)
+
+
 def _bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits = logits.to(torch.float32)
     labels = labels.to(torch.float32)
-    return torch.mean(torch.clamp(logits, min=0) - logits * labels
-                      + torch.log1p(torch.exp(-logits.abs())))
+    return _mean(torch.clamp(logits, min=0) - logits * labels
+                 + torch.log1p(torch.exp(-logits.abs())))
 
 
 def _in_batch_softmax_loss(logits: torch.Tensor) -> torch.Tensor:
     """Each row's own column is its positive: -mean(log_softmax diag)."""
+    if sh.is_dtensor(logits):
+        return _sharded_in_batch_loss(logits)
     return -torch.mean(torch.log_softmax(logits, dim=-1).diagonal())
+
+
+def _sharded_in_batch_loss(logits) -> torch.Tensor:
+    """``_in_batch_softmax_loss`` of (B, B) logits split by rows and, over
+    some mesh dims, by candidates (columns), on the local shards: the row
+    max max-reduced over the column-split dims (no cotangent, as JAX stops
+    the max's), the sum of exponentials summed there, each row's own
+    column taken on the rank that holds it, the rows' sum summed over the
+    row-split dims.  The logits are never gathered."""
+    from torch.distributed.tensor import Shard
+    mesh, pl = logits.device_mesh, logits.placements
+    rows = [mesh.get_group(i) for i, p in enumerate(pl) if p == Shard(0)]
+    cols = [mesh.get_group(i) for i, p in enumerate(pl) if p == Shard(1)]
+    r_off, _ = sh.shard_range(mesh, pl, 0, logits.shape[0])
+    c_off, c_n = sh.shard_range(mesh, pl, 1, logits.shape[1])
+    local = logits.to_local().to(torch.float32)
+    top = local.detach().amax(dim=-1, keepdim=True)
+    for g in cols:
+        sh.all_reduce(top, g, "max", tag="softmax-max")
+    shifted = local - top
+    lse = torch.log(sh.psum(torch.sum(torch.exp(shifted), dim=-1), cols,
+                            tag="softmax-sum"))
+    own = torch.arange(local.shape[0], device=local.device) + r_off - c_off
+    mine = (own >= 0) & (own < c_n)
+    picked = torch.take_along_dim(shifted, torch.clamp(own, 0, c_n - 1)[
+        :, None], dim=-1)[:, 0]
+    picked = sh.psum(torch.where(mine, picked, torch.zeros_like(picked)),
+                     cols, tag="softmax-sum")
+    return sh.psum(torch.sum(lse - picked), rows,
+                   tag="loss-sum") / logits.shape[0]
+
+
+def _rows_einsum(eq: str, *ops) -> torch.Tensor:
+    """``torch.einsum`` of operands whose first index is the batch row,
+    row by row: over a mesh on the rank's rows (``local_call``; DTensor's
+    own einsum reshapes a row dim split over a mesh dim of one rank into
+    layouts it then refuses)."""
+    return sh.local_call(lambda *a: torch.einsum(eq, *a), *ops)
+
+
+def _in_batch(fn, users, items):
+    """``fn(users, items)``: the (B, ..., B) scores of every user against
+    every item of the batch.  Over a mesh each rank scores its users'
+    rows against the items of all ranks (gathered over the mesh dims that
+    split them, innermost first; the transpose sums each item's cotangent
+    over the ranks that scored it), the result laid out as ``users``."""
+    if not sh.is_dtensor(users):
+        return fn(users, items)
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = items.device_mesh
+    every = items.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = items.placements[i]
+        if p == Shard(0):
+            every = sh.gather(every, 0, mesh.get_group(i),
+                              tag="in-batch-gather")
+        elif isinstance(p, Shard):
+            raise ValueError(f"in-batch scores: items {p} on mesh dim "
+                             f"{mesh.mesh_dim_names[i]}")
+    return DTensor.from_local(fn(users.to_local(), every), mesh,
+                              users.placements, run_check=False)
+
+
+def _per_candidate(t, cands):
+    """``t`` (1, ...), the one user's, repeated for each candidate of
+    ``cands`` (N, ...); over a mesh the rank's candidates' rows, laid out
+    as ``cands`` (``t`` replicated: its cotangent summed over the ranks
+    whose candidates used it)."""
+    if not sh.is_dtensor(cands):
+        return t.expand(cands.shape[0], *t.shape[1:])
+    from torch.distributed.tensor import DTensor
+    one = _one_user(t, cands)
+    return DTensor.from_local(
+        one.expand(cands.to_local().shape[0], *one.shape[1:]),
+        cands.device_mesh, cands.placements, run_check=False)
+
+
+def _against(fn, user, cands):
+    """``fn(user, cands)``: the one user's scores (N,) against candidates
+    (N, ...); over a mesh on the rank's candidates, laid out as them."""
+    if not sh.is_dtensor(cands):
+        return fn(user, cands)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(fn(_one_user(user, cands), cands.to_local()),
+                              cands.device_mesh, cands.placements,
+                              run_check=False)
+
+
+def _one_user(t, cands) -> torch.Tensor:
+    """The one user's ``t`` whole on the rank (it must be replicated: a
+    split on a mesh dim of one rank is), entering work on the rank's
+    candidates: its cotangent summed over the mesh dims that split them."""
+    if sh.is_dtensor(t) and any(
+            p.is_shard() and t.device_mesh.size(i) > 1
+            for i, p in enumerate(t.placements)):
+        raise ValueError(f"a user's row {t.placements} against candidates "
+                         f"{cands.placements}: the user must be replicated")
+    return sh.fan(sh.local_shard(t), sh.split_groups(cands), tag="user-fan")
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -151,7 +279,8 @@ def two_tower_train_loss(params, batch, cfg,
     """In-batch sampled softmax (each row's target = positive)."""
     u = _two_tower_user(params, batch, cfg)
     v = _two_tower_item(params, batch["target_ids"])
-    logits = (u.to(torch.float32) @ v.to(torch.float32).T) / temperature
+    logits = _in_batch(lambda a, b: (a.to(torch.float32) @ b.to(
+        torch.float32).T) / temperature, u, v)
     logits = constrain(logits, ("batch", "candidates"))
     return _in_batch_softmax_loss(logits)
 
@@ -161,7 +290,8 @@ def two_tower_retrieval(params, batch, cfg) -> torch.Tensor:
     u = _two_tower_user(params, batch, cfg)                    # (1, d_out)
     cands = _two_tower_item(params, batch["candidate_ids"])    # (N, d_out)
     cands = constrain(cands, ("candidates", None))
-    return (u.to(torch.float32) @ cands.to(torch.float32).T)[0]
+    return _against(lambda a, c: (a.to(torch.float32)
+                                  @ c.to(torch.float32).T)[0], u, cands)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +319,7 @@ def _din_attention(params, hist, mask, target) -> torch.Tensor:
     w = mlp_stack_apply(params["attn"]["attn_mlp"], feats)[..., 0]
     w = w.to(torch.float32) + (mask - 1.0) * 1e9
     w = torch.softmax(w, dim=-1) * mask
-    return torch.einsum("bl,bld->bd", w.to(hist.dtype), hist)
+    return _rows_einsum("bl,bld->bd", w.to(hist.dtype), hist)
 
 
 def din_score(params, batch, cfg) -> torch.Tensor:
@@ -214,12 +344,10 @@ def din_retrieval(params, batch, cfg) -> torch.Tensor:
     hist, mask = _hist_vecs(params, batch["hist_ids"])          # (1, L, d)
     cands = _target_vecs(params, batch["candidate_ids"])        # (N, d)
     cands = constrain(cands, ("candidates", None))
-    n = cands.shape[0]
-    pooled = _din_attention(params, hist.expand(n, *hist.shape[1:]),
-                            mask.expand(n, mask.shape[1]), cands)
+    pooled = _din_attention(params, _per_candidate(hist, cands),
+                            _per_candidate(mask, cands), cands)
     fields = _field_vecs(params, batch["field_ids"], cfg)
-    x = torch.cat([pooled, cands, fields.expand(n, fields.shape[-1])],
-                  dim=-1)
+    x = torch.cat([pooled, cands, _per_candidate(fields, cands)], dim=-1)
     return mlp_stack_apply(params["score"]["score_mlp"], x)[..., 0]
 
 
@@ -272,10 +400,15 @@ def init_dien(gen, cfg: RecsysConfig, dtype=torch.float32,
     return params
 
 
+def _zero_state(hist, g: int) -> torch.Tensor:
+    """A zero GRU state (B, g) in hist's dtype, laid out as its rows."""
+    return sh.local_call(lambda t: t.new_zeros((t.shape[0], g)), hist)
+
+
 def _dien_interest(params, hist, mask, cfg) -> torch.Tensor:
     """First GRU pass over history -> interest states (B, L, g) bf16; a
     padded step keeps the state."""
-    h = hist.new_zeros((hist.shape[0], cfg.gru_dim))
+    h = _zero_state(hist, cfg.gru_dim)
     states = []
     for t in range(hist.shape[1]):
         h_new = _gru_cell(params["gru"], h, hist[:, t])
@@ -286,21 +419,28 @@ def _dien_interest(params, hist, mask, cfg) -> torch.Tensor:
 
 def dien_score(params, batch, cfg) -> torch.Tensor:
     hist, mask = _hist_vecs(params, batch["hist_ids"])
-    target = _target_vecs(params, batch["target_ids"])
+    return _dien_scores(params, hist, mask,
+                        _target_vecs(params, batch["target_ids"]),
+                        _field_vecs(params, batch["field_ids"], cfg), cfg)
+
+
+def _dien_scores(params, hist, mask, target, fields, cfg) -> torch.Tensor:
+    """DIEN's scores from looked-up rows: both GRU passes, the target's
+    attention on the interest states, the score MLP."""
     interests = _dien_interest(params, hist, mask, cfg)  # (B, L, g)
     # attention of the target on the interest states: the target padded
     # with zeros (or cut) to gru_dim, no projection
     g, d = cfg.gru_dim, cfg.embed_dim
-    tproj = torch.nn.functional.pad(target, (0, max(0, g - d)))[:, :g]
-    att = torch.einsum("blg,bg->bl", interests.to(torch.float32),
+    tproj = sh.local_call(lambda t: torch.nn.functional.pad(
+        t, (0, max(0, g - d)))[:, :g], target)
+    att = _rows_einsum("blg,bg->bl", interests.to(torch.float32),
                        tproj.to(torch.float32))
     att = torch.softmax(att + (mask - 1.0) * 1e9, dim=-1) * mask
-    h = hist.new_zeros((hist.shape[0], g))
+    h = _zero_state(hist, g)
     for t in range(hist.shape[1]):
         h_new = _gru_cell(params["augru"], h, interests[:, t], att=att[:, t])
         h = torch.where(mask[:, t, None] > 0, h_new, h)
-    x = torch.cat([h, target, _field_vecs(params, batch["field_ids"], cfg)],
-                  dim=-1)
+    x = torch.cat([h, target, fields], dim=-1)
     return mlp_stack_apply(params["score"]["score_mlp"], x)[..., 0]
 
 
@@ -310,15 +450,15 @@ def dien_train_loss(params, batch, cfg) -> torch.Tensor:
 
 def dien_retrieval(params, batch, cfg) -> torch.Tensor:
     """One user vs N candidates: ``dien_score`` over N broadcast copies of
-    the user, both GRU passes included, as the JAX function computes it."""
-    n = batch["candidate_ids"].shape[0]
-    batch_n = {
-        "hist_ids": batch["hist_ids"].expand(n, batch["hist_ids"].shape[1]),
-        "target_ids": constrain(batch["candidate_ids"], ("candidates",)),
-        "field_ids": batch["field_ids"].expand(n,
-                                               batch["field_ids"].shape[1]),
-    }
-    return dien_score(params, batch_n, cfg)
+    the user, both GRU passes included, as the JAX function computes it
+    (the user's rows looked up once and repeated)."""
+    ids = constrain(batch["candidate_ids"], ("candidates",))
+    hist, mask = _hist_vecs(params, batch["hist_ids"])          # (1, L, d)
+    target = _target_vecs(params, ids)                          # (N, d)
+    fields = _field_vecs(params, batch["field_ids"], cfg)
+    return _dien_scores(params, _per_candidate(hist, target),
+                        _per_candidate(mask, target), target,
+                        _per_candidate(fields, target), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -352,16 +492,19 @@ def mind_interests(params, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     low = matmul_any(hist, params["capsule"]["bilinear"]["kernel"],
                      out_dtype=torch.float32)              # (B, L, d)
     # fixed routing logits (the paper draws them at random and freezes them)
-    dev = hist.device
-    b = torch.sin(torch.arange(l_, dtype=torch.float32, device=dev)[
-        None, :, None] * (1.0 + torch.arange(k_, dtype=torch.float32,
-                                             device=dev)[None, None, :]))
-    b = b.expand(b_, l_, k_)
+
+    def routing(h):
+        dev = h.device
+        b = torch.sin(torch.arange(l_, dtype=torch.float32, device=dev)[
+            None, :, None] * (1.0 + torch.arange(k_, dtype=torch.float32,
+                                                 device=dev)[None, None, :]))
+        return b.expand(h.shape[0], l_, k_)
+    b = sh.local_call(routing, hist)
     caps = None
     for _ in range(cfg.capsule_iters):
         w = torch.softmax(b, dim=-1) * mask[..., None]     # (B, L, K)
-        caps = _squash(torch.einsum("blk,bld->bkd", w, low))
-        b = b + torch.einsum("bkd,bld->blk", caps, low)
+        caps = _squash(_rows_einsum("blk,bld->bkd", w, low))
+        b = b + _rows_einsum("bkd,bld->blk", caps, low)
     fields = _field_vecs(params, batch["field_ids"], cfg).to(torch.float32)
     proj_in = torch.cat([caps, fields[:, None, :].expand(
         b_, k_, fields.shape[-1])], dim=-1).to(torch.bfloat16)
@@ -374,14 +517,15 @@ def mind_score(params, batch, cfg) -> torch.Tensor:
     """Label-aware max over interests."""
     caps, _ = mind_interests(params, batch, cfg)
     target = _target_vecs(params, batch["target_ids"]).to(torch.float32)
-    return torch.einsum("bkd,bd->bk", caps, target).amax(-1)
+    return _rows_einsum("bkd,bd->bk", caps, target).amax(-1)
 
 
 def mind_train_loss(params, batch, cfg) -> torch.Tensor:
     """Sampled softmax with in-batch negatives, label-aware interest pick."""
     caps, _ = mind_interests(params, batch, cfg)
     targets = _target_vecs(params, batch["target_ids"]).to(torch.float32)
-    best = torch.einsum("bkd,nd->bkn", caps, targets).amax(1)     # (B, B)
+    best = _in_batch(lambda c, t: torch.einsum("bkd,nd->bkn", c, t).amax(1),
+                     caps, targets)                               # (B, B)
     best = constrain(best, ("batch", "candidates"))
     return _in_batch_softmax_loss(best)
 
@@ -390,7 +534,8 @@ def mind_retrieval(params, batch, cfg) -> torch.Tensor:
     caps, _ = mind_interests(params, batch, cfg)           # (1, K, d)
     cands = _target_vecs(params, batch["candidate_ids"]).to(torch.float32)
     cands = constrain(cands, ("candidates", None))
-    return torch.einsum("kd,nd->kn", caps[0], cands).amax(0)
+    return _against(lambda c, x: torch.einsum("kd,nd->kn", c[0], x).amax(0),
+                    caps, cands)
 
 
 # ---------------------------------------------------------------------------
@@ -415,16 +560,16 @@ def init_recsys(gen: torch.Generator, cfg: RecsysConfig,
 
 
 def score(params, batch, cfg: RecsysConfig) -> torch.Tensor:
-    return SCORE[cfg.family](params, batch, cfg)
+    return SCORE[cfg.family](sh.at_use_tree(params), batch, cfg)
 
 
 def train_loss(params, batch, cfg: RecsysConfig) -> torch.Tensor:
     """The architecture's training loss (``TRAIN_LOSS``)."""
-    return TRAIN_LOSS[cfg.family](params, batch, cfg)
+    return TRAIN_LOSS[cfg.family](sh.at_use_tree(params), batch, cfg)
 
 
 def retrieval_scores(params, batch, cfg: RecsysConfig) -> torch.Tensor:
-    return RETRIEVAL[cfg.family](params, batch, cfg)
+    return RETRIEVAL[cfg.family](sh.at_use_tree(params), batch, cfg)
 
 
 def retrieval_scores_chunked(params, batch, cfg: RecsysConfig,

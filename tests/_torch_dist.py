@@ -410,8 +410,9 @@ def sharded_step(loss_fn, params, batch, mesh, rules, batch_axes):
     """One train step on ``mesh`` under ``rules``: params and their AdamW
     state laid out by ``steps.params_axes``, the batch by ``batch_axes``;
     the loss, every gradient and the params, ``mu`` and ``nu`` after the
-    update gathered whole, each gradient's local shard beside its row
-    offsets, and the functional collectives the step ran."""
+    update gathered whole, each gradient's and each updated param's local
+    shard beside its offsets, and the functional collectives the step
+    ran."""
     from repro_torch.launch import steps
     from repro_torch.optim import adamw_init, adamw_update
     params = tree_util.map_with_path(lambda _, t: t.clone(), params)
@@ -424,16 +425,22 @@ def sharded_step(loss_fn, params, batch, mesh, rules, batch_axes):
     with guard, sh.use_mesh(mesh, rules):
         loss, grads = tree_util.value_and_grad(loss_fn, p, b)
         g_full = tree_util.map_with_path(lambda _, t: full(t), grads)
-        g_local = tree_util.map_with_path(lambda _, t: (
-            t.to_local().clone(), [sh.shard_range(mesh, t.placements, d,
-                                                  t.shape[d])
-                                   for d in range(t.ndim)]), grads)
+        g_local = tree_util.map_with_path(_local_with_ranges, grads)
         p, o, _ = adamw_update(p, grads, o, steps.OPT_CFG)
         after = {name: tree_util.map_with_path(lambda _, t: full(t), tr)
                  for name, tr in (("params", p), ("mu", o["mu"]),
                                   ("nu", o["nu"]))}
     return {"loss": loss, "grads": g_full, "local": g_local, **after,
+            "params_local": tree_util.map_with_path(_local_with_ranges, p),
             "functional": guard.seen}
+
+
+def _local_with_ranges(_, t):
+    """A DTensor's local shard (a copy) and its ``(offset, size)`` on each
+    dim."""
+    return (t.to_local().clone(),
+            [sh.shard_range(t.device_mesh, t.placements, d, t.shape[d])
+             for d in range(t.ndim)])
 
 
 def train_job(rank, world, cases):
@@ -521,3 +528,277 @@ def bundle_step():
                 if t.ndim >= 2)
     return {"loss": loss, "step": int(sh.local_shard(opt["step"])),
             "moved": moved, "grad_norm": b.fn.metrics["grad_norm"]}
+
+
+# ---------------------------------------------------------------------------
+# row-sharded lookups and segment sums (N9e.5, N9e.10)
+# ---------------------------------------------------------------------------
+
+
+# the rules a mesh's score and retrieval calls run under: the JAX dry run's
+# INFER_RULES beside TRAIN_RULES (the same batch, candidate and table
+# layouts), and TRAIN_RULES_FSDP itself (the batch over both axes)
+SERVE_RULES = {"train": "infer", "train_fsdp": "train_fsdp"}
+GNN_AXES = {"feat": ("nodes", None), "coord": ("nodes", None),
+            "edges": ("edges", None), "edge_mask": ("edges",),
+            "node_mask": ("nodes",), "graph_ids": ("nodes",)}
+
+
+def gnn_axes(level: str) -> dict:
+    return dict(GNN_AXES, labels=(None,) if level == "graph"
+                else ("nodes",))
+
+
+def serve_on(fn, params, batch, mesh, rules):
+    """``fn(params, batch)`` (a score or retrieval call) on ``mesh``: the
+    output gathered whole, its placements, the functional collectives."""
+    from repro_torch.launch import steps
+    p = sh.lay_out_tree(params, steps.params_axes(params), mesh, rules)
+    b = sh.lay_out_tree(batch, steps.batch_axes(
+        batch, steps._RECSYS_BATCH_AXES), mesh, rules)
+    guard = NoFunctionalCollectives()
+    with guard, sh.use_mesh(mesh, rules):
+        out = fn(p, b)
+    return {"out": full(out), "placements": str(list(out.placements)),
+            "functional": guard.seen}
+
+
+def lookup_on(table, ids, mesh, rules):
+    """The sharded lookup of ``ids`` (laid out as a batch's histories) in
+    ``table`` (laid out as ``item_embed``), in f32 and bf16, whole."""
+    from repro_torch.layers.embedding import gather_rows
+    p = sh.lay_out_tree({"item_embed": {"table": table}},
+                        {"item_embed": {"table": ("table_rows", None)}},
+                        mesh, rules)["item_embed"]["table"]
+    b = sh.lay_out_tree({"ids": ids}, {"ids": ("batch", None)}, mesh,
+                        rules)["ids"]
+    with sh.use_mesh(mesh, rules):
+        return {"f32": full(gather_rows(p, b)),
+                "bf16": full(gather_rows(p, b, torch.bfloat16)),
+                "table": str(list(p.placements)),
+                "ids": str(list(b.placements))}
+
+
+def rows_job(rank, world, recsys_cases, egnn_cases):
+    """Every recsys case ``(name, cfg, params, qparams, batch, one)`` and
+    EGNN case ``(name, cfg, params, batch, level, n_graphs)`` on each mesh
+    of ``TRAIN_MESHES``: a train step (``sharded_step``); for the recsys
+    families also the scores (raw and PTQ'd towers) and one user's
+    retrieval under ``SERVE_RULES``, and the history lookup; DIN's and the
+    EGNN's (1, 4) step twice (a rerun); the collectives' transposes and
+    ``at_use`` of the tables."""
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn, recsys
+    out = {}
+    for name, cfg, params, qparams, batch, one in recsys_cases:
+        serve_batch = {k: v for k, v in batch.items() if k != "labels"}
+        for (n_data, n_model), rules in TRAIN_MESHES:
+            mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                            device_type="cpu")
+            train, serve = sh.RULE_SETS[rules], sh.RULE_SETS[
+                SERVE_RULES[rules]]
+
+            def loss_fn(p, b):
+                return recsys.train_loss(p, b, cfg)
+            res = {"train": sharded_step(loss_fn, params, batch, mesh, train,
+                                         steps._RECSYS_BATCH_AXES)}
+            if name == "din" and (n_data, n_model) == (1, 4):
+                res["rerun"] = sharded_step(loss_fn, params, batch, mesh,
+                                            train, steps._RECSYS_BATCH_AXES)
+            res["score"] = serve_on(lambda p, b: recsys.score(p, b, cfg),
+                                    params, serve_batch, mesh, serve)
+            res["score_fp8"] = serve_on(
+                lambda p, b: recsys.score(p, b, cfg), qparams, serve_batch,
+                mesh, serve)
+            res["retrieval"] = serve_on(
+                lambda p, b: recsys.retrieval_scores(p, b, cfg), params, one,
+                mesh, serve)
+            res["lookup"] = lookup_on(params["item_embed"]["table"],
+                                      batch["hist_ids"], mesh, train)
+            out[name, n_data, n_model, rules] = res
+    for name, cfg, params, batch, level, n_graphs in egnn_cases:
+        for (n_data, n_model), rules in TRAIN_MESHES:
+            mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                            device_type="cpu")
+
+            def loss_fn(p, b):
+                return gnn.train_loss(p, b, cfg, level=level,
+                                      n_graphs=n_graphs)
+            res = {"train": sharded_step(loss_fn, params, batch, mesh,
+                                         sh.RULE_SETS[rules],
+                                         gnn_axes(level))}
+            if (n_data, n_model) == (1, 4):
+                res["rerun"] = sharded_step(loss_fn, params, batch, mesh,
+                                            sh.RULE_SETS[rules],
+                                            gnn_axes(level))
+            out[name, n_data, n_model, rules] = res
+    out["rows_transposes"] = rows_transposes_job()
+    out["bags"] = bags_job()
+    out["at_use"] = at_use_job(recsys_cases[0][2])
+    out["bundles"] = rows_bundles()
+    return out
+
+
+def _ints(shape, seed, high=4):
+    """Small integers as f32: every sum of them is exact in any order."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(-high, high + 1, shape, generator=g).float()
+
+
+def rows_transposes_job():
+    """On (2, 2) under ``TRAIN_RULES`` (tables over both axes, the batch
+    over ``data``; nodes and edges over both), each sharded op's input
+    gradient against autograd's of the same computation on whole tensors
+    (every rank's the same), on integer-valued data so that any order of
+    the sums gives the same bits: per case (the rank's slice of it, the
+    rank's whole-tensor slice)."""
+    from repro_torch.layers.embedding import gather_rows, segment_sum
+    from repro_torch.models import gnn, recsys
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    rules = sh.TRAIN_RULES
+    g = torch.Generator().manual_seed(5)
+    table, w = _ints((40, 6), 1), _ints((8, 5, 6), 2)
+    ids = torch.randint(0, 40, (8, 5), generator=g, dtype=torch.int32)
+    n_nodes, n_edges = 16, 24
+    vals, v_w = _ints((n_edges, 3), 3), _ints((n_nodes, 3), 4)
+    seg = torch.randint(0, n_nodes, (n_edges,), generator=g)
+    nodes, e_w = _ints((n_nodes, 3), 6), _ints((n_edges, 3), 7)
+    src = torch.randint(0, n_nodes, (n_edges,), generator=g)
+    users, items = _ints((8, 3), 8), _ints((8, 3), 9)
+
+    def lay(t, axes):
+        return sh.lay_out_tree({"t": t}, {"t": axes}, mesh, rules)["t"]
+
+    def slice_of(whole, like):
+        for d in range(whole.ndim):
+            off, n = sh.shard_range(mesh, like.placements, d,
+                                    whole.shape[d])
+            whole = whole.narrow(d, off, n)
+        return whole
+
+    def both(make, sharded, plain, axes):
+        """(the sharded op's input gradient, the rank's slice of the
+        plain op's): ``make()`` the whole inputs, the first the one
+        differentiated, ``axes`` their logical axes."""
+        xs = make()
+        ds = [lay(x, a) for x, a in zip(xs, axes)]
+        leaf = ds[0].detach().requires_grad_()
+        with sh.use_mesh(mesh, rules):
+            sharded(leaf, *ds[1:]).backward()
+        whole = xs[0].clone().requires_grad_()
+        plain(whole, *xs[1:]).backward()
+        return leaf.grad.to_local(), slice_of(whole.grad, ds[0])
+
+    out = {}
+    out["lookup"] = both(
+        lambda: (table, ids, w),
+        lambda t, i, v: sh.total(gather_rows(t, i) * v),
+        lambda t, i, v: (gather_rows(t, i) * v).sum(),
+        [("table_rows", None), ("batch", None), ("batch", None, None)])
+    out["segment_sum"] = both(
+        lambda: (vals, seg, v_w),
+        lambda x, s, v: sh.total(segment_sum(x, s, n_nodes, like=v) * v),
+        lambda x, s, v: (segment_sum(x, s, n_nodes) * v).sum(),
+        [("edges", None), ("edges",), ("nodes", None)])
+    out["edge_rows"] = both(
+        lambda: (nodes, src, e_w),
+        lambda x, s, v: sh.total(gnn._edge_rows(x, s, s)[0] * v),
+        lambda x, s, v: (gather_rows(x, s) * v).sum(),
+        [("nodes", None), ("edges",), ("edges", None)])
+    out["in_batch"] = both(
+        lambda: (items, users),
+        lambda i, u: sh.total(recsys._in_batch(lambda a, b: a @ b.T, u, i)),
+        lambda i, u: (u @ i.T).sum(),
+        [("batch", None), ("batch", None)])
+    return out
+
+
+def bags_job():
+    """``embedding_bag`` (sum, mean, max) of ids split with the batch over
+    ``data`` into bags that span both data shards, and ``multi_hot_bag``
+    of (8, 5) ids with padding, from a row-sharded table of small integers
+    (every sum exact) on (2, 2) under ``TRAIN_RULES``: per case (whole
+    output, world 1's)."""
+    from repro_torch.layers.embedding import embedding_bag, multi_hot_bag
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    g = torch.Generator().manual_seed(11)
+    table = {"table": _ints((40, 6), 12)}
+    ids = torch.randint(0, 40, (16,), generator=g, dtype=torch.int32)
+    seg = torch.arange(16) % 5
+    hot = torch.randint(0, 40, (8, 5), generator=g, dtype=torch.int32)
+    hot[:, 3:] = 0
+    laid = sh.lay_out_tree(
+        {"t": table["table"], "ids": ids, "seg": seg, "hot": hot},
+        {"t": ("table_rows", None), "ids": ("batch",), "seg": ("batch",),
+         "hot": ("batch", None)}, mesh, sh.TRAIN_RULES)
+    t = {"table": laid["t"]}
+    out = {}
+    with sh.use_mesh(mesh, sh.TRAIN_RULES):
+        for mode in ("sum", "mean", "max"):
+            out[f"bag_{mode}"] = (
+                full(embedding_bag(t, laid["ids"], laid["seg"], n_bags=5,
+                                   mode=mode)),
+                embedding_bag(table, ids, seg, n_bags=5, mode=mode))
+            out[f"multi_hot_{mode}"] = (
+                full(multi_hot_bag(t, laid["hot"], mode=mode)),
+                multi_hot_bag(table, hot, mode=mode))
+    return out
+
+
+def at_use_job(params):
+    """A recsys tree laid out on (2, 2) under ``TRAIN_RULES_FSDP`` (whose
+    ``embed_fsdp`` is ``(data, model)``): what ``at_use`` moves with
+    autograd on, the tables' placements before and after it, whether
+    their local shards are the stored ones, and what one lookup's
+    backward moves (``sharding.STATS`` tags)."""
+    from repro_torch.launch import steps
+    from repro_torch.layers.embedding import gather_rows
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    rules = sh.TRAIN_RULES_FSDP
+    p = sh.lay_out_tree(params, steps.params_axes(params), mesh, rules)
+    ids = sh.lay_out_tree({"i": torch.arange(8, dtype=torch.int32)[:, None]
+                           * 3}, {"i": ("batch", None)}, mesh, rules)["i"]
+    table = p["item_embed"]["table"].detach().requires_grad_()
+    sh.STATS = {}
+    try:
+        with sh.use_mesh(mesh, rules):
+            used = sh.at_use_tree({"item_embed": {"table": table},
+                                   "field_embed": p["field_embed"]})
+            at_use = dict(sh.STATS)
+            sh.total(gather_rows(used["item_embed"]["table"], ids)
+                     ).backward()
+        lookup = dict(sh.STATS)
+    finally:
+        sh.STATS = None
+    return {"at_use": at_use, "lookup": lookup,
+            "stored": str(list(table.placements)),
+            "used": str(list(used["item_embed"]["table"].placements)),
+            "same_local": torch.equal(
+                used["item_embed"]["table"].to_local(), table.to_local()),
+            "grad": str(list(table.grad.placements))}
+
+
+def rows_bundles():
+    """The DIN train bundle and the EGNN graph bundle (reduced, smoke
+    shapes) laid out by ``steps.shard_args`` under ``TRAIN_RULES`` on
+    (2, 2) and stepped by their own ``fn``: the loss, the step counter,
+    and whether every >= 2-D param moved."""
+    from repro_torch.launch import steps
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    out = {}
+    for arch, shape, smoke in (("din", "train_batch", ("recsys", "train")),
+                               ("egnn", "full_graph_sm", ("gnn", "graph"))):
+        b = steps.build_bundle(arch, shape, reduced=True, device="cpu",
+                               shape_override=steps.SMOKE_SHAPES[smoke[0]][
+                                   smoke[1]])
+        params, opt, batch = steps.shard_args(b, mesh, sh.TRAIN_RULES)
+        before = {p: t.to_local().clone()
+                  for p, t in tree_util.leaves_with_path(params)}
+        with sh.use_mesh(mesh, sh.TRAIN_RULES):
+            loss, params, opt = b.fn(params, opt, batch)
+        moved = all(not torch.equal(t.to_local(), before[p])
+                    for p, t in tree_util.leaves_with_path(params)
+                    if t.ndim >= 2)
+        out[arch] = {"loss": loss, "moved": moved,
+                     "step": int(sh.local_shard(opt["step"]))}
+    return out

@@ -4,7 +4,8 @@ group of 256 ranks, ``meta`` tensors), its ``flops_per_chip`` against the
 rank's products reckoned by hand from the layout; the collective counter
 on a known redistribution, in JAX's ``collective_bytes`` schema; the cell
 list against the JAX dry run's; the cells that wait for later items, and
-two train cells (N9e.3) run with their backward."""
+train, graph, score and retrieval cells run (the train and graph cells
+with their backward: N9e.3, N9e.5, N9e.10)."""
 
 import json
 import os
@@ -142,17 +143,21 @@ def test_list_names_the_jax_cells():
 @pytest.mark.parametrize("arch,shape,status,item", [
     ("onerec-v2", "train_b512", "ok", None),
     ("llama3-8b", "train_4k", "ok", None),
-    ("din", "serve_p99", "not_ported", "N9e.5"),
-    ("din", "train_batch", "not_ported", "N9e.5"),
-    ("two-tower-retrieval", "retrieval_cand", "not_ported", "N9e.5"),
-    ("egnn", "molecule", "not_ported", "N9e.10"),
+    ("din", "serve_p99", "ok", None),
+    ("din", "train_batch", "ok", None),
+    ("two-tower-retrieval", "retrieval_cand", "ok", None),
+    ("egnn", "molecule", "ok", None),
     ("egnn", "ogb_products", "not_ported", "N9e.7"),
     ("llama3-8b", "long_500k", "skipped", None)])
 def test_waiting_and_skipped_cells(tmp_path, arch, shape, status, item):
-    """Each cell's status and the item it waits for.  A train cell runs
-    (the ``"fake"`` group of 256 ranks) under ``TRAIN_RULES`` with its
-    backward: its record counts the backward's reduce-scatters (the weight
-    gathers' transposes) beside the all-gathers and all-reduces."""
+    """Each cell's status and the item it waits for.  A cell that runs
+    (the ``"fake"`` group of 256 ranks) does so under the rules the JAX
+    dry run picks by its kind.  A train or graph cell runs under
+    ``TRAIN_RULES`` with its backward: its record counts the backward's
+    reduce-scatters (the weight gathers' transposes, the sharded lookups'
+    and segment sums' row sums) beside the all-gathers and all-reduces;
+    a recsys score or retrieval cell under ``INFER_RULES`` counts its
+    lookups' id gathers and row sums."""
     if status == "ok":
         dryrun._fake_group(256)
     try:
@@ -167,8 +172,12 @@ def test_waiting_and_skipped_cells(tmp_path, arch, shape, status, item):
         assert f"item {item}" in rec["reason"]
     if status == "ok":
         coll = rec["collectives"]
-        assert rec["rules"] == "train" and set(coll) == SCHEMA
-        for kind in ("all_reduce", "all_gather", "reduce_scatter"):
+        train = rec["kind"] in ("train", "graph")
+        assert rec["rules"] == ("train" if train else "infer")
+        assert set(coll) == SCHEMA
+        kinds = ("all_reduce", "all_gather", "reduce_scatter") if train \
+            else ("all_gather", "reduce_scatter")
+        for kind in kinds:
             assert coll[f"bytes_{kind}"] > 0 and coll[f"count_{kind}"] > 0
         assert rec["flops_per_chip"] > 0
     on_disk = json.loads((tmp_path / f"{arch}__{shape}__single.json")

@@ -4,8 +4,8 @@ Hopper card.
 
     python3 chip_smoke.py
 
-from the root of a checkout (``--only train-mesh`` / ``--only rows-mesh``:
-the setup and phase 10 / 11 alone, no result line).  Phases, each of which
+from the root of a checkout (``--only train-mesh`` / ``rows-mesh`` /
+``graph``: the setup and phase 10 / 11 / 12 alone, no result line).  Phases, each of which
 fails the run:
 
 1. Setup: the card's name and power limit; build every CUDA kernel from
@@ -155,7 +155,7 @@ fails the run:
    (o) OneRec-V2 at full width and ``CKPT_LAYERS`` layer through
    ``launch.train``'s ``training_for``, ``FaultTolerantRunner`` and
    ``AsyncCheckpointer`` (checkpoints in the JAX format under
-   ``build/phase7``): a run with injected faults and a clean run, bitwise
+   ``build/phase7``): a run with an injected fault and a clean run, bitwise
    equal at the end with exactly the injected restarts, every checkpoint
    verified, no second state in device memory (peak within
    ``CKPT_PEAK_SLACK``); checkpoint bytes, the time ``save`` holds the
@@ -248,6 +248,26 @@ fails the run:
    the fixed bounds ``RM_*``, reruns bit-identical, no all-gather as large
    as a table; a rank's table and state bytes, its peak, each
    collective's MB and seconds, the call and step times, every cut.
+   (w) (N9e.4) DIN's sharded state trained through ``launch.train``'s
+   ``training_for`` with the mesh and ``FaultTolerantRunner``: a
+   checkpoint every 2 of 4 steps (every rank gathering each leaf to rank
+   0's host memory with c10d calls, rank 0 writing one global checkpoint
+   in the JAX format), a fault at step 3 (a barrier, then every rank
+   restores its slices in place), then a clean run: every rank's final
+   shards bit-identical to the clean run's, no functional collective on
+   the save path, world 1's ``load_checkpoint`` of the last checkpoint
+   equal to the gathered state; the save's gather, write and hash
+   seconds and its bytes.
+
+12. The EGNN's ``ogb_products`` graph step on one card (N9e.7): the
+   cell's padded graph (2,449,408 nodes, 61,859,840 edges, random from
+   seed 0 on the card) through ``steps.build_bundle``, the message
+   passing in chunks of ``gnn.EDGE_CHUNK`` edges: 2 steps (loss,
+   gradient, AdamW), each's device time, peak memory and chunk count; a
+   finite loss; the first step again bit-identical; the first step at
+   half the chunk within ``GRAPH_BOUNDS`` (set from ``minibatch_lg``'s
+   floor, small chunks against one, printed each run); 10 GiB of the
+   card left free at the peak.  No kernel: the EGNN runs unquantized.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -3690,8 +3710,11 @@ def training_phase(dev):
 # (o): OneRec-V2 at full width, CKPT_LAYERS of its 12 layers: params, mu
 # and nu hold 12 bytes a parameter, ~5.37 GB a checkpoint at one layer
 CKPT_LAYERS = 1
-CKPT_ROWS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 32, 8, 3, 2
-CKPT_FAULTS = {4: 1, 7: 1}
+# 6 steps, a checkpoint every 3 and one fault: a restore from a written
+# checkpoint and a replay (8 steps and faults at 4 and 7 wrote two 5.37 GB
+# checkpoints and took a restore more, ~60 s of the script's time)
+CKPT_ROWS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 32, 6, 3, 2
+CKPT_FAULTS = {4: 1}
 CKPT_PEAK_SLACK = 2 ** 30        # run A's peak at most run B's plus this
 CKPT_DIR = os.path.join(ROOT, "build", "phase7")
 # (q): the launcher's runs, each held to a falling loss (last 10 steps'
@@ -5770,6 +5793,13 @@ RM_BOUNDS = {
     "egnn/molecule": {"grads": 1.9e-2, "mu": 1.3e-2, "nu": 2.6e-2,
                       "update": 9.1e-2}}
 
+# (w): the runner over the sharded DIN state (N9e.4): ``RUNNER_STEPS``
+# steps of ``ROWS_TRAIN`` rows, a checkpoint every ``RUNNER_EVERY``, one
+# fault; a clean run beside it
+RUNNER_ARCH = "din"
+RUNNER_STEPS, RUNNER_EVERY, RUNNER_FAULTS = 4, 2, {3: 1}
+RUNNER_DIR = os.path.join(ROWS_DIR, "runner")
+
 _ROWS_STREAMS = {}
 
 
@@ -5872,10 +5902,10 @@ def _row_blocks(n: int):
         return _mesh_sum([seg(v, i, n_seg)
                           for v, i in zip(vals.chunk(n), ids.chunk(n))])
 
-    def edge_blocks(t, src, dst):
+    def edge_blocks(t, src, dst, **kw):
         if src.shape[0] % n:
-            return edges(t, src, dst)
-        got = [edges(v, s, d) for v, s, d in zip(
+            return edges(t, src, dst, **kw)
+        got = [edges(v, s, d) for v, s, d in zip(         # sorts of its own
             Fan.apply(t, n), src.chunk(n), dst.chunk(n))]
         return tuple(torch.cat(rows) for rows in zip(*got))
 
@@ -5918,17 +5948,19 @@ def _held_steps(dev, params, grad_fn, rows):
     return _world1_steps(dev, params, grad_fn, keep, ROWS_STEPS)
 
 
-def _floors(dev, make, grad_fn, rows, ref, start):
+def _floors(dev, make, grad_fn, rows, ref, start, split):
     """World 1's floors, for information (the bounds are fixed): the same
     steps from ``make()`` with the raw products in 256-deep chunks, and on
-    2 and 4 row blocks (``_row_blocks``: as (2, 2) splits the rows under
-    ``TRAIN_RULES`` and its FSDP rules), each against ``ref``: the loss,
-    and the worst leaf's relative L2 of the gradients (over the steps), of
-    mu and nu and of the update from ``start`` (the last step's)."""
+    ``split`` row blocks (``_row_blocks``: as (2, 2) splits the config's
+    rows under ``TRAIN_RULES``, the recsys batch over ``data``, 2, the
+    EGNN's nodes and edges over both axes, 4), each against ``ref``: the
+    loss, and the worst leaf's relative L2 of the gradients (over the
+    steps), of mu and nu and of the update from ``start`` (the last
+    step's)."""
     from repro_torch.core import quant
     out = {}
     chunk = quant.RAW_K_CHUNK
-    for name, blocks in (("chunk256", 1), ("blocks2", 2), ("blocks4", 4)):
+    for name, blocks in (("chunk256", 1), (f"blocks{split}", split)):
         quant.RAW_K_CHUNK = 256 if blocks == 1 else chunk
         try:
             with (_row_blocks(blocks) if blocks > 1
@@ -6016,7 +6048,7 @@ def _recsys_world1(dev, arch, cfg, serve, train, cands, chunk):
     out["peak"] = torch.cuda.max_memory_allocated(dev) \
         if dev.type == "cuda" else 0
     floor.update(_floors(dev, make, grad_fn, rows, out["steps"],
-                         out["start"]))
+                         out["start"], 2))
     out["floor"], out["times"] = floor, times
     return out
 
@@ -6054,7 +6086,7 @@ def _egnn_world1(dev, cell, cfg=None, shape=None):
            "n_edges": batch["edges"].shape[0], "start": _held(params, {})}
     out["steps"], out["times"] = _held_steps(dev, params, grad_fn, {})
     out["floor"] = _floors(dev, make, grad_fn, {}, out["steps"],
-                           out["start"])
+                           out["start"], 4)
     return out
 
 
@@ -6210,10 +6242,161 @@ def rows_mesh_rank(dev, rank, refs_path, archs, egnn_cells):
         res["peak"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
         out[arch] = res
+    for arch, cfg, _ in archs:
+        if arch == RUNNER_ARCH:
+            out["runner"] = _runner_rank(dev, rank, mesh, cfg)
     for cell, cfg, shape in egnn_cells:
         out[f"egnn/{cell}"] = _egnn_rank(dev, mesh, refs[f"egnn/{cell}"],
                                          cell, cfg, shape, wrappers)
     return out
+
+
+class _FunctionalSeen:
+    """The functional collectives dispatched in the block (on this thread:
+    the save path's gathers run on the caller's)."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if str(func).startswith("_c10d_functional"):
+                    seen.append(str(func))
+                return func(*args, **(kwargs or {}))
+        self._mode = Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def _runner_rank(dev, rank, mesh, cfg):
+    """(w): ``cfg`` (DIN) trained on ``mesh`` under ``TRAIN_RULES`` through
+    ``launch.train.training_for`` with the mesh and ``FaultTolerantRunner``
+    (collective ``AsyncCheckpointer`` saves, one global checkpoint in the
+    JAX format under ``RUNNER_DIR``): ``RUNNER_STEPS`` steps of
+    ``ROWS_TRAIN`` rows, a checkpoint every ``RUNNER_EVERY``, faults
+    ``RUNNER_FAULTS``, then a clean run; each under a functional-collective
+    detector.  Rank 0 also writes the faulted run's final state gathered
+    (``store.gather_to_host``) for world 1's load."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import store
+    from repro_torch.distributed import FaultTolerantRunner, RunnerConfig
+    from repro_torch.launch import steps, train
+    init, step_fn, batch_fn, _ = train.training_for(
+        "recsys", cfg, batch=ROWS_TRAIN, seq=0, compress_grads=False,
+        opt_cfg=steps.OPT_CFG, seed=0, device=dev, mesh=mesh)
+    res, finals = {}, {}
+    for name, faults in (("faulted", RUNNER_FAULTS), ("clean", None)):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        runner = FaultTolerantRunner(
+            step_fn, batch_fn, init, RunnerConfig(
+                total_steps=RUNNER_STEPS, ckpt_every=RUNNER_EVERY,
+                ckpt_dir=os.path.join(RUNNER_DIR, name),
+                keep=RUNNER_STEPS // RUNNER_EVERY), fail_at=faults)
+        t0 = time.perf_counter()
+        with _FunctionalSeen() as seen:
+            state, summary = runner.run()
+        res[name] = {
+            "wall": time.perf_counter() - t0,
+            "restarts": summary["restarts"],
+            "losses": [float(m["loss"]) for m in summary["metrics"]],
+            "step_times": list(runner.step_times),
+            "restores": [e["seconds"] for e in summary["events"]
+                         if e["kind"] == "restore"],
+            "timings": list(runner.checkpointer.timings),
+            "functional": seen.seen}
+        finals[name] = state
+    res["state_bytes"] = _local_bytes(finals["clean"])
+    res["equal"] = all(
+        torch.equal(a.to_local(), b.to_local()) for (_, a), (_, b) in zip(
+            tree.leaves_with_path(finals["faulted"]),
+            tree.leaves_with_path(finals["clean"])))
+    gathered = store.gather_to_host(finals["faulted"])
+    if gathered is not None:
+        torch.save(gathered, os.path.join(RUNNER_DIR, "gathered.pt"))
+    return res
+
+
+def _runner_report(ranks) -> list:
+    """(w)'s checks and lines: the restarts, every rank's final shards of
+    the faulted run equal to the clean run's, no functional collective,
+    each run's checkpoints verified, and world 1's ``load_checkpoint``
+    (no shardings) of the faulted run's last checkpoint equal to the
+    gathered state bit for bit; the saves' seconds and bytes."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.checkpoint import store
+    bad = []
+    runs = [r["runner"] for r in ranks]
+    for i, r in enumerate(runs):
+        if (r["faulted"]["restarts"], r["clean"]["restarts"]) != (
+                sum(RUNNER_FAULTS.values()), 0):
+            bad.append(f"(w) rank {i}: restarts {r['faulted']['restarts']}"
+                       f" / {r['clean']['restarts']}")
+        if not r["equal"]:
+            bad.append(f"(w) rank {i}: the faulted run's shards differ from "
+                       f"the clean run's")
+        seen = r["faulted"]["functional"] + r["clean"]["functional"]
+        if seen:
+            bad.append(f"(w) rank {i}: functional collectives {seen[:3]}")
+    ckpts = {}
+    for name in ("faulted", "clean"):
+        d = os.path.join(RUNNER_DIR, name)
+        got = sorted(x for x in os.listdir(d) if x.startswith("step_"))
+        ckpts[name] = [(x, store.verify_checkpoint(os.path.join(d, x)))
+                       for x in got]
+        if [x for x, ok in ckpts[name] if ok] != [
+                f"step_{s:010d}" for s in range(
+                    RUNNER_EVERY, RUNNER_STEPS + 1, RUNNER_EVERY)]:
+            bad.append(f"(w) {name}: checkpoints {ckpts[name]}")
+    gathered = torch.load(os.path.join(RUNNER_DIR, "gathered.pt"),
+                          weights_only=False)
+    t0 = time.perf_counter()
+    back, manifest = store.load_checkpoint(os.path.join(
+        RUNNER_DIR, "faulted", f"step_{RUNNER_STEPS:010d}"), gathered)
+    load_s = time.perf_counter() - t0
+    differ = [p for (p, a), (_, b) in zip(tree.leaves_with_path(back),
+                                          tree.leaves_with_path(gathered))
+              if not torch.equal(a, b)]
+    if differ or manifest["step"] != RUNNER_STEPS:
+        bad.append(f"(w) world 1's load differs from the gathered state "
+                   f"in {differ[:5]} (step {manifest['step']})")
+    r0 = runs[0]
+    timings = r0["faulted"]["timings"] + r0["clean"]["timings"]
+    nbytes = timings[0]["bytes"] if timings else 0
+
+    def span(key):
+        xs = sorted(t[key] for t in timings)
+        return f"{xs[0]:.3f}-{xs[-1]:.3f}" if xs else "none"
+    print(f"[rows-mesh] (w) {RUNNER_ARCH} through FaultTolerantRunner on "
+          f"{ROWS_MESH}: {RUNNER_STEPS} steps of {ROWS_TRAIN} rows, a "
+          f"checkpoint every {RUNNER_EVERY}, faults {RUNNER_FAULTS}: "
+          f"restarts {[r['faulted']['restarts'] for r in runs]} / clean "
+          f"{[r['clean']['restarts'] for r in runs]}; final shards equal "
+          f"to the clean run's on ranks {[r['equal'] for r in runs]}; "
+          f"functional collectives {sum(len(r['faulted']['functional']) + len(r['clean']['functional']) for r in runs)}; "
+          f"checkpoints {ckpts}; a rank's state {r0['state_bytes'] / 1e9:.3f}"
+          f" GB; runs {r0['faulted']['wall']:.1f} / {r0['clean']['wall']:.1f}"
+          f" s, steps (s) {[round(t, 3) for t in r0['faulted']['step_times']]}"
+          f"; losses {[round(x, 6) for x in r0['faulted']['losses']]} / "
+          f"{[round(x, 6) for x in r0['clean']['losses']]}")
+    print(f"[rows-mesh] (w) a checkpoint {nbytes} bytes ({nbytes / 1e9:.3f}"
+          f" GB, {len(timings)} written by rank 0): save holds the ranks "
+          f"{span('block_s')} s, of it the gather to rank 0's host memory "
+          f"{span('d2h_s')} s; the writer's npz write {span('write_s')} s, "
+          f"hash {span('hash_s')} s; restores (every rank: verify, read, "
+          f"hash, its slices in place) "
+          f"{[round(x, 3) for r in runs for x in r['faulted']['restores']]}"
+          f" s; world 1's load (verify, read, hash) {load_s:.2f} s, equal "
+          f"to the gathered state: {not differ}")
+    return bad
 
 
 def _egnn_rank(dev, mesh, ref, cell, cfg, shape, wrappers):
@@ -6322,6 +6505,14 @@ def rows_mesh_phase(dev, archs=None, egnn_cells=None):
         torch.cuda.empty_cache()
     refs_path = os.path.join(ROWS_DIR, "refs.pt")
     torch.save(refs, refs_path)
+    for arch, cfg, _ in archs:
+        if arch == RUNNER_ARCH:
+            from repro_torch.models import recsys as recsys_model
+            meta = recsys_model.init_recsys(torch.Generator(), cfg,
+                                            device="meta")
+            # f32 params, mu and nu: two checkpoints a run, two runs
+            _check_disk(RUNNER_DIR, 4 * 12 * sum(
+                t.numel() for t in _tensors(meta)), "(w)")
     world1_s = time.perf_counter() - t_phase
     # the ranks' allocators grow their segments in place: two-tower's
     # steps take ~18 GB a rank at their peak, four of them on one card
@@ -6346,6 +6537,8 @@ def rows_mesh_phase(dev, archs=None, egnn_cells=None):
     for cell, _, _ in egnn_cells:
         bad += _rows_steps_report(f"egnn/{cell}", ranks,
                                   refs[f"egnn/{cell}"])
+    if "runner" in ranks[0]:
+        bad += _runner_report(ranks)
     print(f"[rows-mesh] every config within its bounds (loss "
           f"{RM_LOSS_REL}, scores {RM_SCORE_REL_L2}, the rest per config "
           f"as printed)" if not bad else "[rows-mesh] bounds missed: "
@@ -6440,11 +6633,184 @@ def _rows_recsys_report(arch, ranks, ref, counted):
     return bad + _rows_steps_report(arch, ranks, ref)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the EGNN's ogb_products graph step on one card (N9e.7)
+# ---------------------------------------------------------------------------
+
+GRAPH_CELL = "ogb_products"
+GRAPH_STEPS = 2
+GRAPH_FREE = 10 * 2 ** 30        # what a step's peak must leave of the card
+GRAPH_FLOOR_CELL = "minibatch_lg"
+GRAPH_FLOOR_CHUNK = 1 << 14      # minibatch_lg's 169984 edges in 11 chunks
+# Fixed bounds of ogb_products' first step at half the chunk against the
+# default chunk (relative L2 of the worst leaf; the loss relative), set
+# before the held run from the floor above, minibatch_lg on the card in
+# GRAPH_FLOOR_CHUNK chunks against one chunk (an NVIDIA H100 80GB HBM3 at
+# 700 W: loss 0, gradients and mu 3.6e-3, nu 7.2e-3, update 6.4e-2;
+# PERF.md, graph steps): 1.5x, rounded up; the loss to 1e-6 (f32 ulps)
+GRAPH_BOUNDS = {"loss": 1e-6, "grads": 5.4e-3, "mu": 5.4e-3, "nu": 1.1e-2,
+                "update": 9.6e-2}
+
+
+def _graph_step(dev, bundle, params, opt, edge_chunk=None):
+    """One training step of ``bundle``'s graph from copies of ``params``
+    and ``opt``: the bundle's own step (``bundle.fn``, its gradients read
+    through ``fn.grad_transform``), or with ``edge_chunk`` a
+    ``steps.train_step`` of the EGNN's ``train_loss`` rebuilt with its
+    message passing in chunks of ``edge_chunk`` edges.  Returns the loss,
+    gradients, params, mu and nu on the host; the device ms; the peak
+    bytes; the state after it (on the card)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    batch = bundle.args[2]
+    n_graphs = batch["labels"].shape[0] if bundle.note == "graph" else 0
+    kept = {}
+
+    def keep(grads):
+        kept["grads"] = _held(grads, {})
+        return grads
+    if edge_chunk is None:
+        step = bundle.fn
+    else:
+        step = steps.train_step(lambda p, b: gnn.train_loss(
+            p, b, bundle.cfg, level=bundle.note, n_graphs=n_graphs,
+            edge_chunk=edge_chunk))
+    p, o = _clone_tree(params), _clone_tree(opt)
+    _sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    step.grad_transform = keep
+    try:
+        t0.record()
+        loss, p, o = step(p, o, batch)
+        t1.record()
+    finally:
+        step.grad_transform = None
+    _sync(dev)
+    rec = {"loss": loss.item(), "grads": kept["grads"],
+           "params": _held(p, {}), "mu": _held(o["mu"], {}),
+           "nu": _held(o["nu"], {})}
+    return rec, t0.elapsed_time(t1), torch.cuda.max_memory_allocated(dev), \
+        (p, o)
+
+
+def _graph_gaps(got, ref, start) -> dict:
+    """Step ``got`` against ``ref`` (host records): the loss relative, the
+    worst leaf's relative L2 of the gradients, mu and nu, and of the
+    update from ``start``."""
+    out = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"])}
+    for name in ("grads", "mu", "nu"):
+        out[name] = max(_rel_l2(got[name][p], ref[name][p])
+                        for p in ref[name])
+    out["update"] = max(_rel_l2(got["params"][p] - start[p],
+                                ref["params"][p] - start[p])
+                        for p in start)
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+    return a["loss"] == b["loss"] and all(
+        torch.equal(a[k][p], b[k][p]) for k in ("grads", "params", "mu",
+                                                "nu") for p in a[k])
+
+
+def graph_phase(dev, cell=GRAPH_CELL, cfg=None, shape=None,
+                floor_shape=None):
+    """Phase 12 (N9e.7): the EGNN's ``ogb_products`` graph step at full
+    size (2,449,408 nodes, 61,859,840 edges after the JAX package's
+    padding; 4 layers, d 64; features, coordinates, edges and labels
+    random from seed 0 on the card) through ``steps.build_bundle``'s
+    bundle and its own step (``bundle.fn``), its message passing in
+    ``gnn.EDGE_CHUNK``-edge chunks: ``GRAPH_STEPS`` steps (loss,
+    gradient, AdamW), each's device time,
+    peak memory and chunk count; a finite loss; the first step again from
+    the same state bit-identical; the first step at half the chunk (the
+    step rebuilt at that chunk) within ``GRAPH_BOUNDS`` of it (set from the floor of ``GRAPH_FLOOR_CELL`` in
+    ``GRAPH_FLOOR_CHUNK`` chunks against one chunk, printed each run);
+    every peak at least ``GRAPH_FREE`` under the card's memory.  ``cfg``,
+    ``shape`` and ``floor_shape`` cut it down for a dry run on the CPU."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import gnn
+    t_phase = time.perf_counter()
+    total = torch.cuda.mem_get_info(dev)[1] if dev.type == "cuda" else 0
+
+    def bundle_of(name, shp, chunk=gnn.EDGE_CHUNK):
+        if cfg is None:
+            return steps.build_bundle("egnn", name, device=dev)
+        return steps.gnn_bundle("egnn", cfg, shp, device=dev,
+                                edge_chunk=chunk)
+
+    # the floor: a graph whose edges fit in one chunk, in small chunks
+    fb = bundle_of(GRAPH_FLOOR_CELL, floor_shape)
+    p0, o0 = fb.args[0], fb.args[1]
+    n_floor = fb.args[2]["edges"].shape[0]
+    one, _, _, _ = _graph_step(dev, fb, p0, o0)
+    small, _, _, _ = _graph_step(dev, fb, p0, o0, GRAPH_FLOOR_CHUNK)
+    floor = _graph_gaps(small, one, _held(p0, {}))
+    print(f"[graph] floor: {GRAPH_FLOOR_CELL} ({n_floor} edges), "
+          f"{gnn.edge_chunks(n_floor, GRAPH_FLOOR_CHUNK)} chunks of "
+          f"{GRAPH_FLOOR_CHUNK} against one chunk: "
+          + json.dumps({k: f"{v:.3e}" for k, v in floor.items()}))
+    del fb, p0, o0
+
+    t0 = time.perf_counter()
+    b = bundle_of(cell, shape)
+    if dev.type == "cuda":
+        _sync(dev)
+    build_s = time.perf_counter() - t0
+    params0, opt0, batch = b.args
+    n_nodes, n_edges = batch["feat"].shape[0], batch["edges"].shape[0]
+    half = gnn.EDGE_CHUNK // 2
+    print(f"[graph] {cell}: {n_nodes} nodes, {n_edges} edges, d_feat "
+          f"{batch['feat'].shape[1]}, {b.cfg.n_layers} layers d "
+          f"{b.cfg.d_hidden}; bundle built on the card in {build_s:.1f} s; "
+          f"chunks of {gnn.EDGE_CHUNK} edges: "
+          f"{gnn.edge_chunks(n_edges, gnn.EDGE_CHUNK)} a layer (half: "
+          f"{gnn.edge_chunks(n_edges, half)})")
+    bad = []
+    recs, state = [], (params0, opt0)
+    for s in range(GRAPH_STEPS):
+        rec, ms, peak, state = _graph_step(dev, b, *state)
+        recs.append(rec)
+        free = total - peak
+        print(f"[graph] step {s}: loss {rec['loss']:.6f}, device "
+              f"{ms:.1f} ms, peak {peak / 2**30:.2f} GiB of "
+              f"{total / 2**30:.2f} ({free / 2**30:.2f} GiB free), "
+              f"{gnn.edge_chunks(n_edges, gnn.EDGE_CHUNK)} chunks")
+        if not math.isfinite(rec["loss"]):
+            bad.append(f"step {s}: loss {rec['loss']}")
+        if dev.type == "cuda" and free < GRAPH_FREE:
+            bad.append(f"step {s}: peak {peak / 2**30:.2f} GiB leaves "
+                       f"{free / 2**30:.2f} GiB of the card free")
+    del state
+    again, ms, _, _ = _graph_step(dev, b, params0, opt0)
+    same = _same_bits(again, recs[0])
+    print(f"[graph] step 0 again: bit-identical {same} ({ms:.1f} ms)")
+    if not same:
+        bad.append("step 0 again differs")
+    halved, ms, peak, _ = _graph_step(dev, b, params0, opt0, half)
+    gaps = _graph_gaps(halved, recs[0], _held(params0, {}))
+    over = {k: v for k, v in gaps.items() if v > GRAPH_BOUNDS[k]}
+    print(f"[graph] step 0 at half the chunk ({half} edges, "
+          f"{gnn.edge_chunks(n_edges, half)} chunks; {ms:.1f} ms, peak "
+          f"{peak / 2**30:.2f} GiB) against the default: "
+          + json.dumps({k: f"{v:.3e}" for k, v in gaps.items()})
+          + f"; bounds {json.dumps(GRAPH_BOUNDS)}")
+    if over:
+        bad.append(f"half the chunk: {over} past {GRAPH_BOUNDS}")
+    print(f"[graph] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    if bad:
+        fail("phase 12: " + "; ".join(bad))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
-    if only not in (None, "train-mesh", "rows-mesh"):
-        fail(f"--only takes train-mesh or rows-mesh, not {only}")
+    if only not in (None, "train-mesh", "rows-mesh", "graph"):
+        fail(f"--only takes train-mesh, rows-mesh or graph, not {only}")
     try:
         import torch
     except ImportError:
@@ -6475,8 +6841,18 @@ def main(argv=None) -> int:
         rows_mesh_phase(dev)
         print("[setup] --only rows-mesh: phase 11 alone, no result line")
         return 0
+    if only == "graph":
+        graph_phase(dev)
+        print("[setup] --only graph: phase 12 alone, no result line")
+        return 0
 
-    records = {}
+    records, took, t_last = {}, {}, [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        took[phase] = round(now - t_last[0], 1)
+        t_last[0] = now
+
     check_fp8_gemm(dev, records)
     check_fp8_gemm_given(dev, records)
     check_fp8_gemm_recsys(dev, records)
@@ -6487,6 +6863,7 @@ def main(argv=None) -> int:
     check_radix_topk(dev, records)
     check_batch_attention(dev, records)
     check_batch_attention_zoo(dev, records)
+    lap("2 kernels")
     for case in ("paged", "paged-unfused", "paged-policy", "paged-return",
                  "paged-ptq", "contiguous", "fixed"):
         card_vs_cpu(dev, case)
@@ -6496,17 +6873,30 @@ def main(argv=None) -> int:
         card_vs_cpu_lm(dev, case)
     for arch in RECSYS:
         card_vs_cpu_recsys(dev, arch)
+    lap("3 card vs CPU")
     by_path, paged_outs = full_width(dev)
+    lap("4 full width")
     distribution_phase(dev)
+    lap("5 stats")
     training_phase(dev)
+    lap("6 train")
     checkpoint_phase(dev, paged_outs, by_path["paged"])
+    lap("7 ckpt")
     from repro_torch.configs.onerec_v2 import CONFIG
     world1 = _world1(dev, CONFIG, 32)        # phases 8 and 9 hold to it
     by_path.update(ep_phase(dev, world1=world1))
+    lap("8 ep (with world 1)")
     by_path.update(tp_phase(dev, world1))
     del world1
+    lap("9 tp")
     train_mesh_phase(dev)
+    lap("10 train-mesh")
     by_path.update(rows_mesh_phase(dev))
+    lap("11 rows-mesh")
+    graph_phase(dev)
+    lap("12 graph")
+    print(f"[time] seconds a phase: {json.dumps(took)}; "
+          f"{sum(took.values()):.1f} s after the setup")
 
     # (TPU kernel it replaces, the main path whose run it is counted in);
     # the given-scale mode of fp8_gemm is counted in phase 9's run

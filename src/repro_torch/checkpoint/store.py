@@ -18,18 +18,33 @@ The format, leaf by leaf:
     weight (``quant.k_major``) is saved unpadded, as the JAX package holds
     it, and laid out K-major again on load (``tree.empty_like``).
 
-Sharded trees (the JAX elastic re-shard path, ``distributed/elastic.py``):
-  * ``load_checkpoint(..., shardings=tree)`` reads and checks every leaf
-    whole on every rank (each rank reads the shared file; nothing is
-    broadcast), keeps the rank's own slice of each and returns a tree of
-    ``DTensor``s; the template may hold ``meta`` tensors (shapes, dtypes
-    and layouts only), so no rank allocates the global tree.  A K-major
-    payload's slice is laid out K-major again (``quant.k_major``);
-  * ``save_checkpoint`` of a tree holding ``DTensor``s gathers each leaf
-    on every rank (``full_tensor``), rank 0 writes, and every rank returns
-    the path after a barrier: the same files and hash as one rank's save
-    of the same values.  ``AsyncCheckpointer`` of DTensors waits for
-    ROADMAP.md queue N, item N9e.4.
+Sharded trees (the JAX elastic re-shard path, ``distributed/elastic.py``,
+and the sharded runner's state; every collective a c10d call on host
+tensors, none through DTensor's redistribution):
+  * ``save_checkpoint`` of a tree holding ``DTensor``s: every rank copies
+    its local shards to host memory and each leaf's global value is
+    gathered to rank 0 (``gather_to_host``: ``dist.gather`` of the
+    shards' bytes over the default group, rank 0 placing each rank's
+    block by its mesh coordinate); rank 0 writes, and every rank returns
+    the path after a barrier (which also raises rank 0's error on every
+    rank).  The format is the one above, one global ``arrays.npz`` and
+    manifest, as the JAX package writes a sharded tree (each leaf's
+    global value): the same entries, bytes and hash as one rank's save of
+    the same values, the zip's and the manifest's write times apart;
+  * ``AsyncCheckpointer.save`` of such a tree: every rank takes part in
+    the gather on the calling thread, and rank 0 alone queues the host
+    tree for its writer (host memory holds one global tree, not one a
+    rank); ``wait`` and ``close`` end at a barrier, where an error of
+    rank 0's writer raises on every rank;
+  * ``load_checkpoint(..., in_place=True)`` into a template of
+    ``DTensor``s: each rank reads and checks every leaf whole (each
+    reads the shared file; nothing is broadcast) and copies its slice of
+    it into its own local shard (a K-major payload keeps its layout);
+  * ``load_checkpoint(..., shardings=tree)`` returns a new tree of
+    ``DTensor``s holding each rank's slice; the template may hold
+    ``meta`` tensors (shapes, dtypes and layouts only), so no rank
+    allocates the global tree.  A K-major payload's slice is laid out
+    K-major again (``quant.k_major``).
 
 Durability contract (fault tolerance):
   * writes go to ``<dir>/tmp.<step>.<pid>`` and are atomically renamed,
@@ -191,19 +206,84 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     return final
 
 
+def _agree(err: Optional[BaseException]) -> None:
+    """A barrier of every rank that raises on each of them when rank 0
+    holds ``err`` (its write failed), so no rank waits on another."""
+    import torch.distributed as dist
+    flag = torch.tensor([0 if err is None else 1], dtype=torch.int32)
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    if err is not None:
+        raise err
+    if flag.item():
+        raise RuntimeError("rank 0 failed to write a checkpoint")
+
+
+def _mesh_coord(mesh, rank: int) -> List[int]:
+    hit = (mesh.mesh == rank).nonzero()
+    if hit.shape[0] != 1:
+        raise ValueError(f"rank {rank} is not on the mesh {mesh}")
+    return hit[0].tolist()
+
+
+def _gather_leaf(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """Rank 0: the global value of ``t`` on the host, a fresh tensor in
+    row-major order (a ``DTensor``'s blocks gathered from every rank,
+    each placed by its mesh coordinate); the other ranks: None."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import shard_range
+    rank = dist.get_rank()
+    if not _dtensor(t):
+        return _host(t, copy=True) if rank == 0 else None
+    mesh, places, world = t.device_mesh, t.placements, dist.get_world_size()
+    if mesh.mesh.numel() != world:
+        raise ValueError(f"a sharded save needs a mesh over all {world} "
+                         f"ranks, not {mesh}")
+    local = _host(t.to_local(), copy=False)
+    buf = local.reshape(-1).view(torch.uint8)
+    if rank != 0:
+        dist.gather(buf, None, dst=0)
+        return None
+    bufs = [torch.empty_like(buf) for _ in range(world)]
+    dist.gather(buf, bufs, dst=0)
+    out = torch.empty(t.shape, dtype=t.dtype)
+    for r, b in enumerate(bufs):
+        coord = _mesh_coord(mesh, r)
+        block = tuple(slice(off, off + n) for off, n in (
+            shard_range(mesh, places, d, t.shape[d], coord=coord)
+            for d in range(t.ndim)))
+        out[block] = b.view(t.dtype).reshape(local.shape)
+    return out
+
+
+def gather_to_host(tree: Any) -> Optional[Any]:
+    """(Every rank, a collective leaf by leaf.)  Rank 0: ``tree`` with
+    each leaf's global value as a fresh host tensor; the other ranks:
+    None.  Only c10d calls on host tensors move the data (gloo's refuse
+    nothing there; a DTensor redistribution of CUDA shards would run
+    functional collectives)."""
+    import torch.distributed as dist
+    leaves = [_gather_leaf(t) for t in _flatten(tree)[1]]
+    return _unflatten(tree, iter(leaves)) if dist.get_rank() == 0 else None
+
+
 def _save_sharded(directory: str, step: int, tree: Any,
                   extra_meta: Optional[Dict], timing: Optional[Dict]) -> str:
-    """Every rank gathers each ``DTensor`` leaf whole (a collective, leaf
-    by leaf); rank 0 writes the gathered tree; all meet at a barrier."""
-    import torch.distributed as dist
-    gathered = _unflatten(tree, iter(
-        _host(t.full_tensor() if _dtensor(t) else t, copy=False)
-        for t in _flatten(tree)[1]))
+    """``gather_to_host``; rank 0 writes the gathered tree; all meet at a
+    barrier.  ``timing``'s ``host_s`` (rank 0) includes the gather."""
+    t0 = time.perf_counter()
+    host = gather_to_host(tree)
+    gathered = time.perf_counter() - t0
     final = os.path.join(directory, f"step_{step:010d}")
-    if dist.get_rank() == 0:
-        final = save_checkpoint(directory, step, gathered, extra_meta,
-                                timing)
-    dist.barrier()
+    err = None
+    if host is not None:
+        try:
+            final = save_checkpoint(directory, step, host, extra_meta,
+                                    timing)
+            if timing is not None:
+                timing["host_s"] += gathered
+        except BaseException as e:  # noqa: BLE001 -- raised on every rank
+            err = e
+    _agree(err)
     return final
 
 
@@ -263,7 +343,7 @@ def load_checkpoint(path: str, template: Any, *, shardings: Any = None,
                 f"{_dtype_name(t.dtype)}{tuple(t.shape)}")
     if shardings is not None:
         if in_place:
-            raise ValueError("a sharded restore makes new tensors: "
+            raise ValueError("a restore onto shardings makes new tensors: "
                              "in_place does not apply")
         spec_paths, specs = _flatten(shardings, any_leaf=True)
         if spec_paths != paths:
@@ -271,11 +351,26 @@ def load_checkpoint(path: str, template: Any, *, shardings: Any = None,
         out = [_shard(src, t, sh)
                for src, t, sh in zip(leaves, targets, specs)]
         return _unflatten(template, iter(out)), manifest
-    out = [(t if in_place else tree_util.empty_like(t)).copy_(src)
-           for t, src in zip(targets, leaves)]
     if in_place:
+        for t, src in zip(targets, leaves):
+            _copy_in(t, src)
         return template, manifest
+    out = [tree_util.empty_like(t).copy_(src)
+           for t, src in zip(targets, leaves)]
     return _unflatten(template, iter(out)), manifest
+
+
+def _copy_in(t: torch.Tensor, src: torch.Tensor) -> None:
+    """The global leaf ``src`` into the template's ``t``: a ``DTensor``'s
+    local shard gets the rank's slice, in its own layout."""
+    if not _dtensor(t):
+        t.copy_(src)
+        return
+    from repro_torch.distributed.sharding import shard_range
+    for d in range(src.ndim):
+        off, n = shard_range(t.device_mesh, t.placements, d, src.shape[d])
+        src = src.narrow(d, off, n)
+    t.to_local().copy_(src)
 
 
 def _shard(src: torch.Tensor, template: torch.Tensor, sharding):
@@ -317,14 +412,20 @@ def host_copy(tree: Any) -> Any:
 class AsyncCheckpointer:
     """Off-thread checkpoint writer with back-pressure and retention GC.
     ``timings`` holds, for each checkpoint written, ``save_checkpoint``'s
-    timing, the seconds of ``save``'s copy to host memory (``d2h_s``) and
-    all the seconds ``save`` held the calling thread (``block_s``, the
-    copy and any wait for the queue)."""
+    timing, the seconds of ``save``'s copy to host memory (``d2h_s``; of
+    a sharded tree the gather to rank 0) and all the seconds ``save`` held
+    the calling thread (``block_s``, the copy and any wait for the queue).
+
+    A tree holding ``DTensor``s makes it collective (module docstring):
+    from its first such save, every rank calls ``save``, ``wait`` and
+    ``close`` alike; rank 0 writes, and its ``timings`` are the
+    checkpoints'."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self.timings: List[Dict[str, float]] = []
+        self.sharded = False
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._err: Optional[BaseException] = None
         self._thread = threading.Thread(target=self._worker, daemon=True)
@@ -345,23 +446,35 @@ class AsyncCheckpointer:
             finally:
                 self._q.task_done()
 
-    def save(self, step: int, tree: Any, meta: Optional[Dict] = None):
-        if self._err:
+    def _raise(self):
+        """The writer's error, raised here (on every rank when sharded)."""
+        if self.sharded:
+            _agree(self._err)
+        elif self._err:
             raise self._err
+
+    def save(self, step: int, tree: Any, meta: Optional[Dict] = None):
+        self.sharded = self.sharded or any(
+            _dtensor(t) for t in _flatten(tree)[1])
+        self._raise()
         # copy to host BEFORE queueing: the train step updates the state's
         # tensors in place (on the CPU too, where no transfer would copy)
         t0 = time.perf_counter()
-        host_tree = host_copy(tree)
+        host_tree = gather_to_host(tree) if self.sharded \
+            else host_copy(tree)
         timing = {"step": step, "d2h_s": time.perf_counter() - t0}
-        self._q.put((step, host_tree, meta, timing))
+        if host_tree is not None:
+            self._q.put((step, host_tree, meta, timing))
         timing["block_s"] = time.perf_counter() - t0
 
     def wait(self):
-        """Block until every queued checkpoint is written (or failed)."""
+        """Block until every queued checkpoint is written (or failed); a
+        barrier of every rank when sharded."""
         self._q.join()
+        if self.sharded:
+            self._raise()
 
     def close(self):
         self._q.put(None)
         self._thread.join()
-        if self._err:
-            raise self._err
+        self._raise()

@@ -10,13 +10,14 @@ training, collectives with a backward (``psum``, ``fan``, ``gather``,
 ``sum_scatter``) and weights stored sharded over ``data`` and gathered
 where they are used (``at_use``), but the embedding tables, whose row
 shards are where their lookups run (``layers.embedding.gather_rows`` and
-``segment_sum`` over a mesh).  Tensor parallelism of the transformer
-stack, the dry run, the sharded train step, the row-sharded recsys
-tables and the EGNN's sharded graph steps are ROADMAP.md queue N, items
-N9e.1-3, N9e.5 and N9e.10; sharded checkpoints, sequence parallelism,
-``ogb_products`` and the paged pool under tensor parallelism are N9e.4,
-N9e.6, N9e.7 and N9e.9 (the flash-decoding combine is queue B's
-B-P12)."""
+``segment_sum`` over a mesh), and the runner's checkpoints of a sharded
+state (gathered to rank 0 with c10d calls, one global checkpoint in the
+JAX format, restored in place on every rank).  Tensor parallelism of the
+transformer stack, the dry run, the sharded train step, the row-sharded
+recsys tables, the EGNN's sharded graph steps, sharded checkpoints and
+``ogb_products`` are ROADMAP.md queue N, items N9e.1-5, N9e.7 and N9e.10;
+sequence parallelism and the paged pool under tensor parallelism are
+N9e.6 and N9e.9 (the flash-decoding combine is queue B's B-P12)."""
 
 from repro_torch.distributed.compression import (  # noqa: F401
     compressed_psum,

@@ -25,7 +25,14 @@ What torch changes:
     work, not the host's queueing of it;
   * before a restore the runner waits for the checkpoints still queued:
     it restores the newest one saved, and no write replaces a checkpoint
-    while it is read (each restart is one injected or real fault).
+    while it is read (each restart is one injected or real fault);
+  * a state of ``DTensor``s (a sharded train step's, every rank running
+    the same loop) is checkpointed collectively: every rank takes part in
+    each save's gather, rank 0 writes the one global checkpoint in the
+    JAX format, the wait before a restore is a barrier of every rank
+    (none reads the shared file before the write is whole), and each
+    rank restores the same step in place, its slice of each leaf into
+    its own shard (``checkpoint/store.py``).
 """
 
 from __future__ import annotations

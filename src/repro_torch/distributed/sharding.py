@@ -483,12 +483,13 @@ def sum_scatter(t, dim: int, group, tag: str = "sum-scatter"):
     return reduce_scatter(t, dim, group, tag=tag)
 
 
-def shard_range(mesh, places, dim: int, size: int) -> Tuple[int, int]:
+def shard_range(mesh, places, dim: int, size: int,
+                coord=None) -> Tuple[int, int]:
     """``(offset, length)`` of this rank's slice of global tensor dim
     ``dim`` (``size`` long) under ``places`` (mesh dims in order, the
-    first major)."""
+    first major); of the rank at mesh coordinate ``coord`` when given."""
     from torch.distributed.tensor import Shard
-    coord = mesh.get_coordinate()
+    coord = mesh.get_coordinate() if coord is None else coord
     idx, count = 0, 1
     for i, pl in enumerate(places):
         if isinstance(pl, Shard) and pl.dim == dim:

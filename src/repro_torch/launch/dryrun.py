@@ -32,10 +32,8 @@ does:
     null).
 
 ``lower_s`` is the time to build and lay out the bundle, ``compile_s``
-the time of the run.  A cell its shape marks N/A is ``"skipped"``; a
-cell whose abstract bundle waits for a later item of ROADMAP.md queue N
-(``ogb_products``) is ``"not_ported"``, naming it.  The exit code is 1 only when a cell is
-``"error"``.
+the time of the run.  A cell its shape marks N/A is ``"skipped"``.  The
+exit code is 1 only when a cell is ``"error"``.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch onerec-v2 \\
@@ -171,13 +169,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: str,
     shape = mod.SHAPES[shape_name]
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
               "kind": shape.kind, "status": "ok"}
-    waits = steps.abstract_waits(mod.FAMILY, shape)
     if shape.skip:
         record.update(status="skipped", reason=shape.skip)
-    elif waits:
-        record.update(status="not_ported", item=waits,
-                      reason=f"the abstract {shape.kind} bundle waits for "
-                             f"ROADMAP.md queue N, item {waits}")
     else:
         record.update(_run(arch, shape_name, multi_pod, fp8))
     tag = record["status"].upper() if record["status"] != "ok" else "OK "

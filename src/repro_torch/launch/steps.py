@@ -10,8 +10,7 @@ Every bundle carries the logical axes of its arguments (``arg_axes``:
 ``params_axes``, ``batch_axes``, ``cache_axes``, the JAX package's
 strings) and ``shard_args`` lays the arguments out on a mesh by them, as
 ``DTensor``s holding each rank's slice.  ``abstract=True`` builds a
-bundle on ``meta`` (the dry run's: shapes and dtypes, no values); only
-``ogb_products`` waits for ROADMAP.md queue N (N9e.7).  The step
+bundle on ``meta`` (the dry run's: shapes and dtypes, no values).  The step
 functions run on the device of their inputs; under a mesh
 (``distributed.sharding.use_mesh``) on the laid-out arguments they run
 tensor and expert parallel, a train step of an LM or OneRec-V2 under
@@ -21,7 +20,8 @@ its gradients summed over the ranks that computed them; the recsys steps
 with their tables sharded on their rows over ``(data, model)`` and read
 where they lie (the sharded lookup, ``layers.embedding.gather_rows``),
 and the EGNN's graph steps over nodes and edges split over ``(data,
-model)``.
+model)``, their edges' work in chunks (``models.gnn.EDGE_CHUNK``: on one
+card ``ogb_products``' 61.86 M edges run in 15 chunks).
 
 Step signatures (uniform per kind):
   train:      step(params, opt_state, batch)          -> (loss, params, opt)
@@ -79,11 +79,6 @@ class StepBundle:
     donate: Tuple[int, ...] = ()       # args the step updates in place
     cfg: Any = None
     note: str = ""
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"queue N, item {item})")
 
 
 def _generator(seed: int, device: torch.device) -> torch.Generator:
@@ -158,15 +153,17 @@ def train_step(loss_fn: Callable[[dict, dict], torch.Tensor],
     update in place; ``grad_transform(grads) -> grads``, when given, runs
     between the two (gradient compression, ``launch/train.py``).
     ``step.metrics`` holds the last update's ``grad_norm`` and ``lr``
-    (device tensors)."""
+    (device tensors); ``step.grad_transform`` the transform, which the
+    caller of a bundle's step may set (to read its gradients)."""
     def step(params, opt_state, batch):
         loss, grads = tree.value_and_grad(loss_fn, params, batch)
-        if grad_transform is not None:
-            grads = grad_transform(grads)
+        if step.grad_transform is not None:
+            grads = step.grad_transform(grads)
         params, opt_state, step.metrics = adamw_update(
             params, grads, opt_state, opt_cfg)
         return loss, params, opt_state
     step.metrics = {}
+    step.grad_transform = grad_transform
     return step
 
 
@@ -422,15 +419,12 @@ def _gnn_cell_dims(shape: ShapeSpec) -> Tuple[int, int, int, str, int]:
 
 
 def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
-               n_classes: int = 16, seed: int = 0,
-               device=None) -> StepBundle:
+               n_classes: int = 16, seed: int = 0, device=None,
+               edge_chunk: int = gnn_model.EDGE_CHUNK) -> StepBundle:
     """The EGNN's training step on the cell's graph: random features,
     coordinates, edges and labels (node labels, or one a graph for the
-    batched small graphs), every edge and node real."""
-    if shape.name == "ogb_products":
-        raise _not_ported(f"the graph step of {arch} on ogb_products "
-                          f"(61.86 M edges: chunked or sharded segment "
-                          f"sums)", "N9e.7")
+    batched small graphs), every edge and node real; the message passing
+    in chunks of ``edge_chunk`` edges (a rank's own over a mesh)."""
     dev = resolve_device(device)
     n, e, d_feat, level, n_graphs = _gnn_cell_dims(shape)
     gen = _generator(seed + 1, dev)
@@ -453,7 +447,7 @@ def gnn_bundle(arch: str, cfg: GNNConfig, shape: ShapeSpec, *,
     params = gnn_model.init_egnn(_generator(seed, dev), cfg, d_feat,
                                  n_classes, device=dev)
     step = train_step(lambda p, b: gnn_model.train_loss(
-        p, b, cfg, level=level, n_graphs=n_graphs))
+        p, b, cfg, level=level, n_graphs=n_graphs, edge_chunk=edge_chunk))
     opt = adamw_init(params)
     baxes = batch_axes(batch, {
         "feat": ("nodes", None), "coord": ("nodes", None),
@@ -480,18 +474,13 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     (``reduced``: the arch's ``reduced_config()``; ``fp8`` None: PTQ'd, as
     the JAX package decides for the LM and OneRec families).  With
     ``abstract`` the bundle on ``meta`` (shapes and dtypes, no values: the
-    dry run's); a cell that waits for a ROADMAP.md item raises, naming
-    it."""
+    dry run's)."""
     mod = registry.get_arch(arch)
     cfg = mod.reduced_config() if reduced else mod.CONFIG
     shape = shape_override or mod.SHAPES[shape_name]
     if shape.skip:
         raise ValueError(f"cell {arch}/{shape_name} is N/A: {shape.skip}")
     if abstract:
-        waits = abstract_waits(mod.FAMILY, shape)
-        if waits:
-            raise _not_ported(f"the abstract {shape.kind} bundle of "
-                              f"{arch}/{shape.name}", waits)
         device = "meta"
     if mod.FAMILY == "gnn":
         return gnn_bundle(arch, cfg, shape,
@@ -502,15 +491,6 @@ def build_bundle(arch: str, shape_name: str, *, reduced: bool = False,
     build = {"lm": lm_bundle, "onerec": onerec_bundle,
              "recsys": recsys_bundle}[mod.FAMILY]
     return build(arch, cfg, shape, fp8=fp8, seed=seed, device=device)
-
-
-def abstract_waits(family: str, shape: ShapeSpec) -> Optional[str]:
-    """The ROADMAP.md queue N item an abstract bundle of this cell waits
-    for, or None where it is ported: ``ogb_products`` waits for its
-    chunked or sharded segment sums (N9e.7)."""
-    if shape.name == "ogb_products":
-        return "N9e.7"
-    return None
 
 
 # Reduced-shape cells for CPU smoke testing (the JAX package's, tiny dims)

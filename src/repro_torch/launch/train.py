@@ -31,6 +31,7 @@ from repro_torch.data.onerec_data import OneRecStreamConfig, SemanticIDStream
 from repro_torch.data.recsys_data import (RecsysStreamConfig,
                                           SyntheticInteractions)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.compression import ef_compress, ef_init
 from repro_torch.distributed.fault_tolerance import (FaultTolerantRunner,
                                                      RunnerConfig)
@@ -54,14 +55,22 @@ def build_training(arch: str, *, reduced: bool, batch: int, seq: int,
 
 def training_for(family: str, cfg, *, batch: int, seq: int,
                  compress_grads: bool, opt_cfg: OptimizerConfig,
-                 seed: int = 0, device=None
+                 seed: int = 0, device=None, mesh=None
                  ) -> Tuple[Callable[[], Dict], Callable, Callable, Any]:
     """``build_training`` for a config of ``family`` (``lm``, ``onerec``
     or ``recsys``): (init_state_fn, step_fn, batch_fn, cfg).  The state is
     ``{"params", "opt": {"mu", "nu", "step"}, ["ef"]}`` on ``device``,
     the JAX train state's tree; ``step_fn(state, batch) -> (metrics,
-    state)`` updates it in place."""
+    state)`` updates it in place.  With ``mesh`` (``recsys`` only, every
+    rank calling alike) the state and each batch are laid out on it by
+    their logical axes under ``TRAIN_RULES``, each rank holding its slices
+    as ``DTensor``s, and the step runs sharded (``launch/steps.py``); the
+    runner then checkpoints collectively (``checkpoint/store.py``)."""
     dev = resolve_device(device)
+    if mesh is not None and (family != "recsys" or compress_grads):
+        raise ValueError("a mesh takes the recsys family without "
+                         f"compress_grads, not {family} "
+                         f"(compress_grads={compress_grads})")
     if family == "lm":
         stream = SyntheticLMStream(LMStreamConfig(
             vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
@@ -92,6 +101,10 @@ def training_for(family: str, cfg, *, batch: int, seq: int,
         state = {"params": params, "opt": adamw_init(params)}
         if compress_grads:
             state["ef"] = ef_init(params)
+        if mesh is not None:
+            state = {k: sh.lay_out_tree(v, steps.params_axes(v), mesh,
+                                        sh.TRAIN_RULES)
+                     for k, v in state.items()}
         return state
 
     ef: Dict[str, Any] = {}        # the step's residuals in, new ones out
@@ -108,7 +121,15 @@ def training_for(family: str, cfg, *, batch: int, seq: int,
                  for k, v in batch.items()}
         if compress_grads:
             ef["old"] = state["ef"]
-        loss, params, opt = step(state["params"], state["opt"], batch)
+        if mesh is None:
+            loss, params, opt = step(state["params"], state["opt"], batch)
+        else:
+            batch = sh.lay_out_tree(
+                batch, steps.batch_axes(batch, steps._RECSYS_BATCH_AXES),
+                mesh, sh.TRAIN_RULES)
+            with sh.use_mesh(mesh, sh.TRAIN_RULES):
+                loss, params, opt = step(state["params"], state["opt"],
+                                         batch)
         new_state = {"params": params, "opt": opt}
         if compress_grads:
             new_state["ef"] = ef.pop("new")

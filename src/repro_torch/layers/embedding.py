@@ -17,6 +17,20 @@ results become 0.  Row gathers go through ``gather_rows``, whose gradient
 is that ``segment_sum`` (the JAX gather's transpose, a scatter-add), so a
 backward adds each row's contributions in a fixed order on the card too.
 
+Chunked sums (the EGNN's message passing over more edges than fit at once,
+``models/gnn.py``): ``segment_sum(..., out=acc)`` adds a chunk's rows into
+f32 sums ``acc`` that the caller carries from chunk to chunk, and
+``segment_plan`` makes the card's sort of a chunk's ids once, for every
+sum over them.  A gather's backward carries its sums the same way
+(``RowGrads``: the f32 sums of every gather that reads one table, rounded
+once).  On the CPU ``index_add_`` adds each row into its segment in index
+order, so contiguous chunks carried in order give one pass's bits (the
+forward; a gather's backward adds the chunks in the order autograd runs
+them, which is fixed but not theirs).  On the card each chunk's segments
+are summed on their own (the sort) and then added to the carried sums: one
+rounding more per segment and chunk, in a fixed order, so a chunked sum
+holds to a floor against one pass, not to its bits.
+
 Over a mesh (``DTensor`` operands) both run on each rank's shards:
 
 * ``gather_rows`` of a table sharded on its rows: ids replicated on a mesh
@@ -69,51 +83,150 @@ def init_embedding(gen: torch.Generator, vocab: int, dim: int, *,
                                       dtype)}
 
 
-def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
-                like=None) -> torch.Tensor:
-    """f32 sums of ``vals``' rows by segment id ``seg`` (int64) into ``n``
-    rows (``jax.ops.segment_sum``), each segment summed in row order.
-    ``DTensor`` operands: the sharded sum (module docstring), laid out as
-    ``like`` on its row dims (replicated without one)."""
-    if sh.is_dtensor(vals) or sh.is_dtensor(seg):
-        return _sharded_segment_sum(vals, seg, n, like)
-    vals = vals.to(torch.float32)
-    if vals.device.type in ("cpu", "meta"):
-        return vals.new_zeros((n, *vals.shape[1:])).index_add_(0, seg, vals)
+def segment_plan(seg: torch.Tensor, n: int):
+    """The card's sort of segment ids ``seg`` (int64) for ``segment_sum``
+    into ``n`` rows: ``(stable order, segment lengths)``, made once and
+    passed to every sum over the same ids; ``None`` on the CPU (and
+    ``meta``), whose ``index_add_`` needs none."""
+    if seg.device.type in ("cpu", "meta"):
+        return None
     order = torch.argsort(seg, stable=True)
     lengths = torch.zeros(n, dtype=torch.int64, device=seg.device
                           ).index_add_(0, seg, torch.ones_like(order))
-    return torch.segment_reduce(vals.index_select(0, order), "sum",
-                                lengths=lengths, axis=0, unsafe=True)
+    return order, lengths
+
+
+class _SegmentSum(torch.autograd.Function):
+    """``vals``' rows (f32) summed by segment into ``out`` (in place) or
+    into fresh zeros: on the CPU by ``index_add_`` in index order, on the
+    card by ``segment_reduce`` over the rows sorted stably by segment
+    (``plan``), added to ``out``.  Its transpose is the gather of the
+    cotangent by ``seg`` (what autograd gives through ``index_add_`` or
+    ``segment_reduce`` and the sort), keeping nothing but the ids: not
+    the rows, which ``index_add_``'s and ``segment_reduce``'s own
+    backwards save."""
+
+    @staticmethod
+    def forward(ctx, vals, seg, n, out, plan):
+        ctx.save_for_backward(seg)
+        ctx.carried = out is not None
+        if out is not None:
+            ctx.mark_dirty(out)
+        if vals.device.type in ("cpu", "meta"):
+            if out is None:
+                out = vals.new_zeros((n, *vals.shape[1:]))
+            return out.index_add_(0, seg, vals)
+        order, lengths = plan if plan is not None else segment_plan(seg, n)
+        part = torch.segment_reduce(vals.index_select(0, order), "sum",
+                                    lengths=lengths, axis=0, unsafe=True)
+        return part if out is None else out.add_(part)
+
+    @staticmethod
+    def backward(ctx, grad):
+        seg, = ctx.saved_tensors
+        return (grad.index_select(0, seg), None, None,
+                grad if ctx.carried else None, None)
+
+
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int,
+                like=None, *, out: Optional[torch.Tensor] = None,
+                plan=None) -> torch.Tensor:
+    """f32 sums of ``vals``' rows by segment id ``seg`` (int64) into ``n``
+    rows (``jax.ops.segment_sum``), each segment summed in row order.
+    ``out``: f32 sums carried from earlier chunks, which this chunk's rows
+    are added into (in place) and which are returned; ``plan``:
+    ``segment_plan(seg, n)``, the card's sort made once (module
+    docstring).  ``DTensor`` operands: the sharded sum (module
+    docstring), laid out as ``like`` on its row dims (replicated without
+    one)."""
+    if sh.is_dtensor(vals) or sh.is_dtensor(seg):
+        return _sharded_segment_sum(vals, seg, n, like)
+    return _SegmentSum.apply(vals.to(torch.float32), seg, n, out, plan)
 
 
 def _sharded_segment_sum(vals, seg, n, like):
     """``segment_sum`` of rows split on dim 0 over some mesh dims (``seg``
-    split alike): the rank's rows into all ``n`` segments, then a sum over
-    each such mesh dim, keeping the rank's slice where ``like`` is split on
-    its rows there (``sum_scatter``, outermost mesh dim first) or the whole
-    (``psum``)."""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
-    mesh = (vals if sh.is_dtensor(vals) else seg).device_mesh
-    rep = [Replicate()] * mesh.ndim
-    v_pl = vals.placements if sh.is_dtensor(vals) else rep
-    s_pl = seg.placements if sh.is_dtensor(seg) else rep
-    o_pl = like.placements if like is not None else rep
-    scatters, sums = [], []
-    for i, (vp, sp, op) in enumerate(zip(v_pl, s_pl, o_pl)):
-        ok = vp == sp and vp in (Replicate(), Shard(0)) \
-            and op in (Replicate(), Shard(0))
-        if not ok or (vp == Replicate() and op == Shard(0)):
-            raise ValueError(
-                f"segment_sum: values {vp} with segment ids {sp} into an "
-                f"output {op} on mesh dim {mesh.mesh_dim_names[i]}")
-        if vp == Shard(0):
-            (scatters if op == Shard(0) else sums).append(mesh.get_group(i))
+    split alike): the rank's rows into all ``n`` segments, then
+    ``segment_total``."""
+    from torch.distributed.tensor import Replicate
+    rows = vals if sh.is_dtensor(vals) else seg
+    rep = [Replicate()] * rows.device_mesh.ndim
+    v_pl = list(vals.placements) if sh.is_dtensor(vals) else rep
+    s_pl = list(seg.placements) if sh.is_dtensor(seg) else rep
+    if v_pl != s_pl:
+        raise ValueError(f"segment_sum: values {v_pl} with segment ids "
+                         f"{s_pl}")
     part = segment_sum(sh.local_shard(vals), sh.local_shard(seg).long(), n)
+    return segment_total(part, rows, like)
+
+
+def segment_total(part: torch.Tensor, rows, like=None):
+    """The ranks' sums ``part`` (each rank's rows, laid out as the
+    ``DTensor`` ``rows`` on dim 0, summed into all segments) summed over
+    each mesh dim that splits the rows, keeping the rank's slice where
+    ``like`` is split on its rows there (``sum_scatter``, outermost mesh
+    dim first) or the whole (``psum``): a ``DTensor`` laid out as ``like``
+    on its row dims (replicated without one).  ``rows`` plain: ``part``
+    as it is."""
+    if not sh.is_dtensor(rows):
+        return part
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = rows.device_mesh
+    o_pl = like.placements if like is not None \
+        else [Replicate()] * mesh.ndim
+    scatters, sums = [], []
+    for i, (rp, op) in enumerate(zip(rows.placements, o_pl)):
+        if rp not in (Replicate(), Shard(0)) \
+                or op not in (Replicate(), Shard(0)) \
+                or (rp == Replicate() and op == Shard(0)):
+            raise ValueError(
+                f"segment_sum: rows {rp} into an output {op} on mesh dim "
+                f"{mesh.mesh_dim_names[i]}")
+        if rp == Shard(0):
+            (scatters if op == Shard(0) else sums).append(mesh.get_group(i))
     for g in scatters:
         part = sh.sum_scatter(part, 0, g, tag="segment-sum")
     part = sh.psum(part, sums, tag="segment-sum")
     return DTensor.from_local(part, mesh, list(o_pl), run_check=False)
+
+
+class RowGrads:
+    """The gradient of a table read by ``parts`` gathers (a chunked
+    layer's: each chunk's source and destination rows): each gather's
+    backward adds its rows' gradients into one set of f32 sums carried
+    from gather to gather (``segment_sum(..., out=)``); the last of them
+    to run returns the sums rounded once to the gradient's dtype, the
+    others nothing.  Every gather that reads it must take part in the
+    backward, once: a further gather's backward raises, and so does the
+    backward of a table ``watch``ed while gathers are still owed."""
+
+    def __init__(self, parts: int):
+        self.parts = parts
+        self.sums = None
+
+    def add(self, grad, idx, rows, plan):
+        if self.parts <= 0:
+            raise RuntimeError("RowGrads: a gather's backward ran after the "
+                               "table's gradient was handed back (a second "
+                               "backward through the same graph?)")
+        self.sums = segment_sum(grad, idx, rows, out=self.sums, plan=plan)
+        self.parts -= 1
+        if self.parts:
+            return None
+        sums, self.sums = self.sums, None
+        return sums.to(grad.dtype)
+
+    def watch(self, table: torch.Tensor) -> torch.Tensor:
+        """``table``, whose gradient, once every reader's is in, fails
+        unless all ``parts`` gathers handed theirs to the sums."""
+        if table.requires_grad:
+            table.register_hook(self._handed_back)
+        return table
+
+    def _handed_back(self, grad):
+        if self.parts:
+            raise RuntimeError(f"RowGrads: {self.parts} gathers of the "
+                               f"table took no part in its backward")
 
 
 class _GatherRows(torch.autograd.Function):
@@ -122,29 +235,37 @@ class _GatherRows(torch.autograd.Function):
     fixed order."""
 
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, plan, grads):
         ctx.save_for_backward(idx)
-        ctx.rows = table.shape[0]
+        ctx.rows, ctx.plan, ctx.grads = table.shape[0], plan, grads
         return table.index_select(0, idx)
 
     @staticmethod
     def backward(ctx, grad):
         idx, = ctx.saved_tensors
-        return segment_sum(grad, idx, ctx.rows).to(grad.dtype), None
+        if ctx.grads is not None:
+            return ctx.grads.add(grad, idx, ctx.rows, ctx.plan), None, \
+                None, None
+        return segment_sum(grad, idx, ctx.rows, plan=ctx.plan).to(
+            grad.dtype), None, None, None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor,
-                dtype=None) -> torch.Tensor:
+                dtype=None, *, plan=None,
+                grads: Optional[RowGrads] = None) -> torch.Tensor:
     """Rows ``idx`` (any shape, any integer dtype) of ``table``: (*idx.shape,
     *table.shape[1:]), cast to ``dtype`` when given.  Its backward sums
-    the rows' gradients in f32 in ``idx`` order (``segment_sum``) and
-    rounds once to the gradient's dtype, the same bits on either device.
-    ``DTensor`` operands: the sharded lookup (module docstring)."""
+    the rows' gradients in f32 in ``idx`` order (``segment_sum``, over
+    ``plan``, ``segment_plan`` of the flat ids, when given) and rounds
+    once to the gradient's dtype, the same bits on either device; with
+    ``grads`` into the sums it carries (``RowGrads``).  ``DTensor``
+    operands: the sharded lookup (module docstring)."""
     if sh.is_dtensor(table) or sh.is_dtensor(idx):
         return _sharded_rows(table, idx, dtype)
     flat = idx.reshape(-1).long()
-    rows = _GatherRows.apply(table, flat) if torch.is_grad_enabled() \
-        and table.requires_grad else table.index_select(0, flat)
+    rows = _GatherRows.apply(table, flat, plan, grads) \
+        if torch.is_grad_enabled() and table.requires_grad \
+        else table.index_select(0, flat)
     rows = rows.reshape(*idx.shape, *table.shape[1:])
     return rows if dtype is None else rows.to(dtype)
 

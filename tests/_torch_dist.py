@@ -579,13 +579,66 @@ def lookup_on(table, ids, mesh, rules):
                 "ids": str(list(b.placements))}
 
 
-def rows_job(rank, world, recsys_cases, egnn_cases):
+RUNNER_STEPS, RUNNER_EVERY, RUNNER_FAULTS = 4, 2, {3: 1}
+
+
+def runner_job(ckpt_dir: str):
+    """Reduced DIN on (2, 2) under ``TRAIN_RULES`` through the runner
+    (``launch.train.training_for`` with a mesh): ``RUNNER_STEPS`` steps, a
+    checkpoint every ``RUNNER_EVERY``, faults ``RUNNER_FAULTS``, then a
+    clean run; each run's local shards beside their offsets, restarts,
+    losses and checkpoints, both under the functional-collective
+    detector; a synchronous sharded save of the clean run's state (its
+    detector's record too) and that state gathered (rank 0's; None
+    elsewhere)."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import FaultTolerantRunner, RunnerConfig
+    from repro_torch.launch import steps, train
+    mesh = mesh_mod.make_debug_mesh(2, 2, device_type="cpu")
+    cfg = registry.get_arch("din").reduced_config()
+    out = {}
+    for name, faults in (("faulted", RUNNER_FAULTS), ("clean", None)):
+        init, step_fn, batch_fn, _ = train.training_for(
+            "recsys", cfg, batch=16, seq=0, compress_grads=False,
+            opt_cfg=steps.OPT_CFG, seed=0, device="cpu", mesh=mesh)
+        d = os.path.join(ckpt_dir, name)
+        runner = FaultTolerantRunner(
+            step_fn, batch_fn, init, RunnerConfig(
+                total_steps=RUNNER_STEPS, ckpt_every=RUNNER_EVERY,
+                ckpt_dir=d, keep=3), fail_at=faults)
+        guard = NoFunctionalCollectives()
+        with guard:
+            state, summary = runner.run()
+        out[name] = {
+            "local": tree_util.map_with_path(_local_with_ranges, state),
+            "restarts": summary["restarts"], "dir": d,
+            "losses": [float(m["loss"]) for m in summary["metrics"]],
+            "ckpts": sorted(x for x in os.listdir(d)
+                            if x.startswith("step_")),
+            "functional": guard.seen}
+    guard = NoFunctionalCollectives()
+    with guard:
+        out["sync_path"] = store.save_checkpoint(
+            os.path.join(ckpt_dir, "sync"), RUNNER_STEPS, state)
+    out["sync_functional"] = guard.seen
+    out["gathered"] = store.gather_to_host(state)
+    return out
+
+
+# Edges a chunk of the node-level EGNN's step on (2, 2) in ``rows_job``:
+# several chunks of each rank's own edges
+MESH_EDGE_CHUNK = 8
+
+
+def rows_job(rank, world, recsys_cases, egnn_cases, ckpt_dir=None):
     """Every recsys case ``(name, cfg, params, qparams, batch, one)`` and
     EGNN case ``(name, cfg, params, batch, level, n_graphs)`` on each mesh
     of ``TRAIN_MESHES``: a train step (``sharded_step``); for the recsys
     families also the scores (raw and PTQ'd towers) and one user's
     retrieval under ``SERVE_RULES``, and the history lookup; DIN's and the
-    EGNN's (1, 4) step twice (a rerun); the collectives' transposes and
+    EGNN's (1, 4) step twice (a rerun); the node-level EGNN's (2, 2) step
+    under ``TRAIN_RULES`` also in chunks of ``MESH_EDGE_CHUNK`` of the
+    rank's edges (``"chunked"``); the collectives' transposes and
     ``at_use`` of the tables."""
     from repro_torch.launch import steps
     from repro_torch.models import gnn, recsys
@@ -631,11 +684,19 @@ def rows_job(rank, world, recsys_cases, egnn_cases):
                 res["rerun"] = sharded_step(loss_fn, params, batch, mesh,
                                             sh.RULE_SETS[rules],
                                             gnn_axes(level))
+            if (n_data, n_model, rules, level) == (2, 2, "train", "node"):
+                res["chunked"] = sharded_step(
+                    lambda p, b: gnn.train_loss(
+                        p, b, cfg, edge_chunk=MESH_EDGE_CHUNK),
+                    params, batch, mesh, sh.RULE_SETS[rules],
+                    gnn_axes(level))
             out[name, n_data, n_model, rules] = res
     out["rows_transposes"] = rows_transposes_job()
     out["bags"] = bags_job()
     out["at_use"] = at_use_job(recsys_cases[0][2])
     out["bundles"] = rows_bundles()
+    if ckpt_dir is not None:
+        out["runner"] = runner_job(ckpt_dir)
     return out
 
 
@@ -702,7 +763,8 @@ def rows_transposes_job():
         [("edges", None), ("edges",), ("nodes", None)])
     out["edge_rows"] = both(
         lambda: (nodes, src, e_w),
-        lambda x, s, v: sh.total(gnn._edge_rows(x, s, s)[0] * v),
+        lambda x, s, v: sh.total(sh.local_call(
+            lambda i: gather_rows(gnn._node_rows(x, s), i), s, like=v) * v),
         lambda x, s, v: (gather_rows(x, s) * v).sum(),
         [("nodes", None), ("edges",), ("edges", None)])
     out["in_batch"] = both(

@@ -549,6 +549,44 @@ def egnn_outputs(which: str, level: str):
                                        ("loss", tloss, jloss))}
 
 
+def chunk_batches(d_feat: int = 12):
+    """Graphs of 2-4 k edges for the chunked message passing: a padded
+    geometric graph of 800 nodes (2583 edges, masked padding) and 64
+    molecules of 8 nodes and 40 edges (2560)."""
+    from repro_torch.data import graph
+    g = graph.random_geometric_graph(800, 8, d_feat, n_classes=GNN_CLASSES,
+                                     seed=3)
+    node = graph.graph_batch(g, pad_nodes=832, pad_edges=len(g.edges) + 57)
+    mol = graph.molecule_batch(64, 8, 40, d_feat, n_classes=GNN_CLASSES,
+                               seed=4)
+    return {"node": node, "graph": mol}
+
+
+def egnn_chunked_grads(which: str, level: str, edge_chunks):
+    """(JAX's ``(loss, grads)`` of ``train_loss`` op by op, {chunk: the
+    port's with the message passing in chunks of ``chunk`` edges}) on
+    ``chunk_batches()[level]``, from one JAX init of ``which``."""
+    import jax.numpy as jnp
+    import torch
+    from repro.models import gnn as jax_gnn
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.models import gnn
+    cfg = registry.get_arch("egnn").CONFIG if which == "CONFIG" \
+        else registry.get_arch("egnn").reduced_config()
+    batch = chunk_batches()[level]
+    raw, params = egnn_params(which, batch["feat"].shape[1])
+    n_graphs = len(batch["labels"]) if level == "graph" else 0
+    theirs = jax_value_and_grad(jax_gnn.train_loss, raw,
+                                {k: jnp.asarray(v)
+                                 for k, v in batch.items()}, cfg,
+                                level=level, n_graphs=n_graphs)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    return theirs, {chunk: tree.value_and_grad(
+        gnn.train_loss, params, tb, cfg, level=level, n_graphs=n_graphs,
+        edge_chunk=chunk) for chunk in edge_chunks}
+
+
 # ---------------------------------------------------------------------------
 # The distribution analysis and the auto-tuner (tests/test_torch_stats.py,
 # tests/test_torch_autotune.py)

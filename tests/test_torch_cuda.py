@@ -959,12 +959,14 @@ def _two_grads(fn, *leaves):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("site", ["gather_rows", "embed_tokens", "moe",
-                                  "token_nll", "egnn"])
+                                  "token_nll", "egnn", "egnn_chunked"])
 def test_gather_backwards_are_bit_identical(cuda, site):
     """Every gather of the train path adds its backward in a fixed order
     (``gather_rows``: ``segment_sum``), so two backward passes give the
     same bits: the embedding tables, the MoE dispatch and combine, the
-    loss's ``take_along_dim`` (one entry a row), the EGNN's edge gathers."""
+    loss's ``take_along_dim`` (one entry a row), the EGNN's edge gathers,
+    and theirs in 10 chunks of 4096 edges (the gathers' sums carried
+    across the chunks, ``RowGrads``, each chunk recomputed)."""
     from repro_torch.configs import registry
     from repro_torch.layers import embedding, moe
     from repro_torch.models import gnn
@@ -1012,7 +1014,9 @@ def test_gather_backwards_are_bit_identical(cuda, site):
         def loss(kernel, feat):
             params["layers"]["0"]["edge_mlp"]["tower"]["0"]["kernel"] = \
                 kernel
-            return gnn.train_loss(params, dict(batch, feat=feat), cfg)[None]
+            return gnn.train_loss(params, dict(batch, feat=feat), cfg,
+                                  edge_chunk=4096 if site == "egnn_chunked"
+                                  else gnn.EDGE_CHUNK)[None]
         runs = _two_grads(loss, w, batch["feat"])
     for a, b in zip(*runs):
         assert torch.equal(a, b)

@@ -4,7 +4,7 @@ CPU: the config field for field, ``random_geometric_graph``,
 the forward (node embeddings and coordinates), both logits and both loss
 levels at ``reduced_config()`` and at the published width (4 layers, d 64),
 the forward's E(3) equivariance as a property of the port, and the graph
-bundles' training step (N9b; ``ogb_products`` names N9e.7).  The JAX
+bundles' training step (N9b; ``ogb_products`` in chunks, N9e.7).  The JAX
 side runs op by op; the bodies are in ``_torch_parity.py``.
 
 Tolerances (max |port - JAX| over max |JAX|): 1e-2 -- the raw bf16
@@ -122,18 +122,26 @@ def test_egnn_forward_is_equivariant(level):
 @pytest.mark.parametrize("shape", ["full_graph_sm", "minibatch_lg",
                                    "ogb_products", "molecule"])
 def test_graph_bundles_name_n9(shape):
-    """Each graph cell takes a training step on the CPU at its own graph
-    size (N9b), but ``ogb_products``, whose 61.86 M edges wait for chunked
-    or sharded segment sums (N9e.7); the smoke bundles take one each."""
-    if shape == "ogb_products":
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP\.md queue N, item N9e\.7"):
-            steps.build_bundle("egnn", shape, reduced=True, device="cpu")
-        for b in steps.smoke_bundles("egnn", device="cpu"):
-            assert_takes_a_step(b)
-        return
-    b = steps.build_bundle("egnn", shape, reduced=True, device="cpu")
+    """Each graph cell takes a training step on the CPU (N9b): at its own
+    graph size, but ``ogb_products``, whose 61.86 M edges take a card
+    (N9e.7): its abstract bundle has the cell's padded graph on ``meta``,
+    and a concrete one at a thousandth of its nodes and edges takes a
+    step in chunks; the smoke bundles take one each."""
     spec = registry.get_arch("egnn").SHAPES[shape]
+    if shape == "ogb_products":
+        a = steps.build_bundle("egnn", shape, reduced=True, abstract=True)
+        assert a.args[2]["feat"].shape == (2_449_408, spec.d_feat)
+        assert a.args[2]["edges"].device.type == "meta"
+        small = dataclasses.replace(spec, n_nodes=spec.n_nodes // 1000,
+                                    n_edges=spec.n_edges // 1000)
+        b = steps.gnn_bundle("egnn", registry.get_arch("egnn")
+                             .reduced_config(), small, device="cpu",
+                             edge_chunk=1 << 13)
+        assert gnn.edge_chunks(b.args[2]["edges"].shape[0], 1 << 13) == 8
+        for sb in steps.smoke_bundles("egnn", device="cpu"):
+            assert_takes_a_step(sb)
+    else:
+        b = steps.build_bundle("egnn", shape, reduced=True, device="cpu")
     n = b.args[2]["feat"].shape[0]
     assert b.args[2]["feat"].shape[1] == spec.d_feat
     assert b.note == ("graph" if spec.global_batch else "node")

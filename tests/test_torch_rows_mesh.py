@@ -50,14 +50,29 @@ the CPU, spawned once (one world-4 job; the rank bodies are
 * ``at_use`` moves no table byte under ``TRAIN_RULES_FSDP`` (whose
   ``embed_fsdp`` axes would gather a storage-sharded weight), and the
   table's cotangent is not summed again.
+* The node-level EGNN's (2, 2) step with each rank's own edges in
+  chunks (several a rank): the one-chunk step's loss bit for bit, its
+  gradients within ``CHUNK_GRAD_REL_L2``; world 1 within the bounds above.
 * One DIN step and one node-level EGNN step against the JAX package's
   unsharded step under ``jax.disable_jit`` (computed in a thread while
   the ranks run).
+* The runner over a sharded state (N9e.4; ``_torch_dist.runner_job``):
+  reduced DIN on (2, 2) through ``FaultTolerantRunner``, a checkpoint
+  every 2 of 4 steps and a fault at step 3, ends with every rank's shards
+  bit-identical to a clean run's; its checkpoint holds the entries,
+  bytes and hash of world 1's save of the gathered state (the zip's and
+  the manifest's write times apart), which the port's world-1
+  ``load_checkpoint`` and the JAX package's ``verify_checkpoint`` and
+  ``load_checkpoint`` read bit for bit; no functional collective runs on
+  the save path.
 """
 
 import contextlib
 import dataclasses
+import json
+import os
 import threading
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -68,6 +83,8 @@ import torch
 import _torch_dist as td
 from _torch_parity import (egnn_params, flat_numpy, jax_value_and_grad,
                            recsys_batch, to_numpy)
+from repro.checkpoint import store as jax_store
+from repro_torch.checkpoint import store
 from repro_torch import tree as tree_util
 from repro_torch.configs import registry
 from repro_torch.core.policy import PAPER_POLICY
@@ -92,6 +109,8 @@ BLOCKS_REL_L2 = 1e-7
 # update against JAX's (DIN's 1-D leaves 0.226, the EGNN's 1.35e-2)
 JAX_DPARAM_REL_L2 = {"din": 0.34, "egnn_node": 0.16}
 SCORE_REL = 1e-5
+# chunked against one chunk (test_torch_graph_chunks.py's bound)
+CHUNK_GRAD_REL_L2 = 5e-2
 RECSYS = {"two": "two-tower-retrieval", "mind": "mind", "din": "din",
           "dien": "dien"}
 EGNN = ("egnn_node", "egnn_graph")
@@ -199,10 +218,10 @@ def row_blocks(n: int):
         return _mesh_sum([seg(v, i, n_seg)
                           for v, i in zip(vals.chunk(n), ids.chunk(n))])
 
-    def edge_blocks(t, src, dst):
+    def edge_blocks(t, src, dst, **kw):
         if src.shape[0] % n:
-            return edges(t, src, dst)
-        got = [edges(v, s, d) for v, s, d in zip(
+            return edges(t, src, dst, **kw)
+        got = [edges(v, s, d) for v, s, d in zip(         # sorts of its own
             _Fan.apply(t, n), src.chunk(n), dst.chunk(n))]
         return tuple(torch.cat(rows) for rows in zip(*got))
 
@@ -262,8 +281,9 @@ def runs(tmp_path_factory):
     thread = threading.Thread(target=jax_side)
     thread.start()
     try:
-        ranks = td.run(4, td.rows_job, (rc, ec),
-                       str(tmp_path_factory.mktemp("rows")))
+        ranks = td.run(4, td.rows_job, (
+            rc, ec, str(tmp_path_factory.mktemp("ckpt"))),
+            str(tmp_path_factory.mktemp("rows")))
     finally:
         thread.join()
     if "error" in jax_out:
@@ -374,6 +394,37 @@ def test_world1_on_row_blocks_is_the_floor(runs, name, blocks):
     assert gaps["grads"] <= GRAD_REL_L2 and gaps["mu"] <= GRAD_REL_L2
     assert gaps["nu"] <= NU_REL_L2
     assert 0 < gaps["update"] <= DPARAM_REL_L2[name]
+
+
+@pytest.mark.parametrize("against", ["one_chunk", "world1"])
+def test_chunked_sharded_step(runs, against):
+    """The node-level EGNN on (2, 2) under ``TRAIN_RULES`` with each
+    rank's own edges in chunks of ``MESH_EDGE_CHUNK`` (edge-MLP weights
+    local, node rows gathered whole, the gathers' backward carried across
+    the chunks, each chunk recomputed): against the same mesh at one
+    chunk, the loss bit for bit (``index_add_`` adds rows in index order)
+    and the gradients within ``CHUNK_GRAD_REL_L2``
+    (``test_torch_graph_chunks.py``'s chunked-against-one-chunk bound);
+    against world 1 within the bounds of every sharded step."""
+    case = runs["cases"]["egnn_node"]
+    per_rank = case[3]["edges"].shape[0] // 4
+    assert gnn.edge_chunks(per_rank, td.MESH_EDGE_CHUNK) >= 4
+    assert gnn.edge_chunks(per_rank) == 1
+    for rank in runs["ranks"]:
+        res = rank["egnn_node", 2, 2, "train"]
+        got = res["chunked"]
+        assert got["functional"] == []
+        if against == "world1":
+            _check_step(got, _numpy_ref(runs["ref"]["egnn_node"]), case,
+                        DPARAM_REL_L2["egnn_node"])
+            continue
+        one = res["train"]
+        assert torch.equal(got["loss"], one["loss"])
+        rel = _rel_l2(_flat(got["grads"]), _flat(one["grads"]))
+        worst = max(rel, key=rel.get)
+        print(worst, f"{rel[worst]:.3e}")
+        # > 0: the chunks' carried f32 sums ran (measured 1.42e-3)
+        assert 0 < rel[worst] <= CHUNK_GRAD_REL_L2, (worst, rel[worst])
 
 
 @pytest.mark.parametrize("name", ["din", "dien"])
@@ -589,3 +640,103 @@ def test_sharded_step_matches_jax(runs, name, n_data, n_model, rules):
         _check_step(rank[name, n_data, n_model, rules]["train"],
                     runs["jax"][name], runs["cases"][name],
                     JAX_DPARAM_REL_L2[name])
+
+
+# ---------------------------------------------------------------------------
+# The runner over a sharded state: collective checkpoints (N9e.4)
+# ---------------------------------------------------------------------------
+
+
+def test_sharded_runner_restarts_to_the_clean_shards(runs):
+    """With a fault at step 3 the runner restores step 2's checkpoint on
+    every rank (the barrier first: rank 0's write whole) and replays:
+    each rank's final shards are the clean run's bit for bit, the replayed
+    step's loss too."""
+    for rank in runs["ranks"]:
+        faulted, clean = rank["runner"]["faulted"], rank["runner"]["clean"]
+        assert faulted["restarts"] == 1 and clean["restarts"] == 0
+        assert faulted["ckpts"] == clean["ckpts"] == [
+            f"step_{s:010d}" for s in range(td.RUNNER_EVERY,
+                                            td.RUNNER_STEPS + 1,
+                                            td.RUNNER_EVERY)]
+        assert faulted["losses"][:3] + faulted["losses"][4:] == \
+            clean["losses"] and faulted["losses"][3] == clean["losses"][2]
+        for (path, (a, ra)), (_, (b, rb)) in zip(
+                tree_util.leaves_with_path(faulted["local"]),
+                tree_util.leaves_with_path(clean["local"])):
+            assert ra == rb and torch.equal(a, b), path
+
+
+def _zip_entries(path):
+    with zipfile.ZipFile(os.path.join(path, store.ARRAYS)) as z:
+        return [(i.filename, z.read(i.filename)) for i in z.infolist()]
+
+
+def _manifest(path):
+    with open(os.path.join(path, store.MANIFEST)) as f:
+        return {k: v for k, v in json.load(f).items() if k != "time"}
+
+
+def test_sharded_checkpoint_is_world1s_file(runs, tmp_path):
+    """The runners' last checkpoints and the synchronous sharded save hold
+    the entries and bytes of world 1's ``save_checkpoint`` of the state
+    gathered to rank 0, with its manifest (write time apart); the gathered
+    state is every rank's shards put together, and world 1's
+    ``load_checkpoint`` (no shardings) of the file returns it bit for
+    bit."""
+    ranks = runs["ranks"]
+    gathered = ranks[0]["runner"]["gathered"]
+    assert all(r["runner"]["gathered"] is None for r in ranks[1:])
+    whole = dict(tree_util.leaves_with_path(gathered))
+    for rank in ranks:
+        for path, (local, ranges) in tree_util.leaves_with_path(
+                rank["runner"]["clean"]["local"]):
+            want = whole[path]
+            for dim, (off, n) in enumerate(ranges):
+                want = want.narrow(dim, off, n)
+            assert torch.equal(local, want), path
+    ours = store.save_checkpoint(str(tmp_path), td.RUNNER_STEPS, gathered)
+    last = f"step_{td.RUNNER_STEPS:010d}"
+    for path in (os.path.join(ranks[0]["runner"]["faulted"]["dir"], last),
+                 os.path.join(ranks[0]["runner"]["clean"]["dir"], last),
+                 ranks[0]["runner"]["sync_path"]):
+        assert _zip_entries(path) == _zip_entries(ours), path
+        assert _manifest(path) == _manifest(ours), path
+        back, manifest = store.load_checkpoint(path, gathered)
+        assert manifest["step"] == td.RUNNER_STEPS
+        for (p, a), (_, b) in zip(tree_util.leaves_with_path(back),
+                                  tree_util.leaves_with_path(gathered)):
+            assert torch.equal(a, b), p
+
+
+def test_jax_reads_the_sharded_checkpoint(runs):
+    """The JAX package's ``verify_checkpoint`` accepts the sharded runner's
+    checkpoint and its ``load_checkpoint`` returns the gathered state's
+    bits."""
+    gathered = runs["ranks"][0]["runner"]["gathered"]
+    path = os.path.join(runs["ranks"][0]["runner"]["faulted"]["dir"],
+                        f"step_{td.RUNNER_STEPS:010d}")
+    assert jax_store.verify_checkpoint(path)
+
+    def spec(t):
+        if isinstance(t, dict):
+            return {k: spec(v) for k, v in t.items()}
+        return jax.ShapeDtypeStruct(tuple(t.shape), np.dtype(
+            str(t.dtype).removeprefix("torch.")))
+    back, _ = jax_store.load_checkpoint(path, spec(gathered))
+    want = [t.numpy() for t in store._flatten(gathered)[1]]
+    got = jax.tree_util.tree_leaves(back)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(np.asarray(a), b)
+
+
+def test_no_functional_collective_on_the_save_path(runs):
+    """Both runs (their steps, the ``AsyncCheckpointer`` saves' gathers,
+    the restore) and the synchronous sharded save dispatch no functional
+    collective: the gather is ``dist.gather`` of host bytes."""
+    for rank in runs["ranks"]:
+        res = rank["runner"]
+        assert res["faulted"]["functional"] == []
+        assert res["clean"]["functional"] == []
+        assert res["sync_functional"] == []

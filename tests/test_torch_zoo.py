@@ -106,9 +106,9 @@ def test_recsys_and_gnn_archs_name_their_roadmap_item(arch):
 def test_bundles_refuse_what_waits_for_n9():
     """The LM train cell takes a step (at the smoke shape: train_4k is 256
     x 4096 tokens) and its abstract bundle is built on ``meta`` (N9e.3), as
-    the abstract prefill bundle is, and so is a recsys abstract train
-    bundle (N9e.5: its tables row-sharded where they are used); only
-    ``ogb_products`` still names its item (N9e.7)."""
+    the abstract prefill bundle is, and so are a recsys abstract train
+    bundle (N9e.5: its tables row-sharded where they are used) and the
+    EGNN's ``ogb_products`` (N9e.7: its edges in chunks)."""
     b = steps.build_bundle("llama3-8b", "train_4k", reduced=True,
                            device="cpu",
                            shape_override=steps.SMOKE_SHAPES["lm"]["train"])
@@ -125,10 +125,11 @@ def test_bundles_refuse_what_waits_for_n9():
     assert din.args[2]["hist_ids"].device.type == "meta"
     assert din.args[2]["hist_ids"].shape == (65536, 100)
     assert din.args[1]["mu"]["item_embed"]["table"].device.type == "meta"
-    with pytest.raises(NotImplementedError,
-                       match=r"ROADMAP\.md queue N, item N9e\.7"):
-        steps.build_bundle("egnn", "ogb_products", abstract=True,
-                           device="cpu")
+    ogb = steps.build_bundle("egnn", "ogb_products", abstract=True,
+                             device="cpu")
+    assert ogb.kind == "graph"
+    assert ogb.args[2]["edges"].shape == (61_859_840, 2)
+    assert ogb.args[2]["edges"].device.type == "meta"
     abstract = steps.build_bundle("llama3-8b", "prefill_32k", abstract=True)
     assert abstract.args[1]["tokens"].device.type == "meta"
     with pytest.raises(ValueError, match="N/A"):

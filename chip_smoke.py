@@ -4,8 +4,9 @@ Hopper card.
 
     python3 chip_smoke.py
 
-from the root of a checkout (``--only train-mesh`` / ``rows-mesh`` /
-``graph``: the setup and phase 10 / 11 / 12 alone, no result line).  Phases, each of which
+from the root of a checkout (``--only tp`` / ``train-mesh`` / ``train-sp``
+/ ``rows-mesh`` / ``graph``: the setup and phase 9 (with phase 8's world
+1) / 10 / 10's SP case / 11 / 12 alone, no result line).  Phases, each of which
 fails the run:
 
 1. Setup: the card's name and power limit; build every CUDA kernel from
@@ -155,9 +156,9 @@ fails the run:
    (o) OneRec-V2 at full width and ``CKPT_LAYERS`` layer through
    ``launch.train``'s ``training_for``, ``FaultTolerantRunner`` and
    ``AsyncCheckpointer`` (checkpoints in the JAX format under
-   ``build/phase7``): a run with an injected fault and a clean run, bitwise
-   equal at the end with exactly the injected restarts, every checkpoint
-   verified, no second state in device memory (peak within
+   ``build/phase7``): a run with an injected fault and a clean run (its
+   last step's checkpoint alone), bitwise equal at the end with exactly
+   the injected restarts, every checkpoint verified, no second state in device memory (peak within
    ``CKPT_PEAK_SLACK``); checkpoint bytes, the time ``save`` holds the
    training thread, the writer's GB/s, restore and step times, and what a
    6- and a 12-layer checkpoint would cost at those rates; launches 0;
@@ -212,25 +213,52 @@ fails the run:
    with ``radix_topk``, its items equal to world 1's on at least
    ``TP_ITEMS_EQUAL`` of the rows; launch counts a prefill, a decode step
    and a generation; params and peak memory a rank, prefill and decode
-   ms, each collective's bytes and ms.
+   ms, each collective's bytes and ms.  Then the cached modes (N9e.9) on
+   the first ``SLOT_ROWS`` of phase 4's ragged requests with an fp8 K/V
+   cache (``serving.cached_modes``' ``slot_inputs`` / ``slot_steps`` /
+   ``slot_run``, the writes resolved by the executor's own resolvers): the
+   executor's
+   entry points ``prefill_into_slots`` (fresh into a per-slot cache laid
+   out by ``cache_axes``, its rows copied onto the replicated heap's
+   pages of ``SLOT_PAGE``; the resume prefill after ``SLOT_PREFIX``
+   history tokens, per-slot and paged) and ``decode_step_slots``
+   (contiguous with ``use_attention_kernel`` off and on, paged fused and
+   unfused, a tree step of ``SLOT_BRANCHES`` branches), each step against
+   world 1's (phase 8's, on all rows and on each half) within
+   ``TP_LOGITS_REL_L2`` and the top-8 overlap, items equal on
+   ``TP_ITEMS_EQUAL`` of the rows, every step rerun in place
+   bit-identical, ``paged_decode``
+   or ``batch_attention`` 12 a step a rank; each step's time, collectives
+   and a rank's cache bytes.
 
 10. The sharded train step (N9e.3): ``EP_WORLD`` ranks spawned as in
    phases 8-9 (``_spawn_ranks``): full-width OneRec-V2 cut to
    ``TRAIN_MESH_LAYERS`` layers, f32 params, phase 6's 32 rows of
    train_b512's 384 tokens, ``TRAIN_MESH_STEPS`` steps on (1, 4) under
-   ``TRAIN_RULES`` and on (2, 2) under ``TRAIN_RULES`` and
-   ``TRAIN_RULES_FSDP`` (weights stored sharded over ``data``, and
-   ``model`` under the FSDP rules, gathered layer by layer where they are
-   used), each against world 1's step on the same weights and rows (at
-   (2, 2) the mean of its gradients over each data shard's rows alone),
-   passed to the ranks on the card: the loss, every gradient leaf's
-   relative L2, and the params, mu and nu after each step within the
-   fixed bounds ``TM_*``; no gradient shard zero where world 1's is not;
-   the first step again from seed 0, bit-identical; no kernel launched; a
+   ``TRAIN_RULES`` and, cut to 1 layer, on (2, 2) under
+   ``TRAIN_RULES_FSDP`` (the (2, 2) case under ``TRAIN_RULES`` cut for the
+   time limit when the SP case came; phase 11 and the CPU tests hold it),
+   against world 1's step on
+   the same weights and rows (for (2, 2) the mean of its gradients over
+   each data shard's rows), passed to the ranks on the card: the loss,
+   every gradient leaf's relative L2, and the params, mu and nu after each
+   step within the fixed bounds ``TM_*``; no gradient shard zero where
+   world 1's is not; the first step again from copies of the laid-out
+   params and batch, bit-identical; no kernel launched; a
    rank's bytes of params, gradients and AdamW state, its peak, each
    collective's MB and seconds (the first step, each synchronized and
    timed apart) and the step times; world 1's floor (its products summed
-   in other chunks) printed for information.
+   in other chunks) printed for information.  Then the sequence-parallel
+   case (N9e.6): deepseek-coder-33b at its published widths cut to
+   ``TRAIN_MESH_LAYERS`` layers, f32 params, 2 rows of train_4k's 4096
+   tokens, remat on, ``TRAIN_MESH_STEPS`` steps on (1, 4) under
+   ``TRAIN_RULES_SP``, world 1 first in this process (its gradients to
+   the host, its card memory freed): the loss and every gradient leaf
+   within ``SP_BOUNDS`` (1.5x world 1's floor, printed each run), the
+   bytes autograd saves a layer on a rank (a quarter of world 1's after
+   the first layer; a (1, 4) rank under ``TRAIN_RULES`` saves world 1's
+   bytes), the peak, the state's bytes, each collective's MB and seconds
+   and the step times.
 
 11. Row-sharded lookups and segment sums (N9e.5, N9e.10): ``EP_WORLD``
    ranks spawned as in phases 8-10 on (2, 2), after world 1 ran in this
@@ -241,7 +269,8 @@ fails the run:
    to world 1's; ``serve_p99`` with bf16-compute and fp8 towers (kernel
    ``fp8_gemm`` on every rank, launches counted) and one user's
    ``retrieval_cand`` over 1 M candidates in phase 4 (i)'s chunks, under
-   ``INFER_RULES``; ``train_batch`` cut to ``ROWS_TRAIN`` rows,
+   ``INFER_RULES``; ``train_batch`` cut to ``ROWS_TRAIN`` rows (2048;
+   4096 before the cached modes and the SP case came),
    ``ROWS_STEPS`` steps under ``TRAIN_RULES``; the EGNN's
    ``full_graph_sm``, ``minibatch_lg`` and ``molecule`` graph steps, nodes
    and edges split over ``(data, model)``: each against world 1 within
@@ -253,7 +282,8 @@ fails the run:
    checkpoint every 2 of 4 steps (every rank gathering each leaf to rank
    0's host memory with c10d calls, rank 0 writing one global checkpoint
    in the JAX format), a fault at step 3 (a barrier, then every rank
-   restores its slices in place), then a clean run: every rank's final
+   restores its slices in place), then a clean run (its last step's
+   checkpoint alone): every rank's final
    shards bit-identical to the clean run's, no functional collective on
    the save path, world 1's ``load_checkpoint`` of the last checkpoint
    equal to the gathered state; the save's gather, write and hash
@@ -3712,7 +3742,9 @@ def training_phase(dev):
 CKPT_LAYERS = 1
 # 6 steps, a checkpoint every 3 and one fault: a restore from a written
 # checkpoint and a replay (8 steps and faults at 4 and 7 wrote two 5.37 GB
-# checkpoints and took a restore more, ~60 s of the script's time)
+# checkpoints and took a restore more, ~60 s of the script's time); the
+# clean run writes its last step's checkpoint alone (its cadence's
+# writes are the faulted run's: a 5.37 GB write, hash and verify less)
 CKPT_ROWS, CKPT_STEPS, CKPT_EVERY, CKPT_KEEP = 32, 6, 3, 2
 CKPT_FAULTS = {4: 1}
 CKPT_PEAK_SLACK = 2 ** 30        # run A's peak at most run B's plus this
@@ -3770,7 +3802,8 @@ def restart_path(dev, cfg=None, rows=CKPT_ROWS):
         CONFIG.transformer, n_layers=CKPT_LAYERS))
     wrappers = _wrappers()
     runs = {}
-    for name, faults in (("A", CKPT_FAULTS), ("B", None)):
+    for name, faults, every in (("A", CKPT_FAULTS, CKPT_EVERY),
+                                ("B", None, CKPT_STEPS)):
         d = os.path.join(CKPT_DIR, name)
         shutil.rmtree(d, ignore_errors=True)
         init, step_fn, batch_fn, _ = train.training_for(
@@ -3790,7 +3823,7 @@ def restart_path(dev, cfg=None, rows=CKPT_ROWS):
 
         runner = FaultTolerantRunner(
             step_fn, batch_at, init_checked,
-            RunnerConfig(total_steps=CKPT_STEPS, ckpt_every=CKPT_EVERY,
+            RunnerConfig(total_steps=CKPT_STEPS, ckpt_every=every,
                          ckpt_dir=d, keep=CKPT_KEEP), fail_at=faults)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -3830,8 +3863,11 @@ def restart_path(dev, cfg=None, rows=CKPT_ROWS):
               f"{launches}")
         print(f"[ckpt] (o) run {name}: step times (s) "
               f"{[round(t, 4) for t in r['step_times']]}; losses {losses}")
-        if not all(verified) or len(ckpts) != CKPT_KEEP:
-            fail(f"(o) run {name}: checkpoints {ckpts} verified {verified}")
+        want = [f"step_{s:010d}" for s in range(every, CKPT_STEPS + 1,
+                                                 every)][-CKPT_KEEP:]
+        if not all(verified) or ckpts != want:
+            fail(f"(o) run {name}: checkpoints {ckpts} verified {verified}, "
+                 f"want {want}")
         del state, runner, summary
         torch.cuda.empty_cache()
     a, b = runs["A"], runs["B"]
@@ -4450,12 +4486,16 @@ def _world1(dev, cfg, rows):
     (``"filled"``, kernel off and on); and the logits of the prefill, of
     the decode steps and of the generation on all rows with the GEMM
     kernels' plain versions (``"plain"``: how far a change of f32
-    summation order alone moves them)."""
+    summation order alone moves them); the cached modes' steps
+    (``cached_modes.slot_run`` with an fp8 K/V cache) on its
+    ``slot_inputs`` (``"slot_inputs"``), on all rows and on each half
+    (``"slots"``)."""
     import dataclasses
     import torch
     from repro_torch.configs.onerec_v2 import SHAPES
     from repro_torch.launch import steps
     from repro_torch.models import onerec
+    from repro_torch.serving import cached_modes as cm
     shape = dataclasses.replace(SHAPES["prefill_b32"], global_batch=rows)
     b = steps.onerec_bundle("onerec-v2", cfg, shape, fp8=True, device=dev)
     params, batch = b.args
@@ -4507,6 +4547,15 @@ def _world1(dev, cfg, rows):
             cache = onerec.init_cache(kcfg, sl.stop - sl.start, device=dev)
             ref["decode"][key, on] = onerec.decode_step(
                 params, tok[sl], kcfg, cache, index)[0].cpu()
+    # phase 9 (v): the cached modes on all rows and on each half alone
+    ref["slot_inputs"] = inp = cm.slot_inputs(
+        cfg, rows, prefix=SLOT_PREFIX, page_size=SLOT_PAGE,
+        branches=SLOT_BRANCHES)
+    ref["slots"] = {key: _host(cm.slot_run(params, cm.slot_cfg(cfg),
+                                           cm.slot_steps(inp, sl), dev))
+                    for key, sl in (("all", slice(0, rows)),
+                                    (0, slice(0, half)),
+                                    (1, slice(half, rows)))}
     with plain_gemms():
         plain_logits, filled = b.fn(params, batch)
         ref["plain"] = {"prefill": plain_logits.cpu(),
@@ -4706,6 +4755,29 @@ GAP_ROWS = 1024                  # (v): rows of the per-layer gap's input
 GIVEN_SHAPES = ((12320, 512, 2048), (32, 512, 2048))
 GIVEN_RANKS = 4
 
+
+# (v): the cached modes (N9e.9) on phase 4's slot pool: its first 32
+# ragged requests in its 32 slots, fp8 K/V, pages of 32 positions; a
+# resume prefill over the first 128 history tokens; a tree step of 8
+# branches.  Held as the prefill (TP_LOGITS_REL_L2: every step reads a
+# cache a prefill filled, as (v)'s filled-cache decode does), items to
+# TP_ITEMS_EQUAL
+SLOT_ROWS = 32
+SLOT_PAGE = 32
+SLOT_PREFIX = 128
+SLOT_BRANCHES = 8
+
+
+def _host(rec):
+    """A ``slot_run`` record's tensors on the host."""
+    import torch
+    if torch.is_tensor(rec):
+        return rec.cpu()
+    if isinstance(rec, dict):
+        return {k: _host(v) for k, v in rec.items()}
+    if isinstance(rec, tuple):
+        return tuple(_host(v) for v in rec)
+    return rec
 
 def check_fp8_gemm_given(dev, records):
     """(u) ``fp8_gemm``'s given-scale mode on each rank's K-slice of
@@ -4907,7 +4979,7 @@ def _timed_collectives(dev, stats):
             setattr(dist, n, orig[n])
 
 
-def tp_serving(dev, rank, cfg, rows, layer0, first, out):
+def tp_serving(dev, rank, cfg, rows, layer0, first, slots, out):
     """(v) in one rank: params from seed 0 (the prefill_b32 bundle's,
     PTQ'd layer by layer) laid out on each mesh by ``steps.shard_args``,
     layer 0's products against world 1's; then on each mesh the prefill
@@ -4918,7 +4990,8 @@ def tp_serving(dev, rank, cfg, rows, layer0, first, out):
     on, and ``generate_items`` with ``radix_topk`` (world 1's config: its
     items compare with world 1's); launch counts of each; the first
     layer's output against world 1's ``layer0`` (all rows, or each half
-    alone for a data shard of (2, 2))."""
+    alone for a data shard of (2, 2)); then the cached modes on
+    ``slot_inputs``' ``slots`` (``_tp_slots``)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -5047,6 +5120,8 @@ def tp_serving(dev, rank, cfg, rows, layer0, first, out):
             _sync(dev)
             res["generate_launches"] = launches()
             res["items"] = items.to_local().cpu()
+        res["slots"] = _tp_slots(dev, params, cfg, slots, mesh, zero,
+                                 launches)
         res["peak"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
         out[tag] = res
@@ -5054,9 +5129,55 @@ def tp_serving(dev, rank, cfg, rows, layer0, first, out):
     return out
 
 
-def tp_rank(dev, rank, cfg, rows, layer0, first):
+def _tp_slots(dev, params, cfg, inp, mesh, zero, launches):
+    """(v)'s cached modes in a rank: ``cached_modes.slot_run`` of the
+    whole batch's steps (``slot_inputs``' ``inp``) with ``params`` laid out on ``mesh``:
+    each step's launches and time; each step run twice in place (a
+    prefill or a decode step writes the same values at the same positions
+    again), the rerun's collectives synchronized and timed apart
+    (``sharding.STATS``) and its logits against the first's, bit for
+    bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.serving import cached_modes as cm
+    recs = {}
+
+    def step(name, fn):
+        zero()
+        dist.barrier()
+        t0 = time.perf_counter()
+        first = fn()
+        _sync(dev)
+        rec = {"ms": [(time.perf_counter() - t0) * 1e3],
+               "launches": launches(), "collectives": {},
+               "rerun_equal": True}
+        recs[name] = rec
+        dist.barrier()
+        sh.STATS, sh.STATS_SYNC = {}, (lambda: _sync(dev))
+        t0 = time.perf_counter()
+        try:
+            again = fn()
+            _sync(dev)
+        finally:
+            stats, sh.STATS, sh.STATS_SYNC = sh.STATS, None, None
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collectives"] = _collective_table(stats)
+        rec["rerun_equal"] = torch.equal(first.to_local(), again.to_local())
+        return first
+
+    out = _host(cm.slot_run(params, cm.slot_cfg(cfg),
+                            cm.slot_steps(inp, slice(None)), dev, mesh,
+                            step))
+    for name, rec in recs.items():
+        out[name].update(rec)
+    return out
+
+
+def tp_rank(dev, rank, cfg, rows, layer0, first, slots):
     """Phase 9 in one spawned rank (``_ranked``): (v)."""
-    return {"v": tp_serving(dev, rank, cfg, rows, layer0, first, {})}
+    return {"v": tp_serving(dev, rank, cfg, rows, layer0, first, slots,
+                            {})}
 
 
 def tp_phase(dev, world1, cfg=None, rows=32):
@@ -5066,6 +5187,7 @@ def tp_phase(dev, world1, cfg=None, rows=32):
     of (1, 4): a prefill, two decode steps and a generation)."""
     import torch
     from repro_torch.configs.onerec_v2 import CONFIG
+    from repro_torch.serving import cached_modes as cm
     t_phase = time.perf_counter()
     cfg = cfg or CONFIG
     n_layers = cfg.transformer.n_layers
@@ -5080,7 +5202,8 @@ def tp_phase(dev, world1, cfg=None, rows=32):
              (2, 2): torch.cat([ref[0]["items"][:, :1],
                                 ref[1]["items"][:, :1]])}
     outs, ranks_s = _spawn_ranks(dev, TP_DIR, tp_rank,
-                                 (cfg, rows, layer0, first))
+                                 (cfg, rows, layer0, first,
+                                  ref["slot_inputs"]))
     per_prefill = {"fp8_gemm": 4 * n_layers, "fp8_gemm_given": n_layers,
                    "fp8_grouped_gemm": 3 * n_layers, "batch_attention": 0,
                    "radix_topk": 0}
@@ -5210,8 +5333,18 @@ def tp_phase(dev, world1, cfg=None, rows=32):
                   f"generation {r['generate_launches']}; collectives of a "
                   f"prefill (gloo through host memory, ranks time-sliced "
                   f"on one card): {coll}")
+    slot_worst = _slot_checks(dev, outs, ref["slots"], per_prefill,
+                              cfg.transformer, failures)
     if failures:
         fail("; ".join(failures))
+    print(f"[tp] (v) cached modes, every rank: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in slot_worst.items()
+                      if k != "items")
+          + f" rel L2 off world 1 (bound {TP_LOGITS_REL_L2}), top-8 "
+          f"overlap >= {CPU_TOP8_OVERLAP}, items equal on >= "
+          f"{slot_worst['items']:.3f} of the rows (bound {TP_ITEMS_EQUAL})"
+          f", reruns bit-identical, paged_decode / batch_attention "
+          f"{n_layers} a step")
     print(f"[tp] (v) every rank: layer 0's output within rel L2 "
           f"{worst['layer0']:.2e} of world 1's (bound {TP_REL_L2}), its "
           f"products within {worst['gap']:.2f} bf16 ulps of the largest "
@@ -5230,9 +5363,105 @@ def tp_phase(dev, world1, cfg=None, rows=32):
           + sum(dres["launches"][k] for what in ("decode", "filled")
                 for dres in r0[what].values())
           for k in r0["prefill_launches"]}
+    cached = {k: sum(r0["slots"][name]["launches"][k]
+                     for name in cm.SLOT_STEPS)
+              for k in r0["slots"]["prefill"]["launches"]}
     print(f"[tp] ranks {ranks_s:.1f} s; phase 9 took "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return {"tp": tp}
+    return {"tp": tp, "tp-cache": cached}
+
+
+def _rank_kv_heads(tcfg, n_model: int) -> int:
+    """The KV heads a rank's query heads read on ``n_model`` model ranks
+    (``layers.attention._local_group``'s rule)."""
+    h_loc = tcfg.n_heads // n_model
+    g = tcfg.n_heads // tcfg.n_kv_heads
+    return h_loc // g if h_loc % g == 0 else 1
+
+
+def _slot_checks(dev, outs, ref, per_prefill, tcfg, failures):
+    """(v)'s cached modes in every rank against world 1's ``ref`` (its
+    ``slot_run`` on all rows, and on each half for a data shard of (2,
+    2)): each step's logits within ``TP_LOGITS_REL_L2`` and top-8 overlap
+    ``CPU_TOP8_OVERLAP``, items equal on ``TP_ITEMS_EQUAL`` of the rows,
+    the rerun bit-identical, the launches a step (``paged_decode`` or
+    ``batch_attention`` one a layer of ``tcfg``); rank 0's times,
+    collectives a step and cache bytes printed, and the bytes the fused
+    paged reads copy a step (the rank's KV heads cut out of its whole heap
+    copy, every layer: ``paged_decode`` takes contiguous pages).  Misses
+    are appended to ``failures``; returns the worst gap a step and the
+    least items share."""
+    from repro_torch.serving.cached_modes import SLOT_STEPS
+    n_layers = tcfg.n_layers
+    expect = {name: dict(per_prefill, paged_decode=0)
+              for name in SLOT_STEPS}
+    expect["decode_slot_on"]["batch_attention"] = n_layers
+    for name in ("decode_fused", "tree"):
+        expect[name]["paged_decode"] = n_layers
+    worst = dict.fromkeys(SLOT_STEPS, 0.0)
+    worst["items"] = 1.0
+    for n_data, n_model in TP_MESHES:
+        tag = f"({n_data}, {n_model})"
+        for o in outs:
+            r = o["v"][tag]["slots"]
+            key = "all" if n_data == 1 else o["v"][tag]["coord"][0]
+            who = f"(v) cached modes {tag} rank {o['rank']}"
+            line = []
+            for name in SLOT_STEPS:
+                got, want = r[name], ref[key][name]
+                local, (r0, rn), (c0, cn) = got["logits"]
+                rows = slice(r0, r0 + rn) if n_data == 1 else slice(None)
+                rel = _rel_l2(local, want["logits"][0][rows][..., c0:c0 + cn])
+                whole = got["whole"]
+                over = _top8_overlap(whole.reshape(-1, whole.shape[-1]),
+                                     want["whole"][rows].reshape(
+                                         -1, whole.shape[-1]))
+                same = (got["items"] == want["items"][rows]).float().mean(
+                ).item()
+                worst[name] = max(worst[name], rel)
+                worst["items"] = min(worst["items"], same)
+                if not (rel <= TP_LOGITS_REL_L2
+                        and over >= CPU_TOP8_OVERLAP):
+                    failures.append(f"{who}: {name} logits rel L2 {rel:.3e}"
+                                    f" (bound {TP_LOGITS_REL_L2}), top-8 "
+                                    f"overlap {over:.3f}")
+                if not same >= TP_ITEMS_EQUAL:
+                    failures.append(f"{who}: {name} items equal on "
+                                    f"{same:.3f} < {TP_ITEMS_EQUAL}")
+                if not got["rerun_equal"]:
+                    failures.append(f"{who}: a rerun of {name} differs")
+                if dev.type == "cuda" and got["launches"] != dict(
+                        got["launches"], **expect[name]):
+                    failures.append(f"{who}: {name} launched "
+                                    f"{got['launches']}, not "
+                                    f"{expect[name]}")
+                line.append(f"{name} {rel:.2e} / {over:.3f} / {same:.3f} "
+                            f"{got['ms'][0]:.0f} ms")
+            print(f"[tp] {who}: rel L2 / top-8 overlap / items equal, ms: "
+                  + "; ".join(line) + f"; cache bytes a rank: per-slot "
+                  f"{r['cache_bytes']['slots'] / 1e6:.1f} MB, heap "
+                  f"{r['cache_bytes']['heap'] / 1e6:.1f} MB; placements "
+                  f"{r['placements']}")
+        r0 = outs[0]["v"][tag]["slots"]
+        kv = _rank_kv_heads(tcfg, n_model)
+        cut = r0["cache_bytes"]["heap_kv"] * kv // tcfg.n_kv_heads \
+            if kv < tcfg.n_kv_heads else 0
+        print(f"[tp] (v) cached modes {tag}: decode_fused and tree copy a "
+              f"rank's {kv} of {tcfg.n_kv_heads} KV heads out of its heap "
+              f"copy ({r0['cache_bytes']['heap_kv'] / 1e6:.1f} MB of K/V "
+              f"and scales, every page, live or not) for paged_decode: "
+              f"{cut / 1e6:.1f} MB read and {cut / 1e6:.1f} MB written a "
+              f"step a rank, not a collective (ROADMAP B-P15)")
+        for name in SLOT_STEPS:
+            rerun = r0[name]["ms"][1:]
+            print(f"[tp] (v) cached modes {tag} rank 0 {name}: "
+                  f"{r0[name]['ms'][0]:.1f} ms, launches "
+                  f"{ {k: c for k, c in r0[name]['launches'].items() if c} }"
+                  + (f"; rerun with each collective synchronized "
+                     f"{rerun[0]:.1f} ms, collectives (calls, MB, s, "
+                     f"largest MB) {json.dumps(r0[name]['collectives'])}"
+                     if rerun else ""))
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -5244,8 +5473,14 @@ def tp_phase(dev, world1, cfg=None, rows=32):
 # that total between them), so 2 layers, ~0.86 B params, ~13.8 GB of state
 TRAIN_MESH_LAYERS = 2
 TRAIN_MESH_STEPS = 2
-TRAIN_MESH_CASES = ((((1, 4), "train"),),
-                    (((2, 2), "train"), ((2, 2), "train_fsdp")))
+# (data shards of world 1's reference, layers, cases): (1, 4) under
+# TRAIN_RULES against world 1, then (2, 2) under TRAIN_RULES_FSDP against
+# world 1's mean over 2 row blocks, cut to 1 layer for the time limit (its
+# steps gather every weight three times through gloo: 15.5 GB a step at 2
+# layers, ~80 s of the script); (2, 2) under TRAIN_RULES was cut when the
+# SP case came (phase 11 and tests/test_torch_fsdp.py hold it)
+TRAIN_MESH_CASES = ((1, TRAIN_MESH_LAYERS, (((1, 4), "train"),)),
+                    (2, 1, (((2, 2), "train_fsdp"),)))
 TRAIN_MESH_DIR = os.path.join(ROOT, "build", "phase10")
 # Fixed bounds against world 1 (the same step unsharded on the same
 # weights and rows; at (2, 2) the mean of its gradients over each data
@@ -5352,7 +5587,7 @@ def train_reference(dev, cfg, batch, shards: int):
                          grad_fn, keep, TRAIN_MESH_STEPS)
 
 
-def _tree_gaps(local, ref, mesh, rows=None, start=None):
+def _tree_gaps(local, ref, mesh, rows=None, start=None, sliced=False):
     """Per leaf of a ``DTensor`` tree against world 1's: the relative L2
     of the difference (each rank's sums over its shard, added over the
     mesh dims the leaf is split on) over the reference's norm, or, given
@@ -5361,7 +5596,8 @@ def _tree_gaps(local, ref, mesh, rows=None, start=None):
     at its base (zero, or ``start``) where the reference's slice did not.
     ``ref`` and ``start`` are whole trees (any device), or, for a leaf in
     ``rows``, its rows ``rows[path]`` alone (the rank's rows among them
-    compared)."""
+    compared); with ``sliced``, ``ref``'s leaves are the rank's own
+    slices."""
     import torch
     from torch.distributed.tensor import Shard
     from repro_torch import tree
@@ -5382,7 +5618,8 @@ def _tree_gaps(local, ref, mesh, rows=None, start=None):
                 return x.to(loc.device)[mine]
         else:
             def pick(x):
-                return _shard_of(x, t.placements, mesh).to(loc.device)
+                return (x if sliced else _shard_of(x, t.placements, mesh)
+                        ).to(loc.device)
         r = pick(refs[path])
         base = pick(starts[path]) if path in starts else 0
         f64 = torch.float64
@@ -5434,7 +5671,7 @@ def _collective_table(stats):
 
 
 def _mesh_steps(dev, mesh, rules, loss_fn, state, refs, n_steps, rows=None,
-                start=None):
+                start=None, sliced=False):
     """``n_steps`` train steps in a rank (phases 10 and 11) on ``mesh``
     under ``rules`` from ``state`` (the laid-out params, their AdamW state
     and the batch; the list is emptied, so that the steps update the only
@@ -5443,7 +5680,9 @@ def _mesh_steps(dev, mesh, rules, loss_fn, state, refs, n_steps, rows=None,
     whichever of the params (their update from ``start``), mu and nu
     ``refs[s]`` holds, after the update; the first step's collectives
     synchronized and timed (``sharding.STATS``), the later steps' times
-    clean.  -> (the steps' records, the first step's local gradients)."""
+    clean; ``sliced``: ``refs`` hold the rank's own slices
+    (``_tree_gaps``).  -> (the steps' records, the first step's local
+    gradients)."""
     from repro_torch import tree
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import steps
@@ -5462,7 +5701,10 @@ def _mesh_steps(dev, mesh, rules, loss_fn, state, refs, n_steps, rows=None,
         st = {"loss": loss.item(), "grad_s": time.perf_counter() - t0,
               "grads_bytes": _local_bytes(grads)}
         stats, sh.STATS, sh.STATS_SYNC = sh.STATS, None, None
-        st["grads"] = _tree_gaps(grads, refs[s]["grads"], mesh, rows)
+        t0 = time.perf_counter()
+        st["grads"] = _tree_gaps(grads, refs[s]["grads"], mesh, rows,
+                                 sliced=sliced)
+        st["gaps_s"] = time.perf_counter() - t0
         if rows:
             st["zero_elsewhere"] = _zero_elsewhere(grads, rows)
         if s == 0:
@@ -5506,8 +5748,8 @@ def train_mesh_rank(dev, rank, cfg, batch, cases, params0, refs):
     params from seed 0 (``params0``, the parent's) laid out by
     ``steps.params_axes``, their AdamW state and the batch;
     ``TRAIN_MESH_STEPS`` steps against world 1's ``refs`` (``_mesh_steps``;
-    the update from ``params0``); then the first step again from seed 0,
-    bit-identical."""
+    the update from ``params0``); then the first step again from copies
+    of the laid-out params and batch, bit-identical."""
     import torch
     from repro_torch.distributed import sharding as sh
     from repro_torch.launch import steps
@@ -5540,6 +5782,9 @@ def train_mesh_rank(dev, rank, cfg, batch, cases, params0, refs):
                "params_bytes": _local_bytes(state[0]),
                "moments_bytes": _local_bytes(state[1]["mu"])
                + _local_bytes(state[1]["nu"])}
+        # the rerun's start: copies of the laid-out params and batch (a
+        # second layout from params0 took ~14 s a rank)
+        p, b = _clone_tree(state[0]), _clone_tree(state[2])
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         _zero(wrappers)
@@ -5549,7 +5794,6 @@ def train_mesh_rank(dev, rank, cfg, batch, cases, params0, refs):
         res["peak"] = torch.cuda.max_memory_allocated(dev) \
             if dev.type == "cuda" else 0
         res["launches"] = _launched(wrappers, f"phase 10 {tag}")
-        p, _, b = laid_out()
         res["rerun_equal"] = _rerun_equal(mesh, rules, loss_fn, p, b,
                                           res["steps"][0]["loss"], first)
         del p, b, first
@@ -5562,16 +5806,19 @@ def train_mesh_rank(dev, rank, cfg, batch, cases, params0, refs):
 
 
 def train_mesh_phase(dev, rows=TRAIN_ROWS, cfg=None, seq=None):
-    """Phase 10 (N9e.3): full-width OneRec-V2 (``TRAIN_MESH_LAYERS``
-    layers), f32 params, ``rows`` rows of train_b512's 384 tokens, trained
-    ``TRAIN_MESH_STEPS`` steps in ``EP_WORLD`` gloo ranks sharing the card
-    on (1, 4) under ``TRAIN_RULES`` and on (2, 2) under ``TRAIN_RULES``
-    and ``TRAIN_RULES_FSDP``, each against world 1 on the same weights and
-    rows (at (2, 2) the mean of its gradients over each data shard's rows
-    alone) within the fixed bounds ``TM_BOUNDS``; no gradient shard zero
+    """Phase 10 (N9e.3): full-width OneRec-V2 (``cfg``, cut to each
+    group's layers), f32 params, ``rows`` rows of train_b512's 384 tokens,
+    trained ``TRAIN_MESH_STEPS`` steps in ``EP_WORLD`` gloo ranks sharing
+    the card on each mesh and rule set of ``TRAIN_MESH_CASES`` ((1, 4)
+    under ``TRAIN_RULES`` at ``TRAIN_MESH_LAYERS`` layers, (2, 2) under
+    ``TRAIN_RULES_FSDP`` at 1), against world 1 on the same weights and
+    rows (on a mesh of 2 data shards the mean of its gradients over each
+    shard's rows alone) within the fixed bounds ``TM_BOUNDS``; no gradient
+    shard zero
     and no param shard unmoved where world 1's is not; the first step's
     gradients bit-identical on a rerun; no kernel launched (training runs
-    raw products)."""
+    raw products).  Then the SP case (``sp_case``)."""
+    import dataclasses
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import onerec
@@ -5579,16 +5826,18 @@ def train_mesh_phase(dev, rows=TRAIN_ROWS, cfg=None, seq=None):
     t_phase = time.perf_counter()
     cfg = cfg or _train_mesh_cfg()
     shape = _train_shape(rows, seq)
-    n_params = sum(t.numel() for _, t in tree.leaves_with_path(
-        onerec.init_onerec(0, cfg, device="meta")))
     batch = steps.onerec_train_batch(cfg, shape, seed=0, device=dev)
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
-    print(f"[train-mesh] OneRec-V2 x{cfg.transformer.n_layers} at full "
-          f"width: {n_params / 1e9:.4f} B params, {n_params * 16 / 1e9:.2f} "
-          f"GB of params, gradients, mu and nu; {rows} x {shape.seq_len} "
-          f"tokens; {TRAIN_MESH_STEPS} steps a mesh")
     worst, bad = collections.defaultdict(float), []
-    for shards, cases in zip((1, 2), TRAIN_MESH_CASES):
+    for shards, layers, cases in TRAIN_MESH_CASES:
+        cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
+            cfg.transformer, n_layers=layers))
+        n_params = sum(t.numel() for _, t in tree.leaves_with_path(
+            onerec.init_onerec(0, cfg, device="meta")))
+        print(f"[train-mesh] OneRec-V2 x{layers} at full width: "
+              f"{n_params / 1e9:.4f} B params, {n_params * 16 / 1e9:.2f} GB "
+              f"of params, gradients, mu and nu; {rows} x {shape.seq_len} "
+              f"tokens; {TRAIN_MESH_STEPS} steps a mesh")
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
@@ -5604,7 +5853,9 @@ def train_mesh_phase(dev, rows=TRAIN_ROWS, cfg=None, seq=None):
         # IPC) and the floor's
         params0 = onerec.init_onerec(0, cfg, device=dev)
         if shards == 1:
-            _floor(dev, cfg, batch, refs, params0)
+            _floor(dev, lambda p: tree.value_and_grad(
+                lambda q, x: onerec.train_loss(q, x, cfg), p, batch),
+                onerec.init_onerec(0, cfg, device=dev), refs, params0)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         ranks, secs = _spawn_ranks(
@@ -5630,37 +5881,39 @@ def train_mesh_phase(dev, rows=TRAIN_ROWS, cfg=None, seq=None):
           f"and no param shard unmoved where world 1's is not; reruns "
           f"bit-identical; no kernel launched, no nvcc in any rank")
     shutil.rmtree(TRAIN_MESH_DIR, ignore_errors=True)
-    print(f"[train-mesh] phase 10 took {time.perf_counter() - t_phase:.1f} s")
     if bad:
         fail("; ".join(bad))
+    sp_case(dev)
+    print(f"[train-mesh] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
-def _train_mesh_report(tag, ranks, losses, worst):
+def _train_mesh_report(tag, ranks, losses, worst, bounds=None,
+                       label="[train-mesh]"):
     """Print mesh ``tag``'s numbers (rank 0's bytes, steps and
-    collectives; every rank's worst leaf) and return the bounds its ranks
-    miss (``_steps_checks``)."""
+    collectives; every rank's worst leaf) and return the ``bounds``
+    (``TM_BOUNDS`` by default) its ranks miss (``_steps_checks``)."""
     r0 = ranks[0][tag]
     peaks = [o[tag]["peak"] / 2**30 for o in ranks]
-    print(f"[train-mesh] {tag}: a rank holds params "
+    print(f"{label} {tag}: a rank holds params "
           f"{r0['params_bytes'] / 1e9:.3f} GB, gradients "
           f"{r0['steps'][0]['grads_bytes'] / 1e9:.3f} GB, AdamW mu + nu "
           f"{r0['moments_bytes'] / 1e9:.3f} GB (rank 0); peak "
           f"{min(peaks):.2f}-{max(peaks):.2f} GiB a rank; init "
           f"{r0['init_s']:.1f} s")
     for s, st in enumerate(r0["steps"]):
-        print(f"[train-mesh] {tag} step {s}: loss {st['loss']:.6f} (world "
+        print(f"{label} {tag} step {s}: loss {st['loss']:.6f} (world "
               f"1 {losses[s]:.6f}), gradients {st['grad_s']:.2f} s"
               + (" with every collective synchronized and timed"
                  if s == 0 else " (clean)")
               + f", AdamW {st['update_s'] * 1e3:.1f} ms, lr {st['lr']:.3e}")
-    print(f"[train-mesh] {tag} collectives of step 0, rank 0 (calls, MB, "
+    print(f"{label} {tag} collectives of step 0, rank 0 (calls, MB, "
           f"s, largest MB): {json.dumps(r0['steps'][0]['collectives'])}")
     bad = []
     for o in ranks:
-        print(f"[train-mesh] {tag} rank {o['rank']}: worst leaf "
+        print(f"{label} {tag} rank {o['rank']}: worst leaf "
               + _worst_leaves(o[tag]["steps"]))
-        bad += _steps_checks(f"train-mesh {tag} rank {o['rank']}", o[tag],
-                             losses, TM_BOUNDS, worst)
+        bad += _steps_checks(f"{label[1:-1]} {tag} rank {o['rank']}",
+                             o[tag], losses, bounds or TM_BOUNDS, worst)
     return bad
 
 
@@ -5678,8 +5931,8 @@ def _steps_checks(at, r, losses, bounds, worst):
     """The fixed ``bounds`` that a rank's steps ``r`` (``_mesh_steps``'
     records and ``rerun_equal``) miss against world 1's ``losses``
     (messages); the worst gaps folded into ``worst``."""
-    bad = [] if r["rerun_equal"] else [f"{at}: a rerun of the first step "
-                                       f"differs"]
+    bad = [] if r.get("rerun_equal", True) else [
+        f"{at}: a rerun of the first step differs"]
     for s, st in enumerate(r["steps"]):
         rel = abs(st["loss"] - losses[s]) / abs(losses[s])
         worst["loss"] = max(worst["loss"], rel)
@@ -5708,47 +5961,290 @@ def _steps_checks(at, r, losses, bounds, worst):
     return bad
 
 
-def _floor(dev, cfg, batch, refs, start):
+def _floor(dev, grad_fn, params, refs, start, tag="[train-mesh]",
+           depth=256):
     """World 1's floor, for information (the bounds are fixed): its
-    ``TRAIN_MESH_STEPS`` steps with the raw products summed in 256-deep
-    chunks, each against the 512-deep reference ``refs[s]``: the loss,
-    and the worst leaf's relative L2 of the gradients, mu, nu and the
-    update from ``start``."""
+    ``TRAIN_MESH_STEPS`` steps from ``params`` (updated in place;
+    ``grad_fn(params)`` gives the loss and gradients) with the raw
+    products summed in ``depth``-deep chunks, each against the 512-deep
+    reference ``refs[s]`` (whole trees, or each rank's slices,
+    ``_rank_slices``): the loss, and the worst leaf's relative L2 of
+    whichever of the gradients, mu, nu and the update from ``start``
+    ``refs[s]`` holds.  Returns each step's, the loss's relative gap
+    under ``"loss"``."""
     import torch
     from repro_torch import tree
     from repro_torch.core import quant
-    from repro_torch.models import onerec
 
     def worst_rel(got, ref, base=None):
+        if isinstance(ref, list):       # each rank's slices (_rank_slices)
+            pairs = list(zip(_rank_slices(got, host=False), ref))
+            gaps = collections.defaultdict(lambda: [0.0, 0.0])
+            for g_tree, r_tree in pairs:
+                r = dict(tree.leaves_with_path(r_tree))
+                for p, g in tree.leaves_with_path(g_tree):
+                    want = r[p].to(g.device)
+                    gaps[p][0] += (g - want).square().sum().item()
+                    gaps[p][1] += want.square().sum().item()
+            return max((n / d) ** 0.5 for n, d in gaps.values())
         r = dict(tree.leaves_with_path(ref))
         b = dict(tree.leaves_with_path(base)) if base is not None else {}
-        return max(((g - r[p]).norm() / (r[p] - b[p] if b else r[p])
-                    .norm()).item() for p, g in tree.leaves_with_path(got))
-
-    def grad_fn(params):
-        return tree.value_and_grad(
-            lambda p, b: onerec.train_loss(p, b, cfg), params, batch)
+        out = 0.0
+        for p, g in tree.leaves_with_path(got):
+            want = r[p].to(g.device)
+            den = want - b[p] if b else want
+            out = max(out, ((g - want).norm() / den.norm()).item())
+        return out
 
     def keep(s, name, t):
+        if name not in refs[s]:
+            return None
         return worst_rel(t, refs[s][name],
                          start if name == "params" else None)
 
-    chunk, quant.RAW_K_CHUNK = quant.RAW_K_CHUNK, 256
+    chunk, quant.RAW_K_CHUNK = quant.RAW_K_CHUNK, depth
     try:
-        recs, _ = _world1_steps(dev, onerec.init_onerec(0, cfg, device=dev),
-                                grad_fn, keep, TRAIN_MESH_STEPS)
+        recs, _ = _world1_steps(dev, params, grad_fn, keep, TRAIN_MESH_STEPS)
     finally:
         quant.RAW_K_CHUNK = chunk
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    print("[train-mesh] world 1's floor (its raw products in 256-deep f32 "
+    names = {"grads": "gradients", "mu": "mu", "nu": "nu",
+             "params": "update"}
+    for s, r in enumerate(recs):
+        r["loss"] = abs(r["loss"] - refs[s]["loss"]) / abs(refs[s]["loss"])
+    print(f"{tag} world 1's floor (its raw products in {depth}-deep f32 "
           "chunks against 512, for information; the worst leaf's rel L2): "
           + "; ".join(
-              f"step {s}: loss "
-              f"{abs(r['loss'] - refs[s]['loss']) / abs(refs[s]['loss']):.3e}"
-              f" rel, gradients {r['grads']:.3e}, mu {r['mu']:.3e}, nu "
-              f"{r['nu']:.3e}, update {r['params']:.3e}"
+              f"step {s}: loss {r['loss']:.3e} rel, " + ", ".join(
+                  f"{names[k]} {r[k]:.3e}" for k in names if k in r)
               for s, r in enumerate(recs)))
+    return recs
+
+
+# Phase 10's sequence-parallel case (N9e.6): deepseek-coder-33b at its
+# published widths, the JAX package's SP cell (benchmarks/
+# perf_iterations.py, cell A: train_4k under train_sp), cut to
+# TRAIN_MESH_LAYERS layers (f32 params, gradients and AdamW moments: 16
+# bytes a parameter, 24.4 GB at 2 layers), two rows of train_4k's 4096
+# tokens, remat on; (1, 4) under TRAIN_RULES_SP and TRAIN_RULES against
+# world 1: the loss and every gradient leaf of each step (the second
+# step's at the params the first step's update left); (1, 4) under
+# TRAIN_RULES is phase 10's OneRec case, and its saved bytes a layer are
+# world 1's, which this case counts
+SP_ARCH = "deepseek-coder-33b"
+SP_ROWS = 2
+SP_CASES = (((1, 4), "train_sp"),)
+SP_DIR = os.path.join(ROOT, "build", "phase10sp")
+# Fixed bounds, 1.5x world 1's own floor rounded up, set before the held
+# run: its raw products summed in 1024-deep chunks against 512 (printed
+# each run) moved the loss by 1.631e-5 / 2.093e-6 relative and the worst
+# gradient leaf by 1.064e-2 / 1.225e-2 relative L2 (steps 0 / 1; an
+# NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md §6, the SP case)
+SP_BOUNDS = {"loss": 2.5e-5, "grads": 1.9e-2}
+
+
+def _sp_cfg():
+    import dataclasses
+    from repro_torch.configs.deepseek_coder_33b import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=TRAIN_MESH_LAYERS,
+                               remat=True)
+
+
+def sp_reference(dev, cfg):
+    """World 1's ``TRAIN_MESH_STEPS`` steps of the train_4k bundle's
+    params and ``SP_ROWS`` rows (``steps.lm_bundle``, seed 0): each step's
+    loss and gradients, each rank's slices on the host (``_rank_slices``:
+    6.1 GB a step, which the card cannot hold beside world 1's state and
+    its floor's), the params before
+    the steps, the batch, the step times and the bytes a layer saves; then
+    its floor (``_floor``, the same steps with other chunks)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.deepseek_coder_33b import SHAPES
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=SP_ROWS)
+    b = steps.lm_bundle(SP_ARCH, cfg, shape, fp8=False, device=dev)
+    params, _, batch = b.args
+    b.args = None
+    params0 = _clone_tree(params)
+
+    def grad_fn(p):
+        return tree.value_and_grad(
+            lambda q, x: tfm.train_loss(q, x, cfg), p, batch)
+
+    saved = []
+
+    def keep(s, name, t):
+        return _rank_slices(t) if name == "grads" else None
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    with tfm.count_saved() as saved:
+        refs, walls = _world1_steps(dev, params, grad_fn, keep,
+                                    TRAIN_MESH_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # 1024-deep: at 256 a chunked product of the MLP's 8192 x 19200 holds
+    # 16.4 GiB of f32 partials, which the card cannot add to world 1's
+    floor = _floor(dev, grad_fn, _clone_tree(params0), refs, None,
+                   tag="[train-sp]", depth=1024)
+    return refs, params0, batch, dict(
+        walls=walls, peak=peak, saved=list(saved[:cfg.n_layers]),
+        floor=floor)
+
+
+def _rank_slices(grads, host: bool = True) -> list:
+    """Each (1, ``EP_WORLD``) rank's slice of every leaf of ``grads`` (a
+    tree on the card) under ``TRAIN_RULES_SP``'s layout of the params
+    (``TRAIN_RULES``' is the same), contiguous: copied to shared host
+    memory (``host``; a rank reads its own pages alone), or left on the
+    card."""
+    import types
+    import torch
+    from repro_torch import tree
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": EP_WORLD})
+    axes = dict(tree.leaves_with_path(steps.params_axes(grads)))
+
+    def cut(path, x, r):
+        spec = sh.param_sharding(axes[path], tuple(x.shape), mesh,
+                                 sh.TRAIN_RULES_SP).spec
+        for d, entry in enumerate(spec):
+            split = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            if "model" not in split:
+                continue
+            if split != ("model",):
+                raise ValueError(f"{path}: dim {d} split over {split}")
+            n = x.shape[d] // EP_WORLD
+            x = x.narrow(d, r * n, n)
+        x = x.detach().contiguous()
+        if not host:
+            return x
+        # shared pages touched first (a copy from the card into untouched
+        # ones crawls), so the spawn passes them without a copy
+        return torch.empty(x.shape, dtype=x.dtype).share_memory_().zero_(
+        ).copy_(x)
+    return [tree.map_with_path(lambda p, x, r=r: cut(p, x, r), grads)
+            for r in range(EP_WORLD)]
+
+
+def sp_rank(dev, rank, cfg, batch, params0, refs):
+    """The SP case in one rank: for each (mesh, rules) of ``SP_CASES``,
+    ``params0`` laid out by ``steps.params_axes``, its AdamW state and the
+    batch; ``TRAIN_MESH_STEPS`` steps against world 1's ``refs``
+    (``_mesh_steps``), the bytes autograd saves a layer
+    (``tfm.count_saved``), the peak, the state's bytes."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    out = {"t_enter": time.time()}
+    for (n_data, n_model), rules_name in SP_CASES:
+        mesh = make_debug_mesh(n_data, n_model, device_type=dev.type)
+        rules = sh.RULE_SETS[rules_name]
+        p = sh.lay_out_tree(params0, steps.params_axes(params0), mesh, rules)
+        b = sh.lay_out_tree(batch, steps.batch_axes(batch, steps._TOKEN_AXES),
+                            mesh, rules)
+        t0 = time.perf_counter()
+        state = [p, adamw_init(p), b]
+        res = {"init_s": time.perf_counter() - t0,
+               "params_bytes": _local_bytes(p),
+               "moments_bytes": _local_bytes(state[1]["mu"])
+               + _local_bytes(state[1]["nu"])}
+        del p, b
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        mine = [dict(r, grads=r["grads"][rank]) for r in refs]
+        with tfm.count_saved() as saved:
+            res["steps"], _ = _mesh_steps(
+                dev, mesh, rules, lambda q, x: tfm.train_loss(q, x, cfg),
+                state, mine, TRAIN_MESH_STEPS, sliced=True)
+        res["saved"] = list(saved[:cfg.n_layers])
+        res["peak"] = torch.cuda.max_memory_allocated(dev) \
+            if dev.type == "cuda" else 0
+        out[f"({n_data}, {n_model}) {rules_name}"] = res
+    refs.clear()                  # the parent's memory (shared, CUDA IPC)
+    params0.clear()
+    out["t_exit"] = time.time()
+    return out
+
+
+def sp_case(dev, cfg=None):
+    """Phase 10's SP case: world 1 in this process (``sp_reference``), then
+    ``EP_WORLD`` gloo ranks on the card (``sp_rank``) under
+    ``TRAIN_RULES_SP``, within ``SP_BOUNDS`` of world 1; on every rank the
+    layers after the first save a quarter of world 1's bytes (the first
+    layer's input is not split yet)."""
+    import torch
+    from repro_torch import tree
+    t0 = time.perf_counter()
+    cfg = cfg or _sp_cfg()
+    refs, params0, batch, w1 = sp_reference(dev, cfg)
+    n_params = sum(t.numel() for _, t in tree.leaves_with_path(params0))
+    losses = [r["loss"] for r in refs]
+    print(f"[train-sp] {SP_ARCH} x{cfg.n_layers} at published widths: "
+          f"{n_params / 1e9:.4f} B params ({n_params * 16 / 1e9:.2f} GB of "
+          f"params, gradients and AdamW moments), {SP_ROWS} x "
+          f"{batch['tokens'].shape[1]} tokens, remat; world 1: steps "
+          f"{[round(t * 1e3, 1) for t in w1['walls']]} ms, losses {losses},"
+          f" peak {w1['peak'] / 2**30:.2f} GiB, saved a layer "
+          f"{[round(b / 1e6, 2) for b in w1['saved']]} MB; bounds "
+          f"{json.dumps(SP_BOUNDS)} (world 1's floor 1.5x: loss "
+          f"{max(r['loss'] for r in w1['floor']):.3e}, gradients "
+          f"{max(r['grads'] for r in w1['floor']):.3e})")
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_spawn = time.time()
+    ranks, secs = _spawn_ranks(dev, SP_DIR, sp_rank,
+                               (cfg, batch, params0, refs))
+    t_back = time.time()
+    del refs, params0
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+    bad, worst = [], collections.defaultdict(float)
+    for (n_data, n_model), rules_name in SP_CASES:
+        tag = f"({n_data}, {n_model}) {rules_name}"
+        bad += _train_mesh_report(tag, ranks, losses, worst, SP_BOUNDS,
+                                  "[train-sp]")
+        r0 = ranks[0][tag]
+        print(f"[train-sp] {tag}: saved a layer on a rank "
+              f"{[round(b / 1e6, 2) for b in r0['saved']]} MB; rank 0's "
+              f"gaps to world 1 took "
+              f"{[round(st['gaps_s'], 2) for st in r0['steps']]} s a step")
+    print(f"[train-sp] the ranks entered their body "
+          f"{min(o['t_enter'] for o in ranks) - t_spawn:.1f}-"
+          f"{max(o['t_enter'] for o in ranks) - t_spawn:.1f} s after the "
+          f"spawn began and left it "
+          f"{t_back - max(o['t_exit'] for o in ranks):.1f} s before it "
+          f"returned")
+    base = w1["saved"]
+    for o in ranks:
+        sp = o["(1, 4) train_sp"]["saved"]
+        if len(sp) != len(base) or sp[0] != base[0] or any(
+                4 * a != b for a, b in zip(sp[1:], base[1:])):
+            bad.append(f"train-sp rank {o['rank']}: saved bytes a layer "
+                       f"{sp} under train_sp against world 1's {base} "
+                       f"(not a quarter after the first layer)")
+    shutil.rmtree(SP_DIR, ignore_errors=True)
+    print(f"[train-sp] worst over ranks and steps (rel; the worst leaf's "
+          f"rel L2): " + json.dumps({k: f"{v:.3e}" for k, v in
+                                      sorted(worst.items())})
+          + f", bounds {json.dumps(SP_BOUNDS)}; ranks {secs:.1f} s; the "
+          f"case took {time.perf_counter() - t0:.1f} s")
+    if bad:
+        fail("; ".join(bad))
 
 
 # ---------------------------------------------------------------------------
@@ -5758,34 +6254,37 @@ def _floor(dev, cfg, batch, refs, start):
 ROWS_MESH = (2, 2)
 ROWS_DIR = os.path.join(ROOT, "build", "phase11")
 ROWS_SERVE = 512                 # serve_p99's users
-# train_batch cut from 65536 rows to 4096: at 65536, two-tower's in-batch
+# train_batch cut from 65536 rows to 2048: at 65536, two-tower's in-batch
 # logits alone are 65536^2 x 4 B = 17.2 GB, and gloo moves ~0.6-0.9 GB/s a
-# rank through host memory (PERF.md, the sharded train step)
-ROWS_TRAIN = 4096
+# rank through host memory (PERF.md, the sharded train step); 4096 until
+# phases 9 (v)'s cached modes and 10's SP case needed the time
+ROWS_TRAIN = 2048
 ROWS_STEPS = 2
 ROWS_CANDS = 1_000_000           # retrieval_cand's candidates, in chunks of
 #                                  phase 4 (i)'s RECSYS_CHUNK
 ROWS_SAMPLE = 4096               # untouched table rows held beside the touched
 ROWS_EGNN = ("full_graph_sm", "minibatch_lg", "molecule")
 # Fixed bounds against world 1 (the same calls and steps unsharded on the
-# same weights and rows), per config, set before the held run from world
-# 1's own floors there (an NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
-# row-sharded steps): 1.5x the largest of world 1 with its raw products
-# summed in 256-deep chunks instead of 512 and world 1 on 2 and on 4 row
-# blocks (``_row_blocks``: the ranks' rounding and order of sums; the
-# recsys batch is split over ``data``, the EGNN's nodes and edges over
-# both axes, and the FSDP rules split both over both), rounded up to two
-# digits.  The loss is held to 1e-4 relative, the scores (fp8 score
+# same weights and rows), per config, from world 1's own floors (an NVIDIA
+# H100 80GB HBM3 at 700 W; PERF.md, row-sharded steps): 1.5x the largest
+# of world 1 with its raw products summed in 256-deep chunks instead of
+# 512 and world 1 on the row blocks that split the config's rows
+# (``_row_blocks``: the ranks' rounding and order of sums; the recsys
+# batch is split over ``data``, 2 blocks, the EGNN's nodes and edges over
+# both axes, 4), rounded up to two digits.  The recsys bounds are those
+# floors at ``ROWS_TRAIN`` = 2048 rows (printed each run; 4096 rows set
+# the earlier ones), the EGNN's those of its cells, which the row cut
+# leaves alone.  The loss is held to 1e-4 relative, the scores (fp8 score
 # floor: a quarter of the rows at a time, up to 1.16e-7) to 1e-5; the
 # looked-up rows are bit-identical (one nonzero row summed with zeros).
 RM_LOSS_REL = 1e-4
 RM_SCORE_REL_L2 = 1e-5
 RM_BOUNDS = {
-    "two-tower-retrieval": {"grads": 1.8e-2, "mu": 1.1e-2, "nu": 1.3e-2,
-                            "update": 1.7e-1},
-    "mind": {"grads": 8.0e-3, "mu": 4.5e-3, "nu": 5.6e-3, "update": 3.1e-2},
-    "din": {"grads": 3.7e-2, "mu": 4.1e-2, "nu": 7.1e-2, "update": 2.1e-2},
-    "dien": {"grads": 9.7e-3, "mu": 5.1e-3, "nu": 6.0e-3, "update": 2.4e-2},
+    "two-tower-retrieval": {"grads": 1.3e-2, "mu": 8.1e-3, "nu": 9.2e-3,
+                            "update": 8.3e-2},
+    "mind": {"grads": 3.5e-3, "mu": 2.9e-3, "nu": 5.6e-3, "update": 2.5e-2},
+    "din": {"grads": 8.9e-3, "mu": 3.5e-3, "nu": 8.1e-3, "update": 1.8e-2},
+    "dien": {"grads": 1.4e-2, "mu": 7.4e-3, "nu": 8.3e-3, "update": 2.9e-2},
     "egnn/full_graph_sm": {"grads": 6.6e-2, "mu": 5.4e-2, "nu": 1.1e-1,
                            "update": 1.6e-1},
     "egnn/minibatch_lg": {"grads": 5.8e-3, "mu": 4.0e-3, "nu": 8.1e-3,
@@ -5798,6 +6297,9 @@ RM_BOUNDS = {
 # fault; a clean run beside it
 RUNNER_ARCH = "din"
 RUNNER_STEPS, RUNNER_EVERY, RUNNER_FAULTS = 4, 2, {3: 1}
+# the clean run writes its last step's checkpoint alone (its cadence's
+# saves are the faulted run's)
+RUNNER_CADENCE = {"faulted": RUNNER_EVERY, "clean": RUNNER_STEPS}
 RUNNER_DIR = os.path.join(ROWS_DIR, "runner")
 
 _ROWS_STREAMS = {}
@@ -6280,7 +6782,8 @@ def _runner_rank(dev, rank, mesh, cfg):
     (collective ``AsyncCheckpointer`` saves, one global checkpoint in the
     JAX format under ``RUNNER_DIR``): ``RUNNER_STEPS`` steps of
     ``ROWS_TRAIN`` rows, a checkpoint every ``RUNNER_EVERY``, faults
-    ``RUNNER_FAULTS``, then a clean run; each under a functional-collective
+    ``RUNNER_FAULTS``, then a clean run (``RUNNER_CADENCE``: its last
+    step's checkpoint alone); each under a functional-collective
     detector.  Rank 0 also writes the faulted run's final state gathered
     (``store.gather_to_host``) for world 1's load."""
     import torch
@@ -6297,7 +6800,7 @@ def _runner_rank(dev, rank, mesh, cfg):
             torch.cuda.empty_cache()
         runner = FaultTolerantRunner(
             step_fn, batch_fn, init, RunnerConfig(
-                total_steps=RUNNER_STEPS, ckpt_every=RUNNER_EVERY,
+                total_steps=RUNNER_STEPS, ckpt_every=RUNNER_CADENCE[name],
                 ckpt_dir=os.path.join(RUNNER_DIR, name),
                 keep=RUNNER_STEPS // RUNNER_EVERY), fail_at=faults)
         t0 = time.perf_counter()
@@ -6352,9 +6855,10 @@ def _runner_report(ranks) -> list:
         got = sorted(x for x in os.listdir(d) if x.startswith("step_"))
         ckpts[name] = [(x, store.verify_checkpoint(os.path.join(d, x)))
                        for x in got]
+        every = RUNNER_CADENCE[name]
         if [x for x, ok in ckpts[name] if ok] != [
                 f"step_{s:010d}" for s in range(
-                    RUNNER_EVERY, RUNNER_STEPS + 1, RUNNER_EVERY)]:
+                    every, RUNNER_STEPS + 1, every)]:
             bad.append(f"(w) {name}: checkpoints {ckpts[name]}")
     gathered = torch.load(os.path.join(RUNNER_DIR, "gathered.pt"),
                           weights_only=False)
@@ -6809,8 +7313,10 @@ def graph_phase(dev, cell=GRAPH_CELL, cfg=None, shape=None,
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
-    if only not in (None, "train-mesh", "rows-mesh", "graph"):
-        fail(f"--only takes train-mesh, rows-mesh or graph, not {only}")
+    if only not in (None, "tp", "train-mesh", "train-sp", "rows-mesh",
+                    "graph"):
+        fail(f"--only takes tp, train-mesh, train-sp, rows-mesh or graph, "
+             f"not {only}")
     try:
         import torch
     except ImportError:
@@ -6833,9 +7339,20 @@ def main(argv=None) -> int:
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "C7517" in ln]
         print(f"[setup] ptxas {name}: " + " | ".join(regs))
+    if only == "tp":
+        from repro_torch.configs.onerec_v2 import CONFIG
+        tp_phase(dev, _world1(dev, CONFIG, SLOT_ROWS))
+        print("[setup] --only tp: phase 9 alone (phase 8's world 1 made "
+              "for it), no result line")
+        return 0
     if only == "train-mesh":
         train_mesh_phase(dev)
         print("[setup] --only train-mesh: phase 10 alone, no result line")
+        return 0
+    if only == "train-sp":
+        sp_case(dev)
+        print("[setup] --only train-sp: phase 10's SP case alone, no result "
+              "line")
         return 0
     if only == "rows-mesh":
         rows_mesh_phase(dev)

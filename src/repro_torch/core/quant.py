@@ -595,7 +595,9 @@ def tp_matmul(x, w, *, out_dtype, act_scale=None):
     x's rows may be sharded where the weight is replicated (the ``data``
     axis).  Any other layout raises: nothing is gathered silently (a
     weight stored sharded over ``data`` arrives here gathered, from
-    ``sharding.at_use``).
+    ``sharding.at_use``; rows that ``TRAIN_RULES_SP`` splits by sequence
+    over the mesh dim of a column-parallel weight are gathered once, where
+    the layer first takes them, ``models.transformer._apply_layer``).
 
     Under autograd (training, raw weights) the same products run on the
     local shards with collectives that carry cotangents: x entering a

@@ -573,6 +573,89 @@ class _Keep(torch.autograd.Function):
                            tag="keep-bwd"), None, None)
 
 
+class _Unsplit(torch.autograd.Function):
+    """``_Keep``'s transpose: the slices gathered whole; backward keeps the
+    rank's slice of the cotangent (every rank's the same: each consumer
+    whose work differs by rank summed its own, as ``fan`` does)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, tag):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(t, dim, group, tag=tag)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+        part = grad.shape[ctx.dim] // dist.get_world_size(ctx.group)
+        return (grad.narrow(ctx.dim, dist.get_rank(ctx.group) * part,
+                            part).contiguous(), None, None, None)
+
+
+def unsplit(x, logical_axes, tag: str = "sp-gather"):
+    """``constrain`` for a move that only gathers, whose result every rank
+    uses alike: the rows ``TRAIN_RULES_SP`` splits by sequence over
+    ``model`` gathered whole where a layer takes them (its column-parallel
+    products, whose ``fan`` sums the cotangent over ``model``; the MoE's
+    tokens), and the attention's heads where every rank runs them all
+    (``layers.attention._heads``).  Backward keeps the rank's slice
+    (``_Unsplit``), where ``redistribute``'s gather reduce-scatters for
+    work that sums nothing.
+    Without a mesh, for a plain tensor, or with nothing to gather, ``x``
+    as it is; any other move raises."""
+    mesh = _CTX.mesh
+    if mesh is None or not is_dtensor(x):
+        return x
+    return unsplit_to(x, placements(mesh, _divides(
+        mesh, logical_to_spec(logical_axes), tuple(x.shape))), tag)
+
+
+def unsplit_to(x, target, tag: str = "sp-gather"):
+    """``unsplit`` to explicit ``target`` placements on ``x``'s mesh."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = x.device_mesh
+    target = list(target)
+    cur = list(x.placements)
+    if cur == target:
+        return x
+    local = x.to_local()
+    for i in reversed(range(len(cur))):
+        if cur[i] == target[i]:
+            continue
+        if not (isinstance(cur[i], Shard) and isinstance(target[i],
+                                                         Replicate)):
+            raise ValueError(f"unsplit: {cur[i]} -> {target[i]} on mesh "
+                             f"dim {i} is not a gather")
+        if any(isinstance(cur[j], Shard) and cur[j].dim == cur[i].dim
+               for j in range(i + 1, len(cur))):
+            raise ValueError(f"unsplit: dim {cur[i].dim} stays split over "
+                             f"an inner mesh dim")
+        group = mesh.get_group(i)
+        if _grad_path(local) and _moving([group]):
+            local = _Unsplit.apply(local, cur[i].dim, group, tag)
+        else:
+            local = all_gather(local, cur[i].dim, group, tag=tag)
+        cur[i] = target[i]
+    return DTensor.from_local(local, mesh, target, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def match(t, like):
+    """``t`` in ``like``'s layout where that only keeps slices of what
+    ``t`` holds whole (``redistribute``'s ``Replicate -> Shard``, whose
+    backward gathers): a layer's output brought to the residual stream's
+    layout before the add (``TRAIN_RULES_SP``).  ``t`` as it is where
+    either is not a ``DTensor``; a move that would gather raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    if not (is_dtensor(t) and is_dtensor(like)):
+        return t
+    for src, dst in zip(t.placements, like.placements):
+        if src != dst and not (isinstance(src, Replicate)
+                               and isinstance(dst, Shard)):
+            raise ValueError(f"match: {list(t.placements)} -> "
+                             f"{list(like.placements)} is not a slice")
+    return redistribute(t, like.placements)
+
+
 # ---------------------------------------------------------------------------
 # Weights at use (training): storage sharded over ``data`` (ZeRO-3)
 # ---------------------------------------------------------------------------
@@ -882,11 +965,29 @@ def cache_axes(cache):
     k / v ``(stack, B, S, Kv, hd)`` ``(..., "batch", "kv_seq",
     "kv_heads", None)``.  An fp8 cache's scales ``(stack, B, S, Kv)``
     get ``(..., "batch", "kv_seq", "kv_heads")``, aligned to their dims
-    (the JAX rule hands them k's four names from the stack axis on)."""
+    (the JAX rule hands them k's four names from the stack axis on).
+
+    A per-slot cache's ``pos`` (stack, B, S) is so whole over ``data``:
+    every rank writes every row's positions on the slots it holds, worked
+    out from the host-resolved writes (``layers.attention._tp_write``).
+
+    The paged heap, k / v ``(stack, N, Kv, hd)`` (one leading layer dim
+    under ``stacks/``, none in a layer's own tree), has no batch dim: the
+    JAX rule, counting from the end, would name the layer dim ``batch``.
+    It is replicated, as an unannotated operand of the Pallas call runs
+    under XLA's partitioner: every rank keeps the whole heap, writes every
+    row's new K/V (gathered over the batch's mesh dims) and reads its own
+    copy, so no collective moves it (the fused read copies the rank's KV
+    heads out of it on the device, ``layers.attention._tp_read``)."""
     from repro_torch import tree as tree_util
+    leaves = dict(tree_util.leaves_with_path(cache))
 
     def leaf(path, t):
         nd = t.ndim
+        layer = path.rpartition("/")[0]
+        k = leaves[f"{layer}/k" if layer else "k"]
+        if k.ndim - (1 if path.startswith("stacks/") else 0) == 3:
+            return (None,) * nd   # the paged heap: replicated
         if path.endswith("pos"):
             return (None,) * (nd - 1) + ("kv_seq",)
         if path.endswith("_scale"):

@@ -63,16 +63,35 @@ probabilities, as there.
 Tensor parallelism (``DTensor`` activations, params laid out by
 ``launch.steps.shard_args`` under ``INFER_RULES``): q/k/v come out of
 column-parallel products, whole heads to a rank (a rank whose column
-slice splits a head gathers first); ``constrain`` at the JAX package's
-sites lays q out by ``heads`` and gathers k/v (``kv_heads`` is
-replicated); each rank attends with its own query heads, grouped by the
-model's G (local head j is global head ``h_off + j`` and reads KV head
-``(h_off + j) // G``), and the output goes row-parallel into ``o_proj``.
-The shared cache is laid out over ``kv_seq`` (sequence-sharded over
-``model``): a write lands on the rank that holds its slot, and the layer's
-K/V (payload, scales, positions) are gathered whole before the read.
-Only the shared-cache modes and the uncached forward run so; the paged
-pool, the per-slot cache and the resume prefill stay single-rank.
+slice splits a head gathers first, and then runs every head); ``constrain``
+at the JAX package's sites lays q out by ``heads`` and gathers k/v
+(``kv_heads`` is replicated); each rank attends with its own query heads,
+grouped by the model's G (local head j is global head ``h_off + j`` and
+reads KV head ``(h_off + j) // G``), and the output goes row-parallel into
+``o_proj``.  Every cached mode runs so, its host-resolved inputs
+(``lengths``, ``starts``, ``KVWrite``, page tables and gathers) the whole
+batch's, plain tensors, and the caches laid out by
+``distributed.sharding.cache_axes``:
+
+  * the shared cache is split over ``kv_seq`` (sequence-sharded over
+    ``model``): a write lands on the rank that holds its slot, and the
+    layer's K/V (payload, scales, positions) are gathered whole before the
+    read;
+  * the per-slot cache (B, S) is split on its rows over ``(pod, data)``
+    and on S over ``model``: a rank writes the positions it holds of its
+    rows, and its ``pos``, whole over ``data``, every row's positions on
+    the slots it holds (worked out from the host-resolved writes, no byte
+    moved); the read gathers the rank's rows whole along S (``kv-slots``)
+    for ``batch_attention`` or the plain masked softmax;
+  * the paged heap is replicated: every rank writes every row's new K/V
+    (gathered over the batch's mesh dims, ``kv-rows``) into its copy, and
+    reads its own copy through kernel ``paged_decode`` or the gathered
+    view; the resume prefill and tree decode read as on one rank.  No
+    collective moves the heap, but ``paged_decode`` takes contiguous
+    pages, so where a rank reads fewer KV heads than the heap holds the
+    fused read copies those heads out of the whole heap, every page, each
+    layer and step (``_cut``; a head offset in the kernel would read them
+    in place).
 
 The port updates cache tensors IN PLACE (the JAX code returns new arrays):
 a layer's cache dict holds views into the stacked cache, so a write lands
@@ -406,26 +425,34 @@ def apply_attention(
     else:
         positions = torch.arange(t, dtype=torch.int32, device=x.device)
 
-    q = _heads(matmul_any(x, params["q_proj"]["kernel"]), h, hd)
-    k = _heads(matmul_any(x, params["k_proj"]["kernel"]), kvh, hd)
-    v = _heads(matmul_any(x, params["v_proj"]["kernel"]), kvh, hd)
+    q = matmul_any(x, params["q_proj"]["kernel"])
+    # a rank whose column slice of q splits a head runs every head: its
+    # q, k and v are used alike on every rank (``_heads``)
+    alike = _splits_heads(q, hd)
+    q = _heads(q, h, hd, alike)
+    k = _heads(matmul_any(x, params["k_proj"]["kernel"]), kvh, hd, alike)
+    v = _heads(matmul_any(x, params["v_proj"]["kernel"]), kvh, hd, alike)
     if spec.use_qk_norm:
         q = rmsnorm_apply(params["q_norm"], q, eps=norm_eps)
         k = rmsnorm_apply(params["k_norm"], k, eps=norm_eps)
-    q = sh.local_call(apply_rope, q, positions, theta=spec.rope_theta)
-    k = sh.local_call(apply_rope, k, positions, theta=spec.rope_theta)
+    rope_pos = positions
+    if sh.is_dtensor(x) and positions.ndim == 2:     # per-row: its rows
+        off, n = sh.shard_range(x.device_mesh, x.placements, 0, b)
+        rope_pos = positions[off:off + n]
+    q = sh.local_call(apply_rope, q, rope_pos, theta=spec.rope_theta)
+    k = sh.local_call(apply_rope, k, rope_pos, theta=spec.rope_theta)
     q = constrain(q, ("batch", "seq", "heads", None))
-    k = constrain(k, ("batch", "seq", "kv_heads", None))
-    v = constrain(v, ("batch", "seq", "kv_heads", None))
+    kv_axes = ("batch", "seq", "kv_heads", None)
+    k = sh.unsplit(k, kv_axes, "heads") if alike else constrain(k, kv_axes)
+    v = sh.unsplit(v, kv_axes, "heads") if alike else constrain(v, kv_axes)
 
     if sh.is_dtensor(q):
-        if cache is not None and not shared_cache:
-            raise NotImplementedError(
-                "tensor-parallel attention runs the uncached forward and "
-                "the shared cache; the paged pool, the per-slot cache and "
-                "the resume prefill stay single-rank")
-        out = _tp_attention(q, k, v, cache, positions, spec,
-                            None if not shared else int(cache_index))
+        out = _tp_attention(q, k, v, cache, positions, spec, dict(
+            fill_cache=fill_cache, resume=resume, tree=tree,
+            idx=int(cache_index) if shared else None, lengths=lengths,
+            starts=starts, kv_write=kv_write, page_gather=page_gather,
+            page_tables=page_tables, page_size=page_size,
+            branch_stride=branch_stride))
         out = out.to(x.dtype)
     elif shared:
         out = _shared_decode(q, k, v, cache, int(cache_index), spec)
@@ -461,41 +488,37 @@ def apply_attention(
         if cache is not None and cache["pos"].ndim == 1:
             _shared_fill(cache, k, v, positions)
         elif cache is not None:
-            if cache["pos"].ndim != 2 or cache["pos"].shape[1] < t:
-                raise ValueError("prefill fill takes a per-slot cache of at "
-                                 "least T positions")
-            ks, vs, k_sc, v_sc = _store_kv(cache, k, v)
-            cache["k"][:, :t] = ks
-            cache["v"][:, :t] = vs
-            row_pos = positions[None, :].expand(b, t)
-            if lengths is not None:
-                row_pos = torch.where(positions[None, :] < lengths[:, None],
-                                      row_pos, -1)
-            cache["pos"][:, :t] = row_pos
-            if k_sc is not None:
-                cache["k_scale"][:, :t] = k_sc
-                cache["v_scale"][:, :t] = v_sc
+            _slot_fill(cache, k, v, positions, lengths)
 
     out = constrain(out, ("batch", "seq", "qkv_out"))
     proj = matmul_any(out, params["o_proj"]["kernel"])
     return constrain(proj, ("batch", "seq", "embed")), cache
 
 
-def _heads(t, n: int, hd: int):
-    """(B, T, n * hd) -> (B, T, n, hd).  A DTensor sharded on its last dim
-    whose rank slices split a head (fewer heads than ranks, or a count the
-    ranks do not divide) is gathered along it first."""
-    if sh.is_dtensor(t):
-        from torch.distributed.tensor import Replicate, Shard
-        for i in reversed(range(t.device_mesh.ndim)):
-            if t.placements[i] == Shard(2):
-                _, cols = sh.shard_range(t.device_mesh, t.placements, 2,
-                                         t.shape[2])
-                if cols % hd:
-                    t = sh.redistribute(t, [
-                        pl if pl != Shard(2) else Replicate()
-                        for pl in t.placements])
-                break
+def _splits_heads(t, hd: int) -> bool:
+    """Whether a DTensor's rank slices of its last dim split a head of
+    ``hd`` columns (fewer heads than ranks, or a count the ranks do not
+    divide)."""
+    from torch.distributed.tensor import Shard
+    if not sh.is_dtensor(t) or Shard(2) not in t.placements:
+        return False
+    _, cols = sh.shard_range(t.device_mesh, t.placements, 2, t.shape[2])
+    return cols % hd != 0
+
+
+def _heads(t, n: int, hd: int, alike: bool = False):
+    """(B, T, n * hd) -> (B, T, n, hd); a DTensor whose rank slices split
+    a head gathered along its last dim first.  Under autograd the gather's
+    backward is the transpose of how the heads are used: with ``alike``
+    (q's slices split a head, so every rank runs every head) each rank's
+    cotangent is the whole one and the rank keeps its slice
+    (``sharding.unsplit``); else each rank's is its heads' share and the
+    shares are summed (``redistribute``'s gather, a reduce-scatter)."""
+    from torch.distributed.tensor import Replicate, Shard
+    if _splits_heads(t, hd):
+        whole = [pl if pl != Shard(2) else Replicate() for pl in t.placements]
+        t = sh.unsplit_to(t, whole, "heads") if alike \
+            else sh.redistribute(t, whole)
     return t.reshape(*t.shape[:2], n, hd)
 
 
@@ -517,69 +540,237 @@ def _local_group(q, spec: AttnSpec) -> Tuple[int, AttnSpec]:
     return h_off // g, spec._replace(n_heads=h_loc, n_kv_heads=kv_loc)
 
 
-def _tp_attention(q, k, v, cache, positions, spec: AttnSpec,
-                  idx: Optional[int]):
-    """Attention of the rank's query heads (``q`` a DTensor, k/v gathered
-    over ``model``): the uncached or shared-fill forward (``idx`` None),
-    or the shared-index decode at ``idx``; a shared ``cache`` is written
-    on the rank that holds each slot and read whole.  Returns the
-    (B, T, H * hd) output with q's placements."""
+def _tp_attention(q, k, v, cache, positions, spec: AttnSpec, mode: dict):
+    """Attention of the rank's query heads (``q`` a DTensor: its data
+    shard's rows, its heads; k/v whole over ``model``) in every mode of
+    ``apply_attention`` (``mode`` holds its keywords; ``positions`` and
+    the host-resolved ``lengths``, ``starts``, ``kv_write``, page tables
+    and gathers are the whole batch's, plain tensors):
+
+      * the uncached forward and the prefill fills: the rank's heads over
+        the step's own K/V; a shared cache (``_shared_fill``) or a
+        per-slot one (``_slot_fill``) takes the slots it holds;
+      * the shared-index decode: the write on the rank holding the slot,
+        the layer's leaves gathered whole over ``kv_seq`` for the read;
+      * the per-slot and paged writes of decode, tree decode and the
+        resume prefill (``_tp_write``), then the read (``_tp_read``).
+
+    Returns the (B, T, H * hd) output with q's placements."""
     from torch.distributed.tensor import DTensor, Shard
     for pl in (*k.placements, *v.placements):
         if isinstance(pl, Shard) and pl.dim != 0:
             raise ValueError(f"tensor-parallel attention takes k/v split "
                              f"on the batch alone, got {k.placements}")
     kv0, lspec = _local_group(q, spec)
-    ql = q.to_local()
-    kl = k.to_local()[:, :, kv0:kv0 + lspec.n_kv_heads]
-    vl = v.to_local()[:, :, kv0:kv0 + lspec.n_kv_heads]
-    if idx is None:
+    heads = slice(kv0, kv0 + lspec.n_kv_heads)
+    ql, kl, vl = q.to_local(), k.to_local(), v.to_local()
+    if cache is None or (mode["fill_cache"] and not mode["resume"]):
         t = ql.shape[1]
         if t > 2 * spec.chunk_size and t % spec.chunk_size == 0:
-            out = _chunked_attention(ql, kl, vl, positions, lspec)
+            out = _chunked_attention(ql, kl[:, :, heads], vl[:, :, heads],
+                                     positions, lspec)
         else:
-            out = _full_attention(ql, kl, vl, positions, lspec)
-        if cache is not None:
-            _shared_fill(cache, k.to_local(), v.to_local(), positions)
-    else:
-        rows = _gather_slots(cache, _shared_write(cache, k.to_local(),
-                                                  v.to_local(), idx))
-        rows = {n: (r[:, :, kv0:kv0 + lspec.n_kv_heads].contiguous()
-                    if n != "pos" else r) for n, r in rows.items()}
+            out = _full_attention(ql, kl[:, :, heads], vl[:, :, heads],
+                                  positions, lspec)
+        if cache is not None and cache["pos"].ndim == 1:
+            _shared_fill(cache, kl, vl, positions)
+        elif cache is not None:
+            _slot_fill(cache, kl, vl, positions, mode["lengths"])
+    elif mode["idx"] is not None:
+        idx = mode["idx"]
+        rows = _gather_slots(cache, _shared_write(cache, kl, vl, idx))
+        rows = {n: (r[:, :, heads].contiguous() if n != "pos" else r)
+                for n, r in rows.items()}
         out = _shared_read(ql, rows, idx, lspec)
+    else:
+        r0, rn = sh.shard_range(q.device_mesh, q.placements, 0, q.shape[0])
+        paged = mode["page_tables"] is not None \
+            or mode["page_gather"] is not None
+        _tp_write(cache, k, v, positions, mode["kv_write"], paged, r0)
+        out = _tp_read(ql, cache, positions, slice(r0, r0 + rn), heads,
+                       lspec, mode)
     return DTensor.from_local(out, q.device_mesh, q.placements,
                               run_check=False)
+
+
+def _slab(leaf, dim: int) -> Tuple[torch.Tensor, int, int]:
+    """A cache leaf's local tensor and its ``(offset, length)`` of global
+    dim ``dim`` (the whole dim for a plain tensor)."""
+    if not sh.is_dtensor(leaf):
+        return leaf, 0, leaf.shape[dim]
+    off, n = sh.shard_range(leaf.device_mesh, leaf.placements, dim,
+                            leaf.shape[dim])
+    return leaf.to_local(), off, n
+
+
+def _slot_fill(cache, k, v, positions, lengths) -> None:
+    """Prefill into a per-slot cache: every position's K/V (B, T, Kv, hd)
+    at ``positions`` 0 .. T - 1 of its row, positions ``>= lengths[i]``
+    marked empty (``pos = -1``).  On a cache laid out by ``cache_axes``
+    each rank writes the slots it holds of its rows; ``pos``, whole over
+    ``data``, takes every row's positions, worked out from the whole
+    batch's ``lengths`` (no byte moved)."""
+    t = k.shape[1]
+    if cache["pos"].ndim != 2 or cache["pos"].shape[1] < t:
+        raise ValueError("prefill fill takes a per-slot cache of at least T "
+                         "positions")
+    slab = {n: _slab(leaf, 1)[0] for n, leaf in cache.items()}
+    _, s_off, s_n = _slab(cache["pos"], 1)
+    _, p_row, p_n = _slab(cache["pos"], 0)
+    lo, hi = max(0, s_off), min(t, s_off + s_n)
+    if lo >= hi:
+        return
+    dst, src = slice(lo - s_off, hi - s_off), slice(lo, hi)
+    ks, vs, k_sc, v_sc = _store_kv(slab, k[:, src], v[:, src])
+    slab["k"][:, dst] = ks
+    slab["v"][:, dst] = vs
+    if k_sc is not None:
+        slab["k_scale"][:, dst] = k_sc
+        slab["v_scale"][:, dst] = v_sc
+    row_pos = positions[None, src].expand(p_n, hi - lo)
+    if lengths is not None:
+        row_pos = torch.where(row_pos < lengths[p_row:p_row + p_n, None],
+                              row_pos, -1)
+    slab["pos"][:, dst] = row_pos
+
+
+def _tp_write(cache, k, v, positions, kv_write: KVWrite, paged: bool,
+              r0: int) -> None:
+    """``_write_kv`` on the rank's part of a cache laid out by
+    ``cache_axes``: ``kv_write`` holds the whole batch's writes (``dst``
+    global flat positions, ``src`` rows of the whole (B, T) K/V), and
+    ``positions`` (B, T) or (B, 1) every row's.
+
+      * The paged heap is whole on every rank: the new K/V in storage
+        form are gathered over the mesh dims that split the batch
+        (``kv-rows``) and every write lands on every rank.
+      * A per-slot cache (B, S, ...) split on its rows over ``(pod,
+        data)`` and on S over ``model``: a rank writes the positions it
+        holds of its rows (row ``r0 ..``); its ``pos`` leaf, whole over
+        ``data``, takes every row's positions on the slots it holds.  The
+        writes are picked by masks, which wait on the device (one rank
+        keeps ``_write_kv``, sync-free)."""
+    from torch.distributed.tensor import Shard
+    t = k.shape[1]
+    kl = k.to_local().flatten(0, 1)
+    vl = v.to_local().flatten(0, 1)
+    slab = {n: _slab(leaf, 0)[0] for n, leaf in cache.items()}
+    ks, vs, k_sc, v_sc = _store_kv(slab, kl, vl)
+    rows_pos = positions.expand(positions.shape[0], t).reshape(-1)
+    dst, src = kv_write
+    if paged:
+        mesh = k.device_mesh
+        parts = [ks, vs] + ([k_sc, v_sc] if k_sc is not None else [])
+        for i in reversed(range(mesh.ndim)):
+            if k.placements[i] == Shard(0):
+                parts = [sh.all_gather(p, 0, mesh.get_group(i),
+                                       tag="kv-rows") for p in parts]
+        ks, vs = parts[:2]
+        _put(slab["k"], dst, ks, src)
+        _put(slab["v"], dst, vs, src)
+        slab["pos"][dst] = rows_pos[src]
+        if k_sc is not None:
+            slab["k_scale"][dst] = parts[2][src]
+            slab["v_scale"][dst] = parts[3][src]
+        return
+    s_len = cache["pos"].shape[1]
+    row, p = dst // s_len, dst % s_len
+    _, kr0, krn = _slab(cache["k"], 0)
+    _, s_off, s_n = _slab(cache["k"], 1)
+    _, pr0, prn = _slab(cache["pos"], 0)
+    if kr0 != r0 or krn * t != kl.shape[0]:
+        raise ValueError("a per-slot cache under tensor parallelism is laid "
+                         "out by cache_axes (its rows the step's rows)")
+    here = (p >= s_off) & (p < s_off + s_n)
+    mine = here & (row >= kr0) & (row < kr0 + krn)
+    flat = {n: leaf.flatten(0, 1) for n, leaf in slab.items()}
+    d_l, s_l = (row[mine] - kr0) * s_n + p[mine] - s_off, src[mine] - r0 * t
+    _put(flat["k"], d_l, ks, s_l)
+    _put(flat["v"], d_l, vs, s_l)
+    if k_sc is not None:
+        flat["k_scale"][d_l] = k_sc[s_l]
+        flat["v_scale"][d_l] = v_sc[s_l]
+    held = here & (row >= pr0) & (row < pr0 + prn)
+    flat["pos"][(row[held] - pr0) * s_n + p[held] - s_off] = \
+        rows_pos[src[held]]
+
+
+def _tp_read(ql, cache, positions, rows: slice, heads: slice,
+             lspec: AttnSpec, mode: dict) -> torch.Tensor:
+    """The rank's query heads ``ql`` (its rows ``rows`` of the batch) over
+    the post-write cache, reading the KV heads ``heads``: kernel
+    ``paged_decode`` on the rank's copy of the heap (``page_tables``),
+    the heap's gathered view of its rows (``page_gather``), or the rank's
+    rows of a per-slot cache gathered whole along S over ``model``
+    (``kv-slots``); then the mode's read as ``apply_attention`` runs it."""
+    lengths, starts = mode["lengths"], mode["starts"]
+    if mode["page_tables"] is not None:
+        heap = {n: (_cut(sh.local_shard(leaf), 1, heads)
+                    if n != "pos" else sh.local_shard(leaf))
+                for n, leaf in cache.items()}
+        return paged_decode_attention(
+            ql, heap, mode["page_tables"][rows], lengths[rows],
+            starts[rows] if mode["tree"] else None,
+            page_size=mode["page_size"],
+            branch_stride=mode["branch_stride"] or 1, scale=lspec.scale)
+    if mode["page_gather"] is not None:
+        g = mode["page_gather"][rows].long()
+        view = {n: _u8(sh.local_shard(leaf))[g].view(leaf.dtype)
+                for n, leaf in cache.items()}
+    else:
+        view = {}
+        for name, leaf in cache.items():
+            local, r_off, _ = _slab(leaf, 0)      # pos: every row's
+            view[name] = _gather_along(
+                leaf, local[rows.start - r_off:rows.stop - r_off], 1)
+    view = {n: _cut(t, 2, heads) if n != "pos" else t
+            for n, t in view.items()}
+    if mode["tree"]:
+        return _tree_attention(ql, view, lengths[rows].to(torch.int32),
+                               starts[rows].to(torch.int32),
+                               mode["branch_stride"], lspec)
+    if mode["resume"] or mode["page_gather"] is not None:
+        return _view_attention(ql, view, positions[rows], lspec)
+    return _slot_decode(ql, view, lengths[rows].to(torch.int32), lspec)
+
+
+def _cut(t: torch.Tensor, dim: int, heads: slice) -> torch.Tensor:
+    """KV heads ``heads`` of dim ``dim`` (contiguous; ``t`` itself when
+    they are all of them)."""
+    if heads.stop - heads.start == t.shape[dim]:
+        return t
+    return t.narrow(dim, heads.start, heads.stop - heads.start).contiguous()
+
+
+def _gather_along(leaf, local, dim: int) -> torch.Tensor:
+    """A cache leaf's ``local`` part gathered whole along ``dim`` over the
+    mesh dims that split it there (innermost first; exact: bytes moved),
+    contiguous (the kernels' layout); ``local`` itself for a plain
+    leaf."""
+    from torch.distributed.tensor import Shard
+    if not sh.is_dtensor(leaf):
+        return local
+    mesh = leaf.device_mesh
+    for i in reversed(range(mesh.ndim)):
+        if leaf.placements[i] == Shard(dim):
+            local = sh.all_gather(local, dim, mesh.get_group(i),
+                                  tag="kv-slots")
+    return local.contiguous()
 
 
 def _cache_slab(cache) -> Tuple[dict, int, int]:
     """A shared cache's local leaves and this rank's slot range
     ``(offset, length)`` of its S positions (all of them, unless laid out
     over ``kv_seq``)."""
-    pos = cache["pos"]
-    if not sh.is_dtensor(pos):
-        return cache, 0, pos.shape[0]
-    off, n = sh.shard_range(pos.device_mesh, pos.placements, 0,
-                            pos.shape[0])
-    return {name: leaf.to_local() for name, leaf in cache.items()}, off, n
+    slab = {name: _slab(leaf, 0)[0] for name, leaf in cache.items()}
+    return (slab, *_slab(cache["pos"], 0)[1:])
 
 
 def _gather_slots(cache, slab) -> Dict[str, torch.Tensor]:
     """A shared cache's leaves gathered whole along S from each rank's
-    ``slab`` (exact: bytes moved), for the read; ``slab`` itself where
-    the cache is not laid out over ``kv_seq``."""
-    from torch.distributed.tensor import Shard
-    if not sh.is_dtensor(cache["pos"]):
-        return dict(slab)
-    out = {}
-    for name, leaf in cache.items():
-        dim = 0 if name == "pos" else 1
-        local = slab[name]
-        mesh = leaf.device_mesh
-        for i in reversed(range(mesh.ndim)):
-            if leaf.placements[i] == Shard(dim):
-                local = sh.all_gather(local, dim, mesh.get_group(i))
-        out[name] = local
-    return out
+    ``slab``, for the read."""
+    return {name: _gather_along(leaf, slab[name], 0 if name == "pos" else 1)
+            for name, leaf in cache.items()}
 
 
 def _write_kv(cache: Dict[str, torch.Tensor], k: torch.Tensor,

@@ -35,8 +35,13 @@ through ``sharding.fan`` (their cotangents, and the router's, summed over
 ``TRAIN_RULES_FSDP`` the tokens are split over ``model`` too: the rank's
 ``data`` slab is gathered over ``model`` (a reduce-scatter backward), the
 expert leaves (replicated there) are cut to the rank's experts, and the
-partial outputs are reduce-scattered back to the rank's rows.  Capacity
-counts a ``(pod, data)`` shard's tokens, as in the JAX package.
+partial outputs are reduce-scattered back to the rank's rows.  Under
+``TRAIN_RULES_SP`` the tokens arrive split by sequence over ``model``:
+they are gathered whole (``sharding.unsplit``), routed as the data slab
+(the tokens and the router fanned over ``model``), the ranks' partial
+outputs summed and sliced back to the input's layout
+(``sharding.match``), the shared experts on the whole rows too.
+Capacity counts a ``(pod, data)`` shard's tokens, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -245,6 +250,14 @@ def apply_moe(params: dict, x: torch.Tensor, spec: MoESpec) -> torch.Tensor:
         if mesh != current_mesh():
             raise ValueError("apply_moe: a DTensor input off the active "
                              "mesh")
+        on_model = sh.placement_on(x, "model")
+        if isinstance(on_model, Shard) and on_model.dim > 0:
+            if on_model.dim == x.ndim - 1:
+                raise ValueError("apply_moe: tokens split on their features")
+            # TRAIN_RULES_SP: the rows gathered whole, routed as the data
+            # slab, the ranks' partial outputs summed and sliced back
+            whole = sh.unsplit(x, ("batch", "seq", "embed"), tag="ep-gather")
+            return sh.match(apply_moe(params, whole, spec), x)
         # expert leaves replicated over ``model`` (TRAIN_RULES_FSDP's
         # gathered weights) are cut to the rank's experts per call
         cut = any(is_dtensor(w) and sh.placement_on(w, "model") != Shard(0)

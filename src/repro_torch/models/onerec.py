@@ -8,11 +8,16 @@ batch-shared cache (``init_cache``, ``prefill``, ``decode_step``,
 ``generate_items``, ``beam_generate``).
 
 Under a mesh, with params laid out on it (``launch.steps.shard_args``) and
-a batch of ``DTensor``s, ``prefill``, ``decode_step`` and
-``generate_items`` run tensor and expert parallel (``models.transformer``);
+a batch of ``DTensor``s, ``prefill``, ``decode_step``, ``generate_items``
+and the executor's entry points ``prefill_into_slots`` and
+``decode_step_slots`` run tensor and expert parallel
+(``models.transformer``; their caches laid out by ``sharding.cache_axes``
+with ``sharding.lay_out_cache``, their host-resolved ``lengths``,
+``starts``, writes and page tables the whole batch's, plain tensors);
 ``generate_items`` lays its cache out over ``kv_seq`` and picks each
 token from the vocabulary-sharded logits gathered whole on every rank.
-The slot and paged entry points and ``beam_generate`` stay single-rank.
+``beam_generate`` stays single-rank, as in the JAX package, which runs it
+under no mesh.
 """
 
 from __future__ import annotations

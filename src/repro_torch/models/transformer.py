@@ -29,6 +29,20 @@ gathers it again and no layer's gathered weights outlive it; the
 collectives on the path carry cotangents (``distributed.sharding``), and
 ``token_nll`` takes the vocabulary-sharded logits as XLA partitions the
 JAX ``log_softmax`` (``_sharded_nll``).
+
+Sequence parallelism (``TRAIN_RULES_SP``): the layer-boundary
+``constrain`` splits the residual stream by sequence over ``model``
+(``act_seq``; dropped where the length does not divide, as in the JAX
+package), so under remat a layer keeps a ``1 / model`` slice of its input
+for the backward (``count_saved`` counts it).  Inside the layer the JAX
+package's own constraints stand (``seq`` is not split): the norms run on
+the rank's rows, the attention, the dense MLP and the MoE take the normed
+rows gathered whole (``sharding.unsplit``, whose backward keeps the
+rank's slice: the gathered rows are used alike on every rank, each
+column-parallel product summing its cotangent), and each output is
+sliced back to the stream's layout before the residual add
+(``sharding.match``, whose backward gathers).  The final norm, the head
+and the row picks take the rows whole.
 """
 
 from __future__ import annotations
@@ -189,8 +203,16 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig, *,
 # ---------------------------------------------------------------------------
 
 
+WHOLE_ROWS = ("batch", "seq", "embed")
+
+
 def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
                  kind: LayerKind, cache_lp, attn_kw: dict):
+    """One layer.  Under ``TRAIN_RULES_SP`` ``x`` arrives split by sequence
+    over ``model``: the norms run on the rank's rows, the attention and
+    the dense MLP take the normed rows gathered whole (``sh.unsplit``,
+    once each), ``apply_moe`` gathers its own, and each output is sliced
+    back to ``x``'s layout (``sh.match``) before the residual add."""
     lp = sh.at_use_tree(lp)
 
     def norm(name, y):
@@ -198,11 +220,12 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
                              zero_centered=cfg.zero_centered_norm)
 
     attn_out, _ = apply_attention(
-        lp["attn"], norm("attn_norm", x), attn_spec_for(cfg, kind),
-        cache=cache_lp, norm_eps=cfg.norm_eps, **attn_kw)
+        lp["attn"], sh.unsplit(norm("attn_norm", x), WHOLE_ROWS),
+        attn_spec_for(cfg, kind), cache=cache_lp, norm_eps=cfg.norm_eps,
+        **attn_kw)
     if cfg.use_post_norm:
         attn_out = norm("post_attn_norm", attn_out)
-    x = x + attn_out
+    x = x + sh.match(attn_out, x)
     h = norm("mlp_norm", x)
     if kind.ffn == "moe":
         ff = apply_moe(lp["moe"], h, moe_spec_for(cfg))
@@ -214,10 +237,10 @@ def _apply_layer(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
                 out_dtype=torch.float32))
             ff = ff * g.to(ff.dtype)
     else:
-        ff = apply_mlp(lp["mlp"], h, act=cfg.act)
+        ff = apply_mlp(lp["mlp"], sh.unsplit(h, WHOLE_ROWS), act=cfg.act)
     if cfg.use_post_norm:
         ff = norm("post_mlp_norm", ff)
-    return x + ff
+    return x + sh.match(ff, x)
 
 
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -308,19 +331,22 @@ def forward(
                 key = f"p{pi}"
                 c_lp = (tree.index(stack_cache[key], i)
                         if stack_cache is not None else None)
-                if remat:
-                    # the recompute may run on autograd's device thread:
-                    # it takes the forward's mesh and rules along
-                    x = checkpoint(_apply_layer, layers[key][i], x, cfg,
-                                   kind, c_lp, attn_kw, use_reentrant=False,
-                                   **remat_kw)
-                else:
-                    x = _apply_layer(layers[key][i], x, cfg, kind, c_lp,
-                                     attn_kw)
+                with _saved_count():
+                    if remat:
+                        # the recompute may run on autograd's device
+                        # thread: it takes the forward's mesh and rules
+                        x = checkpoint(_apply_layer, layers[key][i], x,
+                                       cfg, kind, c_lp, attn_kw,
+                                       use_reentrant=False, **remat_kw)
+                    else:
+                        x = _apply_layer(layers[key][i], x, cfg, kind,
+                                         c_lp, attn_kw)
                 # layer-boundary residual sharding: the identity under the
                 # base rules; TRAIN_RULES_SP seq-shards saved activations
                 x = constrain(x, ("batch", "act_seq", "embed"))
                 tap(f"layer_out/{key}", x)
+    # the final norm, the head and the row picks take the rows whole
+    x = sh.unsplit(x, WHOLE_ROWS)
     if sh.is_dtensor(x) and last_index is not None:
         off, n = sh.shard_range(x.device_mesh, x.placements, 0, x.shape[0])
         x = sh.local_call(_rows_at, x, last_index[off:off + n])
@@ -332,6 +358,39 @@ def forward(
     logits = logits_from_hidden(params, x, cfg)
     tap("logits", logits)
     return logits, cache
+
+
+# Bytes autograd keeps for the backward, a layer at a time on this rank
+# (``count_saved``): under remat the layer's saved input, the residual
+# stream that TRAIN_RULES_SP splits by sequence.
+SAVED: Optional[List[int]] = None
+
+
+def _saved_count():
+    if SAVED is None:
+        return contextlib.nullcontext()
+    SAVED.append(0)
+
+    def pack(t):
+        local = sh.local_shard(t)
+        SAVED[-1] += local.numel() * local.element_size()
+        return t
+    return torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
+
+
+@contextlib.contextmanager
+def count_saved():
+    """The list of each layer's saved bytes on this rank (a ``DTensor``'s
+    local shard), one entry a layer call of ``forward`` in the block, in
+    order: what autograd's saved-tensor hooks see while the layer runs
+    (under remat the checkpoint's inputs, its own saves being recomputed).
+    """
+    global SAVED
+    prev, SAVED = SAVED, []
+    try:
+        yield SAVED
+    finally:
+        SAVED = prev
 
 
 def _rows_at(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -99,6 +99,77 @@ def _nbytes(cache: dict) -> int:
                for leaf in _layer_leaves(cache) for t in leaf.values())
 
 
+# -- the host's resolution of reads and writes (numpy in, numpy out) --------
+# The executor stages what these return (``_index``); ``serving.
+# cached_modes`` resolves its steps with them too.
+
+
+def page_gather(tables: np.ndarray, page_size: int) -> np.ndarray:
+    """(N, P * page_size) flat pool position of each row's logically dense
+    view, for rows whose page tables are ``tables`` (N, P)."""
+    flat = (tables[:, :, None].astype(INDEX_DTYPE) * page_size
+            + np.arange(page_size, dtype=INDEX_DTYPE)[None, None, :])
+    return flat.reshape(len(tables), -1)
+
+
+def page_scatter(tables: np.ndarray, logical, valid, page_size: int,
+                 sentinel: int) -> np.ndarray:
+    """Flat pool position of per-row ``logical`` positions (N, ...) for
+    rows whose page tables are ``tables`` (N, P); entries with ``valid``
+    False, on the ``sentinel`` page (unmapped) or past the table resolve
+    to the drop index ``(sentinel + 1) * page_size``."""
+    n, p_max = tables.shape
+    lg = as_index(logical)
+    pg = np.clip(lg // page_size, 0, p_max - 1)
+    entry = np.take_along_axis(
+        tables, pg.reshape(n, -1), axis=1).reshape(lg.shape)
+    phys = entry.astype(INDEX_DTYPE) * page_size + lg % page_size
+    ok = (np.asarray(valid, bool) & (entry != sentinel)
+          & (lg >= 0) & (lg < p_max * page_size))
+    return np.where(ok, phys, (sentinel + 1) * page_size).astype(INDEX_DTYPE)
+
+
+def landing(psc: np.ndarray, drop: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The writes of ``page_scatter``'s ``psc`` that land: (pool position,
+    source row of the flattened new K/V)."""
+    flat = psc.reshape(-1)
+    keep = np.nonzero(flat != drop)[0]
+    return flat[keep], keep
+
+
+def slot_landing(lengths: np.ndarray, s_row: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """The contiguous decode writes: slot i's token lands at position
+    ``lengths[i] % s_row`` of its own row (flat index ``i * s_row +
+    position``); slots passed index 0 are inactive and not written (the
+    JAX layer drops their write)."""
+    rows = np.nonzero(lengths > 0)[0]
+    return rows * s_row + lengths[rows] % s_row, rows
+
+
+def suffix_landing(suffix: np.ndarray, starts: np.ndarray, s_row: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """The contiguous resume writes: row i's suffix token j (``suffix``
+    (B, T) True where it is real) lands at position ``starts[i] + j`` of
+    its row; its source is row ``i * T + j`` of the new K/V."""
+    rows_i, cols = np.nonzero(suffix)
+    return (rows_i * s_row + starts[rows_i] + cols,
+            rows_i * suffix.shape[1] + cols)
+
+
+def scatter_rows(pool: dict, filled: dict, write: KVWrite) -> None:
+    """Every leaf of a per-row cache ``filled`` ((L, B, T, ...) under each
+    stack) at flat positions ``write.src`` of its (B * T) rows written onto
+    the flat positions ``write.dst`` of the page heap ``pool``: a fresh
+    prefill scattered onto its granted pages, in bytes."""
+    for si, stack in filled["stacks"].items():
+        for key, leaves in stack.items():
+            heap = pool["stacks"][si][key]
+            for name, f in leaves.items():
+                rows = _u8(f).reshape(f.shape[0], -1, *f.shape[3:])
+                _u8(heap[name])[:, write.dst] = rows[:, write.src]
+
+
 def _rows(cache: dict, idx: torch.Tensor) -> dict:
     """Copies of rows ``idx`` (axis 1, under the layer axis) of a per-slot
     cache."""
@@ -198,7 +269,6 @@ class PhaseExecutor:
         self.n_pages = n_pages
         self._sentinel = n_pages                   # virgin page, pos = -1
         self._drop = (n_pages + 1) * page_size     # the JAX drop index
-        self._sp = self._p_max * page_size
         self.page_pool = PagePool(n_pages, page_size)
         # slot -> page per logical page index; unmapped entries point at
         # the sentinel page, so an empty slot reads an all-masked row
@@ -271,44 +341,23 @@ class PhaseExecutor:
         (Sp = table entries x page size).  Unmapped entries point inside
         the sentinel page (pos -1), so an empty slot gathers an all-masked
         view."""
-        tabs = self._table_mat[as_index(slot_ids)]
-        flat = (tabs[:, :, None].astype(INDEX_DTYPE) * self.page_size
-                + np.arange(self.page_size, dtype=INDEX_DTYPE)[None, None, :])
-        return flat.reshape(len(slot_ids), -1)
+        return page_gather(self._table_mat[as_index(slot_ids)],
+                           self.page_size)
 
     def _scatter_indices(self, slot_ids, logical, valid) -> np.ndarray:
         """Flat physical index of per-row ``logical`` positions; entries
         with ``valid`` False, or on an unmapped page, resolve to the drop
         index (``(n_pages + 1) * page_size``)."""
-        n = len(slot_ids)
-        tabs = self._table_mat[as_index(slot_ids)]
-        lg = as_index(logical)
-        pg = np.clip(lg // self.page_size, 0, self._p_max - 1)
-        entry = np.take_along_axis(
-            tabs, pg.reshape(n, -1), axis=1).reshape(lg.shape)
-        phys = entry.astype(INDEX_DTYPE) * self.page_size \
-            + lg % self.page_size
-        ok = (np.asarray(valid, bool) & (entry != self._sentinel)
-              & (lg >= 0) & (lg < self._sp))
-        return np.where(ok, phys, self._drop).astype(INDEX_DTYPE)
+        return page_scatter(self._table_mat[as_index(slot_ids)], logical,
+                            valid, self.page_size, self._sentinel)
 
     def _page_write(self, psc: np.ndarray) -> KVWrite:
-        """The writes of ``psc`` that land: (pool position, source row of
-        the flattened new K/V)."""
-        flat = psc.reshape(-1)
-        keep = np.nonzero(flat != self._drop)[0]
-        return KVWrite(self._index(flat[keep]),
-                       self._index(keep))
+        """The writes of ``psc`` that land (``landing``), staged."""
+        return KVWrite(*map(self._index, landing(psc, self._drop)))
 
     def _slot_write(self, lengths: np.ndarray) -> KVWrite:
-        """The contiguous decode writes: slot i's token lands at position
-        ``lengths[i] % s_row`` of its own row (flat index ``i * s_row +
-        position``); slots passed index 0 are inactive and not written
-        (the JAX layer drops their write)."""
-        rows = np.nonzero(lengths > 0)[0]
-        dst = rows * self.s_row + lengths[rows] % self.s_row
-        return KVWrite(self._index(dst),
-                       self._index(rows))
+        """The contiguous decode writes (``slot_landing``), staged."""
+        return KVWrite(*map(self._index, slot_landing(lengths, self.s_row)))
 
     def grant_slot(self, slot: int, n_positions: int) -> bool:
         """Allocate the pages covering ``n_positions`` logical positions for
@@ -433,13 +482,7 @@ class PhaseExecutor:
         logits, filled = onerec_model.prefill_into_slots(
             self.params, batch, self.cfg, fresh, self._tensor(lengths))
         # scatter every leaf's valid positions onto the granted pages
-        for si, stack in filled["stacks"].items():
-            for key, leaves in stack.items():
-                pool = self.cache["stacks"][si][key]
-                for name, f in leaves.items():
-                    rows = _u8(f).reshape(f.shape[0], b * t_eff,
-                                          *f.shape[3:])
-                    _u8(pool[name])[:, write.dst] = rows[:, write.src]
+        scatter_rows(self.cache, filled, write)
         synchronize(self.device)
         return logits
 
@@ -472,10 +515,8 @@ class PhaseExecutor:
             # the group's rows run on copies, the batch-padding duplicates
             # on rows of their own, and only the real rows are copied back
             idx = self._index(slot_ids)
-            rows_i, cols = np.nonzero(suffix)
-            dst = rows_i * self.s_row + start_arr[rows_i] + cols
-            write = KVWrite(self._index(dst),
-                            self._index(rows_i * t + cols))
+            write = KVWrite(*map(self._index, suffix_landing(
+                suffix, start_arr, self.s_row)))
             logits, filled = onerec_model.prefill_into_slots(
                 self.params, batch, self.cfg, _rows(self.cache, idx),
                 self._tensor(lengths), starts=starts_t, kv_write=write)

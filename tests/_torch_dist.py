@@ -4,6 +4,7 @@ one function of this module and saving what it returns for the parent to
 check.  This module imports torch and the port only (no JAX), so a spawned
 rank starts in a few seconds."""
 
+import dataclasses
 import datetime
 import os
 
@@ -365,11 +366,28 @@ def tp_attention(mesh, lp, spec, x_pre, x_dec):
                 list(cache["k"].placements))}
 
 
+def tp_slots(params, cfg, inp, mesh):
+    """``cached_modes.slot_run`` of the whole batch's steps on ``mesh``
+    with ``params`` laid out by the JAX rules, and the collectives' tags
+    it ran."""
+    from repro_torch.serving import cached_modes
+    sh.STATS = {}
+    try:
+        res = cached_modes.slot_run(_lay_out(params, mesh), cfg,
+                                    cached_modes.slot_steps(inp, slice(None)),
+                                    torch.device("cpu"), mesh)
+        res["tags"] = sorted({tag for tag, _ in sh.STATS})
+    finally:
+        sh.STATS = None
+    return res
+
+
 def tp_job(rank, world, onerec_params, batch, decode_tok, index, lm_params,
-           lm_tokens, lm_decode, layouts, attn):
+           lm_tokens, lm_decode, layouts, attn, slots):
     """(1, 4) and (2, 2): OneRec-V2 and a dense LM tensor and expert
-    parallel, the product layouts, the lookup and the attention layer,
-    with the functional collectives the path ran."""
+    parallel, the product layouts, the lookup, the attention layer and
+    the cached modes (``slots``: a config and ``slot_inputs``), with the
+    functional collectives the path ran."""
     from repro_torch.configs import llama3_8b
     cfg = onerec_v2.reduced_config()
     out = {}
@@ -381,7 +399,8 @@ def tp_job(rank, world, onerec_params, batch, decode_tok, index, lm_params,
                                       decode_tok, index),
                    "lm": tp_lm(lm_params, llama3_8b.reduced_config(), mesh,
                                lm_tokens, lm_decode),
-                   "layouts": tp_layouts(mesh, *layouts)}
+                   "layouts": tp_layouts(mesh, *layouts),
+                   "slots": tp_slots(onerec_params, *slots, mesh)}
             if (n_data, n_model) == (1, 4):
                 res["attention"] = tp_attention(mesh, *attn)
             res["rerun"] = tp_serve(onerec_params, batch, cfg, mesh,
@@ -441,6 +460,84 @@ def _local_with_ranges(_, t):
     return (t.to_local().clone(),
             [sh.shard_range(t.device_mesh, t.placements, d, t.shape[d])
              for d in range(t.ndim)])
+
+
+# The bounds of a sharded step against the port's world 1
+# (``tests/test_torch_fsdp.py``'s docstring gives their reasons).
+GRAD_REL_L2 = 3e-2
+NU_REL_L2 = 6e-2                 # nu ~ g^2: twice the gradients' relative gap
+SHARD_LOSS_REL = 1e-4
+PARAM_STEPS = 2.0
+
+
+def loss_fn(family, cfg):
+    if family == "onerec":
+        return lambda p, b: onerec.train_loss(p, b, cfg)
+    return lambda p, b: tfm.train_loss(p, b, cfg)
+
+
+def world1_step(family, cfg, params, batch):
+    """The port's unsharded step: loss, gradients, params, mu, nu."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw_init, adamw_update
+    params = tree_util.map_with_path(lambda _, t: t.clone(), params)
+    loss, grads = tree_util.value_and_grad(loss_fn(family, cfg), params,
+                                           batch)
+    keep = tree_util.map_with_path(lambda _, t: t.clone(), grads)
+    opt = adamw_init(params)
+    params, opt, _ = adamw_update(params, grads, opt, steps.OPT_CFG)
+    return {"loss": loss, "grads": keep, "params": params, "mu": opt["mu"],
+            "nu": opt["nu"]}
+
+
+def _rel_l2(got, ref) -> dict:
+    """{path: rel. L2} of the >= 2-D leaves, and ``"1-D"`` for the 1-D
+    leaves as one vector."""
+    import numpy as np
+    out, num, den = {}, 0.0, 0.0
+    for path, r in ref.items():
+        g = np.asarray(got[path], np.float64)
+        r = np.asarray(r, np.float64)
+        assert g.shape == r.shape, path
+        err = np.linalg.norm(g - r)
+        if r.ndim >= 2:
+            out[path] = err / max(np.linalg.norm(r), 1e-30)
+        else:
+            num, den = num + err ** 2, den + np.linalg.norm(r) ** 2
+    out["1-D"] = (num / max(den, 1e-60)) ** 0.5
+    return out
+
+
+def _flat(t):
+    return {p: v.double().numpy() for p, v in tree_util.leaves_with_path(t)}
+
+
+def check_step(res, ref):
+    """One rank's step (``sharded_step``'s record) against a reference
+    (numpy leaves by path)."""
+    import numpy as np
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import cosine_schedule
+    loss = float(res["loss"])
+    assert abs(loss - ref["loss"]) <= SHARD_LOSS_REL * abs(ref["loss"]), (
+        loss, ref["loss"])
+    for name, bound in (("grads", GRAD_REL_L2), ("mu", GRAD_REL_L2),
+                        ("nu", NU_REL_L2)):
+        rel = _rel_l2(_flat(res[name]), ref[name])
+        worst = max(rel, key=rel.get)
+        assert rel[worst] <= bound, (name, worst, rel[worst])
+    lr = float(cosine_schedule(steps.OPT_CFG)(
+        torch.ones((), dtype=torch.int32)))
+    for path, r in ref["params"].items():
+        got = dict(tree_util.leaves_with_path(res["params"]))[path]
+        dev = np.abs(got.double().numpy() - r).max()
+        ulp = np.spacing(np.float32(np.abs(r).max()))
+        assert dev <= PARAM_STEPS * lr + 4 * ulp, (path, dev, lr)
+
+
+def numpy_ref(ref):
+    return {"loss": float(ref["loss"]),
+            **{k: _flat(ref[k]) for k in ("grads", "params", "mu", "nu")}}
 
 
 def train_job(rank, world, cases):
@@ -528,6 +625,115 @@ def bundle_step():
                 if t.ndim >= 2)
     return {"loss": loss, "step": int(sh.local_shard(opt["step"])),
             "moved": moved, "grad_norm": b.fn.metrics["grad_norm"]}
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism (N9e.6)
+# ---------------------------------------------------------------------------
+
+
+SP_MESHES = ((1, 4), (2, 2))
+
+
+def _batch_axes(family):
+    from repro_torch.launch import steps
+    return steps._ONEREC_BATCH_AXES if family == "onerec" \
+        else steps._TOKEN_AXES
+
+
+def sp_step(fn, params, batch, mesh, rules, axes):
+    """``sharded_step`` with the collectives' tags it ran
+    (``sharding.STATS``) and the placements of the residual stream at
+    each layer boundary (the ``layer_out`` taps)."""
+    from repro_torch.core.stats import capture_taps
+    sh.STATS = {}
+    try:
+        with capture_taps() as taps:
+            res = sharded_step(fn, params, batch, mesh, rules, axes)
+        res["tags"] = sorted({tag for tag, _ in sh.STATS})
+    finally:
+        sh.STATS = None
+    res["boundary"] = [str(list(t.placements)) for name, t in taps.items()
+                       if name.startswith("layer_out")]
+    return res
+
+
+def sp_job(rank, world, cases, onerec_case):
+    """Each case ``(name, family, cfg, params, batch, meshes)`` stepped
+    under ``TRAIN_RULES_SP`` on each of its meshes, the bytes autograd
+    saves a layer counted in its (1, 4) step (``tfm.count_saved``); the
+    first case's (1, 4) step twice (a rerun); ``onerec_case`` stepped on
+    (1, 4) under both rules (its T + 1 positions do not split four ways),
+    the saved bytes of its ``TRAIN_RULES`` step counted; the transposes of
+    ``sharding.unsplit`` and ``match``."""
+    out = {}
+    quad = mesh_mod.make_debug_mesh(1, 4, device_type="cpu")
+    for i, (name, family, cfg, params, batch, meshes) in enumerate(cases):
+        fn, axes = loss_fn(family, cfg), _batch_axes(family)
+        for n_data, n_model in meshes:
+            mesh = mesh_mod.make_debug_mesh(n_data, n_model,
+                                            device_type="cpu")
+            with tfm.count_saved() as saved:
+                res = sp_step(fn, params, batch, mesh, sh.TRAIN_RULES_SP,
+                              axes)
+            if (n_data, n_model) == (1, 4):
+                out[name, "saved"] = list(saved)
+                if i == 0:
+                    res["rerun"] = sharded_step(fn, params, batch, mesh,
+                                                sh.TRAIN_RULES_SP, axes)
+            out[name, n_data, n_model] = res
+    name, family, cfg, params, batch = onerec_case
+    for rules in ("train", "train_sp"):
+        with tfm.count_saved() as saved:
+            out[name, rules] = sp_step(loss_fn(family, cfg), params, batch,
+                                       quad, sh.RULE_SETS[rules],
+                                       _batch_axes(family))
+        out[name, rules]["saved"] = list(saved)
+    out["transposes"] = sp_transposes_job(quad)
+    return out
+
+
+def sp_transposes_job(mesh):
+    """On (1, 4), x (2, 8) split by sequence over ``model``: ``unsplit``
+    gathers it whole, each rank's share of the loss weighs it by ``w``
+    times its rank + 1 after ``fan`` (so the cotangent of the whole is ten
+    times ``w`` on every rank), and its backward keeps the rank's slice;
+    ``match`` of a replicated y to x's layout, each rank's slice weighed
+    by ``w``'s, gathers ``w`` back whole.  Each as (got, want); and the
+    moves each refuses."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    m, g = mesh.get_local_rank("model"), mesh.get_group("model")
+    cols = slice(2 * m, 2 * m + 2)
+    w = torch.arange(16.0).reshape(2, 8) + 1.0
+    split, rows = [Shard(0), Shard(1)], [Shard(0), Replicate()]
+    out = {}
+    with sh.use_mesh(mesh, sh.TRAIN_RULES_SP):
+        x = (torch.arange(16.0).reshape(2, 8)[:, cols]).requires_grad_()
+        whole = sh.unsplit(DTensor.from_local(x, mesh, split,
+                                              run_check=False),
+                           ("batch", "seq"))
+        share = (sh.fan(whole.to_local(), [g]) * w * (m + 1)).sum()
+        sh.psum(share, [g]).backward()
+        out["unsplit"] = (x.grad, 10.0 * w[:, cols])
+        y = torch.ones(2, 8, requires_grad=True)
+        like = DTensor.from_local(torch.zeros(2, 2), mesh, split,
+                                  run_check=False)
+        kept = sh.match(DTensor.from_local(y, mesh, rows, run_check=False),
+                        like)
+        sh.psum((kept.to_local() * w[:, cols]).sum(), [g]).backward()
+        out["match"] = (y.grad, w)
+        rep = DTensor.from_local(torch.zeros(2, 8), mesh, [Replicate()] * 2,
+                                 run_check=False)
+        refused = []
+        for move in (lambda: sh.unsplit(rep, ("batch", "act_seq")),
+                     lambda: sh.match(like, rep)):
+            try:
+                move()
+                refused.append(None)
+            except ValueError as e:
+                refused.append(str(e))
+        out["refused"] = refused
+    return out
 
 
 # ---------------------------------------------------------------------------

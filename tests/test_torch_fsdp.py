@@ -45,25 +45,21 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 
 import _torch_dist as td
+from _torch_dist import (GRAD_REL_L2, NU_REL_L2, PARAM_STEPS,  # noqa: F401
+                         SHARD_LOSS_REL, world1_step)
+from _torch_dist import check_step as _check_step
+from _torch_dist import loss_fn as _loss_fn
+from _torch_dist import numpy_ref as _numpy_ref
 from _torch_parity import (LOSS_REL, flat_numpy, jax_cfg, jax_value_and_grad,
                            to_numpy, torch_params)
 from repro_torch import tree as tree_util
 from repro_torch.configs import llama3_8b, onerec_v2, qwen2_moe_a27b
-from repro_torch.launch import steps
-from repro_torch.models import onerec
 from repro_torch.models import transformer as tfm
-from repro_torch.optim import adamw_init, adamw_update
-from repro_torch.optim.adamw import cosine_schedule
 
-GRAD_REL_L2 = 3e-2
-NU_REL_L2 = 6e-2                 # nu ~ g^2: twice the gradients' relative gap
-SHARD_LOSS_REL = 1e-4
-PARAM_STEPS = 2.0
 B_ONEREC, B_LM, T_LM = 4, 4, 16
 
 CFG = onerec_v2.reduced_config()
@@ -100,24 +96,6 @@ def _lm_case(cfg, seed):
     return params, {"tokens": tok, "labels": tok}
 
 
-def _loss_fn(family, cfg):
-    if family == "onerec":
-        return lambda p, b: onerec.train_loss(p, b, cfg)
-    return lambda p, b: tfm.train_loss(p, b, cfg)
-
-
-def world1_step(family, cfg, params, batch):
-    """The port's unsharded step: loss, gradients, params, mu, nu."""
-    params = tree_util.map_with_path(lambda _, t: t.clone(), params)
-    loss, grads = tree_util.value_and_grad(_loss_fn(family, cfg), params,
-                                           batch)
-    keep = tree_util.map_with_path(lambda _, t: t.clone(), grads)
-    opt = adamw_init(params)
-    params, opt, _ = adamw_update(params, grads, opt, steps.OPT_CFG)
-    return {"loss": loss, "grads": keep, "params": params, "mu": opt["mu"],
-            "nu": opt["nu"]}
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     raw, ob = _onerec_case()
@@ -131,52 +109,6 @@ def runs(tmp_path_factory):
            for name, family, cfg, params, batch in cases}
     return {"cases": {c[0]: c for c in cases}, "ranks": ranks, "ref": ref,
             "raw": raw, "jax_batch": ob}
-
-
-def _rel_l2(got, ref) -> dict:
-    """{path: rel. L2} of the >= 2-D leaves, and ``"1-D"`` for the 1-D
-    leaves as one vector."""
-    out, num, den = {}, 0.0, 0.0
-    for path, r in ref.items():
-        g = np.asarray(got[path], np.float64)
-        r = np.asarray(r, np.float64)
-        assert g.shape == r.shape, path
-        err = np.linalg.norm(g - r)
-        if r.ndim >= 2:
-            out[path] = err / max(np.linalg.norm(r), 1e-30)
-        else:
-            num, den = num + err ** 2, den + np.linalg.norm(r) ** 2
-    out["1-D"] = (num / max(den, 1e-60)) ** 0.5
-    return out
-
-
-def _flat(t):
-    return {p: v.double().numpy() for p, v in tree_util.leaves_with_path(t)}
-
-
-def _check_step(res, ref):
-    """One rank's step (``sharded_step``'s record) against a reference
-    (numpy leaves by path)."""
-    loss = float(res["loss"])
-    assert abs(loss - ref["loss"]) <= SHARD_LOSS_REL * abs(ref["loss"]), (
-        loss, ref["loss"])
-    for name, bound in (("grads", GRAD_REL_L2), ("mu", GRAD_REL_L2),
-                        ("nu", NU_REL_L2)):
-        rel = _rel_l2(_flat(res[name]), ref[name])
-        worst = max(rel, key=rel.get)
-        assert rel[worst] <= bound, (name, worst, rel[worst])
-    lr = float(cosine_schedule(steps.OPT_CFG)(
-        torch.ones((), dtype=torch.int32)))
-    for path, r in ref["params"].items():
-        got = dict(tree_util.leaves_with_path(res["params"]))[path]
-        dev = np.abs(got.double().numpy() - r).max()
-        ulp = np.spacing(np.float32(np.abs(r).max()))
-        assert dev <= PARAM_STEPS * lr + 4 * ulp, (path, dev, lr)
-
-
-def _numpy_ref(ref):
-    return {"loss": float(ref["loss"]),
-            **{k: _flat(ref[k]) for k in ("grads", "params", "mu", "nu")}}
 
 
 @pytest.mark.parametrize("name", ["onerec", "llama", "qwen"])

@@ -28,10 +28,25 @@ one rank and against the JAX package: gloo ranks on the CPU, spawned once
   8 query heads, 2 KV heads, the dense MLP gate/up column- and down
   row-parallel) against the port's world 1 at the same tolerance.  A
   rerun bit-identical, and no functional collective on the path.
+* The cached modes (item N9e.9; ``serving.cached_modes``' steps, with the
+  writes the executor's resolvers give; ``chip_smoke.py``'s phase 9 (v)
+  runs them at full width): the same params with an fp8 K/V cache, the executor's
+  entry points ``prefill_into_slots`` (fresh into a per-slot cache laid
+  out by ``cache_axes``, its rows copied onto the heap's pages; then the
+  resume prefill into both) and ``decode_step_slots`` (the per-slot pool
+  with ``use_attention_kernel`` off and on, the paged pool fused and
+  unfused, a tree step on the paged pool), each step within 1e-5 of the
+  largest |logit| of the port's world 1 with equal items, on (2, 2)
+  against the data shard's rows alone; the fresh and resume prefills and
+  the contiguous decode also against the JAX package's op by op on (1,
+  4); both caches gathered whole equal to world 1's byte for byte; the
+  layouts (a slot row's positions split over ``model``, ``pos`` whole
+  over ``data``, the heap replicated) and their collectives counted.
 * ``params_axes`` / ``cache_axes`` / ``batch_axes`` of every registry
   arch's bundles equal to the JAX package's ``arg_axes``.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -54,6 +69,7 @@ from repro_torch.launch import steps
 from repro_torch.layers.embedding import gather_rows
 from repro_torch.models import onerec
 from repro_torch.models import transformer as tfm
+from repro_torch.serving import cached_modes
 
 CFG = onerec_v2.reduced_config()
 LM_CFG = llama3_8b.reduced_config()
@@ -113,6 +129,22 @@ def _inputs():
 
 
 INDEX = CFG.history_len * CFG.n_codebooks + 1     # after [profile] + tokens
+# the cached modes on the serving path's fp8 K/V; a slot row of
+# context_len + 1 = 28 positions, split over 4 and 2 model ranks
+# (serving.cached_modes' steps, which chip_smoke.py's phase 9 (v) runs at
+# full width)
+SLOT_CFG = dataclasses.replace(CFG, transformer=dataclasses.replace(
+    CFG.transformer, kv_cache_dtype="float8_e4m3fn"))
+SLOT_MODES = list(cached_modes.SLOT_STEPS)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_inputs():
+    """``cached_modes.slot_inputs`` at this size: the first 4 of the
+    ragged requests (2-8 items), 12 history tokens cached before the
+    resume, pages of 4 positions, a tree step of 3 branches."""
+    return cached_modes.slot_inputs(SLOT_CFG, B, prefix=12, page_size=4,
+                                    branches=3)
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +152,8 @@ def ranks(tmp_path_factory):
     (_, params, batch, dec, lm_params, lm_tok, lm_dec, layouts,
      attn) = _inputs()
     return td.run(4, td.tp_job, (params, batch, dec, INDEX, lm_params,
-                                 lm_tok, lm_dec, layouts, attn),
+                                 lm_tok, lm_dec, layouts, attn,
+                                 (SLOT_CFG, _slot_inputs())),
                   str(tmp_path_factory.mktemp("tp")))
 
 
@@ -296,3 +329,107 @@ def test_arg_axes_match_jax(arch):
         want = {f"{i}/{p}": a for i, ax in enumerate(theirs.arg_axes)
                 for p, a in _jax_axes(ax).items()}
         assert _port_axes(ours.arg_axes) == want, (arch, shape.name)
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_world1(n_data: int, d: int):
+    """The port's world 1 through the cached modes on data shard ``d`` of
+    ``n_data`` (the whole batch's widths)."""
+    rows = slice(d * B // n_data, (d + 1) * B // n_data)
+    return cached_modes.slot_run(_inputs()[1], SLOT_CFG,
+                                 cached_modes.slot_steps(_slot_inputs(), rows),
+                                 torch.device("cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _slot_jax(n_data: int, d: int):
+    """The JAX package's ``prefill_into_slots`` (fresh, then the resume of
+    the rest) and a contiguous ``decode_step_slots`` on the same rows, op
+    by op."""
+    rows = slice(d * B // n_data, (d + 1) * B // n_data)
+    st = cached_modes.slot_steps(_slot_inputs(), rows)
+    jcfg = jax_cfg(SLOT_CFG)
+    jparams = jax_quantize_params(_inputs()[0])
+    pre, res, dec = st["prefill"], st["resume"], st["decode"]
+    with jax.disable_jit():
+        cache = jax_onerec.init_slot_cache(jcfg, len(pre["lengths"]))
+        first, cache = jax_onerec.prefill_into_slots(
+            jparams, {k: np.asarray(pre[k]) for k in ("tokens", "profile")},
+            jcfg, cache, np.asarray(pre["lengths"]))
+        resumed, cache = jax_onerec.prefill_into_slots(
+            jparams, {"tokens": np.asarray(res["tokens"])}, jcfg, cache,
+            np.asarray(res["lengths"]), starts=np.asarray(res["starts"]))
+        step, _ = jax_onerec.decode_step_slots(
+            jparams, np.asarray(dec["tokens"]), jcfg, cache,
+            np.asarray(dec["lengths"]))
+    return {"prefill": np.asarray(first), "resume_slot": np.asarray(resumed),
+            "decode_slot_off": np.asarray(step)}
+
+
+def _slot_pair(ranks, mesh, rank, mode, ref):
+    """(rank's local logits, the reference's matching part) and the items
+    of the rank's rows and the reference's."""
+    res = ranks[rank][mesh]["slots"][mode]
+    got, (r0, rn), (c0, cn) = res["logits"]
+    want = ref[mode]["logits"][0] if isinstance(ref[mode], dict) \
+        else torch.from_numpy(np.array(ref[mode]))
+    if want.shape[0] != got.shape[0]:
+        want = want[r0:r0 + rn]
+    return got, want[..., c0:c0 + cn]
+
+
+@pytest.mark.parametrize("mode", SLOT_MODES)
+@pytest.mark.parametrize("mesh", MESHES, ids=IDS)
+def test_cached_modes_match_world1(ranks, mesh, mode):
+    """Each cached mode's logits within 1e-5 of the largest |logit| of
+    the port's world 1 (on (2, 2) on the rank's data shard's rows), and
+    the rows' items (top 1 of the whole vocabulary) equal."""
+    n_data, n_model = mesh
+    for rank in range(len(ranks)):
+        ref = _slot_world1(n_data, rank // n_model)
+        _close(*_slot_pair(ranks, mesh, rank, mode, ref))
+        items = ranks[rank][mesh]["slots"][mode]["items"]
+        assert torch.equal(items, ref[mode]["items"]), (rank, mode)
+
+
+@pytest.mark.parametrize("mode", ["prefill", "resume_slot",
+                                  "decode_slot_off"])
+def test_fresh_prefill_and_contiguous_decode_match_jax(ranks, mode):
+    """On (1, 4), within 1e-5 of the largest |logit| of the JAX package's
+    (its data shards' rows are (2, 2)'s world 1, held above)."""
+    for rank in range(len(ranks)):
+        _close(*_slot_pair(ranks, (1, 4), rank, mode, _slot_jax(1, 0)))
+
+
+def _bytes(t):
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def test_caches_gathered_equal_world1(ranks):
+    """On (1, 4) the per-slot cache and the heap, gathered whole after the
+    last step, are world 1's byte for byte: every rank writes the slots
+    it holds, and every rank's copy of the heap is whole."""
+    ref = _slot_world1(1, 0)
+    for out in ranks:
+        res = out[(1, 4)]["slots"]
+        for what in ("cache", "heap"):
+            assert res[what].keys() == ref[what].keys()
+            for path, leaf in res[what].items():
+                assert torch.equal(_bytes(leaf), _bytes(ref[what][path])), (
+                    what, path)
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=IDS)
+def test_cache_layouts_and_their_collectives(ranks, mesh):
+    """The per-slot cache split on its rows over ``data`` and on S over
+    ``model``, its ``pos`` whole over ``data``, the heap replicated; the
+    per-slot read's gather over ``model`` and, on (2, 2), the new rows'
+    gather over ``data`` counted."""
+    for out in ranks:
+        res = out[mesh]["slots"]
+        assert res["placements"] == {
+            "slot_k": "[Shard(dim=1), Shard(dim=2)]",
+            "slot_pos": "[Replicate(), Shard(dim=2)]",
+            "heap_k": "[Replicate(), Replicate()]"}
+        assert "kv-slots" in res["tags"]
+        assert ("kv-rows" in res["tags"]) == (mesh == (2, 2))

@@ -4,9 +4,10 @@ Hopper card.
 
     python3 chip_smoke.py
 
-from the root of a checkout (``--only tp`` / ``train-mesh`` / ``train-sp``
-/ ``rows-mesh`` / ``graph``: the setup and phase 9 (with phase 8's world
-1) / 10 / 10's SP case / 11 / 12 alone, no result line).  Phases, each of which
+from the root of a checkout (``--only attention`` / ``tp`` / ``train-mesh``
+/ ``train-sp`` / ``rows-mesh`` / ``graph``: the setup and phase 2's
+``batch_attention`` checks / phase 9 (with phase 8's world 1) / 10 / 10's
+SP case / 11 / 12 alone, no result line).  Phases, each of which
 fails the run:
 
 1. Setup: the card's name and power limit; build every CUDA kernel from
@@ -35,9 +36,12 @@ fails the run:
    GEMM also apart, their library calls with and without the activation
    quantization (the grouped GEMM's block-scaled library calls are
    recorded with the build's refusal where it refuses them), the grouped
-   GEMM's two paths against each other around their threshold; and the
-   contiguous decode's fp8 -> bf16 dequantization beside
-   ``batch_attention``.  Both GEMM kernels fail the run if more than
+   GEMM's two paths against each other around their threshold; and
+   ``batch_attention`` over an fp8 cache (the payload dequantized in its
+   tile load) beside the contiguous decode's old read, the plain fp8 ->
+   bf16 dequantization (``_read_kv``) plus the bf16 kernel, with one key
+   split and several (forced: each case states its splits), its zoo
+   shapes over bf16 and fp8 caches.  Both GEMM kernels fail the run if more than
    ``OFF_EXACT_MAX`` of their outputs differ from the bf16 rounding of the
    same function summed in float64 (the f32 sums of the Pallas kernels),
    ``fp8_gemm``'s static mode (one calibrated activation scale) too.
@@ -82,8 +86,9 @@ fails the run:
    ``fp8_gemm``, ``fp8_grouped_gemm``, ``paged_decode``);
    (b) ``ServingEngine`` serves the same requests over the contiguous FP8
    slot pool with ``use_attention_kernel`` and ``use_radix_topk`` (kernels
-   ``fp8_gemm``, ``fp8_grouped_gemm``, ``batch_attention``,
-   ``radix_topk``);
+   ``fp8_gemm``, ``fp8_grouped_gemm``, ``batch_attention`` reading the
+   fp8 cache in its tile load, ``radix_topk``); its decode steps' device
+   ms (CUDA events around each step after the first);
    (c) ``ServingEngine`` on the paged FP8 pool with the prefix store,
    chunked prefill (128 tokens) and preemption serves 32 first visits at
    priority 1, then 32 return visits at priority 0 (each a first visit's
@@ -312,6 +317,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1355,81 +1361,145 @@ def _attn_inputs(dev, b, t, h, kv, hd, s, lengths, seed):
                                              k_pos)]
 
 
+def _fp8_kv(k, v):
+    """An fp8 cache's payloads and scales of bf16 K/V (``quantize_kv``)."""
+    from repro_torch.core import quant
+    k8, ks = quant.quantize_kv(k.float())
+    v8, vs = quant.quantize_kv(v.float())
+    return dict(k=k8, v=v8, k_scale=ks, v_scale=vs)
+
+
+def _attn_case(ops, args, kw, fp8, splits):
+    """One ``batch_attention`` call against its plain version on the same
+    inputs, over bf16 K/V or (``fp8``) their fp8 payloads and scales, with
+    ``splits`` key splits (None: the plan's).  Returns (max |diff|,
+    tolerance, splits the kernel ran, the call's positional and keyword
+    arguments)."""
+    import torch
+    from repro_torch.kernels.fp8_gemm.ops import sm_count
+    q, k, v, q_pos, k_pos = args
+    if fp8:
+        c = _fp8_kv(k, v)
+        args = (q, c["k"], c["v"], q_pos, k_pos)
+        kw = dict(kw, k_scale=c["k_scale"], v_scale=c["v_scale"])
+    b, t, h, hd = q.shape
+    n = ops.plan(b, t, h, k.shape[2], k.shape[1], hd, sm_count(q.device),
+                 splits).splits
+    out = ops.batch_attention(*args, **kw, splits=splits)
+    ref = ops.batch_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, TOL * ref.float().abs().max().item(), n, args, kw
+
+
 def check_batch_attention(dev, records):
     import torch
     import torch.nn.functional as F
-    from repro_torch.core import quant
     from repro_torch.kernels.batch_attention import ops
     from repro_torch.layers.attention import _read_kv
     h, kv, hd, s = 16, 4, 128, 388          # full width, S = context_len + 1
     gen = torch.Generator(device="cpu").manual_seed(5)
     serving = [int(x) for x in torch.randint(7, s, (32,), generator=gen)]
-    cases = [("decode", 32, 1, serving, 0),
-             ("prefill T=64", 4, 64, [64, 200, 388, 70], 0),
-             ("decode window=64", 32, 1, serving, 64)]
-    worst = 0.0
-    for name, b, t_len, lengths, window in cases:
+    # (name, B, T, lengths, window, fp8, forced splits)
+    cases = [("decode", 32, 1, serving, 0, False, None),
+             ("prefill T=64", 4, 64, [64, 200, 388, 70], 0, False, None),
+             ("decode window=64", 32, 1, serving, 64, False, None),
+             ("decode fp8", 32, 1, serving, 0, True, None),
+             ("decode, 2 splits forced", 32, 1, serving, 0, False, 2),
+             ("decode fp8 window=64, 4 splits forced", 32, 1, serving, 64,
+              True, 4)]
+    worst, done = 0.0, []
+    for name, b, t_len, lengths, window, fp8, force in cases:
         args = _attn_inputs(dev, b, t_len, h, kv, hd, s, lengths,
                             seed=t_len + window)
         kw = dict(scale=1.0 / math.sqrt(hd), window=window)
-        out = ops.batch_attention(*args, **kw)
-        ref = ops.batch_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL * ref.float().abs().max().item()
+        err, tol, n_split, f_args, f_kw = _attn_case(ops, args, kw, fp8,
+                                                     force)
         worst = max(worst, err)
         if not err <= tol:
             fail(f"batch_attention {name}: max |diff| {err} > {tol}")
         print(f"[kernel] batch_attention {name} B={b} T={t_len} H={h} "
-              f"Kv={kv} hd={hd} S={s}: max|diff|={err:.3g} (tol {tol:.3g})")
-        if name != "decode":
-            continue
+              f"Kv={kv} hd={hd} S={s}: {n_split} split(s), "
+              f"max|diff|={err:.3g} (tol {tol:.3g})")
+        done.append(dict(case=name, splits=n_split, max_abs_err=err))
         q, k, v, q_pos, k_pos = args
-        # library yardstick on inputs laid out for it beforehand: SDPA with
-        # a boolean mask and grouped KV heads
-        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         mask = ((k_pos[:, None, :] >= 0)
                 & (k_pos[:, None, :] <= q_pos[:, :, None]))[:, None]
-        fns = dict(
-            kernel=lambda: ops.batch_attention(*args, **kw),
-            library=lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, scale=kw["scale"],
-                enable_gqa=True))
-        t = time_turns(fns, 50)
-        eager = time_turns(fns, 100, timer=time_ms)
-        ms, lib_ms = t["kernel"], t["library"]
-        plain_ms = time_ms(lambda: ops.batch_attention_plain(*args, **kw),
-                           20)
         n_keys = int(mask.sum().item())          # valid (row, key) pairs
-        n_bytes = (n_keys * kv * hd * 2 * 2      # the valid keys' K and V
-                   + k_pos.numel() * 4 + q_pos.numel() * 4
-                   + 2 * q.numel() * 2)          # q in, out
-        n_ops = 4.0 * n_keys * h * hd            # QK^T and PV per head
-        b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-        print(f"[kernel] batch_attention B={b} T={t_len} H={h} Kv={kv} "
-              f"hd={hd} S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"scaled_dot_product_attention {lib_ms:.4f} ms (device "
-              f"times, CUDA graphs), bound {b_ms:.5f} ms ({b_by}, {n_keys} "
-              f"valid keys); eager calls back to back: kernel "
-              f"{eager['kernel']:.4f} ms, SDPA {eager['library']:.4f} ms")
-        records["batch_attention"] = dict(
-            shape=f"B={b} T={t_len} H={h} Kv={kv} hd={hd} S={s}",
-            timer="cuda_graph", ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, eager_ms=eager["kernel"],
-            library_eager_ms=eager["library"])
-        # what runs before the kernel on the contiguous decode path: the
-        # plain fp8 -> bf16 dequantization of the whole row pool, one layer
-        k8, ksc = quant.quantize_kv(k.float())
-        v8, vsc = quant.quantize_kv(v.float())
-        deq_ms = time_graph_ms(
-            lambda: _read_kv(k8, v8, ksc, vsc, torch.bfloat16), 50)
-        deq_bytes = 2 * (k8.numel() + ksc.numel() * 4 + k8.numel() * 2)
-        print(f"[kernel] contiguous decode dequantization (_read_kv, fp8 -> "
-              f"bf16 K and V) B={b} S={s} Kv={kv} hd={hd}: {deq_ms:.4f} ms, "
-              f"bound {deq_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms (bytes); "
-              f"batch_attention {ms:.4f} ms")
-        records["batch_attention"]["dequant_ms"] = deq_ms
+        if name == "decode":
+            # library yardstick on inputs laid out for it beforehand: SDPA
+            # with a boolean mask and grouped KV heads
+            qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            fns = dict(
+                kernel=lambda: ops.batch_attention(*args, **kw),
+                library=lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, scale=kw["scale"],
+                    enable_gqa=True))
+            t = time_turns(fns, 50)
+            eager = time_turns(fns, 100, timer=time_ms)
+            ms, lib_ms = t["kernel"], t["library"]
+            plain_ms = time_ms(
+                lambda: ops.batch_attention_plain(*args, **kw), 20)
+            n_bytes = (n_keys * kv * hd * 2 * 2  # the valid keys' K and V
+                       + k_pos.numel() * 4 + q_pos.numel() * 4
+                       + 2 * q.numel() * 2)      # q in, out
+            n_ops = 4.0 * n_keys * h * hd        # QK^T and PV per head
+            b_ms, b_by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+            print(f"[kernel] batch_attention B={b} T={t_len} H={h} Kv={kv} "
+                  f"hd={hd} S={s}, {n_split} split(s): kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+                  f"{lib_ms:.4f} ms (device times, CUDA graphs), bound "
+                  f"{b_ms:.5f} ms ({b_by}, {n_keys} valid keys); eager "
+                  f"calls back to back: kernel {eager['kernel']:.4f} ms, "
+                  f"SDPA {eager['library']:.4f} ms")
+            records["batch_attention"] = dict(
+                shape=f"B={b} T={t_len} H={h} Kv={kv} hd={hd} S={s}",
+                timer="cuda_graph", ms=ms, splits=n_split,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, eager_ms=eager["kernel"],
+                library_eager_ms=eager["library"])
+        elif name == "decode fp8":
+            # the fp8 mode beside what the contiguous decode ran before it:
+            # the plain fp8 -> bf16 dequantization of the whole row pool
+            # (one layer), then the bf16 kernel
+            k8, v8 = f_args[1], f_args[2]
+            ksc, vsc = f_kw["k_scale"], f_kw["v_scale"]
+            fns = dict(
+                fp8=lambda: ops.batch_attention(*f_args, **f_kw),
+                read_kv=lambda: ops.batch_attention(
+                    q, *_read_kv(k8, v8, ksc, vsc, torch.bfloat16), q_pos,
+                    k_pos, **kw))
+            t = time_turns(fns, 50)
+            eager = time_turns(fns, 100, timer=time_ms)
+            deq_ms = time_graph_ms(
+                lambda: _read_kv(k8, v8, ksc, vsc, torch.bfloat16), 50)
+            plain8_ms = time_ms(
+                lambda: ops.batch_attention_plain(*f_args, **f_kw), 20)
+            n_bytes = (n_keys * kv * (hd + 4) * 2  # payloads and scales
+                       + k_pos.numel() * 4 + q_pos.numel() * 4
+                       + 2 * q.numel() * 2)
+            b_ms, b_by = bound(n_bytes, 4.0 * n_keys * h * hd,
+                               BF16_OPS_PER_S)
+            deq_bytes = 2 * (k8.numel() + ksc.numel() * 4 + k8.numel() * 2)
+            print(f"[kernel] batch_attention fp8 B={b} T={t_len} H={h} "
+                  f"Kv={kv} hd={hd} S={s}, {n_split} split(s): kernel "
+                  f"{t['fp8']:.4f} ms, plain {plain8_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}); the "
+                  f"old read (_read_kv, fp8 -> bf16 K and V, then the bf16 "
+                  f"kernel) {t['read_kv']:.4f} ms, of which _read_kv "
+                  f"{deq_ms:.4f} ms (its bound "
+                  f"{deq_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms, bytes) "
+                  f"(device times, CUDA graphs); eager {eager['fp8']:.4f} / "
+                  f"{eager['read_kv']:.4f} ms")
+            records["batch_attention"].update(
+                dequant_ms=deq_ms, fp8_ms=t["fp8"], fp8=dict(
+                    ms=t["fp8"], eager_ms=eager["fp8"], plain_ms=plain8_ms,
+                    bound_ms=b_ms,
+                    bound_by=b_by, splits=n_split,
+                    read_kv_then_bf16_ms=t["read_kv"],
+                    read_kv_then_bf16_eager_ms=eager["read_kv"],
+                    library_ms=None))
+    records["batch_attention"]["cases"] = done
     records["batch_attention"]["max_abs_err"] = worst
 
 
@@ -1449,8 +1519,10 @@ def check_batch_attention_zoo(dev, records):
     ``ZOO_LAST`` over a shared cache whose slot s holds the newest position
     p with p % S == s (the 512-slot ring has wrapped eight times), against
     the plain version (the JAX wrapper's blocks: 257 of 16 keys at S =
-    4112) to ``TOL``; device and eager times beside SDPA (boolean mask with
-    the window, grouped KV heads) and the bound."""
+    4112) to ``TOL``, over bf16 K/V and their fp8 payloads and scales, the
+    plan's key splits; device and eager times beside SDPA (boolean mask
+    with the window, grouped KV heads) and the bound, and the fp8 mode's
+    device time."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.batch_attention import ops
@@ -1466,13 +1538,12 @@ def check_batch_attention_zoo(dev, records):
         q_pos = torch.full((b, 1), ZOO_LAST, dtype=torch.int32, device=dev)
         kw = dict(scale=1.0 / math.sqrt(hd), window=window)
         args = (q, k, v, q_pos, k_pos)
-        out = ops.batch_attention(*args, **kw)
-        ref = ops.batch_attention_plain(*args, **kw)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        tol = TOL * ref.float().abs().max().item()
+        err, tol, n_split, _, _ = _attn_case(ops, args, kw, False, None)
         if not err <= tol:
             fail(f"batch_attention {name}: max |diff| {err} > {tol}")
+        err8, tol8, _, f_args, f_kw = _attn_case(ops, args, kw, True, None)
+        if not err8 <= tol8:
+            fail(f"batch_attention {name} fp8: max |diff| {err8} > {tol8}")
         qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         valid = (k_pos >= 0) & (k_pos <= ZOO_LAST)
         if window:
@@ -1485,24 +1556,29 @@ def check_batch_attention_zoo(dev, records):
                 enable_gqa=True))
         t = time_turns(fns, 50)
         eager = time_turns(fns, 50, timer=time_ms)
+        fp8_ms = time_graph_ms(
+            lambda: ops.batch_attention(*f_args, **f_kw), 50)
         plain_ms = time_ms(lambda: ops.batch_attention_plain(*args, **kw), 5)
         n_keys = int(valid.sum().item())          # valid (row, key) pairs
         n_bytes = (n_keys * kv * hd * 2 * 2 + k_pos.numel() * 4
                    + q_pos.numel() * 4 + 2 * q.numel() * 2)
         b_ms, b_by = bound(n_bytes, 4.0 * n_keys * h * hd, BF16_OPS_PER_S)
         print(f"[kernel] batch_attention zoo {name} B={b} H={h} Kv={kv} "
-              f"hd={hd} S={s} window={window}: max|diff|={err:.3g} (tol "
-              f"{tol:.3g}); kernel {t['kernel']:.4f} ms, SDPA "
-              f"{t['library']:.4f} ms (device times, CUDA graphs), eager "
-              f"{eager['kernel']:.4f} / {eager['library']:.4f} ms; plain "
-              f"{plain_ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}, {n_keys} "
-              f"valid keys)")
+              f"hd={hd} S={s} window={window}, {n_split} split(s): "
+              f"max|diff|={err:.3g} (tol {tol:.3g}), fp8 {err8:.3g} (tol "
+              f"{tol8:.3g}); kernel {t['kernel']:.4f} ms, fp8 "
+              f"{fp8_ms:.4f} ms, SDPA {t['library']:.4f} ms (device "
+              f"times, CUDA graphs), eager {eager['kernel']:.4f} / "
+              f"{eager['library']:.4f} ms; plain {plain_ms:.4f} ms; bound "
+              f"{b_ms:.5f} ms ({b_by}, {n_keys} valid keys)")
         rows.append(dict(shape=f"{name}: B={b} T=1 H={h} Kv={kv} hd={hd} "
                                f"S={s} window={window}",
-                         ms=t["kernel"], eager_ms=eager["kernel"],
+                         splits=n_split, ms=t["kernel"],
+                         eager_ms=eager["kernel"], fp8_ms=fp8_ms,
                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=t["library"],
-                         library_eager_ms=eager["library"], max_abs_err=err))
+                         library_eager_ms=eager["library"],
+                         max_abs_err=max(err, err8)))
     records["batch_attention"]["zoo"] = rows
     records["batch_attention"]["max_abs_err"] = max(
         records["batch_attention"]["max_abs_err"],
@@ -2204,6 +2280,35 @@ def guarded_decode_steps(dev, path: str):
         PhaseExecutor.decode = decode
 
 
+@contextlib.contextmanager
+def decode_step_times():
+    """The device ms of every ``PhaseExecutor.decode`` after an engine's
+    first (the warmup): CUDA events recorded before and after the step,
+    which ends in a synchronize.  Yields the list of times."""
+    import torch
+    from repro_torch.serving.executor import PhaseExecutor
+    decode = PhaseExecutor.decode
+    times = []
+
+    def timed(self, *args, **kwargs):
+        if not self.counters["decode_steps"]:
+            return decode(self, *args, **kwargs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = decode(self, *args, **kwargs)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        return out
+
+    PhaseExecutor.decode = timed
+    try:
+        yield times
+    finally:
+        PhaseExecutor.decode = decode
+
+
 def full_width(dev):
     """Phase 4: the paged path through the launcher, then the contiguous
     path through ``ServingEngine``.  Returns each path's launch counts and
@@ -2250,11 +2355,21 @@ def full_width(dev):
         del params       # the engine holds the quantized tree
         return engine.serve_requests(build_requests(cfg, 64, 32, 0, True))
 
-    outs, contig, contig_stats, _ = _drive(
-        dev, "contiguous", contiguous,
-        lambda st: {**per_forward(st), "paged_decode": 0,
-                    "radix_topk": int(st["select_calls"]),
-                    "batch_attention": int(st["decode_steps"]) * n_layers})
+    with decode_step_times() as step_ms:
+        outs, contig, contig_stats, _ = _drive(
+            dev, "contiguous", contiguous,
+            lambda st: {**per_forward(st), "paged_decode": 0,
+                        "radix_topk": int(st["select_calls"]),
+                        "batch_attention": int(st["decode_steps"])
+                        * n_layers})
+    if not step_ms:
+        fail("contiguous: no decode step timed")
+    print(f"[full-width] contiguous decode step (fp8 K/V read in "
+          f"batch_attention's tile load): device ms p50 "
+          f"{statistics.median(step_ms):.3f}, mean "
+          f"{statistics.fmean(step_ms):.3f}, min {min(step_ms):.3f} over "
+          f"{len(step_ms)} steps after the first (CUDA events around "
+          f"PhaseExecutor.decode)")
     first = np.mean([a[0] == b[0] for a, b in zip(outs, paged_outs)])
     items = np.mean([np.array_equal(a, b) for a, b in zip(outs, paged_outs)])
     print(f"[full-width] contiguous vs paged: first tokens agree on "
@@ -7313,10 +7428,10 @@ def graph_phase(dev, cell=GRAPH_CELL, cfg=None, shape=None,
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = argv[argv.index("--only") + 1] if "--only" in argv else None
-    if only not in (None, "tp", "train-mesh", "train-sp", "rows-mesh",
-                    "graph"):
-        fail(f"--only takes tp, train-mesh, train-sp, rows-mesh or graph, "
-             f"not {only}")
+    if only not in (None, "attention", "tp", "train-mesh", "train-sp",
+                    "rows-mesh", "graph"):
+        fail(f"--only takes attention, tp, train-mesh, train-sp, rows-mesh "
+             f"or graph, not {only}")
     try:
         import torch
     except ImportError:
@@ -7339,6 +7454,14 @@ def main(argv=None) -> int:
         regs = [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln or "C7517" in ln]
         print(f"[setup] ptxas {name}: " + " | ".join(regs))
+    if only == "attention":
+        records = {}
+        check_batch_attention(dev, records)
+        check_batch_attention_zoo(dev, records)
+        print(json.dumps(records["batch_attention"]))
+        print("[setup] --only attention: phase 2's batch_attention checks "
+              "alone, no result line")
+        return 0
     if only == "tp":
         from repro_torch.configs.onerec_v2 import CONFIG
         tp_phase(dev, _world1(dev, CONFIG, SLOT_ROWS))
@@ -7446,7 +7569,8 @@ def main(argv=None) -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": r["shape"], "timer": r["timer"], "counted_in": path,
-            **{key: r[key] for key in ("shapes", "dequant_ms", "eager_ms",
+            **{key: r[key] for key in ("shapes", "dequant_ms", "fp8_ms",
+                                       "fp8", "splits", "cases", "eager_ms",
                                        "library_eager_ms", "threshold",
                                        "tree_ms", "tree_rows", "floor_ms",
                                        "cases_ms", "beam", "zoo",

@@ -23,9 +23,11 @@ The cached modes of the JAX layer (``repro/layers/attention.py``):
     view (``page_gather``) and the plain masked softmax;
   * **per-slot decode** over the contiguous slot pool: the new token's K/V
     written at ``lengths[i] % S`` of its row (a row passed index 0 is
-    inactive and not written), the post-write rows dequantized to the
-    query's dtype (``_read_kv``), then kernel ``batch_attention``
-    (``AttnSpec.use_kernel``) or the plain length-masked softmax;
+    inactive and not written), then kernel ``batch_attention``
+    (``AttnSpec.use_kernel``; an fp8 cache's payload and scales as they
+    lie, the kernel dequantizes in its tile load) or the post-write rows
+    dequantized to the query's dtype (``_read_kv``) and the plain
+    length-masked softmax;
   * **tree decode** (``branch_stride``): ``x`` carries T = C candidate
     branches per row, all at logical depth ``lengths[i]`` (one RoPE
     position).  Branch b's token lands at ``starts[i] + b * R + (lengths[i]
@@ -900,15 +902,16 @@ def _shared_read(q: torch.Tensor, cache: Dict[str, torch.Tensor], idx: int,
     """``_shared_decode``'s read of the post-write leaves (k/v (B, S, Kv,
     hd), pos (S,), fp8 scales)."""
     s_len = cache["k"].shape[1]
-    ck, cv = _read_kv(_kv_view(cache["k"]), _kv_view(cache["v"]),
-                      cache.get("k_scale"), cache.get("v_scale"), q.dtype)
     cpos = cache["pos"]
     b, t = q.shape[:2]
     if spec.use_kernel:
         q_pos = torch.full((b, t), idx, dtype=torch.int32, device=q.device)
         k_pos = cpos[None, :].expand(b, s_len).contiguous()
+        ck, cv, scales = _kernel_kv(cache, q.dtype)
         return batch_attention(q, ck, cv, q_pos, k_pos, scale=spec.scale,
-                               window=spec.window)
+                               window=spec.window, **scales)
+    ck, cv = _read_kv(_kv_view(cache["k"]), _kv_view(cache["v"]),
+                      cache.get("k_scale"), cache.get("v_scale"), q.dtype)
     qh = q.reshape(b, t, spec.n_kv_heads, spec.n_heads // spec.n_kv_heads,
                    spec.head_dim)
     scores = _gqa_scores(qh, ck, spec.scale)              # (B,K,G,T,S)
@@ -926,12 +929,22 @@ def _slot_decode(q: torch.Tensor, cache: Dict[str, torch.Tensor],
     under ``use_kernel``, else the plain masked softmax.  Returns
     (B, 1, H * hd)."""
     if spec.use_kernel:
-        ck, cv = _read_kv(_kv_view(cache["k"]), _kv_view(cache["v"]),
-                          cache.get("k_scale"), cache.get("v_scale"),
-                          q.dtype)
+        ck, cv, scales = _kernel_kv(cache, q.dtype)
         return batch_attention(q, ck, cv, idx[:, None], cache["pos"],
-                               scale=spec.scale)
+                               scale=spec.scale, **scales)
     return _view_attention(q, cache, idx[:, None], spec)
+
+
+def _kernel_kv(cache: Dict[str, torch.Tensor], dtype):
+    """K, V and the scale keywords as kernel ``batch_attention`` takes
+    them: an fp8 cache's payload and scales as they lie (the kernel
+    dequantizes in its tile load), any other cache in compute form
+    (``_read_kv``)."""
+    ck, cv = _kv_view(cache["k"]), _kv_view(cache["v"])
+    if "k_scale" in cache:
+        return ck, cv, dict(k_scale=cache["k_scale"],
+                            v_scale=cache["v_scale"])
+    return (*_read_kv(ck, cv, None, None, dtype), {})
 
 
 def _kv_view(t: torch.Tensor) -> torch.Tensor:

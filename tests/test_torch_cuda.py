@@ -321,41 +321,177 @@ def test_radix_topk_kernel_unaligned_rows(cuda, dtype):
     assert torch.equal(vals.cpu().view(torch.int32), ref_v.view(torch.int32))
 
 
+def _attn_fp8(k, v, fp8):
+    """``batch_attention``'s K/V arguments: bf16 K/V, or (``fp8``) their
+    e4m3 payloads with the scales as keywords."""
+    if not fp8:
+        return k, v, {}
+    k8, ks = quant.quantize_kv(k.float())
+    v8, vs = quant.quantize_kv(v.float())
+    return k8, v8, dict(k_scale=ks, v_scale=vs)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,H,Kv,hd,S,window", [
-    (32, 1, 16, 4, 128, 388, 0),      # the engine's decode shape
-    (2, 64, 16, 4, 128, 96, 0),       # prefill-shaped, causal
-    (4, 1, 8, 2, 64, 300, 48),        # windowed decode
-    (4, 64, 16, 4, 128, 388, 0),      # T = 64 at full width
-    (32, 1, 16, 4, 128, 388, 64),     # windowed, at the engine's shape
-    (3, 2, 8, 2, 256, 200, 0),        # head_dim 256: 64-key tiles
+@pytest.mark.parametrize("B,T,H,Kv,hd,S,window,fp8,splits,layout", [
+    (32, 1, 16, 4, 128, 388, 0, False, None, "ragged"),  # engine's decode
+    (2, 64, 16, 4, 128, 96, 0, False, None, "ragged"),   # prefill-shaped
+    (4, 1, 8, 2, 64, 300, 48, False, None, "ragged"),    # windowed decode
+    (4, 64, 16, 4, 128, 388, 0, False, None, "ragged"),  # T = 64, full width
+    (32, 1, 16, 4, 128, 388, 64, False, None, "ragged"),  # windowed, engine
+    (3, 2, 8, 2, 256, 200, 0, False, None, "ragged"),    # hd 256: 64-key tiles
+    (32, 1, 16, 4, 128, 388, 0, True, None, "ragged"),   # fp8 cache, engine
+    (4, 64, 16, 4, 128, 388, 0, True, None, "ragged"),   # fp8, T = 64
+    (3, 2, 8, 2, 256, 200, 0, True, None, "ragged"),     # fp8, hd 256
+    (32, 1, 16, 4, 128, 388, 0, False, 2, "ragged"),     # 2 splits
+    (32, 1, 16, 4, 128, 388, 0, True, 4, "ragged"),      # fp8, 4 splits
+    (4, 1, 8, 2, 64, 1000, 0, False, 4, "short"),        # splits of empty keys
+    (4, 1, 8, 2, 64, 1000, 0, True, 8, "short"),         # the same, fp8
+    (4, 1, 8, 2, 64, 256, 64, False, 2, "ring"),         # window over a split
+    (4, 1, 8, 2, 64, 256, 64, True, 2, "ring"),          # boundary, fp8
 ])
 def test_batch_attention_kernel_matches_plain(cuda, B, T, H, Kv, hd, S,
-                                              window):
+                                              window, fp8, splits, layout):
     """Ragged occupancy (empty keys, an empty row) against the plain
-    version's one-block softmax: 1 bf16 ulp of the largest output."""
+    version's one-block softmax: 1 bf16 ulp of the largest output; over
+    bf16 K/V or an fp8 cache's payload and scales (the plain version
+    dequantizes with ``dequantize_kv``), with the plan's key splits or
+    forced ones: rows shorter than a third of S (``short``: the last
+    splits hold only empty keys), and a shared ring wrapped past S whose
+    window of keys straddles the split boundary (``ring``)."""
     g = torch.Generator().manual_seed(S)
     q = torch.randn(B, T, H, hd, generator=g).to(torch.bfloat16)
     k = torch.randn(B, S, Kv, hd, generator=g).to(torch.bfloat16)
     v = torch.randn(B, S, Kv, hd, generator=g).to(torch.bfloat16)
-    lengths = torch.randint(1, S, (B,), generator=g)
-    lengths[0] = 0
-    k_pos = torch.arange(S)[None].expand(B, S)
-    k_pos = torch.where(k_pos < lengths[:, None], k_pos, -1).to(torch.int32)
-    q_pos = (lengths[:, None] - T + torch.arange(T)[None]).clamp_min(-1)
-    q_pos = q_pos.to(torch.int32).contiguous()
-    k_pos = k_pos.contiguous()
+    if layout == "ring":          # newest slot 150: the window holds 87..150
+        last = 3 * S + 150
+        pos = last - (last - torch.arange(S)) % S
+        k_pos = pos.to(torch.int32)[None].expand(B, S).contiguous()
+        q_pos = torch.full((B, T), last, dtype=torch.int32)
+        seen = last - pos < window
+        assert seen[:S // 2].any() and seen[S // 2:].any()
+    else:
+        top = S // 3 if layout == "short" else S
+        lengths = torch.randint(1, top, (B,), generator=g)
+        lengths[0] = 0
+        k_pos = torch.arange(S)[None].expand(B, S)
+        k_pos = torch.where(k_pos < lengths[:, None], k_pos,
+                            -1).to(torch.int32)
+        q_pos = (lengths[:, None] - T + torch.arange(T)[None]).clamp_min(-1)
+        q_pos = q_pos.to(torch.int32).contiguous()
+        k_pos = k_pos.contiguous()
+    if splits is not None:
+        p = attn_ops.plan(B, T, H, Kv, S, hd, 132, splits)
+        assert p.splits == splits
+        if layout == "short":
+            assert p.ranges()[-1][0] * p.tile >= S // 3
+    k, v, scales = _attn_fp8(k, v, fp8)
     scale = 1.0 / math.sqrt(hd)
     ref = attn_ops.batch_attention_plain(q, k, v, q_pos, k_pos, scale=scale,
-                                         window=window)
+                                         window=window, **scales)
     before = attn_ops.batch_attention.launches
-    out = attn_ops.batch_attention(q.to(cuda), k.to(cuda), v.to(cuda),
-                                   q_pos.to(cuda), k_pos.to(cuda),
-                                   scale=scale, window=window)
+    out = attn_ops.batch_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), q_pos.to(cuda), k_pos.to(cuda),
+        scale=scale, window=window, splits=splits,
+        **{n: t.to(cuda) for n, t in scales.items()})
     assert attn_ops.batch_attention.launches == before + 1
     assert out.shape == (B, T, H * hd) and out.dtype == torch.bfloat16
-    assert out[0].abs().max().item() == 0
+    if layout != "ring":
+        assert out[0].abs().max().item() == 0
     _close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp8", [False, True])
+def test_batch_attention_split_is_identical_across_calls(cuda, fp8):
+    """llama3-8b's decode shape (S = 4112: 4 key splits on 132 SMs, at
+    least 2 on any card): 20 eager calls and a CUDA-graph replay of one
+    call give outputs bit-identical to the first (the splits combine in a
+    fixed order, with no float atomics), and the split counters are left
+    zero, so the replay combines like an eager call."""
+    B, H, Kv, hd, S = 4, 32, 8, 128, 4112
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(B, 1, H, hd, device=cuda, generator=g).to(torch.bfloat16)
+    k = torch.randn(B, S, Kv, hd, device=cuda, generator=g).to(torch.bfloat16)
+    v = torch.randn(B, S, Kv, hd, device=cuda, generator=g).to(torch.bfloat16)
+    k, v, scales = _attn_fp8(k, v, fp8)
+    k_pos = torch.arange(S, dtype=torch.int32, device=cuda)[None].expand(
+        B, S).contiguous()
+    q_pos = torch.full((B, 1), S - 1, dtype=torch.int32, device=cuda)
+    assert attn_ops.plan(B, 1, H, Kv, S, hd, gemm_ops.sm_count(cuda)).splits \
+        >= 2
+
+    def call():
+        return attn_ops.batch_attention(q, k, v, q_pos, k_pos,
+                                        scale=hd ** -0.5, **scales)
+
+    assert _repeat_identical(call, 20) == 0
+    first = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured.view(torch.int16), first.view(torch.int16))
+    assert torch.equal(call().view(torch.int16), first.view(torch.int16))
+    _close(first, attn_ops.batch_attention_plain(q, k, v, q_pos, k_pos,
+                                                 scale=hd ** -0.5, **scales))
+
+
+@pytest.mark.cuda
+def test_contiguous_decode_reads_fp8_in_the_kernel(cuda, monkeypatch):
+    """A decode step of the contiguous layout on the card under
+    ``use_attention_kernel`` over an fp8 cache: ``batch_attention`` reads
+    the payload and scales in its tile load, so the step runs
+    ``dequantize_kv`` 0 times and launches the kernel once a layer, with
+    finite logits."""
+    import numpy as np
+    from repro_torch.configs.base import OneRecConfig, TransformerConfig
+    from repro_torch.layers import attention
+    from repro_torch.models import onerec
+    from repro_torch.serving.executor import PhaseExecutor
+    cfg = OneRecConfig(     # head_dim 64
+        name="onerec-fp8-read-test", history_len=8,
+        transformer=TransformerConfig(
+            name="onerec-fp8-read-test-backbone",
+            n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, head_dim=64,
+            d_ff=256, vocab_size=256, moe=True, n_experts=4, top_k=2,
+            d_expert=128, capacity_factor=64.0, ep_degree=4,
+            max_seq_len=64, remat=False, use_attention_kernel=True),
+        serve_batch=4, beam_width=4)
+    ex = PhaseExecutor(onerec.init_onerec(0, cfg, device=cuda), cfg,
+                       n_slots=4, device=cuda, paged=False,
+                       kv_dtype="float8_e4m3fn")
+    rng = np.random.default_rng(3)
+    hists = [rng.integers(0, 192, size=n * cfg.n_codebooks).astype(np.int32)
+             for n in (8, 3, 5)]
+    profs = [rng.normal(size=onerec.PROFILE_DIM).astype(np.float32)
+             for _ in hists]
+    logits = ex.prefill_insert(hists, profs, [2, 0, 3])
+    calls = []
+    real = quant.dequantize_kv
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(quant, "dequantize_kv", counted)
+    monkeypatch.setattr(attention, "dequantize_kv", counted)
+    lengths = np.zeros(4, np.int32)
+    lengths[[2, 0, 3]] = [len(h) + 1 for h in hists]
+    toks = np.zeros((4, 1), np.int32)
+    toks[[2, 0, 3], 0] = logits.float().argmax(-1).cpu().numpy()[:3]
+    before = attn_ops.batch_attention.launches
+    out = ex.decode(toks, lengths)
+    assert calls == []
+    assert attn_ops.batch_attention.launches \
+        == before + cfg.transformer.n_layers
+    assert torch.isfinite(out.float()).all()
 
 
 @pytest.mark.cuda

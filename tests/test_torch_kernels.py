@@ -20,8 +20,10 @@ bit-identical, only f32 summation order differs):
   * radix_topk vs the interpret kernels: exact, values bit for bit and
     indices.
   * batch_attention vs the interpret kernel at one S block (the JAX
-    interpreter run op by op): 1 bf16 ulp of the largest |out|, f32
-    summation order only; vs multi-block interpret runs and ``ref.py`` the
+    interpreter run op by op; over an fp8 cache the interpret kernel on
+    ``repro.core.quant.dequantize_kv`` of the payload): 1 bf16 ulp of the
+    largest |out|, f32 summation order only; its launch plan exactly (each
+    key tile in one split); vs multi-block interpret runs and ``ref.py`` the
     JAX suite's absolute 0.05 (``tests/test_kernels.py``): the online
     softmax rounds p against a running max, ``ref.py`` does not round p.
 """
@@ -620,3 +622,88 @@ def test_batch_attention_plain_ring_buffer_mask():
     theirs = jax_attn.batch_attention(q, k, v, q_pos, k_pos, block_s=64)
     np.testing.assert_allclose(ours, np.asarray(theirs, np.float32),
                                atol=0.02)
+
+
+@pytest.mark.parametrize("B,T,H,Kv,hd,S,window", SWEEP[:1] + SWEEP[3:])
+def test_batch_attention_plain_fp8_matches_pallas(B, T, H, Kv, hd, S,
+                                                  window):
+    """An fp8 cache: the port's plain version over the e4m3 payload and
+    its scales against the JAX package's read, ``dequantize_kv`` then the
+    Pallas kernel in interpret mode, at one S block (1 bf16 ulp), and bit
+    for bit against the port's own bf16 path over ``dequantize_kv``."""
+    q, k, v, q_pos, k_pos = _attn_case(B, T, H, Kv, hd, S, seed=2)
+    k8, ks = jax_quant.quantize_kv(k.astype(jnp.float32))
+    v8, vs = jax_quant.quantize_kv(v.astype(jnp.float32))
+    with jax.disable_jit():
+        theirs = np.asarray(jax_attn.batch_attention(
+            q, jax_quant.dequantize_kv(k8, ks), jax_quant.dequantize_kv(
+                v8, vs), q_pos, k_pos, window=window), np.float32)
+    tk8, tks, tv8, tvs = (_t(x) for x in (k8, ks, v8, vs))
+    kw = dict(scale=1.0 / np.sqrt(hd), window=window)
+    ours = attn_ops.batch_attention(_t(q), tk8, tv8, _t(q_pos), _t(k_pos),
+                                    k_scale=tks, v_scale=tvs, **kw)
+    assert ours.shape == theirs.shape == (B, T, H * hd)
+    np.testing.assert_allclose(_f32(ours), theirs, rtol=0,
+                               atol=ULP * np.abs(theirs).max())
+    bf16 = attn_ops.batch_attention_plain(
+        _t(q), quant.dequantize_kv(tk8, tks), quant.dequantize_kv(tv8, tvs),
+        _t(q_pos), _t(k_pos), **kw)
+    assert torch.equal(ours.view(torch.int16), bf16.view(torch.int16))
+
+
+# (B, T, H, Kv, hd, S): chip_smoke.py phase 2's OneRec shapes (decode,
+# prefill T = 64), its ZOO_ATTENTION (the 512-slot gemma3-1b ring, then S =
+# 4112), T = 64 at llama3-8b's widths, and the card tests' window ring
+PLAN_SHAPES = [(32, 1, 16, 4, 128, 388), (4, 64, 16, 4, 128, 388),
+               (4, 1, 4, 1, 256, 512), (4, 1, 4, 1, 256, 4112),
+               (4, 1, 32, 8, 128, 4112), (4, 1, 16, 16, 128, 4112),
+               (4, 1, 56, 8, 128, 4112), (4, 64, 32, 8, 128, 4112),
+               (2, 64, 16, 4, 128, 96), (4, 1, 8, 2, 64, 256)]
+
+
+@pytest.mark.parametrize("B,T,H,Kv,hd,S", PLAN_SHAPES)
+def test_batch_attention_plan_covers_every_tile_once(B, T, H, Kv, hd, S):
+    """The CUDA kernel's launch plan on 132 SMs: every key tile in exactly
+    one split, no split empty, at most two waves of blocks, and the grid
+    on at least three quarters of the SMs wherever the tiles allow it;
+    OneRec's decode (128 blocks) keeps one split, and a forced count is
+    clipped to the tiles."""
+    p = attn_ops.plan(B, T, H, Kv, S, hd, 132)
+    assert p.tile == (128 if hd <= 128 else 64)
+    assert p.n_tiles == -(-S // p.tile)
+    assert p.row_blocks == -(-(H // Kv) * T // 16)
+    covered = np.zeros(p.n_tiles, np.int32)
+    for t0, t1 in p.ranges():
+        assert t0 < t1 <= t0 + p.per_split
+        covered[t0:t1] += 1
+    np.testing.assert_array_equal(covered, 1)
+    base = Kv * B * p.row_blocks
+    slots = 132 * (2 if hd <= 64 else 1)
+    assert p.splits == 1 or base * p.splits <= 2 * slots
+    assert 4 * base * p.splits >= 3 * min(132, base * p.n_tiles)
+    if (B, T, H, Kv, hd, S) == (32, 1, 16, 4, 128, 388):
+        assert p.splits == 1
+    forced = attn_ops.plan(B, T, H, Kv, S, hd, 132, 10 ** 6)
+    assert forced.splits == p.n_tiles and forced.per_split == 1
+
+
+def test_batch_attention_meta_tallies_fp8_bytes():
+    """The dry run's ``meta`` call over an fp8 cache: the output's shape
+    and dtype, and the e4m3 payload and f32 scales counted as read."""
+    from repro_torch.analysis import tally
+    B, T, H, Kv, hd, S = 2, 1, 8, 2, 64, 96
+    meta = dict(device="meta")
+    q = torch.empty(B, T, H, hd, dtype=torch.bfloat16, **meta)
+    k8 = torch.empty(B, S, Kv, hd, dtype=torch.float8_e4m3fn, **meta)
+    sc = torch.empty(B, S, Kv, dtype=torch.float32, **meta)
+    qp = torch.empty(B, T, dtype=torch.int32, **meta)
+    kp = torch.empty(B, S, dtype=torch.int32, **meta)
+    with tally.counting() as t:
+        out = attn_ops.batch_attention(q, k8, k8, qp, kp, scale=0.125,
+                                       k_scale=sc, v_scale=sc)
+    assert out.device.type == "meta" and out.dtype == torch.bfloat16
+    assert tuple(out.shape) == (B, T, H * hd)
+    assert t["calls"]["batch_attention"] == 1
+    assert t["flops"] == 4 * B * T * H * hd * S
+    assert t["bytes"] == (2 * B * T * H * hd * 2 + 2 * B * S * Kv * hd
+                          + 2 * B * S * Kv * 4 + B * T * 4 + B * S * 4)
